@@ -1,0 +1,124 @@
+"""Builds the port's CUDA sources, one shared library each, at first use.
+
+No JAX counterpart: Pallas kernels are compiled by XLA, these by ``nvcc``.
+Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so a
+build takes seconds.  Each source is compiled on its own, all at once, with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
+
+and loaded with ``ctypes``.  The hash covers the source text and the flags,
+so an edited source is rebuilt and a stale library is never loaded.  The
+build directory is ``build/repro_torch`` under the repository root (git
+ignores it).
+
+Nothing here runs at import time, and nothing falls back: without ``nvcc``,
+or when a source does not compile, ``load`` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# what the last build of each source printed (registers, shared memory, spills)
+ptxas_log: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    # src/repro_torch/kernels/build.py -> repository root
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def find_nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand:
+        return cand
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH, "
+        "/usr/local/cuda): the CUDA kernels of repro_torch cannot be built")
+
+
+def sources() -> List[str]:
+    """Names (without suffix) of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+class _Job:
+    """One running nvcc."""
+
+    def __init__(self, name: str, nvcc: str):
+        self.name = name
+        self.out = _target(name)
+        self.out.parent.mkdir(parents=True, exist_ok=True)
+        self.tmp = self.out.with_suffix(f".{os.getpid()}.tmp")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(self.tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(self) -> None:
+        log, _ = self.proc.communicate()
+        build_seconds[self.name] = time.perf_counter() - self.t0
+        ptxas_log[self.name] = log
+        if self.proc.returncode != 0:
+            self.tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on csrc/{self.name}.cu "
+                               f"(exit {self.proc.returncode}):\n{log}")
+        os.replace(self.tmp, self.out)                # atomic: no torn library
+
+
+def build_all() -> Dict[str, float]:
+    """Build every source that is not built yet, one nvcc each, all started
+    together.  Returns the seconds each build took (empty if all were
+    cached)."""
+    with _lock:
+        todo = [n for n in sources() if not _target(n).exists()]
+        if not todo:
+            return {}
+        nvcc = find_nvcc()
+        jobs = [_Job(n, nvcc) for n in todo]
+        for job in jobs:
+            job.finish()
+        return {n: build_seconds[n] for n in todo}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built if need be."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            if not (CSRC / f"{name}.cu").exists():
+                raise FileNotFoundError(f"no kernel source csrc/{name}.cu")
+            if not _target(name).exists():
+                _Job(name, find_nvcc()).finish()
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]

@@ -1,0 +1,43 @@
+"""Dispatch layer over the hand-written kernels.
+
+Counterpart of ``repro.kernels.ops``, whose ``use_pallas`` flag chooses between
+the Pallas kernel and the jnp reference.  Here the tensor's device chooses:
+``impl="auto"`` launches the CUDA kernel for a CUDA tensor and takes the plain
+version for a CPU tensor, and only because it lies on the CPU.  There is no
+path from a CUDA tensor to the plain version under ``"auto"``, and no ``try``
+that gives way to it.  ``impl="plain"`` and ``impl="kernel"`` force one
+(``"kernel"`` on a CPU tensor raises).  Model code reaches the kernels through
+this module only.
+
+Neither the kernel nor its plain version has a sliding window (nor has the
+Pallas kernel they replace), so ``window != 0`` raises on every device until a
+windowed family is ported.
+
+Still to come, with their slices: ``ssd``, ``reduce_shards``, ``quantize``,
+``dequantize``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import flash_attention, flash_attention_plain
+
+IMPLS = ("auto", "kernel", "plain")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, impl: str = "auto",
+              window: int = 0) -> torch.Tensor:
+    """Self-attention over a full sequence.  q: (B,Sq,Hq,hd); k/v:
+    (B,Sk,Hkv,hd) with Hkv dividing Hq (grouped-query attention is read in
+    place, K/V are not repeated in memory).  Returns (B,Sq,Hq,hd)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if window:
+        raise NotImplementedError(
+            "ops.attention has no sliding window: window must be 0, got "
+            f"{window} (no ported configuration has one)")
+    if impl == "kernel" or (impl == "auto" and q.is_cuda):
+        return flash_attention(q, k, v, causal=causal)
+    return flash_attention_plain(q, k, v, causal=causal)

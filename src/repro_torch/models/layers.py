@@ -1,0 +1,231 @@
+"""Transformer block layers of the dense decoder family.
+
+Counterpart of ``repro.models.layers``.  Each ``init_*`` returns a dictionary
+of tensors with the JAX package's parameter names; each ``apply_*`` consumes
+it.  Blocks are polymorphic over execution mode:
+
+  * ``train``   — full-sequence causal forward, no cache.
+  * ``prefill`` — full-sequence forward that also emits the KV cache laid
+                  out into a fixed ``cache_len`` buffer.
+  * ``decode``  — single-token forward reading/updating the cache.
+
+The KV cache of a layer is ``(k, v)`` of shape (B, cache_len, Hkv, hd); a
+sliding-window layer uses a rolling buffer of size ``window``.
+
+Two deliberate differences from the JAX file:
+
+* On the ``train`` / ``prefill`` branch the JAX package calls
+  ``dense_attention`` for S <= 512 and ``chunked_attention`` above; the port
+  calls ``kernels.ops.attention``, so on the card every self-attention
+  prefill goes through the hand-written kernel.
+  ``ops.attention`` has no sliding window, so a ``train`` / ``prefill``
+  pass of a sliding-window layer raises on every device; the rolling cache
+  (``_build_cache``, ``_write_cache``, the ``decode`` branch) is ported.
+* ``_write_cache`` writes **in place** (JAX arrays are immutable, so
+  ``dynamic_update_slice`` returns a new buffer); the returned tensor is the
+  buffer that was passed in.
+
+Mixture-of-experts blocks and cross-attention are not ported yet and raise
+``NotImplementedError`` (ROADMAP.md, queue 1, "Remaining families").
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .attention import apply_rope, decode_attention
+from .modules import dense_init, ones_init, rms_norm, swiglu, zeros_init
+
+Params = Dict[str, object]
+
+_NOT_PORTED = ("{what} is not ported to repro_torch yet "
+               "(ROADMAP.md, queue 1, 'Remaining families')")
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, S_cache, Hkv, hd)
+    v: torch.Tensor
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg, dtype=torch.float32,
+                   device="cuda") -> Params:
+    """QKV/O projections in flattened (d, H·hd) layout, as the JAX package."""
+    d, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "wq": dense_init(gen, (d, Hq * hd), **kw),
+        "wk": dense_init(gen, (d, Hkv * hd), **kw),
+        "wv": dense_init(gen, (d, Hkv * hd), **kw),
+        "wo": dense_init(gen, (Hq * hd, d),
+                         scale=1.0 / (d ** 0.5 * (2 * max(cfg.num_layers, 1)) ** 0.5),
+                         **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = zeros_init((Hq * hd,), **kw)
+        p["bk"] = zeros_init((Hkv * hd,), **kw)
+        p["bv"] = zeros_init((Hkv * hd,), **kw)
+    if cfg.qk_norm:
+        p["q_norm"] = ones_init((hd,), **kw)
+        p["k_norm"] = ones_init((hd,), **kw)
+    return p
+
+
+def _project_qkv(p, cfg, x, kv_x, positions, *, use_rope: bool):
+    B, S = x.shape[:2]
+    Sk = kv_x.shape[1]
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, Hq, hd)
+    k = k.reshape(B, Sk, Hkv, hd)
+    v = v.reshape(B, Sk, Hkv, hd)
+    if "q_norm" in p:  # qwen3 qk-norm (per-head RMS)
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope and cfg.rope != "none":
+        kv_positions = positions if kv_x is x else \
+            torch.arange(Sk, device=x.device)[None].expand(kv_x.shape[0], Sk)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope)
+        k = apply_rope(k, kv_positions, cfg.rope_theta, cfg.rope)
+    return q, k, v
+
+
+def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
+                    cache: Optional[KVCache] = None,
+                    cache_index: Optional[int] = None,
+                    cache_len: Optional[int] = None, kv_x=None,
+                    causal: bool = True, window: int = 0,
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Unified self-attention. Returns (out, new_cache).
+
+    ``cache_index`` is a host integer (the JAX package traces it): the
+    position the new token is written at.
+    """
+    if kv_x is not None:
+        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
+    new_cache = cache
+    q, k, v = _project_qkv(p, cfg, x, x, positions, use_rope=True)
+
+    if mode == "decode":
+        # write new K/V at cache_index (rolling slot for SWA buffers)
+        S_cache = cache.k.shape[1]
+        write_pos = cache_index % S_cache if window else cache_index
+        kc = _write_cache(cache.k, k, write_pos)
+        vc = _write_cache(cache.v, v, write_pos)
+        valid = min(cache_index + 1, S_cache)
+        # positions past `valid` are masked to exactly 0 by decode_attention,
+        # so reading only the valid prefix gives the same result
+        out = decode_attention(q, kc[:, :valid], vc[:, :valid], valid)
+        new_cache = KVCache(kc, vc)
+    else:
+        out = ops.attention(q, k, v, causal=causal, window=window)
+        if mode == "prefill":
+            new_cache = _build_cache(k, v, cache_len=cache_len or k.shape[1],
+                                     window=window)
+    B2, S2 = out.shape[:2]
+    return out.reshape(B2, S2, -1) @ p["wo"], new_cache
+
+
+def _write_cache(buf: torch.Tensor, kv: torch.Tensor, pos: int) -> torch.Tensor:
+    """Write ``kv`` into ``buf`` at sequence position ``pos``, in place.
+
+    Like ``lax.dynamic_update_slice``, the start is clamped so the update
+    fits inside the buffer."""
+    n = kv.shape[1]
+    pos = max(0, min(int(pos), buf.shape[1] - n))
+    buf[:, pos:pos + n] = kv.to(buf.dtype)
+    return buf
+
+
+def _build_cache(k, v, cache_len: int, window: int = 0) -> KVCache:
+    """Lay prefill K/V into a fixed-size cache buffer.
+
+    For sliding-window layers the buffer holds only the last ``window``
+    positions (rolling semantics start aligned so that position p maps to
+    slot p % window)."""
+    B, S, H, hd = k.shape
+    if window and window < cache_len:
+        cache_len = window
+    if S >= cache_len:
+        # keep the last cache_len positions, aligned to their rolling slots
+        start = S - cache_len
+        ks, vs = k[:, start:], v[:, start:]
+        if window:
+            shift = start % cache_len
+            ks = torch.roll(ks, shift, dims=1)
+            vs = torch.roll(vs, shift, dims=1)
+        return KVCache(ks.contiguous(), vs.contiguous())
+    kc = k.new_zeros((B, cache_len, H, hd))
+    vc = v.new_zeros((B, cache_len, H, hd))
+    kc[:, :S] = k
+    vc[:, :S] = v
+    return KVCache(kc, vc)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg, dtype=torch.float32,
+             device="cuda") -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_gate": dense_init(gen, (d, f), **kw),
+        "w_up": dense_init(gen, (d, f), **kw),
+        "w_down": dense_init(gen, (f, d),
+                             scale=1.0 / (f ** 0.5 * (2 * max(cfg.num_layers, 1)) ** 0.5),
+                             **kw),
+    }
+
+
+def apply_mlp(p, x):
+    return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# full block (pre-norm residual)
+# --------------------------------------------------------------------------
+
+def init_attn_block(gen: torch.Generator, cfg, dtype=torch.float32,
+                    device="cuda", with_cross: bool = False,
+                    ffn: str = "mlp") -> Params:
+    if with_cross:
+        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
+    if ffn != "mlp":
+        raise NotImplementedError(_NOT_PORTED.format(what="the MoE FFN"))
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln1": ones_init((cfg.d_model,), **kw),
+        "attn": init_attention(gen, cfg, **kw),
+        "ln2": ones_init((cfg.d_model,), **kw),
+        "ffn": init_mlp(gen, cfg, **kw),
+    }
+
+
+def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
+                     cache: Optional[KVCache] = None,
+                     cache_index: Optional[int] = None,
+                     cache_len: Optional[int] = None, causal=True):
+    """Returns (x, new_cache)."""
+    if "cross" in p:
+        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
+    if cfg.n_experts:
+        raise NotImplementedError(_NOT_PORTED.format(what="the MoE FFN"))
+    h, new_cache = apply_attention(
+        p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+        positions=positions, mode=mode, cache=cache, cache_index=cache_index,
+        cache_len=cache_len, causal=causal, window=cfg.sliding_window)
+    x = x + h
+    x = x + apply_mlp(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, new_cache
