@@ -4,25 +4,32 @@
     python3 chip_smoke.py                      # every phase, needs one NVIDIA GPU
     python3 chip_smoke.py --phases kernels     # bring-up: build and check only
 
-Drives the port's main path (``repro_torch``: serving llama3.2-1b) through
-the entry points a user calls, builds every CUDA kernel from the sources in
-this checkout, holds each kernel against its plain PyTorch version on the
-card, and shows by the kernels' launch counts that the main path went through
-them.  Each phase prints one JSON line; any failure exits non-zero.  Without
-a CUDA device the script exits non-zero and prints no result.
+Drives the port's main paths (``repro_torch``: serving llama3.2-1b and
+serving mamba2-1.3b) through the entry points a user calls, builds every CUDA
+kernel from the sources in this checkout, holds each kernel against its plain
+PyTorch version on the card, and shows by the kernels' launch counts that each
+path went through its kernels.  Each phase prints one JSON line; any failure
+exits non-zero.  Without a CUDA device the script exits non-zero and prints no
+result.
 
 Phases:
   env      torch / CUDA versions, the card's name and power limit
   build    nvcc on every ``src/repro_torch/csrc/*.cu`` (all started together)
   kernels  flash_attention against flash_attention_plain: a sweep of small
            shapes and the parity phase's shape, then the serving prefill
-           shape (peaked and near-uniform softmax) with timings
-  parity   llama3.2-1b at full width, 2 layers, fp32: prefill logits and 4
-           decode steps on the card (kernel) against the CPU (plain version)
-  serve    llama3.2-1b at full width and depth, bf16: 8 requests through
-           ``Engine.run_batch``, twice
+           shape (peaked and near-uniform softmax) with timings; ssd_scan
+           against ssd_scan_plain: the reference's sweep (fp32 / bf16, with
+           and without an initial state), strided slices of one conv output,
+           then mamba2's and zamba2's serving prefill shapes, y and the final
+           state, with timings
+  parity   on the card (kernels) against the CPU (plain versions), fp32 at
+           full width: llama3.2-1b at 2 layers, mamba2-1.3b at 2 layers and
+           zamba2-2.7b at 12 layers (two applications of the shared block);
+           prefill logits and 4 decode steps, SSM states and conv lags
+  serve    llama3.2-1b, then mamba2-1.3b, at full width and depth, bf16: 8
+           requests through ``Engine.run_batch``, twice each
   profile  (only when named) device time by kernel over one prefill and four
-           decode steps, from torch.profiler
+           decode steps of each served model, from torch.profiler
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
@@ -49,6 +56,8 @@ from repro_torch.configs.registry import get_config          # noqa: E402
 from repro_torch.kernels import build                        # noqa: E402
 from repro_torch.kernels.flash_attention import (             # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.models.modules import tree_map              # noqa: E402
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
@@ -86,6 +95,19 @@ def tol(dtype):
 MAIN_TOL = dict(atol=1e-3, rtol=2e-2)
 MAIN_ROW_REL_TOL = 5e-2
 
+# the SSD scan: the reference's sweep (tests/test_kernels.py) as
+# (B, S, H, hd, N, G), then the serving prefill shapes (8 requests padded to
+# 2048 tokens) of mamba2-1.3b (the main path) and of zamba2-2.7b's Mamba2 layers
+SSD_SWEEP = [(2, S, 4, 16, 8, G) for S in (64, 100, 96) for G in (1, 2)]
+SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
+# Kernel and plain version both compute in fp32 from the same inputs, in
+# another order, so the final state (fp32 in both) agrees to fp32 rounding and
+# y differs by at most one rounding to x's dtype: in bf16 at most one ulp
+# (2^-8 of the value), so a row's largest error is at most 2^-8 * 8 = 0.03 of
+# the row's rms (hd 64).  A state update left out of one chunk moves the next
+# chunk's first rows by about their own size.
+SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -114,6 +136,25 @@ def row_rel_err(got, want):
     return float((err / rms).max())
 
 
+def hold(name, got, want, atol, rtol, row_limit):
+    """check_close and the row measure together; on failure the message
+    carries both, so a run that fails says by how much."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = (got - want).abs()
+    n_bad = int((err > atol + rtol * want.abs()).sum())
+    rel = row_rel_err(got, want)
+    if n_bad or rel > row_limit:
+        raise AssertionError(
+            f"{name}: {n_bad} of {err.numel()} elements outside atol={atol} "
+            f"rtol={rtol}; max abs err {float(err.max()):.3e}; row error over "
+            f"row rms {rel:.3e} (limit {row_limit})")
+    return float(err.max()), rel
+
+
 def cuda_ms(fn, warmup=2, reps=7):
     """Median milliseconds of ``fn`` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -140,6 +181,64 @@ def make_qkv(seed, B, Sq, Sk, Hq, Hkv, hd, dtype, device, qk_scale=0.5):
     return tuple(t.to(device=device, dtype=dtype) for t in (q, k, v))
 
 
+def make_ssd(seed, B, S, H, hd, N, G, dtype, device, *, served=False,
+             fused=False, initial_state=False):
+    """Inputs of the SSD scan.  The sweep's draws (x 0.5 N(0,1), B and C
+    0.4 N(0,1), dt = softplus(N(0,1)), A = -exp(0.3 N(0,1))), or with
+    ``served`` the model's decays: A = -exp(a_log) with a_log =
+    log(linspace(1, 16, H)) and dt = softplus(N(0,1) + dt_bias), dt_bias drawn
+    as ``init_mamba2`` draws it.  With ``fused`` x, B and C are strided slices
+    of one conv output (B, S, H*hd + 2GN), as the model passes them."""
+    rng = np.random.default_rng(seed)
+    di = H * hd
+    xbc = rng.standard_normal((B, S, di + 2 * G * N), np.float32)
+    xbc[..., :di] *= 0.5
+    xbc[..., di:] *= 0.4
+    if fused:
+        xbc = torch.from_numpy(xbc).to(device=device, dtype=dtype)
+        x = xbc[..., :di].view(B, S, H, hd)
+        Bm = xbc[..., di:di + G * N].view(B, S, G, N)
+        Cm = xbc[..., di + G * N:].view(B, S, G, N)
+    else:
+        x, Bm, Cm = (torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+                     for a in (xbc[..., :di].reshape(B, S, H, hd),
+                               xbc[..., di:di + G * N].reshape(B, S, G, N),
+                               xbc[..., di + G * N:].reshape(B, S, G, N)))
+    z = rng.standard_normal((B, S, H), np.float32)
+    if served:
+        A = -np.linspace(1.0, 16.0, H, dtype=np.float32)          # -exp(a_log)
+        dt0 = np.exp(rng.random(H) * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+        z = z + np.log(np.expm1(dt0)).astype(np.float32)
+    else:
+        A = -np.exp(rng.standard_normal(H).astype(np.float32) * 0.3)
+    dt = torch.nn.functional.softplus(torch.from_numpy(z)).to(device)
+    A = torch.from_numpy(A.astype(np.float32)).to(device)
+    h0 = None
+    if initial_state:
+        h0 = torch.from_numpy(rng.standard_normal((B, H, hd, N), np.float32) * 0.5).to(device)
+    return x, dt, A, Bm, Cm, h0
+
+
+def ssd_bound(args, y, hT):
+    """(bound ms, bound_by, flops, bytes): the operations of the causal half
+    of the two chunk-by-chunk products, C.state^T and the state update,
+    against the bytes of every input read once and y and the final state
+    written once."""
+    x, dt, A, Bm, Cm, h0 = args
+    Bsz, S, H, hd = x.shape
+    N = Bm.shape[3]
+    flops = 0
+    for s0 in range(0, S, SSD_CHUNK):
+        q = min(SSD_CHUNK, S - s0)
+        flops += q * (q + 1) * (N + hd) + 4 * q * hd * N
+    flops *= Bsz * H
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, y, hT)
+                 if t is not None) + (h0.numel() * 4 if h0 is not None else 0)
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -164,14 +263,15 @@ def phase_build():
     out = {"phase": "build", "sources": build.sources(),
            "seconds": round(time.perf_counter() - t0, 3),
            "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}}
-    resources = [ln.strip() for log in build.ptxas_log.values()
-                 for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    out["ptxas"] = resources
+    # per source: registers, shared memory and spills of every instantiation
+    out["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in build.ptxas_log.items()}
     emit(out)
 
 
-def phase_kernels(dev):
-    """The kernel against its plain version, both on the card."""
+def kernels_flash(dev):
+    """The flash-attention kernel against its plain version, both on the card."""
     cases = []
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for (B, Sq, Sk, Hq, Hkv, hd) in SWEEP:
@@ -203,12 +303,9 @@ def phase_kernels(dev):
                        m["dtype"], dev, qk_scale=2.0)
     got = flash_attention(q, k, v, causal=True)
     want = flash_attention_plain(q, k, v, causal=True)
-    peaked_err = check_close("flash_attention main shape, peaked softmax",
-                             got, want, **tol(m["dtype"]))
-    peaked_row_rel = row_rel_err(got, want)
-    if peaked_row_rel > MAIN_ROW_REL_TOL:
-        raise AssertionError(f"flash_attention main shape, peaked softmax: row error "
-                             f"over row rms {peaked_row_rel:.3e} > {MAIN_ROW_REL_TOL}")
+    peaked_err, peaked_row_rel = hold("flash_attention main shape, peaked softmax",
+                                      got, want, **tol(m["dtype"]),
+                                      row_limit=MAIN_ROW_REL_TOL)
 
     # the main path's shape at the sweep's input scale (near-uniform softmax), timed
     q, k, v = make_qkv(3, m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["hd"],
@@ -216,11 +313,8 @@ def phase_kernels(dev):
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, causal=True)
-    main_err = check_close("flash_attention main shape", got, want, **MAIN_TOL)
-    main_row_rel = row_rel_err(got, want)
-    if main_row_rel > MAIN_ROW_REL_TOL:
-        raise AssertionError(f"flash_attention main shape: row error over row rms "
-                             f"{main_row_rel:.3e} > {MAIN_ROW_REL_TOL}")
+    main_err, main_row_rel = hold("flash_attention main shape", got, want, **MAIN_TOL,
+                                  row_limit=MAIN_ROW_REL_TOL)
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), warmup=3, reps=15)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), warmup=1, reps=3)
 
@@ -256,53 +350,176 @@ def phase_kernels(dev):
         "library_ms": library_ms,
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
     }
-    emit({"phase": "kernels", "cases": len(cases) + 3,
+    emit({"phase": "kernels", "kernel": "flash_attention_fwd", "cases": len(cases) + 3,
           "sweep_max_abs_err": {"float32": worst[torch.float32],
                                 "bfloat16": worst[torch.bfloat16]},
           "main_shape": entry})
     return entry
 
 
+def kernels_ssd(dev):
+    """The SSD scan kernel against its plain version, both on the card: y and
+    the final state."""
+    n_cases = 0
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    for (B, S, H, hd, N, G) in SSD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for h0 in (False, True):
+                for fused in (False, True):
+                    args = make_ssd(13, B, S, H, hd, N, G, dtype, dev,
+                                    fused=fused, initial_state=h0)
+                    y, hT = ssd_scan(*args[:5], initial_state=args[5], return_state=True)
+                    torch.cuda.synchronize()
+                    y_ref, h_ref = ssd_scan_plain(*args[:5], initial_state=args[5],
+                                                  return_state=True)
+                    name = f"ssd_scan {(B, S, H, hd, N, G)} {dtype} h0={h0} fused={fused}"
+                    worst[dtype][0] = max(worst[dtype][0],
+                                          check_close(f"{name} y", y, y_ref, **tol(dtype)))
+                    worst[dtype][1] = max(worst[dtype][1], check_close(
+                        f"{name} final state", hT, h_ref, **SSD_STATE_TOL))
+                    n_cases += 1
+    # without return_state the kernel writes y alone, and the same y
+    args = make_ssd(14, 2, 100, 4, 16, 8, 2, torch.float32, dev)
+    if not torch.equal(ssd_scan(*args[:5]), ssd_scan(*args[:5], return_state=True)[0]):
+        raise AssertionError("ssd_scan: y depends on return_state")
+
+    served = {}
+    for arch in SSD_SERVED:
+        cfg = get_config(arch)
+        shape = dict(B=8, S=2048, H=cfg.ssm_heads, hd=cfg.ssm_headdim, N=cfg.ssm_state,
+                     G=cfg.ssm_groups)
+        args = make_ssd(21, **shape, dtype=torch.bfloat16, device=dev, served=True,
+                        fused=True)
+        y, hT = ssd_scan(*args[:5], return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssd_scan_plain(*args[:5], return_state=True)
+        err_y, rel_y = hold(f"ssd_scan {arch} served shape y", y, y_ref, **MAIN_TOL,
+                            row_limit=MAIN_ROW_REL_TOL)
+        err_h, rel_h = hold(f"ssd_scan {arch} served shape final state", hT, h_ref,
+                            **SSD_STATE_TOL, row_limit=MAIN_ROW_REL_TOL)
+        n_cases += 1
+        kernel_ms = cuda_ms(lambda: ssd_scan(*args[:5], return_state=True), warmup=3, reps=15)
+        plain_ms = cuda_ms(lambda: ssd_scan_plain(*args[:5], return_state=True),
+                           warmup=1, reps=3)
+        bound_ms, bound_by, flops, nbytes = ssd_bound(args, y, hT)
+        served[arch] = {
+            "shape": {**shape, "dtype": "torch.bfloat16", "inputs": "x, B, C slices of one conv output"},
+            "max_abs_err": err_y, "tolerance": MAIN_TOL,
+            "max_row_err_over_row_rms": rel_y, "row_err_over_row_rms_limit": MAIN_ROW_REL_TOL,
+            "state_max_abs_err": err_h, "state_tolerance": SSD_STATE_TOL,
+            "state_max_row_err_over_row_rms": rel_h,
+            "y_abs_max": float(y_ref.float().abs().max()),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        }
+    main = served[SSD_SERVED[0]]
+    entry = {
+        "name": "ssd_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:94",
+        "launches": None,
+        **{k: main[k] for k in ("shape", "max_abs_err", "tolerance", "max_row_err_over_row_rms",
+                                "row_err_over_row_rms_limit", "state_max_abs_err",
+                                "state_tolerance", "state_max_row_err_over_row_rms",
+                                "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,            # no single PyTorch call computes this function
+        "zamba2_shape": served[SSD_SERVED[1]],
+    }
+    emit({"phase": "kernels", "kernel": "ssd_scan_fwd", "cases": n_cases,
+          "sweep_max_abs_err": {str(k): {"y": v[0], "final_state": v[1]}
+                                for k, v in worst.items()},
+          "served": served})
+    return entry
+
+
+def phase_kernels(dev):
+    """Every kernel against its plain version, both on the card."""
+    return [kernels_flash(dev), kernels_ssd(dev)]
+
+
+def _launches():
+    return {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+
+
+def _zero_launches():
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def expected_launches(cfg):
+    """Kernel launches of one prefill: flash attention on every attention
+    block application, the SSD scan on every Mamba2 layer (decode runs
+    neither: it reads the KV cache and keeps the O(1) SSM recurrence)."""
+    if cfg.family == "dense":
+        return {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+    shared = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    return {"flash_attention": shared, "ssd_scan": cfg.num_layers}
+
+
+# (arch, layers, prompt length, cache length) of the parity phase
+PARITY = [("llama3.2-1b", 2, 640, 1024), ("mamba2-1.3b", 2, 300, 512),
+          ("zamba2-2.7b", 12, 300, 512)]
+
+
 def phase_parity(dev):
     """Card (kernel path) against CPU (plain path) on the same weights."""
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
-    B, S, steps, cache = 2, 640, 4, 1024
-    atol, rtol = 2e-3, 2e-3   # fp32 sums in another order on the two devices
-    params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
-    params_cpu = tree_map(lambda t: t.cpu(), params)
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
-    errs = []
-    with torch.inference_mode():
-        before = flash_attention.launches
-        lg, st = tfm.prefill(params, {"tokens": toks[:, :S].to(dev)}, cfg, None, cache)
-        used = flash_attention.launches - before
-        lc, sc = tfm.prefill(params_cpu, {"tokens": toks[:, :S]}, cfg, None, cache)
-        if used != cfg.num_layers:
-            raise AssertionError(f"parity: prefill launched the kernel {used} times, "
-                                 f"expected {cfg.num_layers}")
-        if lg.shape != (B, cfg.padded_vocab):
-            raise AssertionError(f"parity: logits shape {tuple(lg.shape)}")
-        errs.append(check_close("parity prefill logits", lg.cpu(), lc, atol, rtol))
-        check_close("parity kv cache", st.kv.k.cpu(), sc.kv.k, atol, rtol)
-        for t in range(S, S + steps):
-            lg, st = tfm.decode_step(params, toks[:, t:t + 1].to(dev), st, cfg, None)
-            lc, sc = tfm.decode_step(params_cpu, toks[:, t:t + 1], sc, cfg, None)
-            errs.append(check_close(f"parity decode step {t - S}", lg.cpu(), lc, atol, rtol))
-    emit({"phase": "parity", "config": "llama3.2-1b full width, 2 layers, fp32",
-          "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
-          "max_abs_err": max(errs), "logit_abs_max": float(lc.abs().max())})
+    for arch, layers, S, cache in PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        B, steps = 2, 4
+        atol, rtol = 2e-3, 2e-3   # fp32 sums in another order on the two devices
+        params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
+        params_cpu = tree_map(lambda t: t.cpu(), params)
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
+        errs = []
+        with torch.inference_mode():
+            _zero_launches()
+            lg, st = tfm.prefill(params, {"tokens": toks[:, :S].to(dev)}, cfg, None, cache)
+            used = _launches()
+            lc, sc = tfm.prefill(params_cpu, {"tokens": toks[:, :S]}, cfg, None, cache)
+            if used != expected_launches(cfg):
+                raise AssertionError(f"parity {arch}: prefill launched {used}, expected "
+                                     f"{expected_launches(cfg)}")
+            if lg.shape != (B, cfg.padded_vocab):
+                raise AssertionError(f"parity {arch}: logits shape {tuple(lg.shape)}")
+            errs.append(check_close(f"parity {arch} prefill logits", lg.cpu(), lc, atol, rtol))
+            for t in range(S, S + steps):
+                lg, st = tfm.decode_step(params, toks[:, t:t + 1].to(dev), st, cfg, None)
+                lc, sc = tfm.decode_step(params_cpu, toks[:, t:t + 1], sc, cfg, None)
+                errs.append(check_close(f"parity {arch} decode step {t - S}", lg.cpu(), lc,
+                                        atol, rtol))
+            state_errs = {}
+            pairs = {"kv.k": (st.kv, sc.kv, "k"), "shared_kv.k": (st.shared_kv, sc.shared_kv, "k"),
+                     "ssm.h": (st.ssm, sc.ssm, "h"), "ssm.conv": (st.ssm, sc.ssm, "conv")}
+            for name, (a, b, field) in pairs.items():
+                if a is not None:
+                    state_errs[name] = check_close(f"parity {arch} {name} after decode",
+                                                   getattr(a, field).cpu(), getattr(b, field),
+                                                   atol, rtol)
+        emit({"phase": "parity", "config": f"{arch} full width, {layers} layers, fp32",
+              "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
+              "prefill_launches": used, "max_abs_err": max(errs),
+              "logit_abs_max": float(lc.abs().max()), "state_max_abs_err": state_errs})
 
 
-def phase_serve(dev, new_tokens=32):
-    cfg = get_config("llama3.2-1b")
+def phase_serve(dev, arch, new_tokens=32):
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = tfm.init(gen, cfg, dtype=torch.bfloat16, device=dev)
-    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]
-                   + [w for bp in params["blocks"]
-                      for grp in (bp, bp["attn"], bp["ffn"])
-                      for w in grp.values() if isinstance(w, torch.Tensor)])
+    n_params = sum(t.numel() for t in _leaves(params))
     eng = Engine(params, cfg, ecfg=EngineConfig(max_batch=8, cache_len=4096), device=dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(1024, 2049, 8)
@@ -318,18 +535,18 @@ def phase_serve(dev, new_tokens=32):
     runs = []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0          # counts of the main path only
+        _zero_launches()                      # counts of this path only
         done = eng.run_batch(requests(), seed=0)
-        launches = flash_attention.launches
+        launches = _launches()
         for r in done:
             if len(r.output) != new_tokens or \
                     not all(0 <= t < cfg.vocab_size for t in r.output):
-                raise AssertionError(f"serve: request {r.uid} gave {r.output}")
+                raise AssertionError(f"serve {arch}: request {r.uid} gave {r.output}")
         if eng.nonfinite_logit_rows:
-            raise AssertionError(f"serve: {eng.nonfinite_logit_rows} non-finite logit rows")
-        if launches != cfg.num_layers:
-            raise AssertionError(f"serve: the kernel was launched {launches} times in one "
-                                 f"served batch, expected {cfg.num_layers}")
+            raise AssertionError(f"serve {arch}: {eng.nonfinite_logit_rows} non-finite logit rows")
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"serve {arch}: one served batch launched {launches}, "
+                                 f"expected {expected_launches(cfg)}")
         steps = eng.decode_step_s
         runs.append({
             "outputs": [r.output for r in done],
@@ -344,15 +561,17 @@ def phase_serve(dev, new_tokens=32):
         })
     greedy = [i for i in range(8) if i % 2 == 0]
     if [runs[0]["outputs"][i] for i in greedy] != [runs[1]["outputs"][i] for i in greedy]:
-        raise AssertionError("serve: greedy tokens differ between two runs")
+        raise AssertionError(f"serve {arch}: greedy tokens differ between two runs")
     if runs[0]["outputs"] != runs[1]["outputs"]:
-        raise AssertionError("serve: sampled tokens differ under the same seed")
+        raise AssertionError(f"serve {arch}: sampled tokens differ under the same seed")
     emit({"phase": "serve", "config": cfg.name, "layers": cfg.num_layers,
           "dtype": "bfloat16", "parameters": n_params, "requests": 8,
           "prompt_lengths": [int(n) for n in lens], "new_tokens": new_tokens,
           "cache_len": 4096,
           "first_run": {k: v for k, v in runs[0].items() if k != "outputs"},
           "second_run": {k: v for k, v in runs[1].items() if k != "outputs"}})
+    del eng, params
+    torch.cuda.empty_cache()
     return runs[1]["launches"]
 
 
@@ -374,12 +593,15 @@ def _device_time_by_kernel(fn):
 
 
 def _summarise(wall_ms, by_name):
-    groups = {"flash_attention kernel": 0.0, "matrix products (library)": 0.0,
-              "copies": 0.0, "elementwise and other": 0.0}
+    groups = {"flash_attention kernel": 0.0, "ssd_scan kernel": 0.0,
+              "matrix products (library)": 0.0, "copies": 0.0,
+              "elementwise and other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
         if "flash_fwd" in low:
             groups["flash_attention kernel"] += ms
+        elif "ssd_scan" in low:
+            groups["ssd_scan kernel"] += ms
         elif any(w in low for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
             groups["matrix products (library)"] += ms
         elif "memcpy" in low or "memset" in low:
@@ -394,10 +616,10 @@ def _summarise(wall_ms, by_name):
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def phase_profile(dev):
+def phase_profile(dev, arch):
     """Optional (``--phases profile``): where one prefill and four decode
-    steps of the serve phase's model spend their device time."""
-    cfg = get_config("llama3.2-1b")
+    steps of a served model spend their device time."""
+    cfg = get_config(arch)
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).to(dev)
@@ -416,6 +638,8 @@ def phase_profile(dev):
         dec = _summarise(*_device_time_by_kernel(four_steps))
     emit({"phase": "profile", "config": cfg.name, "batch": 8, "prompt": 2048,
           "prefill": pre, "decode_4_steps": dec})
+    del params, st, state
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -434,21 +658,28 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
 
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 products in full fp32
+    torch.backends.cudnn.allow_tf32 = False
     card = phase_env()
     phase_build()         # every later phase needs the kernels
-    entry = phase_kernels(dev) if "kernels" in phases else None
+    entries = phase_kernels(dev) if "kernels" in phases else []
     if "parity" in phases:
         phase_parity(dev)
-    launches = phase_serve(dev) if "serve" in phases else None
+    # each served path is read with the counts set to 0 just before it
+    launches = {}
+    if "serve" in phases:
+        launches["flash_attention_fwd"] = phase_serve(dev, "llama3.2-1b")["flash_attention"]
+        launches["ssd_scan_fwd"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
     if "profile" in phases:
-        phase_profile(dev)
+        for arch in ("llama3.2-1b", "mamba2-1.3b"):
+            phase_profile(dev, arch)
 
     full = set(PHASES) <= set(phases)
-    if entry is not None:
-        entry["launches"] = launches
+    for entry in entries:
+        entry["launches"] = launches.get(entry["name"])
         entry["card"] = card
     print(card, flush=True)
-    emit({"kernels": [entry] if entry is not None else []})
+    emit({"kernels": entries})
     if not full:
         # a partial run is for bring-up; only a full run may report success
         emit({"ok": False, "partial": phases})

@@ -26,8 +26,9 @@ ARCH_IDS = (
     "mamba2-1.3b",
 )
 
-# the dense decoder family is what the port runs today
-PORTED_ARCH_IDS = ("llama3.2-1b", "chatglm3-6b", "qwen3-32b", "qwen1.5-4b")
+# the dense decoder family, the attention-free SSM stack and the hybrid
+PORTED_ARCH_IDS = ("llama3.2-1b", "chatglm3-6b", "qwen3-32b", "qwen1.5-4b",
+                   "mamba2-1.3b", "zamba2-2.7b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in PORTED_ARCH_IDS}
 

@@ -4,7 +4,10 @@
 (``modules.split(transformer.init(...))[0]``) handed over as nested
 dictionaries of **numpy** arrays, block parameters stacked on a leading
 ``layers`` axis, and returns the port's parameter dictionary: the same names,
-``blocks`` unstacked into one dictionary per layer.  Both packages then
+``blocks`` unstacked into one dictionary per layer.  Dense blocks are
+``{ln1, attn, ln2, ffn}``, Mamba2 blocks (ssm, hybrid) ``{ln, ssm}``; the
+hybrid's ``shared_attn`` is one unstacked attention block and is converted
+as it is.  Both packages then
 compute the same function, which is what the parity tests rest on.
 
 Takes numpy only and imports no JAX: the caller converts
@@ -20,6 +23,7 @@ import torch
 
 from .models.config import ModelConfig
 from .models.modules import resolve_device
+from .models.transformer import PORTED_FAMILIES
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -43,24 +47,32 @@ def _layer(tree, l: int):
     return np.asarray(tree)[l]
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield np.asarray(tree)
+
+
 def from_jax_params(values: Dict[str, Any], cfg: ModelConfig,
                     device="cuda", dtype=torch.float32) -> Dict[str, Any]:
     """JAX value tree (numpy leaves) → repro_torch parameters."""
-    if cfg.family != "dense" or cfg.n_experts:
+    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     dev = resolve_device(device)
-    known = {"embed", "final_norm", "lm_head", "blocks"}
-    extra = set(values) - known
+    unstacked = ("embed", "final_norm", "lm_head") + \
+        (("shared_attn",) if cfg.family == "hybrid" else ())
+    extra = set(values) - set(unstacked) - {"blocks"}
     if extra:
         raise ValueError(f"unexpected parameter groups {sorted(extra)}")
-    out = {k: _convert(values[k], dev, dtype)
-           for k in ("embed", "final_norm", "lm_head") if k in values}
+    out = {k: _convert(values[k], dev, dtype) for k in unstacked if k in values}
     n_layers = max(cfg.num_layers, 1)
-    lead = np.asarray(values["blocks"]["ln1"]).shape[0]
-    if lead != n_layers:
-        raise ValueError(f"blocks are stacked {lead} deep, the configuration "
-                         f"has {n_layers} layers")
+    leads = {a.shape[0] if a.ndim else 0 for a in _leaves(values["blocks"])}
+    if leads != {n_layers}:
+        raise ValueError(f"blocks are stacked {sorted(leads)} deep, the "
+                         f"configuration has {n_layers} layers")
     out["blocks"] = [_convert(_layer(values["blocks"], l), dev, dtype)
                      for l in range(n_layers)]
     return out

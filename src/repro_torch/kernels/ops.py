@@ -9,21 +9,29 @@ that gives way to it.  ``impl="plain"`` and ``impl="kernel"`` force one
 (``"kernel"`` on a CPU tensor raises).  Model code reaches the kernels through
 this module only.
 
-Neither the kernel nor its plain version has a sliding window (nor has the
-Pallas kernel they replace), so ``window != 0`` raises on every device until a
-windowed family is ported.
+Neither the attention kernel nor its plain version has a sliding window (nor
+has the Pallas kernel they replace), so ``window != 0`` raises on every device
+until a windowed family is ported.
 
-Still to come, with their slices: ``ssd``, ``reduce_shards``, ``quantize``,
+Still to come, with their slices: ``reduce_shards``, ``quantize``,
 ``dequantize``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .flash_attention import flash_attention, flash_attention_plain
+from .ssd_scan import ssd_scan, ssd_scan_plain
 
 IMPLS = ("auto", "kernel", "plain")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -32,8 +40,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Self-attention over a full sequence.  q: (B,Sq,Hq,hd); k/v:
     (B,Sk,Hkv,hd) with Hkv dividing Hq (grouped-query attention is read in
     place, K/V are not repeated in memory).  Returns (B,Sq,Hq,hd)."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    _check_impl(impl)
     if window:
         raise NotImplementedError(
             "ops.attention has no sliding window: window must be 0, got "
@@ -41,3 +48,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "kernel" or (impl == "auto" and q.is_cuda):
         return flash_attention(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bmat: torch.Tensor, Cmat: torch.Tensor, *,
+        initial_state: Optional[torch.Tensor] = None,
+        return_state: bool = False, impl: str = "auto"):
+    """Mamba2 SSD chunked scan.  x: (B,S,H,hd); dt: (B,S,H) fp32; A: (H,)
+    fp32; B/C: (B,S,G,N) read in place per group.  Returns y (B,S,H,hd) and,
+    if ``return_state``, the final state (B,H,hd,N) fp32."""
+    _check_impl(impl)
+    if impl == "kernel" or (impl == "auto" and x.is_cuda):
+        return ssd_scan(x, dt, A, Bmat, Cmat, initial_state=initial_state,
+                        return_state=return_state)
+    return ssd_scan_plain(x, dt, A, Bmat, Cmat, initial_state=initial_state,
+                          return_state=return_state)

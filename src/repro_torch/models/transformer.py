@@ -1,11 +1,17 @@
-"""Decoder-only LM, dense family (llama / qwen / chatglm).
+"""Decoder-only LM: the dense family (llama / qwen / chatglm), the
+attention-free SSM stack (mamba2) and the hybrid (zamba2).
 
 Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers on a leading ``layers`` axis and runs them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dictionary per layer and the stack is
-a Python loop.  The other families (moe, ssm, hybrid, vlm, audio) raise
+a Python loop.  The other families (moe, vlm, audio) raise
 ``NotImplementedError`` until their slice is ported; ``loss_fn`` arrives with
 the training slice.
+
+Hybrid (zamba2) structure, as in the JAX package: ``num_layers`` Mamba2
+blocks; after every ``attn_every`` of them, one *shared* attention block
+(``params["shared_attn"]``, a single unstacked set of weights) applied
+``num_layers / attn_every`` times, each application with its own KV slice.
 
 Entry points:
   * ``init``              — dictionary of parameters from a seed.
@@ -16,10 +22,10 @@ Entry points:
 ``init`` and ``init_decode_state`` default to ``device="cuda"`` and raise when
 there is none; the CPU is used only when the caller names it.
 
-The decode state is updated **in place**: ``decode_step`` writes the new K/V
-into the buffers of the state it was given and returns a state that shares
-them, so the old state must not be used again (the JAX package donates it to
-the same effect).
+The decode state is updated **in place**: ``decode_step`` writes the new K/V,
+SSM states and conv lags into the buffers of the state it was given and
+returns a state that shares them, so the old state must not be used again
+(the JAX package donates it to the same effect).
 """
 
 from __future__ import annotations
@@ -32,23 +38,42 @@ from .config import ModelConfig, ParallelConfig
 from .layers import KVCache, apply_attn_block, init_attn_block
 from .modules import (dense_init, embed_init, ones_init, resolve_device,
                       rms_norm)
+from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_forward
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class DecodeState(NamedTuple):
     """Everything carried between decode steps."""
-    kv: Any            # KVCache of (L, B, S_cache, Hkv, hd) tensors
-    ssm: Any           # SSM states (family not ported yet: always None)
-    shared_kv: Any     # hybrid shared-block caches (not ported yet: None)
+    kv: Any            # dense: KVCache of (L, B, S_cache, Hkv, hd) tensors
+    ssm: Any           # ssm / hybrid: SSMState of (L, ...) stacked tensors
+    shared_kv: Any     # hybrid: KVCache of (groups, B, S_cache, Hkv, hd)
     cross_kv: Any      # enc-dec static cross caches (not ported yet: None)
     index: int         # next write position / number of tokens seen (host int)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet: only the dense decoder family is "
+            f"repro_torch yet: only {', '.join(PORTED_FAMILIES)} are "
             "(ROADMAP.md, queue 1)")
+    if cfg.family == "hybrid" and (cfg.attn_every < 1 or
+                                   cfg.num_layers % cfg.attn_every):
+        raise ValueError(f"hybrid: num_layers {cfg.num_layers} must be a "
+                         f"multiple of attn_every {cfg.attn_every}")
+
+
+def _is_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _shared_after(cfg: ModelConfig, layer: int) -> Optional[int]:
+    """Hybrid: the shared block's application (its KV slice) that follows
+    Mamba2 layer ``layer``, or None."""
+    if cfg.family == "hybrid" and (layer + 1) % cfg.attn_every == 0:
+        return layer // cfg.attn_every
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -59,7 +84,7 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
          device="cuda") -> Dict[str, Any]:
     """Random parameters.  ``seed_or_gen`` is an int seed or a
     ``torch.Generator`` on ``device``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     if isinstance(seed_or_gen, torch.Generator):
         gen = seed_or_gen
@@ -74,8 +99,15 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, V), scale=0.02, **kw)
-    params["blocks"] = [init_attn_block(gen, cfg, **kw)
-                        for _ in range(max(cfg.num_layers, 1))]
+    if _is_ssm(cfg):
+        params["blocks"] = [{"ln": ones_init((cfg.d_model,), **kw),
+                             "ssm": init_mamba2(gen, cfg, **kw)}
+                            for _ in range(max(cfg.num_layers, 1))]
+        if cfg.family == "hybrid":
+            params["shared_attn"] = init_attn_block(gen, cfg, **kw)
+    else:
+        params["blocks"] = [init_attn_block(gen, cfg, **kw)
+                            for _ in range(max(cfg.num_layers, 1))]
     return params
 
 
@@ -108,34 +140,83 @@ def _cache_len(cfg: ModelConfig, cache_len: int) -> int:
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, device="cuda") -> DecodeState:
     """Allocate the decode state for a given cache length."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, _cache_len(cfg, cache_len),
-             cfg.n_kv_heads, cfg.head_dim)
-    kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                 torch.zeros(shape, dtype=dtype, device=dev))
-    return DecodeState(kv=kv, ssm=None, shared_kv=None, cross_kv=None, index=0)
+    return _state_buffers(cfg, batch, cache_len, dtype, dev)
+
+
+def _kv_buffers(cfg, n, batch, cache_len, dtype, device) -> KVCache:
+    """K and V buffers of ``n`` stacked caches, (n, B, S_cache, Hkv, hd)."""
+    shape = (n, batch, _cache_len(cfg, cache_len), cfg.n_kv_heads,
+             cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
+    """The zeroed decode state of the family: every layer's cache or state
+    in one stacked buffer, as the JAX package's scan stacks them (SSM states
+    in fp32, the rest in ``dtype``)."""
+    L = cfg.num_layers
+    kv = ssm = shared = None
+    if _is_ssm(cfg):
+        one = init_ssm_state(cfg, batch, dtype, device=device)
+        ssm = SSMState(*(t.new_zeros((L, *t.shape)) for t in one))
+        if cfg.family == "hybrid":
+            shared = _kv_buffers(cfg, L // cfg.attn_every, batch, cache_len,
+                                 dtype, device)
+    else:
+        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device)
+    return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=None,
+                       index=0)
+
+
+def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
+               shared: Optional[KVCache], *, mode: str, cache_len=None,
+               cache_index=None):
+    """The Mamba2 stack (and the hybrid's shared block), writing each
+    layer's SSM state, conv lag and shared-block KV slice into the stacked
+    buffers in place.  Returns the residual stream."""
+    for l, bp in enumerate(params["blocks"]):
+        st = SSMState(ssm.h[l], ssm.conv[l]) if mode == "decode" else None
+        out, new = mamba2_forward(bp["ssm"], rms_norm(x, bp["ln"], cfg.norm_eps),
+                                  cfg, state=st, return_state=True)
+        x = x + out
+        ssm.h[l].copy_(new.h)
+        ssm.conv[l].copy_(new.conv)
+        g = _shared_after(cfg, l)
+        if g is None:
+            continue
+        if mode == "decode":
+            x, _ = apply_attn_block(
+                params["shared_attn"], cfg, pcfg, x, positions=positions,
+                mode="decode", cache=KVCache(shared.k[g], shared.v[g]),
+                cache_index=cache_index)
+        else:
+            x, kvg = apply_attn_block(
+                params["shared_attn"], cfg, pcfg, x, positions=positions,
+                mode="prefill", cache_len=cache_len)
+            shared.k[g].copy_(kvg.k)
+            shared.v[g].copy_(kvg.v)
+    return x
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
             cache_len: int) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt; return (last-token logits (B, V), DecodeState)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    # every layer's cache is laid into one stacked buffer, as the JAX
-    # package's scan stacks them
-    shape = (cfg.num_layers, B, _cache_len(cfg, cache_len), cfg.n_kv_heads,
-             cfg.head_dim)
-    kv = KVCache(torch.empty(shape, dtype=x.dtype, device=x.device),
-                 torch.empty(shape, dtype=x.dtype, device=x.device))
-    for l, bp in enumerate(params["blocks"]):
-        x, kvl = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
-                                  mode="prefill", cache_len=cache_len)
-        kv.k[l].copy_(kvl.k)
-        kv.v[l].copy_(kvl.v)
-    state = DecodeState(kv=kv, ssm=None, shared_kv=None, cross_kv=None,
-                        index=S)
+    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device)._replace(index=S)
+    if _is_ssm(cfg):
+        x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
+                       state.shared_kv, mode="prefill", cache_len=cache_len)
+    else:
+        for l, bp in enumerate(params["blocks"]):
+            x, kvl = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
+                                      mode="prefill", cache_len=cache_len)
+            state.kv.k[l].copy_(kvl.k)
+            state.kv.v[l].copy_(kvl.v)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits[:, 0], state
@@ -146,16 +227,20 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B, 1) integer → logits (B, V).  Every row
     sits at position ``state.index``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][tokens]
     B = x.shape[0]
     positions = torch.full((B, 1), state.index, dtype=torch.int32,
                            device=x.device)
-    for l, bp in enumerate(params["blocks"]):
-        x, _ = apply_attn_block(
-            bp, cfg, pcfg, x, positions=positions, mode="decode",
-            cache=KVCache(state.kv.k[l], state.kv.v[l]),
-            cache_index=state.index)
+    if _is_ssm(cfg):
+        x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
+                       state.shared_kv, mode="decode", cache_index=state.index)
+    else:
+        for l, bp in enumerate(params["blocks"]):
+            x, _ = apply_attn_block(
+                bp, cfg, pcfg, x, positions=positions, mode="decode",
+                cache=KVCache(state.kv.k[l], state.kv.v[l]),
+                cache_index=state.index)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits[:, 0], state._replace(index=state.index + 1)

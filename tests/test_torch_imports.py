@@ -45,8 +45,9 @@ def test_the_walk_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "engine.py", "transformer.py", "layers.py",
             "attention.py", "modules.py", "config.py", "ops.py", "build.py",
-            "flash_attention.py", "convert.py", "registry.py"} <= names
-    assert len(MODULES) >= 16
+            "flash_attention.py", "convert.py", "registry.py", "ssm.py",
+            "ssd_scan.py", "mamba2_1_3b.py", "zamba2_2_7b.py"} <= names
+    assert len(MODULES) >= 20
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -164,12 +164,17 @@ def test_kernel_wrapper_rejects_window_before_anything_else():
 
 
 def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
-    assert build.sources() == ["flash_attention"]
+    assert build.sources() == ["flash_attention", "ssd_scan"]
     assert (build.CSRC / "flash_attention.cu").is_file()
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
     text = (build.CSRC / "flash_attention.cu").read_text()
     assert 'extern "C" int flash_attention_fwd' in text
     assert "mma.sync" in text
+    ssd = (build.CSRC / "ssd_scan.cu").read_text()
+    assert 'extern "C" int ssd_scan_fwd' in ssd
+    # above 48 KB of shared memory a block needs the attribute raised
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd
+    assert "src/repro/kernels/ssd_scan.py" in ssd
     # a source that does not exist is an error, not a silent fallback
     with pytest.raises(FileNotFoundError):
         build.load("no_such_kernel")

@@ -88,8 +88,8 @@ def test_registry_says_what_is_not_ported():
 def test_other_families_raise_not_implemented():
     moe = dataclasses.replace(get_config("llama3.2-1b").reduced(),
                               family="moe", n_experts=4, top_k=2)
-    ssm = dataclasses.replace(get_config("llama3.2-1b").reduced(), family="ssm")
-    for cfg in (moe, ssm):
+    vlm = dataclasses.replace(get_config("llama3.2-1b").reduced(), family="vlm")
+    for cfg in (moe, vlm):
         with pytest.raises(NotImplementedError, match="not ported"):
             tfm.init(0, cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="not ported"):
@@ -167,6 +167,9 @@ def test_init_has_the_reference_parameter_names_and_shapes():
             else:
                 flat_t[f"['{name}']"] = tuple(grp.shape)
         assert flat_t == flat_j
+        if cfg.family == "hybrid":         # one unstacked shared block
+            assert {k: tuple(w.shape) for k, w in p["shared_attn"]["attn"].items()} == \
+                {k: w.shape for k, w in jv["shared_attn"]["attn"].items()}
 
 
 # --------------------------------------------------------------------------
@@ -331,6 +334,9 @@ def converted(arch, seed=0, **overrides):
         for i, name in enumerate(("q_norm", "k_norm")):
             g = jv["blocks"]["attn"][name]
             jv["blocks"]["attn"][name] = jnp.asarray(1.0 + rnd(g.shape, 50 + i, 0.1))
+    if cfg.family in ("ssm", "hybrid"):   # the conv bias is initialised to zero too
+        b = jv["blocks"]["ssm"]["conv_b"]
+        jv["blocks"]["ssm"]["conv_b"] = jnp.asarray(rnd(b.shape, 60, 0.1))
     tp = from_jax_params(jax.tree.map(np.asarray, jv), cfg, device="cpu")
     return jcfg, cfg, jv, tp
 
@@ -345,14 +351,26 @@ def test_prefill_and_decode_logits_match_jax(arch):
                          cache)
     assert tuple(tl.shape) == (B, cfg.padded_vocab) and ts.index == S0
     np.testing.assert_allclose(as_np(tl), as_np(jl), **MODEL_TOL)
-    np.testing.assert_allclose(as_np(ts.kv.k), as_np(js.kv.k), **MODEL_TOL)
-    np.testing.assert_allclose(as_np(ts.kv.v), as_np(js.kv.v), **MODEL_TOL)
+    assert_state_close(ts, js)
     for t in range(S0, S0 + steps):
         jl, js = jtfm.decode_step(jv, J(toks[:, t:t + 1]), js, jcfg, JPCFG)
         tl, ts = tfm.decode_step(tp, T(toks[:, t:t + 1]), ts, cfg, None)
         np.testing.assert_allclose(as_np(tl), as_np(jl), **MODEL_TOL)
         assert ts.index == int(js.index)
-    np.testing.assert_allclose(as_np(ts.kv.k), as_np(js.kv.k), **MODEL_TOL)
+    assert_state_close(ts, js)
+
+
+def assert_state_close(ts, js):
+    """Every buffer of the decode state that the family has: the KV cache,
+    the SSM states and conv lags, the hybrid's shared-block caches."""
+    for name, fields in (("kv", "kv"), ("ssm", "h conv"), ("shared_kv", "kv")):
+        t, j = getattr(ts, name), getattr(js, name)
+        assert (t is None) == (j is None), name
+        if t is not None:
+            for f in fields.split() if fields != "kv" else ("k", "v"):
+                assert tuple(getattr(t, f).shape) == getattr(j, f).shape
+                np.testing.assert_allclose(as_np(getattr(t, f)), as_np(getattr(j, f)),
+                                           **MODEL_TOL)
 
 
 def test_long_prefill_matches_jax_chunked_branch():
@@ -391,6 +409,43 @@ def test_init_decode_state_matches_jax_layout():
     assert tfm.init_decode_state(swa, 1, 40, device="cpu").kv.k.shape[2] == 8
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_init_decode_state_matches_jax_layout_for_ssm_families(arch):
+    cfg, jcfg = get_config(arch).reduced(), j_get_config(arch).reduced()
+    st = tfm.init_decode_state(cfg, 3, 40, dtype=torch.bfloat16, device="cpu")
+    js = jtfm.init_decode_state(jcfg, 3, 40)
+    assert st.kv is None and js.kv is None and st.index == 0
+    assert tuple(st.ssm.h.shape) == js.ssm.h.shape
+    assert tuple(st.ssm.conv.shape) == js.ssm.conv.shape
+    assert st.ssm.h.dtype == torch.float32 and st.ssm.conv.dtype == torch.bfloat16
+    assert not st.ssm.h.any() and not st.ssm.conv.any()
+    if cfg.family == "hybrid":
+        assert tuple(st.shared_kv.k.shape) == js.shared_kv.k.shape == \
+            (cfg.num_layers // cfg.attn_every, 3, 40, cfg.n_kv_heads, cfg.head_dim)
+        assert st.shared_kv.k.data_ptr() != st.shared_kv.v.data_ptr()
+    else:
+        assert st.shared_kv is None and js.shared_kv is None
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_decode_writes_the_ssm_state_in_place(arch):
+    _, cfg, _, tp = converted(arch, seed=4)
+    toks = T(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 9)))
+    _, st = tfm.prefill(tp, {"tokens": toks[:, :8]}, cfg, None, 16)
+    h, conv = st.ssm.h.clone(), st.ssm.conv.clone()
+    ptrs = (st.ssm.h.data_ptr(), st.ssm.conv.data_ptr())
+    _, st2 = tfm.decode_step(tp, toks[:, 8:], st, cfg, None)
+    assert (st2.ssm.h.data_ptr(), st2.ssm.conv.data_ptr()) == ptrs
+    assert not torch.equal(st2.ssm.h, h) and not torch.equal(st2.ssm.conv, conv)
+    assert st2.index == 9
+
+
+def test_hybrid_needs_whole_groups_of_layers():
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(), num_layers=3)
+    with pytest.raises(ValueError, match="attn_every"):
+        tfm.init(0, cfg, device="cpu")
+
+
 def test_untied_head_is_used_when_embeddings_are_not_tied():
     cfg = get_config("qwen3-32b").reduced()
     assert not cfg.tie_embeddings
@@ -410,7 +465,28 @@ def test_from_jax_params_rejects_what_it_cannot_convert():
     with pytest.raises(ValueError, match="unexpected"):
         from_jax_params({**vals, "mm_proj": np.zeros((2, 2))}, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        from_jax_params(vals, dataclasses.replace(cfg, family="ssm"), device="cpu")
+        from_jax_params(vals, dataclasses.replace(cfg, family="audio"), device="cpu")
     bf = from_jax_params(vals, cfg, device="cpu", dtype=torch.bfloat16)
     assert bf["blocks"][1]["attn"]["wq"].dtype == torch.bfloat16
     assert isinstance(cfg, ModelConfig)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_from_jax_params_converts_ssm_and_hybrid_trees(arch):
+    """Mamba2 blocks are {ln, ssm}; the depth check reads them, and the
+    hybrid's shared block is one unstacked attention block."""
+    _, cfg, jv, tp = converted(arch)
+    vals = jax.tree.map(np.asarray, jv)
+    assert len(tp["blocks"]) == cfg.num_layers
+    assert set(tp["blocks"][0]) == {"ln", "ssm"}
+    np.testing.assert_array_equal(as_np(tp["blocks"][1]["ssm"]["conv_w"]),
+                                  vals["blocks"]["ssm"]["conv_w"][1])
+    with pytest.raises(ValueError, match="stacked"):
+        from_jax_params(vals, dataclasses.replace(cfg, num_layers=cfg.num_layers + 2),
+                        device="cpu")
+    if cfg.family == "hybrid":
+        np.testing.assert_array_equal(as_np(tp["shared_attn"]["attn"]["wq"]),
+                                      vals["shared_attn"]["attn"]["wq"])
+    else:
+        with pytest.raises(ValueError, match="unexpected"):
+            from_jax_params({**vals, "shared_attn": {}}, cfg, device="cpu")

@@ -77,6 +77,24 @@ def test_left_padding_is_attended_to_like_the_reference():
     assert isinstance(alone[0].output, list)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_left_padding_flows_into_the_ssm_state_like_the_reference(arch):
+    """The engine has nothing family-specific: for an SSM the pad tokens of a
+    short prompt run through the recurrence and the conv, so its tokens
+    depend on the batch's padding, in the port exactly as in the JAX engine,
+    and equal those of the explicitly zero-padded prompt served alone."""
+    je, te, _ = engines(arch)
+    reqs = [([9, 8], 4), (list(range(1, 12)), 4)]
+    padded = te.run_batch([Request(uid=i, prompt=p, max_new_tokens=n)
+                           for i, (p, n) in enumerate(reqs)])
+    jpadded = je.run_batch([JRequest(uid=i, prompt=p, max_new_tokens=n)
+                            for i, (p, n) in enumerate(reqs)])
+    assert [r.output for r in padded] == [r.output for r in jpadded]
+    explicit = te.run_batch([Request(uid=0, prompt=[0] * 9 + [9, 8],
+                                     max_new_tokens=4)])
+    assert explicit[0].output == padded[0].output
+
+
 def test_greedy_engine_matches_manual_decode_loop():
     _, te, cfg = engines()
     prompt = [5, 6, 7, 8]
