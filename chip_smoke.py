@@ -4,12 +4,14 @@
     python3 chip_smoke.py                      # every phase, needs one NVIDIA GPU
     python3 chip_smoke.py --phases kernels     # bring-up: build and check only
 
-Drives the port's main paths (``repro_torch``: serving llama3.2-1b and
-serving mamba2-1.3b) through the entry points a user calls, builds every CUDA
-kernel from the sources in this checkout, holds each kernel against its plain
-PyTorch version on the card, and shows by the kernels' launch counts that each
-path went through its kernels.  Each phase prints one JSON line; any failure
-exits non-zero.  Without a CUDA device the script exits non-zero and prints no
+Drives the port's main paths (``repro_torch``: serving llama3.2-1b, serving
+mamba2-1.3b, and FRED's gradient synchronisation of llama3.2-1b's gradients
+over a pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback
+modes) through the entry points a user calls, builds every CUDA kernel from the
+sources in this checkout, holds each kernel against its plain PyTorch version
+on the card, and shows by the kernels' launch counts that each path went
+through its kernels.  Each phase prints one JSON line; any failure exits
+non-zero.  Without a CUDA device the script exits non-zero and prints no
 result.
 
 Phases:
@@ -21,15 +23,26 @@ Phases:
            against ssd_scan_plain: the reference's sweep (fp32 / bf16, with
            and without an initial state), strided slices of one conv output,
            then mamba2's and zamba2's serving prefill shapes, y and the final
-           state, with timings
+           state, with timings; tree_reduce, quantize and dequantize bit for
+           bit against their plain versions: the reference's sweeps in fp32
+           and bf16, strided batch views, a rounding-tie case, then the sync
+           phase's largest leaf (llama3.2-1b's embedding) at the shapes the
+           sync gives them, with timings
   parity   on the card (kernels) against the CPU (plain versions), fp32 at
            full width: llama3.2-1b at 2 layers, mamba2-1.3b at 2 layers and
            zamba2-2.7b at 12 layers (two applications of the shared block);
-           prefill logits and 4 decode steps, SSM states and conv lags
+           prefill logits and 4 decode steps, SSM states and conv lags; the
+           compressed gradient sync of the reduced llama3.2-1b tree
   serve    llama3.2-1b, then mamba2-1.3b, at full width and depth, bf16: 8
            requests through ``Engine.run_batch``, twice each
+  sync     llama3.2-1b's full gradient tree (146 leaves, bf16, 8 replicas
+           drawn on the card) through ``build_sync`` in each mode, three times
+           each: the mean against an fp32 sum, error buffers, launch counts,
+           wall time and peak memory; then 20 error-feedback steps on the
+           embedding gradient
   profile  (only when named) device time by kernel over one prefill and four
-           decode steps of each served model, from torch.profiler
+           decode steps of each served model, and over one sync of each
+           mode, from torch.profiler
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
@@ -53,20 +66,27 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs.registry import get_config          # noqa: E402
-from repro_torch.kernels import build                        # noqa: E402
+from repro_torch.kernels import build, ops                   # noqa: E402
 from repro_torch.kernels.flash_attention import (             # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.quant8 import (                      # noqa: E402
+    dequantize, dequantize_plain, quantize, quantize_plain)
+from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
+from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.modules import tree_map              # noqa: E402
+from repro_torch.parallel import compress                    # noqa: E402
+from repro_torch.parallel.collectives import (               # noqa: E402
+    MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-PHASES = ("env", "build", "kernels", "parity", "serve")
+PHASES = ("env", "build", "kernels", "parity", "serve", "sync")
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -107,6 +127,15 @@ SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
 # the row's rms (hd 64).  A state update left out of one chunk moves the next
 # chunk's first rows by about their own size.
 SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+
+# the gradient sync: llama3.2-1b's gradients over pod 2 x data 4 (R = 8, the
+# mesh of tests/test_multidevice.py); its largest leaf is the embedding
+SYNC_ARCH = "llama3.2-1b"
+SYNC_MESH = ((2, 4), ("pod", "data"))
+# the reference's sweeps (tests/test_kernels.py) as (N, L) and (n, block), plus
+# N = 64 (the kernel's largest) and the largest block the kernel takes
+TREE_SWEEP = [(2, 100), (7, 1000), (16, 4096), (33, 513), (64, 777)]
+QUANT_SWEEP = [(100, 64), (5000, 512), (4096, 1024), (30000, 12288)]
 
 
 def emit(obj) -> None:
@@ -433,18 +462,210 @@ def kernels_ssd(dev):
     return entry
 
 
+def check_equal(name, got, want):
+    """Bit-equality of a kernel's output with its plain version."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs()
+        raise AssertionError(f"{name}: {int((got != want).sum())} of {got.numel()} "
+                             f"elements differ; max abs diff {float(diff.max()):.3e}")
+    return 0.0
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bytes_bound(*ts):
+    """(bound ms, "bytes"): every tensor read or written once at the card's
+    memory rate; these kernels do a few operations per element."""
+    return nbytes(*ts) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def randn(gen, shape, dtype, dev, scale=1.0):
+    t = torch.empty(shape, dtype=torch.float32, device=dev).normal_(generator=gen)
+    return (t * scale).to(dtype)
+
+
+def served_leaf():
+    """Elements of the sync's largest leaf (llama3.2-1b's embedding) and of
+    its shard in the (pod, data) mesh."""
+    cfg = get_config(SYNC_ARCH)
+    n = cfg.padded_vocab * cfg.d_model
+    return n, -(-n // SYNC_MESH[0][1])
+
+
+def kernels_tree(dev, gen):
+    """The tree-reduce kernel against its plain version, bit for bit."""
+    n_cases = 0
+    for N, L in TREE_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(gen, (N, L), dtype, dev, 2.0)
+            check_equal(f"tree_reduce {(N, L)} {dtype}", tree_reduce(x), tree_reduce_plain(x))
+            n_cases += 1
+    # strided batch views: the stacked sync's (P, D_recv, D_src, s) and (1, D, P, s)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(gen, (2, 4, 4 * 1001), dtype, dev)
+        inner = x.view(2, 4, 4, 1001).transpose(1, 2)
+        check_equal(f"tree_reduce inner view {dtype}", tree_reduce(inner),
+                    tree_reduce_plain(inner))
+        outer = x[:, :, :1001].permute(1, 0, 2)[None]
+        check_equal(f"tree_reduce outer view {dtype}", tree_reduce(outer),
+                    tree_reduce_plain(outer))
+        n_cases += 2
+    # the served shape: the inner reduce-scatter of the embedding gradient
+    (P, D), _ = SYNC_MESH
+    _, s = served_leaf()
+    x = randn(gen, (P, D, D * s), torch.bfloat16, dev)
+    view = x.view(P, D, D, s).transpose(1, 2)
+    got = tree_reduce(view)
+    torch.cuda.synchronize()
+    check_equal("tree_reduce served inner shape", got, tree_reduce_plain(view))
+    ms = cuda_ms(lambda: tree_reduce(view), warmup=2, reps=10)
+    plain_ms = cuda_ms(lambda: tree_reduce_plain(view), warmup=1, reps=3)
+
+    def library():
+        return view.float().sum(-2).to(view.dtype)
+    # another summation order: within two bf16 roundings of the values' size
+    check_close("tree_reduce library call vs plain", library(), got, atol=2 ** -5, rtol=2 ** -7)
+    library_ms = cuda_ms(library, warmup=1, reps=5)
+    bound_ms, bound_by = bytes_bound(view, got)
+    n_cases += 1
+    # the outer reduce of the dequantized payload, (1, D, P, s) fp32
+    y = randn(gen, (P, D, s), torch.float32, dev)
+    outer = y.permute(1, 0, 2)[None]
+    check_equal("tree_reduce served outer shape", tree_reduce(outer), tree_reduce_plain(outer))
+    n_cases += 1
+    entry = {
+        "name": "tree_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/reduce_tree.cu",
+        "replaces": "src/repro/kernels/reduce_tree.py:42",
+        "shape": {"view": [P, D, D, s], "reduced_dim": 2, "dtype": "torch.bfloat16",
+                  "what": "the inner reduce-scatter of llama3.2-1b's embedding gradient"},
+        "launches": None, "max_abs_err": 0.0, "tolerance": "bit-equal",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_call": "shards.float().sum(-2).to(dtype)",
+        "gbytes": nbytes(view, got) / 1e9,
+    }
+    emit({"phase": "kernels", "kernel": "tree_reduce", "cases": n_cases, "main_shape": entry})
+    del x, view, got, y, outer
+    torch.cuda.empty_cache()
+    return entry
+
+
+def tie_case(dev, dtype):
+    """A block whose amax is 127 (scale exactly 1) with values k + 0.5: exact
+    ties of round(), where half-to-even and floor(x + 0.5) differ."""
+    x = torch.arange(64, dtype=torch.float32) - 31.5
+    x[0] = 127.0
+    return x.to(device=dev, dtype=dtype)
+
+
+def kernels_quant(dev, gen):
+    """The quantize and dequantize kernels against their plain versions, bit
+    for bit (q, scales, the residual, the dequantized values)."""
+    n_cases = 0
+    for n, block in QUANT_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(gen, (n,), dtype, dev, 5.0)
+            name = f"quantize {(n, block)} {dtype}"
+            got = quantize(x, block, return_error=True)
+            want = quantize_plain(x, block, return_error=True)
+            for part, a, b in zip(("q", "scales", "err"), got, want):
+                check_equal(f"{name} {part}", a, b)
+            q2, s2 = quantize(x, block)
+            check_equal(f"{name} q without err", q2, got[0])
+            for out_dtype in (torch.float32, torch.bfloat16):
+                check_equal(f"de{name} -> {out_dtype}",
+                            dequantize(got[0], got[1], block, out_dtype=out_dtype),
+                            dequantize_plain(got[0], got[1], block, out_dtype=out_dtype))
+            n_cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = tie_case(dev, dtype)
+        q, sc = quantize(x, 64)
+        check_equal(f"quantize tie case {dtype}", q, quantize_plain(x, 64)[0])
+        body = x[1:].float()
+        if float(sc[0]) != 1.0 or not torch.equal(q[1:], torch.round(body).to(torch.int8)) \
+                or torch.equal(q[1:], torch.floor(body + 0.5).to(torch.int8)):
+            raise AssertionError("quantize tie case: not rounded half to even")
+        n_cases += 1
+    # rows of a batch, read through a strided view
+    wide = randn(gen, (3, 2, 3000), torch.float32, dev)
+    rows = wide[:, 1]
+    for a, b in zip(quantize(rows, 512, return_error=True),
+                    quantize_plain(rows, 512, return_error=True)):
+        check_equal("quantize strided rows", a, b)
+    n_cases += 1
+
+    # the served shapes: the carry of every replica's embedding shard (R, s)
+    # fp32, and the payload gathered across pods, (1, D, P, s) int8
+    (P, D), _ = SYNC_MESH
+    _, s = served_leaf()
+    carry = randn(gen, (P * D, s), torch.float32, dev, 3.0)
+    got = quantize(carry, compress.BLOCK, return_error=True)
+    torch.cuda.synchronize()
+    for part, a, b in zip(("q", "scales", "err"), got,
+                          quantize_plain(carry, compress.BLOCK, return_error=True)):
+        check_equal(f"quantize served shape {part}", a, b)
+    q_ms = cuda_ms(lambda: quantize(carry, compress.BLOCK, return_error=True), warmup=2, reps=10)
+    q_plain_ms = cuda_ms(lambda: quantize_plain(carry, compress.BLOCK, return_error=True),
+                         warmup=1, reps=3)
+    q_bound = bytes_bound(carry, *got)
+    qv = got[0].view(P, D, s).permute(1, 0, 2)[None]
+    sv = got[1].view(P, D, -1).permute(1, 0, 2)[None]
+    deq = dequantize(qv, sv, compress.BLOCK)
+    torch.cuda.synchronize()
+    check_equal("dequantize served shape", deq, dequantize_plain(qv, sv, compress.BLOCK))
+    dq_ms = cuda_ms(lambda: dequantize(qv, sv, compress.BLOCK), warmup=2, reps=10)
+    dq_plain_ms = cuda_ms(lambda: dequantize_plain(qv, sv, compress.BLOCK), warmup=1, reps=3)
+    dq_bound = bytes_bound(qv, sv, deq)
+    n_cases += 2
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/quant8.cu", "launches": None,
+              "max_abs_err": 0.0, "tolerance": "bit-equal",
+              "library_ms": None,   # no single PyTorch call quantizes blockwise with this scale rule
+              }
+    q_entry = {"name": "quantize_int8", "replaces": "src/repro/kernels/quant8.py:36", **common,
+               "shape": {"x": [P * D, s], "dtype": "torch.float32", "block": compress.BLOCK,
+                         "return_error": True,
+                         "what": "the error-feedback carry of llama3.2-1b's embedding shards"},
+               "ms": q_ms, "plain_ms": q_plain_ms, "bound_ms": q_bound[0],
+               "bound_by": q_bound[1], "gbytes": nbytes(carry, *got) / 1e9}
+    dq_entry = {"name": "dequantize_int8", "replaces": "src/repro/kernels/quant8.py:55",
+                **common,
+                "shape": {"q": [1, D, P, s], "out_dtype": "torch.float32",
+                          "block": compress.BLOCK,
+                          "what": "the payload gathered across pods, a strided view"},
+                "ms": dq_ms, "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
+                "bound_by": dq_bound[1], "gbytes": nbytes(qv, sv, deq) / 1e9}
+    emit({"phase": "kernels", "kernel": "quantize_int8 / dequantize_int8", "cases": n_cases,
+          "main_shape": {"quantize_int8": q_entry, "dequantize_int8": dq_entry}})
+    del carry, got, qv, sv, deq
+    torch.cuda.empty_cache()
+    return q_entry, dq_entry
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version, both on the card."""
-    return [kernels_flash(dev), kernels_ssd(dev)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    return [kernels_flash(dev), kernels_ssd(dev), kernels_tree(dev, gen),
+            *kernels_quant(dev, gen)]
+
+
+WRAPPERS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "tree_reduce": tree_reduce, "quantize_int8": quantize,
+            "dequantize_int8": dequantize}
 
 
 def _launches():
-    return {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def _zero_launches():
-    flash_attention.launches = 0
-    ssd_scan.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def _leaves(tree):
@@ -462,10 +683,25 @@ def expected_launches(cfg):
     """Kernel launches of one prefill: flash attention on every attention
     block application, the SSD scan on every Mamba2 layer (decode runs
     neither: it reads the KV cache and keeps the O(1) SSM recurrence)."""
+    none = {name: 0 for name in WRAPPERS}
     if cfg.family == "dense":
-        return {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+        return {**none, "flash_attention": cfg.num_layers}
     shared = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    return {"flash_attention": shared, "ssd_scan": cfg.num_layers}
+    return {**none, "flash_attention": shared, "ssd_scan": cfg.num_layers}
+
+
+def expected_sync_launches(mode, n_leaves):
+    """Kernel launches of one gradient sync on the stacked transport with an
+    outer axis, every leaf non-empty.  Per leaf, flat: one tree reduce (the
+    reduce-scatter over every replica); hierarchical: two (the reduce-scatter
+    inside the pod, the all-reduce across pods); compressed: two tree reduces
+    (the reduce-scatter, the sum of the dequantized payloads), one quantize
+    (every replica's carry, with its residual) and one dequantize (the payload
+    gathered across pods)."""
+    per_leaf = {"flat": {"tree_reduce": 1},
+                "hierarchical": {"tree_reduce": 2},
+                "compressed": {"tree_reduce": 2, "quantize_int8": 1, "dequantize_int8": 1}}
+    return {name: per_leaf[mode].get(name, 0) * n_leaves for name in WRAPPERS}
 
 
 # (arch, layers, prompt length, cache length) of the parity phase
@@ -512,6 +748,65 @@ def phase_parity(dev):
               "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
               "prefill_launches": used, "max_abs_err": max(errs),
               "logit_abs_max": float(lc.abs().max()), "state_max_abs_err": state_errs})
+    sync_parity(dev)
+
+
+def _shape_tree(params):
+    return tree_map(lambda t: tuple(t.shape), params)
+
+
+def sync_parity(dev):
+    """The compressed gradient sync on the card (kernels) against the same
+    sync on the CPU (plain versions): the reduced llama3.2-1b tree, fp32,
+    every replica drawn from one numpy seed.  Held to one quantum per element
+    (the scales of that element's block, summed over the pods, over R) and
+    the new error buffers to one scale of their block."""
+    cfg = get_config(SYNC_ARCH).reduced()
+    shapes = list(_leaves(tfm.init(0, cfg, device="cpu")))
+    (P, D), axes = SYNC_MESH
+    R = P * D
+    rng = np.random.default_rng(3)
+    g_np = [rng.standard_normal((R,) + tuple(t.shape), np.float32) for t in shapes]
+    e_np = [rng.standard_normal((R, -(-t.numel() // D)), np.float32) * 0.05 for t in shapes]
+    results = []                                   # card, then CPU
+    for where in (dev, torch.device("cpu")):
+        mesh = make_mesh((P, D), axes, device=where)
+        g = [torch.from_numpy(a).to(where) for a in g_np]
+        e = [torch.from_numpy(a).to(where) for a in e_np]
+        _zero_launches()
+        out, new = build_sync(mesh, "compressed", "data", "pod")(g, e)
+        results.append((out, new, _launches()))
+    (card_out, card_err, used), (cpu_out, cpu_err, _) = results
+    if used != expected_sync_launches("compressed", len(shapes)):
+        raise AssertionError(f"parity sync: launched {used}, expected "
+                             f"{expected_sync_launches('compressed', len(shapes))}")
+    mesh = make_mesh((P, D), axes, device="cpu")
+    worst_q, worst_e, n_diff = 0.0, 0.0, 0
+    for i in range(len(shapes)):
+        out_c, out_h = card_out[i].cpu(), cpu_out[i]
+        err_c, err_h = card_err[i].cpu(), cpu_err[i]
+        g, e = torch.from_numpy(g_np[i]), torch.from_numpy(e_np[i])
+        xp, _ = _pad_to(mesh.local(g, axes), D)
+        carry = ops.reduce_shards(mesh.exchange(xp, ("data",))) + mesh.local(e, axes)
+        scales = compress.quantize(carry)[1]                       # (P, D, nb)
+        s = carry.shape[-1]
+        j = torch.arange(out_h.numel())
+        quantum = scales.sum(0)[j // s, (j % s) // compress.BLOCK] / R
+        d_out = (out_c.reshape(-1) - out_h.reshape(-1)).abs()
+        scale_e = scales.reshape(R, -1).repeat_interleave(compress.BLOCK, 1)[:, :s]
+        d_err = (err_c - err_h).abs()
+        if not torch.isfinite(out_c).all() or (d_out > quantum + 1e-6).any() or \
+                (d_err > scale_e + 1e-6).any():
+            raise AssertionError(f"parity sync leaf {i}: max diff {float(d_out.max()):.3e} "
+                                 f"(result), {float(d_err.max()):.3e} (error buffer)")
+        worst_q = max(worst_q, float((d_out / quantum).max()))
+        worst_e = max(worst_e, float((d_err / scale_e).max()))
+        n_diff += int((out_c != out_h).sum()) + int((err_c != err_h).sum())
+    emit({"phase": "parity", "config": f"{SYNC_ARCH} reduced tree, compressed sync, fp32",
+          "mesh": dict(zip(axes, (P, D))), "leaves": len(shapes),
+          "elements_per_replica": sum(t.numel() for t in shapes), "launches": used,
+          "max_diff_in_quanta": worst_q, "max_error_buffer_diff_in_scales": worst_e,
+          "elements_not_bit_equal": n_diff})
 
 
 def phase_serve(dev, arch, new_tokens=32):
@@ -575,6 +870,112 @@ def phase_serve(dev, arch, new_tokens=32):
     return runs[1]["launches"]
 
 
+def phase_sync(dev, profile=False):
+    """llama3.2-1b's full gradient tree through ``build_sync`` on the stacked
+    transport, pod 2 x data 4, in each mode; then the error-feedback property
+    on the embedding gradient.  With ``profile``, one more sync of each mode
+    runs under torch.profiler (device time by kernel, idle share).  Returns
+    the launches of one compressed sync."""
+    cfg = get_config(SYNC_ARCH)
+    (P, D), axes = SYNC_MESH
+    R = P * D
+    mesh = make_mesh((P, D), axes, device=dev)
+    shapes = _shape_tree(tfm.init(0, cfg, dtype=torch.bfloat16, device=dev))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    grads = tree_map(lambda shp: torch.empty((R,) + shp, dtype=torch.bfloat16,
+                                             device=dev).normal_(generator=gen), shapes)
+    g_leaves = list(_leaves(grads))
+    n_leaves = len(g_leaves)
+    if n_leaves != 2 + 9 * cfg.num_layers:
+        raise AssertionError(f"sync: {n_leaves} gradient leaves")
+    report = {"phase": "sync", "config": f"{SYNC_ARCH} gradients, bf16, full width and depth",
+              "mesh": dict(zip(axes, (P, D))), "leaves": n_leaves,
+              "elements_per_replica": sum(g.numel() for g in g_leaves) // R,
+              "gradient_bytes": nbytes(*g_leaves), "modes": {}}
+    compressed_launches = None
+    for mode in MODES:
+        sync = build_sync(mesh, mode, "data", "pod")
+        errs0 = init_error_feedback(shapes, mesh, "data", "pod") if mode == "compressed" else None
+        runs, res = [], None
+        for _ in range(3):
+            res = None                            # one sync's memory at a time
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()                          # counts of this path only
+            t0 = time.perf_counter()
+            res = sync(grads, errs0) if mode == "compressed" else sync(grads)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = _launches()
+            if launches != expected_sync_launches(mode, n_leaves):
+                raise AssertionError(f"sync {mode}: launched {launches}, expected "
+                                     f"{expected_sync_launches(mode, n_leaves)}")
+            runs.append({"wall_ms": wall_ms,
+                         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        out, new = res if mode == "compressed" else (res, None)
+        worst = 0.0
+        for g, o in zip(g_leaves, _leaves(out)):
+            if o.shape != g.shape[1:] or o.dtype != g.dtype or not torch.isfinite(o).all():
+                raise AssertionError(f"sync {mode}: leaf {tuple(o.shape)} {o.dtype}")
+            want = torch.sum(g, 0, dtype=torch.float32) / R
+            err = (o.float() - want).abs()
+            if mode == "compressed":
+                worst = max(worst, float(err.max() / want.abs().max()))
+                continue
+            # each of the two bf16 roundings (the pod's partial sum, the sum
+            # over pods) is at most 2^-8 of its value; /8 is exact
+            mag = torch.sum(g.abs(), 0, dtype=torch.float32) / R
+            worst = max(worst, float((err / (mag * (2 ** -7 * 1.01) + 1e-30)).max()))
+        if profile:
+            res = None
+            entry_profile = _summarise(*_device_time_by_kernel(
+                lambda: sync(grads, errs0) if mode == "compressed" else sync(grads)))
+        limit = 0.02 if mode == "compressed" else 1.0
+        if worst > limit:
+            raise AssertionError(f"sync {mode}: {worst:.4g} against the fp32 mean "
+                                 f"(limit {limit})")
+        entry = {"runs": runs, "launches": launches,
+                 **({"profile": entry_profile} if profile else {}),
+                 ("max_err_over_max_abs" if mode == "compressed"
+                  else "max_err_over_bf16_rounding_bound"): worst, "limit": limit}
+        if mode == "compressed":
+            for g, e in zip(g_leaves, _leaves(new)):
+                if e.dtype != torch.float32 or \
+                        tuple(e.shape) != (R, -(-(g.numel() // R) // D)):
+                    raise AssertionError(f"sync: error buffer {tuple(e.shape)} {e.dtype}")
+            entry["error_buffer_bytes"] = nbytes(*_leaves(new))
+            compressed_launches = launches
+        report["modes"][mode] = entry
+        del res, out, new, errs0
+    del grads, g_leaves
+    torch.cuda.empty_cache()
+
+    # error feedback over 20 steps (tests/test_multidevice.py:158-182) on one
+    # full-width leaf, fp32 as the reference's test has it
+    shape = (R, cfg.padded_vocab, cfg.d_model)
+    g = torch.empty(shape, dtype=torch.float32, device=dev).normal_(generator=gen) * 0.1
+    sync = build_sync(mesh, "compressed", "data", "pod")
+    errs = init_error_feedback({"g": shape[1:]}, mesh)
+    exact = g.mean(0)
+    acc_c = torch.zeros_like(exact)
+    acc_e = torch.zeros_like(exact)
+    for _ in range(20):
+        out, errs = sync({"g": g}, errs)
+        acc_c += out["g"]
+        acc_e += exact
+    rel = float((acc_c - acc_e).norm() / acc_e.norm())
+    if not rel < 5e-3:
+        raise AssertionError(f"sync: error feedback over 20 steps, relative error {rel:.3e}")
+    report["error_feedback_20_steps"] = {"leaf": list(shape), "dtype": "torch.float32",
+                                         "relative_error": rel, "limit": 5e-3}
+    emit(report)
+    del g, errs, out, exact, acc_c, acc_e
+    torch.cuda.empty_cache()
+    return compressed_launches
+
+
 def _device_time_by_kernel(fn):
     """Run ``fn`` under torch.profiler; (wall ms, {kernel name: device ms})."""
     from torch.autograd import DeviceType
@@ -594,6 +995,7 @@ def _device_time_by_kernel(fn):
 
 def _summarise(wall_ms, by_name):
     groups = {"flash_attention kernel": 0.0, "ssd_scan kernel": 0.0,
+              "tree_reduce kernel": 0.0, "quantize / dequantize kernels": 0.0,
               "matrix products (library)": 0.0, "copies": 0.0,
               "elementwise and other": 0.0}
     for name, ms in by_name.items():
@@ -602,6 +1004,10 @@ def _summarise(wall_ms, by_name):
             groups["flash_attention kernel"] += ms
         elif "ssd_scan" in low:
             groups["ssd_scan kernel"] += ms
+        elif "tree_reduce" in low:
+            groups["tree_reduce kernel"] += ms
+        elif "quantize" in low:
+            groups["quantize / dequantize kernels"] += ms
         elif any(w in low for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
             groups["matrix products (library)"] += ms
         elif "memcpy" in low or "memset" in low:
@@ -670,6 +1076,10 @@ def main() -> int:
     if "serve" in phases:
         launches["flash_attention_fwd"] = phase_serve(dev, "llama3.2-1b")["flash_attention"]
         launches["ssd_scan_fwd"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
+    if "sync" in phases:
+        used = phase_sync(dev, profile="profile" in phases)
+        for name in ("tree_reduce", "quantize_int8", "dequantize_int8"):
+            launches[name] = used[name]
     if "profile" in phases:
         for arch in ("llama3.2-1b", "mamba2-1.3b"):
             phase_profile(dev, arch)
@@ -678,6 +1088,8 @@ def main() -> int:
     for entry in entries:
         entry["launches"] = launches.get(entry["name"])
         entry["card"] = card
+        if full and not entry["launches"]:
+            raise AssertionError(f"{entry['name']}: no launch on its main path")
     print(card, flush=True)
     emit({"kernels": entries})
     if not full:

@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -107,6 +107,30 @@ def build_all() -> Dict[str, float]:
         for job in jobs:
             job.finish()
         return {n: build_seconds[n] for n in todo}
+
+
+def batch3(shape: Sequence[int], *strides: Sequence[int], what: str
+           ) -> Tuple[List[int], ...]:
+    """Leading (batch) dimensions as the kernels' C interfaces take them:
+    exactly three sizes, and three element strides for each tensor that is
+    indexed by the same batch.  Dimensions of size 1 are dropped and
+    neighbours that index every tensor's memory as one dimension are merged,
+    so any view whose batch dimensions reduce to three or fewer is read in
+    place; more raises.  Returns ``(sizes, strides_1, strides_2, ...)``,
+    padded at the front with size 1, stride 0."""
+    dims = [(n, list(s)) for n, *s in zip(shape, *strides) if n != 1]
+    merged: List[Tuple[int, List[int]]] = []
+    for n, st in dims:
+        if merged and all(a == b * n for a, b in zip(merged[-1][1], st)):
+            merged[-1] = (merged[-1][0] * n, st)
+        else:
+            merged.append((n, st))
+    if len(merged) > 3:
+        raise ValueError(f"{what}: batch dimensions {tuple(shape)} with strides "
+                         f"{[tuple(s) for s in strides]} do not reduce to three")
+    merged = [(1, [0] * len(strides))] * (3 - len(merged)) + merged
+    return ([n for n, _ in merged],
+            *([st[i] for _, st in merged] for i in range(len(strides))))
 
 
 def load(name: str) -> ctypes.CDLL:

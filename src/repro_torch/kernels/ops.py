@@ -13,8 +13,9 @@ Neither the attention kernel nor its plain version has a sliding window (nor
 has the Pallas kernel they replace), so ``window != 0`` raises on every device
 until a windowed family is ported.
 
-Still to come, with their slices: ``reduce_shards``, ``quantize``,
-``dequantize``.
+Every function of the JAX module has its counterpart here: ``attention``,
+``ssd``, and the gradient-synchronisation kernels ``reduce_shards``,
+``quantize`` and ``dequantize`` (``repro_torch.parallel`` calls them).
 """
 
 from __future__ import annotations
@@ -24,14 +25,21 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention, flash_attention_plain
+from .quant8 import dequantize as _dequantize
+from .quant8 import dequantize_plain
+from .quant8 import quantize as _quantize
+from .quant8 import quantize_plain
+from .reduce_tree import tree_reduce, tree_reduce_plain
 from .ssd_scan import ssd_scan, ssd_scan_plain
 
 IMPLS = ("auto", "kernel", "plain")
 
 
-def _check_impl(impl: str) -> None:
+def _on_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Whether ``impl`` sends tensor ``t`` to the kernel."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "kernel" or (impl == "auto" and t.is_cuda)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,12 +48,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Self-attention over a full sequence.  q: (B,Sq,Hq,hd); k/v:
     (B,Sk,Hkv,hd) with Hkv dividing Hq (grouped-query attention is read in
     place, K/V are not repeated in memory).  Returns (B,Sq,Hq,hd)."""
-    _check_impl(impl)
+    on_kernel = _on_kernel(impl, q)
     if window:
         raise NotImplementedError(
             "ops.attention has no sliding window: window must be 0, got "
             f"{window} (no ported configuration has one)")
-    if impl == "kernel" or (impl == "auto" and q.is_cuda):
+    if on_kernel:
         return flash_attention(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal)
 
@@ -57,9 +65,33 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD chunked scan.  x: (B,S,H,hd); dt: (B,S,H) fp32; A: (H,)
     fp32; B/C: (B,S,G,N) read in place per group.  Returns y (B,S,H,hd) and,
     if ``return_state``, the final state (B,H,hd,N) fp32."""
-    _check_impl(impl)
-    if impl == "kernel" or (impl == "auto" and x.is_cuda):
+    if _on_kernel(impl, x):
         return ssd_scan(x, dt, A, Bmat, Cmat, initial_state=initial_state,
                         return_state=return_state)
     return ssd_scan_plain(x, dt, A, Bmat, Cmat, initial_state=initial_state,
                           return_state=return_state)
+
+
+def reduce_shards(shards: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Sum of N stacked shards, ``(..., N, L) -> (..., L)``, in fp32 with the
+    fixed pairwise tree, cast to the shards' dtype."""
+    if _on_kernel(impl, shards):
+        return tree_reduce(shards)
+    return tree_reduce_plain(shards)
+
+
+def quantize(x: torch.Tensor, block: int = 1024, *, return_error: bool = False,
+             impl: str = "auto"):
+    """Blockwise int8 of each row of ``(..., n)``: ``(q, scales)``, and the
+    fp32 residual ``x - q * scale`` as a third output if ``return_error``."""
+    if _on_kernel(impl, x):
+        return _quantize(x, block, return_error=return_error)
+    return quantize_plain(x, block, return_error=return_error)
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int = 1024, *,
+               out_dtype: torch.dtype = torch.float32, impl: str = "auto"):
+    """``q * scale`` per block of each row, in ``out_dtype``."""
+    if _on_kernel(impl, q):
+        return _dequantize(q, scales, block, out_dtype=out_dtype)
+    return dequantize_plain(q, scales, block, out_dtype=out_dtype)

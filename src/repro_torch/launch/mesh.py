@@ -1,0 +1,240 @@
+"""Meshes for the gradient synchroniser, and FRED's device placement.
+
+Counterpart of ``repro.launch.mesh``.  A JAX mesh is an array of devices that
+``shard_map`` runs one program over.  The port has two meshes, each with its
+own transport, and the caller chooses between them; nothing here switches
+transport on what it finds:
+
+* ``make_mesh(shape, axes, device=)`` — a ``StackedMesh``: every replica lives
+  on one device as a leading dimension of the tensors.  Exchanging or
+  gathering shards across an axis is a strided view; each combine is then one
+  kernel launch over all replicas at once.
+* ``make_dist_mesh(shape, axes)`` — a ``DistMesh``: each replica is a
+  ``torch.distributed`` rank, with a process group for every set of axes.
+  Exchanging is ``all_to_all_single``, gathering ``all_gather_into_tensor``.
+
+``parallel.collectives`` writes its schedules once over the interface the two
+share.  A *local* tensor is what one replica holds, flat: ``(n,)`` on a
+``DistMesh``; on a ``StackedMesh`` ``lead + (n,)`` with one leading dimension
+per mesh axis (in mesh order), of the axis's size where replicas differ along
+it and of size 1 where they are equal (replicated), so broadcasting keeps
+replicated values once.  On both, the group index of a rank over a set of axes
+is row-major over those axes in mesh order.
+
+``fred_device_order`` is the port's own copy of the JAX function (NumPy
+only).  ``make_production_mesh`` and the rest of the sharding layer come with
+a later slice.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models.modules import resolve_device
+
+
+def fred_device_order(n_devices: int, mp: int, dp: int, pp: int) -> np.ndarray:
+    """FRED placement: worker (m, d, p) → physical NPU index.
+
+    Workers of the same MP group sit on consecutive devices; MP groups of
+    the same PP stage follow; DP replicas iterate outermost (paper Sec. V:
+    "map the training workers within the same MP group on consecutive
+    physical NPUs followed by iterating over workers within PP and DP").
+
+    Returns an (mp, dp, pp) → device-id array.
+    """
+    if mp * dp * pp > n_devices:
+        raise ValueError(f"mp*dp*pp = {mp * dp * pp} exceeds {n_devices} devices")
+    order = np.zeros((mp, dp, pp), dtype=np.int64)
+    nid = 0
+    for d in range(dp):
+        for p in range(pp):
+            for m in range(mp):
+                order[m, d, p] = nid
+                nid += 1
+    return order
+
+
+class _Mesh:
+    """What both meshes know: named axes and their sizes."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], device):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes) or \
+                min(shape, default=0) < 1:
+            raise ValueError(f"need one positive size per distinct axis, got "
+                             f"shape {shape} axes {axes}")
+        self.axis_names = axes
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self.device = resolve_device(device)
+
+    def size(self, axes: Sequence[str]) -> int:
+        """Number of ranks in a group over ``axes``."""
+        return math.prod(self.shape[a] for a in axes)
+
+    def _sorted(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} are not in the mesh {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+
+class StackedMesh(_Mesh):
+    """Every replica on one device, stacked on a leading dimension."""
+
+    def rows(self, axes: Sequence[str]) -> int:
+        """Leading replica dimension of a stacked leaf synced over ``axes``."""
+        return self.size(axes)
+
+    def local(self, g: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """(R, ...) with R = size(axes), replica index row-major over ``axes``
+        in the order given → the local form ``lead + (n,)`` (a view)."""
+        if g.device != self.device:
+            raise ValueError(f"the mesh lives on {self.device}, a tensor on {g.device}")
+        sizes = [self.shape[a] for a in axes]
+        if g.dim() < 1 or g.shape[0] != math.prod(sizes):
+            raise ValueError(f"need a leading replica dimension of {math.prod(sizes)} "
+                             f"over {tuple(axes)}, got {tuple(g.shape)}")
+        x = g.reshape(*sizes, math.prod(g.shape[1:]))
+        x = x.permute(*sorted(range(len(axes)), key=lambda i: self.axis_names.index(axes[i])),
+                      len(axes))
+        return x.reshape(*(self.shape[a] if a in axes else 1 for a in self.axis_names),
+                         x.shape[-1])
+
+    def stacked(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """The local form → ``(R, m)``, replica index row-major over ``axes``
+        in the order given (the inverse of ``local``)."""
+        nl = len(self.axis_names)
+        x = x.expand(*(self.shape[a] if a in axes else 1 for a in self.axis_names),
+                     x.shape[-1])
+        in_mesh_order = self._sorted(axes)
+        x = x.reshape(*(self.shape[a] for a in in_mesh_order), x.shape[-1]) \
+            if len(in_mesh_order) < nl else x
+        x = x.permute(*(in_mesh_order.index(a) for a in axes), len(axes))
+        return x.reshape(self.size(axes), x.shape[-1])
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """A local tensor equal on every replica → one copy ``(m,)``."""
+        nl = len(self.axis_names)
+        if any(s != 1 for s in x.shape[:nl]):
+            raise ValueError(f"not replicated: leading dimensions {tuple(x.shape[:nl])}")
+        return x.reshape(x.shape[nl:])
+
+    def exchange(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """All-to-all over ``axes``: each rank's ``(G·s,)`` is G chunks, chunk
+        j for the rank of group index j.  Returns ``lead + (G, s)``: what
+        arrived, by sending rank.  A strided view of x."""
+        axes = self._sorted(axes)
+        nl, G = len(self.axis_names), self.size(axes)
+        if x.shape[-1] % G:
+            raise ValueError(f"exchange over {axes}: {x.shape[-1]} is not a multiple of {G}")
+        x = x.expand(*(self.shape[a] if a in axes else s
+                       for a, s in zip(self.axis_names, x.shape)), x.shape[-1])
+        x = x.reshape(*x.shape[:nl], *(self.shape[a] for a in axes), x.shape[-1] // G)
+        for j, a in enumerate(axes):        # sender's coordinate <-> chunk index
+            x = x.transpose(self.axis_names.index(a), nl + j)
+        return x.flatten(nl, nl + len(axes) - 1)
+
+    def gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """All-gather over ``axes``: ``lead + (m,)`` → ``lead' + (G, m)``, entry
+        j the value of the rank of group index j; ``lead'`` is 1 on ``axes``
+        (every rank of the group holds the same).  A strided view of x."""
+        axes = self._sorted(axes)
+        nl, k = len(self.axis_names), len(axes)
+        pos = [self.axis_names.index(a) for a in axes]
+        x = x.expand(*(self.shape[a] if a in axes else s
+                       for a, s in zip(self.axis_names, x.shape)), x.shape[-1])
+        x = x.movedim(pos, list(range(nl - k, nl))).flatten(nl - k, nl - 1)
+        for p in pos:
+            x = x.unsqueeze(p)
+        return x
+
+
+class DistMesh(_Mesh):
+    """One replica per ``torch.distributed`` rank; rank r has the mesh
+    coordinates of r row-major over the axes."""
+
+    def __init__(self, shape, axes, device):
+        super().__init__(shape, axes, device)
+        if not dist.is_initialized():
+            raise RuntimeError("make_dist_mesh needs torch.distributed.init_process_group first")
+        world = dist.get_world_size()
+        if world != math.prod(self.shape.values()):
+            raise ValueError(f"mesh {tuple(self.shape.values())} needs "
+                             f"{math.prod(self.shape.values())} ranks, the world has {world}")
+        self.rank = dist.get_rank()
+        grid = np.arange(world).reshape(tuple(self.shape.values()))
+        self.coords = dict(zip(self.axis_names, np.unravel_index(self.rank, grid.shape)))
+        # every rank creates every group, in one order (new_group is collective)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        for k in range(1, len(self.axis_names) + 1):
+            for axes_ in itertools.combinations(self.axis_names, k):
+                keep = [self.axis_names.index(a) for a in axes_]
+                moved = np.moveaxis(grid, keep, list(range(len(grid.shape) - k, len(grid.shape))))
+                for ranks in moved.reshape(-1, self.size(axes_)):
+                    group = dist.new_group([int(r) for r in ranks])
+                    if self.rank in ranks:
+                        self._groups[axes_] = group
+
+    def rows(self, axes: Sequence[str]) -> int:
+        """Leading replica dimension of this rank's block of a stacked leaf."""
+        return 1
+
+    def replica(self, axes: Sequence[str]) -> int:
+        """This rank's replica index, row-major over ``axes`` in the order
+        given: the row of a stacked tensor it holds."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + int(self.coords[a])
+        return idx
+
+    def local(self, g: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """(1, ...): this rank's block of a stacked leaf → ``(n,)``."""
+        if g.device != self.device:
+            raise ValueError(f"the mesh lives on {self.device}, a tensor on {g.device}")
+        if g.dim() < 1 or g.shape[0] != 1:
+            raise ValueError(f"need this rank's block (1, ...), got {tuple(g.shape)}")
+        return g.reshape(-1)
+
+    def stacked(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        return x.reshape(1, x.shape[-1])
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def exchange(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        axes = self._sorted(axes)
+        G = self.size(axes)
+        if x.shape[-1] % G:
+            raise ValueError(f"exchange over {axes}: {x.shape[-1]} is not a multiple of {G}")
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=self._groups[axes])
+        return out.view(G, -1)
+
+    def gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        axes = self._sorted(axes)
+        G = self.size(axes)
+        # the concatenated form: gloo does not take the stacked one
+        out = torch.empty(G * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=self._groups[axes])
+        return out.view((G,) + tuple(x.shape))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              device="cuda") -> StackedMesh:
+    """Every replica of the mesh on one device (the stacked transport)."""
+    return StackedMesh(shape, axes, device)
+
+
+def make_dist_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                   device="cuda") -> DistMesh:
+    """One replica per rank of the initialised ``torch.distributed`` world,
+    whose size must equal ``prod(shape)``; ``device`` is where this rank's
+    tensors live (the CPU for ``gloo``)."""
+    return DistMesh(shape, axes, device)

@@ -3,9 +3,12 @@
 ``flash_attention_plain`` (the plain PyTorch version that sits beside the
 CUDA kernel and repeats its arithmetic) against the Pallas kernel in
 interpret mode and against ``dense_attention``, on the same numpy inputs;
-``ops.attention`` against the JAX ``ops.attention``.  The CUDA kernel itself
-cannot run here: ``chip_smoke.py`` holds it against the plain version on the
-card.
+``ops.attention`` against the JAX ``ops.attention``.  Likewise the plain
+versions of the gradient-synchronisation kernels: ``tree_reduce_plain``
+against ``ref_reduce`` and the Pallas ``tree_reduce``, ``quantize_plain`` /
+``dequantize_plain`` against ``compress.quantize`` / ``dequantize`` and the
+Pallas ``quant8`` kernels, q bit for bit.  The CUDA kernels themselves cannot
+run here: ``chip_smoke.py`` holds them against the plain versions on the card.
 
 Tolerances are the reference's own (``tests/test_kernels.py::tol``): fp32
 atol 2e-5 / rtol 2e-4 (sums in another order), bf16 atol = rtol = 2e-2 (one
@@ -18,13 +21,21 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import quant8 as j_q8
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.reduce_tree import ref_reduce as j_ref_reduce
+from repro.kernels.reduce_tree import tree_reduce as j_tree_reduce
 from repro.models.attention import dense_attention as j_dense
+from repro.parallel import compress as j_compress
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.quant8 import (dequantize, dequantize_plain, quantize,
+                                        quantize_plain)
+from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain
 from repro_torch.models.attention import dense_attention
+from repro_torch.parallel import compress
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -164,7 +175,7 @@ def test_kernel_wrapper_rejects_window_before_anything_else():
 
 
 def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
-    assert build.sources() == ["flash_attention", "ssd_scan"]
+    assert build.sources() == ["flash_attention", "quant8", "reduce_tree", "ssd_scan"]
     assert (build.CSRC / "flash_attention.cu").is_file()
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
     text = (build.CSRC / "flash_attention.cu").read_text()
@@ -175,6 +186,188 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     # above 48 KB of shared memory a block needs the attribute raised
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd
     assert "src/repro/kernels/ssd_scan.py" in ssd
+    q8 = (build.CSRC / "quant8.cu").read_text()
+    for entry in ('extern "C" int quantize_fwd', 'extern "C" int dequantize_fwd'):
+        assert entry in q8
+    # the rounding points that make q and err bit-equal to the reference
+    for op in ("rintf(", "__fdiv_rn(", "__fsub_rn(", "__fmul_rn("):
+        assert op in q8, op
+    assert "floorf" not in q8.split("#include")[1]
+    assert "src/repro/kernels/quant8.py" in q8
+    rt = (build.CSRC / "reduce_tree.cu").read_text()
+    assert 'extern "C" int tree_reduce_fwd' in rt
+    assert "src/repro/kernels/reduce_tree.py" in rt
+    assert "--use_fast_math" not in build.NVCC_FLAGS
     # a source that does not exist is an error, not a silent fallback
     with pytest.raises(FileNotFoundError):
         build.load("no_such_kernel")
+
+
+# --------------------------------------------------------------------------
+# the gradient-synchronisation kernels: tree reduce, int8 quantize/dequantize
+# --------------------------------------------------------------------------
+
+def ref_reduce_rows(shards: torch.Tensor) -> torch.Tensor:
+    """``ref_reduce`` written out over a list of rows, as its text reads."""
+    rows = [r.float() for r in shards.unbind(0)]
+    while len(rows) > 1:
+        half = len(rows) // 2
+        rows = [rows[i] + rows[i + half] for i in range(half)] + rows[2 * half:]
+    return rows[0].to(shards.dtype)
+
+
+# the reference's sweep (tests/test_kernels.py) as (N, L, block)
+TREE_SWEEP = [(2, 100, 64), (7, 1000, 256), (16, 4096, 1024), (33, 513, 128)]
+
+
+@pytest.mark.parametrize("n,L,block", TREE_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_reduce_plain_matches_ref_reduce_and_pallas(n, L, block, dtype):
+    jd, td = DTYPES[dtype]
+    a = np.random.default_rng(n).standard_normal((n, L), np.float32) * 2
+    shards = torch.from_numpy(a).to(td)
+    out = tree_reduce_plain(shards)
+    assert out.dtype == td and tuple(out.shape) == (L,)
+    assert torch.equal(out, ref_reduce_rows(shards))          # same pairing, bit for bit
+    xj = jnp.asarray(a).astype(jd)
+    np.testing.assert_allclose(as_np(out), as_np(j_ref_reduce(xj)), **tol(dtype))
+    np.testing.assert_allclose(as_np(out), as_np(j_tree_reduce(xj, block=block)),
+                               **tol(dtype))
+    if dtype == "float32":
+        # the pairing is the reference's: IEEE adds in the same order
+        np.testing.assert_array_equal(as_np(out), as_np(j_ref_reduce(xj)))
+
+
+def test_tree_reduce_plain_batches_and_strided_views():
+    """(..., N, L): every leading index reduced on its own, also when the N
+    axis is a strided view (the stacked sync's (P, D_recv, D_src, s))."""
+    a = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 4, 4 * 9), np.float32))
+    view = a.view(2, 4, 4, 9).transpose(1, 2)                # (P, recv, src, s)
+    out = tree_reduce_plain(view)
+    assert tuple(out.shape) == (2, 4, 9)
+    for p in range(2):
+        for r in range(4):
+            assert torch.equal(out[p, r], ref_reduce_rows(view[p, r]))
+
+
+def make_quant_input(n, seed=7, scale=5.0):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32) * scale
+
+
+def tie_input(block=64):
+    """One block whose amax is exactly 127, so scale is exactly 1 and
+    x = k + 0.5 are exact ties of round(): half to even and floor(x + 0.5)
+    give different q."""
+    x = np.arange(block, dtype=np.float32) - block / 2 + 0.5
+    x[0] = 127.0
+    return x
+
+
+QUANT_CASES = [(100, 64), (5000, 512), (4096, 1024)]
+
+
+@pytest.mark.parametrize("n,block", QUANT_CASES + [("tie", 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_plain_bit_equal_to_jax(n, block, dtype):
+    jd, td = DTYPES[dtype]
+    a = tie_input(block) if n == "tie" else make_quant_input(n)
+    x_t = torch.from_numpy(a).to(td)
+    x_j = jnp.asarray(a).astype(jd)
+    q, s = quantize_plain(x_t, block)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    for qj, sj in (j_compress.quantize(x_j, block), j_q8.quantize(x_j, block)):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+        np.testing.assert_allclose(s.numpy(), np.asarray(sj), rtol=1e-6)
+    # jnp divides by 127 with IEEE rounding (the Pallas kernel in interpret
+    # mode multiplies by the reciprocal, hence the rtol above): so do we
+    np.testing.assert_array_equal(s.numpy(), np.asarray(j_compress.quantize(x_j, block)[1]))
+    amax = np.maximum(np.abs(np.pad(as_np(x_t), (0, -len(a) % block))).reshape(-1, block)
+                      .max(1), np.float32(1e-20))
+    np.testing.assert_array_equal(s.numpy(), amax / np.float32(127.0))
+    if n == "tie":
+        assert float(s[0]) == 1.0
+        body = a[1:]
+        assert np.array_equal(q.numpy()[1:], np.round(body).astype(np.int8))  # half to even
+        assert not np.array_equal(q.numpy()[1:], np.floor(body + 0.5).astype(np.int8))
+
+
+@pytest.mark.parametrize("n,block", QUANT_CASES)
+def test_ef_residual_and_dequantize_match_jax(n, block):
+    a = make_quant_input(n, seed=n)
+    x_t, x_j = torch.from_numpy(a), jnp.asarray(a)
+    q, s, err = compress.ef_quantize(x_t, block)
+    qj, sj, ej = j_compress.ef_quantize(x_j, block)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(err.numpy(), np.asarray(ej))
+    # dequantize of the same (q, scales) through all three routes
+    dq = dequantize_plain(q, s, block)
+    np.testing.assert_array_equal(dq.numpy(), np.asarray(j_compress.dequantize(qj, sj, block)))
+    np.testing.assert_array_equal(dq.numpy(), np.asarray(j_q8.dequantize(qj, sj, block)))
+    bf = dequantize_plain(q, s, block, out_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(
+        as_np(bf), as_np(j_q8.dequantize(qj, sj, block, out_dtype=jnp.bfloat16)))
+    # the quantization error is at most half a quantum per block
+    assert float((dq - x_t).abs().max()) <= float(s.max()) * 0.51
+    assert torch.equal(err, x_t - dq)
+
+
+def test_quantize_plain_rows_are_separate_jax_calls():
+    """A 2-D input (rows, n): each row pads and starts its blocks on its own."""
+    a = np.stack([make_quant_input(300, seed=s, scale=1.0 + s) for s in range(3)])
+    q, s, err = quantize_plain(torch.from_numpy(a), 128, return_error=True)
+    assert tuple(q.shape) == (3, 300) and tuple(s.shape) == (3, 3)
+    for r in range(3):
+        qj, sj, ej = j_compress.ef_quantize(jnp.asarray(a[r]), 128)
+        np.testing.assert_array_equal(q[r].numpy(), np.asarray(qj))
+        np.testing.assert_allclose(s[r].numpy(), np.asarray(sj), rtol=1e-6)
+        np.testing.assert_array_equal(err[r].numpy(), np.asarray(ej))
+    # a strided view of the same rows gives the same result
+    wide = torch.zeros(3, 2, 300)
+    wide[:, 1] = torch.from_numpy(a)
+    q2, s2 = quantize_plain(wide[:, 1], 128)
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+    assert torch.equal(dequantize_plain(q, s, 128), torch.stack(
+        [dequantize_plain(q[r], s[r], 128) for r in range(3)]))
+
+
+def test_compression_ratio_matches_jax():
+    for n, block in [(1, 1024), (4097, 1024), (10 ** 6, 512)]:
+        assert compress.compression_ratio(n, block) == j_compress.compression_ratio(n, block)
+    assert compress.BLOCK == j_compress.BLOCK
+
+
+def test_sync_kernels_dispatch_by_device_and_never_fall_back():
+    x = torch.from_numpy(make_quant_input(300))
+    shards = x.view(3, 100)
+    before = (tree_reduce.launches, quantize.launches, dequantize.launches)
+    assert torch.equal(ops.reduce_shards(shards), tree_reduce_plain(shards))
+    q, s = ops.quantize(x, 64)
+    assert torch.equal(q, quantize_plain(x, 64)[0])
+    assert torch.equal(ops.dequantize(q, s, 64), dequantize_plain(q, s, 64))
+    assert (tree_reduce.launches, quantize.launches, dequantize.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.reduce_shards(shards, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.quantize(x, 64, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.dequantize(q, s, 64, impl="kernel")
+    with pytest.raises(ValueError, match="impl"):
+        ops.reduce_shards(shards, impl="pallas")
+    with pytest.raises(ValueError, match="match"):
+        dequantize_plain(q, s[:-1], 64)
+    assert (tree_reduce.launches, quantize.launches, dequantize.launches) == before
+
+
+def test_batch3_merges_views_and_refuses_more_than_three_dimensions():
+    t = torch.zeros(2, 4, 4, 9).transpose(1, 2)               # (2, 4, 4) batch of a view
+    assert build.batch3(t.shape[:-1], t.stride()[:-1], what="t") == \
+        ([2, 4, 4], [144, 9, 36])
+    c = torch.zeros(2, 3, 5, 7)
+    assert build.batch3(c.shape[:-1], c.stride()[:-1], what="c") == ([1, 1, 30], [0, 0, 7])
+    # two tensors indexed by one batch merge only where both can
+    q, s = torch.zeros(4, 2, 8), torch.zeros(2, 4, 1).transpose(0, 1)
+    assert build.batch3(q.shape[:-1], q.stride()[:-1], s.stride()[:-1], what="qs") == \
+        ([1, 4, 2], [0, 16, 8], [0, 1, 4])
+    odd = torch.zeros(2, 3, 2, 3, 5)[:, :, :, :, :1].permute(3, 1, 0, 2, 4)
+    with pytest.raises(ValueError, match="three"):
+        build.batch3(odd.shape[:-1], odd.stride()[:-1], what="odd")
