@@ -18,10 +18,12 @@ Phases:
   env      torch / CUDA versions, the card's name and power limit
   build    nvcc on every ``src/repro_torch/csrc/*.cu`` (all started together)
   kernels  flash_attention against flash_attention_plain: a sweep of small
-           shapes and the parity phase's shape, then the serving prefill
-           shape (peaked and near-uniform softmax) with timings; ssd_scan
-           against ssd_scan_plain: the reference's sweep (fp32 / bf16, with
-           and without an initial state), strided slices of one conv output,
+           shapes, ragged shapes at each head dim and the parity phase's
+           shape, then the serving prefill shape (peaked and near-uniform
+           softmax) with timings; ssd_scan against ssd_scan_plain: the
+           reference's sweep and two shapes at the bf16 kernel's tile edges
+           (fp32 / bf16, with and without an initial state), strided slices
+           of one conv output,
            then mamba2's and zamba2's serving prefill shapes, y and the final
            state, with timings; tree_reduce, quantize and dequantize bit for
            bit against their plain versions: the reference's sweeps in fp32
@@ -91,12 +93,16 @@ PHASES = ("env", "build", "kernels", "parity", "serve", "sync")
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
                   causal=True)
-# the reference's sweep (tests/test_kernels.py) as (B, Sq, Sk, Hq, Hkv, hd)
+# the reference's sweep (tests/test_kernels.py) as (B, Sq, Sk, Hq, Hkv, hd),
+# plus the parity phase's shape and ragged cases
 SWEEP = [(1, 64, 64, 1, 1, 64), (2, 128, 128, 4, 4, 64),
          (1, 200, 200, 2, 2, 80), (2, 96, 96, 8, 8, 128),
          (2, 72, 200, 4, 2, 64),        # Sq != Sk, grouped KV heads
          (1, 300, 130, 6, 2, 128),      # Sq > Sk: rows past the last key
-         (2, 640, 640, 32, 8, 64)]      # what the parity phase's prefill launches
+         (2, 640, 640, 32, 8, 64),      # what the parity phase's prefill launches
+         # ragged against the bf16 kernel's 128-row q tiles and 128-key kv tiles,
+         # at each head dim (hd 80: a zero-filled second TMA box; hd 128: two boxes)
+         (1, 1000, 1000, 8, 2, 64), (1, 333, 333, 4, 4, 80), (1, 257, 257, 4, 2, 128)]
 
 
 def tol(dtype):
@@ -116,13 +122,20 @@ MAIN_TOL = dict(atol=1e-3, rtol=2e-2)
 MAIN_ROW_REL_TOL = 5e-2
 
 # the SSD scan: the reference's sweep (tests/test_kernels.py) as
-# (B, S, H, hd, N, G), then the serving prefill shapes (8 requests padded to
+# (B, S, H, hd, N, G) and two cases at the bf16 kernel's tile edges, then the
+# serving prefill shapes (8 requests padded to
 # 2048 tokens) of mamba2-1.3b (the main path) and of zamba2-2.7b's Mamba2 layers
-SSD_SWEEP = [(2, S, 4, 16, 8, G) for S in (64, 100, 96) for G in (1, 2)]
+SSD_SWEEP = [(2, S, 4, 16, 8, G) for S in (64, 100, 96) for G in (1, 2)] + [
+    # the bf16 kernel's tile edges: hd 64 split over two blocks, N 128 and 64,
+    # a ragged last chunk (200 = 3 x 64 + 8, 130 = 2 x 64 + 2), two groups
+    (2, 200, 4, 64, 128, 1), (2, 130, 4, 32, 64, 2)]
 SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
-# Kernel and plain version both compute in fp32 from the same inputs, in
-# another order, so the final state (fp32 in both) agrees to fp32 rounding and
-# y differs by at most one rounding to x's dtype: in bf16 at most one ulp
+# Kernel and plain version compute from the same inputs, in another order: the
+# fp32 kernel in fp32, the bf16 kernel on the tensor cores with every operand
+# that is not an exact bf16 input (M, w.x, the carried state) split into two
+# bf16 halves, about 16 mantissa bits, with fp32 sums.  So the final state (fp32
+# in both) agrees to about 2^-16 of its size, well inside SSD_STATE_TOL, and
+# y differs by about one rounding to x's dtype: in bf16 at most one ulp
 # (2^-8 of the value), so a row's largest error is at most 2^-8 * 8 = 0.03 of
 # the row's rms (hd 64).  A state update left out of one chunk moves the next
 # chunk's first rows by about their own size.
@@ -411,6 +424,19 @@ def kernels_ssd(dev):
     args = make_ssd(14, 2, 100, 4, 16, 8, 2, torch.float32, dev)
     if not torch.equal(ssd_scan(*args[:5]), ssd_scan(*args[:5], return_state=True)[0]):
         raise AssertionError("ssd_scan: y depends on return_state")
+    # x, B and C as slices of a conv output one element wider, so no row is
+    # 16-byte aligned: the bf16 kernel loads them element by element
+    x, dt, A, Bm, Cm, _ = make_ssd(15, 2, 150, 4, 64, 64, 1, torch.bfloat16, dev, served=True)
+    wide = torch.cat([torch.zeros_like(x[..., 0, :1]), x.flatten(-2), Bm.flatten(-2),
+                      Cm.flatten(-2)], dim=-1)
+    x, Bm, Cm = (wide[..., a:b].unflatten(-1, (-1, n))
+                 for a, b, n in ((1, 257, 64), (257, 321, 64), (321, 385, 64)))
+    y, hT = ssd_scan(x, dt, A, Bm, Cm, return_state=True)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssd_scan_plain(x, dt, A, Bm, Cm, return_state=True)
+    check_close("ssd_scan unaligned rows y", y, y_ref, **tol(torch.bfloat16))
+    check_close("ssd_scan unaligned rows final state", hT, h_ref, **SSD_STATE_TOL)
+    n_cases += 1
 
     served = {}
     for arch in SSD_SERVED:

@@ -13,28 +13,46 @@
 // parallel and nothing carries between them: one thread block owns one
 // (batch, head, q tile), loops over the kv tiles itself and keeps m, l and the
 // accumulator in registers.  The kernel reads (B, S, H, hd) tensors through
-// their strides, so the wrapper makes no transposed or padded copies; the
-// ragged tail of Sq and Sk is masked here (rows past the end are loaded as
-// zeros and never stored).  Grouped-query attention reads KV head
-// h / (Hq / Hkv) directly instead of repeating K and V in memory.  With a
-// causal mask the loop stops at the diagonal: a fully masked tile would add
-// exp(-1e30 - m) = 0, so the result is the same as visiting every tile.
+// their strides, so the wrapper makes no transposed or padded copies.
+// Grouped-query attention reads KV head h / (Hq / Hkv) directly instead of
+// repeating K and V in memory.  With a causal mask the loop stops at the
+// diagonal: a fully masked tile would add exp(-1e30 - m) = 0, so the result is
+// the same as visiting every tile.
 //
 // What bounds it on this card.  At the serving prefill shape (B 8, S 2048,
 // 32 query heads, 8 KV heads, hd 64, bf16, causal) the work is 137 GFLOP on
 // 168 MB of q, k, v, o: about 820 operations per byte, far above the ~295
 // where an H100 turns from memory- to tensor-core-bound.  So the bound is
-// operations, and the design question is how the two products reach the tensor
-// cores:
-//   * bf16: both products are `mma.sync.m16n8k16` (bf16 operands, fp32
-//     accumulate).  A block is 4 warps x 16 query rows against 64-key tiles.
-//     Q fragments stay in registers for the whole loop; the score tile never
-//     leaves registers: the accumulator layout of Q.K^T is re-packed in place
-//     as the A operand of P.V.  K and V tiles are staged in shared memory with
-//     rows padded by 16 bytes so fragment loads hit distinct banks; V fragments
-//     come through `ldmatrix.trans`.  Softmax uses exp2 with the scale folded
-//     in.  `wgmma`, TMA and a load/compute pipeline are what is left on the
-//     table.
+// operations (0.139 ms at 989 TFLOP/s), and the design is about keeping the
+// tensor cores fed:
+//   * bf16, every head dim (64, 80, 128): warp-specialised.  A block of 384
+//     threads owns 128 query rows: warpgroups 0 and 1 (64 rows each) compute,
+//     one thread of warpgroup 2 issues TMA loads.  Q is loaded once; K and V
+//     come in 128-key tiles through a ring of 3 stages (hd 64) or 2 (hd 80,
+//     128) guarded by full / free mbarriers, so the next tiles load while this
+//     one is multiplied.  The 4-D tensor maps (hd, H, S, B) are built per call
+//     from the strides (rows 16-byte aligned, as the wrapper checks) with the
+//     128-byte swizzle; a row longer than 128 bytes is two boxes of 64
+//     columns, and hd 80's second box is zero-filled past column 80 (those
+//     columns add zeros to Q.K^T and are never stored).  TMA zero-fills rows
+//     past S; keys past Sk are still masked to -1e30 here, not left at 0.
+//     S = Q.K^T is `wgmma` m64n128k16 with both operands in shared memory;
+//     the online softmax runs in registers (exp2, scale folded in, the mask
+//     only on the diagonal and ragged tiles); P is rounded to bf16 in
+//     registers and is the register A operand of O += P.V (`wgmma` m64n64k16
+//     per 64 columns of hd), V read through the transposed (MN-major)
+//     descriptor.  Tile t's Q.K^T is issued together with tile t-1's P.V, so
+//     a warpgroup's softmax overlaps its own P.V, and named barriers make the
+//     two warpgroups take turns issuing, so that one's softmax overlaps the
+//     other's products.  P alternates between two register sets: a register
+//     rewritten while a wgmma may read it makes ptxas serialise every wgmma
+//     (warning C7513).  setmaxnreg moves registers from the producer (40) to
+//     the consumers (232).  The output is staged in shared memory and
+//     written with 16-byte stores of the rows < Sq.  The grid is one
+//     persistent block per SM that walks (batch, head, q tile) items, long
+//     (late) q tiles first: Q and the K/V ring run on from one item into the
+//     next, so an item's last products and its epilogue overlap the next
+//     item's loads instead of leaving the SM idle between blocks.
 //   * fp32: full fp32 FMAs, no TF32, because the reference's fp32 tolerance
 //     (2e-5) does not survive a 10-bit mantissa.  A warp owns 4 query rows;
 //     lanes split the 32 keys of a tile for the scores and the head dimension
@@ -43,8 +61,11 @@
 //
 // Plain C interface (no PyTorch headers): the wrapper in
 // repro_torch/kernels/flash_attention.py passes raw pointers, element strides
-// and the stream, and raises on a non-zero return.
+// and the stream, and raises on a non-zero return.  The TMA encoder,
+// cuTensorMapEncodeTiled, lives in libcuda; it is fetched through the runtime's
+// cudaGetDriverEntryPoint, so the library links against the runtime alone.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +98,7 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q_last, int bn) {
   }
   return n;
 }
+
 
 // ---------------------------------------------------------------------------
 // fp32: plain FMA
@@ -214,220 +236,572 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor-core products, fp32 softmax
+// bf16: TMA + mbarrier ring + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kBM = 128;        // query rows of a block: two consumer warpgroups of 64
+constexpr int kBN = 128;        // keys of a K/V tile
+constexpr int kThreadsBf16 = 384;  // warpgroups 0, 1 consume; warpgroup 2 produces
+
+template <int HD>
+struct Cfg {
+  static constexpr int NCH = (HD + 63) / 64;        // 64-column (128-byte) chunks of a row
+  static constexpr int KSTEPS = HD / 16;            // k16 steps of Q.K^T (hd 80: 5)
+  static constexpr int STAGES = NCH == 1 ? 3 : 2;   // K/V ring depth
+  static constexpr int Q_CHUNK = kBM * 128;         // bytes of one chunk of the Q tile
+  static constexpr int KV_CHUNK = kBN * 128;        // bytes of one chunk of a K or V tile
+  static constexpr int Q_BYTES = NCH * Q_CHUNK;
+  static constexpr int KV_BYTES = NCH * KV_CHUNK;
+  static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // Q, O, K, V + slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared memory.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile written by TMA with the 128-byte
+// swizzle: rows of 128 bytes, 8-row (1024-byte) swizzle atoms.  The tile must
+// start on a 1024-byte boundary; a k16 step inside the row advances the start
+// address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an in-flight wgmma reads or writes: keep the compiler from
+// moving their uses across the wait, or reusing them before it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+
+// S(64 x 128) (+)= A(64 x 16, shared) . B(128 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O(64 x 64) += A(64 x 16, registers) . B(16 x 64, shared, MN-major: rows of V)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : F16(0), F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F4
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Named barriers 3 and 4 order the two consumer warpgroups' products: a
+// warpgroup issues its wgmma batch only after the other has issued its own, so
+// one warpgroup's softmax runs while the other's products occupy the tensor
+// cores.  bar.sync waits for 256 threads: its own 128 and the other's arrive.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Running max (raw scores) and denominators of a thread's two rows.
+struct Rows {
+  float m_lo, m_hi, l_lo, l_hi;
+};
+
+// S = Q.K^T for one warpgroup: 64 x 128, both operands from shared memory.
 template <int HD>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
-  constexpr int BM = 64, BN = 64;
-  constexpr int LD = HD + 8;     // row stride in bf16: rows stay 16-byte aligned, banks distinct
-  constexpr int KT = HD / 16;    // k steps of Q.K^T
-  constexpr int DT = HD / 8;     // 8-wide output column tiles of P.V
-  constexpr int NT = BN / 8;     // 8-wide key column tiles of the scores
-  constexpr int CH = HD / 8;     // 16-byte chunks per row
-
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LD];  // also stages Q once
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * LD];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // long (late) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int q0 = qt * BM;
-
-  const __nv_bfloat16* qp = (const __nv_bfloat16*)p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp = (const __nv_bfloat16*)p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vp = (const __nv_bfloat16*)p.v + b * p.v_sb + hk * p.v_sh;
-  __nv_bfloat16* op = (__nv_bfloat16*)p.o + b * p.o_sb + h * p.o_sh;
-
-  // Q tile -> shared memory -> A fragments in registers, kept for the whole loop
-  for (int c = tid; c < BM * CH; c += 128) {
-    int r = c / CH, cc = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Sq) val = *(const uint4*)(qp + (long long)(q0 + r) * p.q_ss + cc * 8);
-    *(uint4*)&Ks[r * LD + cc * 8] = val;
-  }
-  __syncthreads();
-  uint32_t qa[KT][4];
-  {
-    const __nv_bfloat16* base = &Ks[(warp * 16 + g) * LD + t4 * 2];
+__device__ __forceinline__ void issue_qk(float (&sc)[64], const uint8_t* q, const uint8_t* k) {
+  using C = Cfg<HD>;
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      qa[kt][0] = *(const uint32_t*)(base + kt * 16);
-      qa[kt][1] = *(const uint32_t*)(base + 8 * LD + kt * 16);
-      qa[kt][2] = *(const uint32_t*)(base + kt * 16 + 8);
-      qa[kt][3] = *(const uint32_t*)(base + 8 * LD + kt * 16 + 8);
-    }
-  }
-
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  // rows g and g + 8 of the warp's 16; l is this thread's partial sum (its 16 columns per tile)
-  float m_lo = kMasked, m_hi = kMasked, l_lo = 0.f, l_hi = 0.f;
-
-  const float c2 = p.scale * 1.4426950408889634f;  // scores in units of log2
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const int q_last = min(q0 + BM, p.Sq) - 1;
-  const int n_tiles = kv_tiles(p, q_last, BN);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();  // everyone is done with the previous tile (or with Q in Ks)
-    for (int c = tid; c < BN * CH; c += 128) {
-      int r = c / CH, cc = c % CH;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < p.Sk) {
-        kv = *(const uint4*)(kp + (long long)(k0 + r) * p.k_ss + cc * 8);
-        vv = *(const uint4*)(vp + (long long)(k0 + r) * p.v_ss + cc * 8);
-      }
-      *(uint4*)&Ks[r * LD + cc * 8] = kv;
-      *(uint4*)&Vs[r * LD + cc * 8] = vv;
-    }
-    __syncthreads();
-
-    // S = Q . K^T  (16 x 64 per warp)
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kb = &Ks[(nt * 8 + g) * LD + t4 * 2];
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        const uint32_t b0 = *(const uint32_t*)(kb + kt * 16);
-        const uint32_t b1 = *(const uint32_t*)(kb + kt * 16 + 8);
-        mma_bf16(s[nt], qa[kt], b0, b1);
-      }
-    }
-
-    // scale into log2 units and mask; only tiles on the diagonal or the tail need the test
-    const bool edge = (k0 + BN > p.Sk) || (p.causal && k0 + BN - 1 > q0 + warp * 16);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sv = s[nt][i] * c2;
-        if (edge) {
-          const int col = k0 + nt * 8 + t4 * 2 + (i & 1);
-          const int row = (i < 2) ? row_lo : row_hi;
-          const bool ok = col < p.Sk && (!p.causal || col <= row);
-          sv = ok ? sv : kMasked;
-        }
-        s[nt][i] = sv;
-      }
-    }
-
-    // online softmax; a row lives in the 4 lanes of a quad
-    float mx_lo = kMasked, mx_hi = kMasked;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn_lo);
-      s[nt][1] = exp2f(s[nt][1] - mn_lo);
-      s[nt][2] = exp2f(s[nt][2] - mn_hi);
-      s[nt][3] = exp2f(s[nt][3] - mn_hi);
-      sum_lo += s[nt][0] + s[nt][1];
-      sum_hi += s[nt][2] + s[nt][3];
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= corr_lo;
-      o[dt][1] *= corr_lo;
-      o[dt][2] *= corr_hi;
-      o[dt][3] *= corr_hi;
-    }
-
-    // O += P . V : two neighbouring 8-wide score tiles are one 16-deep A fragment
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // lane -> key row kk*16 + lane%16, head-dim column (lane/16)*8 of the pair of tiles
-      const __nv_bfloat16* vb = &Vs[(kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8];
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + dt * 8);
-        mma_bf16(o[dt], pa, vf[0], vf[1]);
-        mma_bf16(o[dt + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-  // finish the row sums across the quad, normalise, store
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row_lo < p.Sq)
-      *(uint32_t*)(op + (long long)row_lo * p.o_ss + col) =
-          pack_bf16(o[dt][0] * inv_lo, o[dt][1] * inv_lo);
-    if (row_hi < p.Sq)
-      *(uint32_t*)(op + (long long)row_hi * p.o_ss + col) =
-          pack_bf16(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;
+    wgmma_m64n128k16_ss(sc, sw128_desc(q + c * C::Q_CHUNK + off, 16, 1024),
+                        sw128_desc(k + c * C::KV_CHUNK + off, 16, 1024), kk > 0);
   }
 }
 
-template <int HD>
-void launch(const Params& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
-    dim3 grid((p.Sq + 63) / 64, p.Hq, p.B);
-    flash_fwd_bf16<HD><<<grid, 128, 0, stream>>>(p);
-  } else {
-    dim3 grid((p.Sq + 15) / 16, p.Hq, p.B);
-    flash_fwd_f32<HD><<<grid, 128, 0, stream>>>(p);
+// O += P.V: V's rows (keys) are the k dimension, read through the transposed
+// descriptor; one m64n64k16 per 64 columns of hd and 16 keys.
+template <int NCH>
+__device__ __forceinline__ void issue_pv(float (&o)[NCH][32], const uint32_t (&pa)[8][4],
+                                         const uint8_t* v) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      wgmma_m64n64k16_rs(o[c], pa[kk], sw128_desc(v + c * kBN * 128 + kk * 2048, 1024, 1024));
+}
+
+// Scores of keys past Sk, and above the diagonal if causal, become -1e30;
+// only the diagonal tile and the ragged tail have any.
+__device__ __forceinline__ void mask_tile(float (&sc)[64], int k0, int row_lo, int row_hi,
+                                          int warp_row0, int t4, const Params& p) {
+  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+    const int row = (i & 2) ? row_hi : row_lo;
+    if (col >= p.Sk || (p.causal && col > row)) sc[i] = kMasked;
   }
+}
+
+// One online-softmax step on a thread's 64 scores (rows lo and hi, 16 n8
+// tiles); a row lives in the 4 lanes of a quad.  Writes P as bf16 A
+// fragments, updates the running max and denominators, and returns in corr_*
+// the factors for the old accumulator rows.  Partial maxima and sums are
+// taken four ways to shorten the dependency chains.
+__device__ __forceinline__ void softmax_tile(const float (&sc)[64], uint32_t (&pa)[8][4],
+                                             Rows& r, float& corr_lo, float& corr_hi,
+                                             float c2) {
+  float ml[4], mh[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ml[j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+    mh[j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+#pragma unroll
+  for (int nt = 4; nt < 16; ++nt) {
+    ml[nt & 3] = fmaxf(ml[nt & 3], fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+    mh[nt & 3] = fmaxf(mh[nt & 3], fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+  }
+  float mx_lo = fmaxf(fmaxf(ml[0], ml[1]), fmaxf(ml[2], ml[3]));
+  float mx_hi = fmaxf(fmaxf(mh[0], mh[1]), fmaxf(mh[2], mh[3]));
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  const float mn_lo = fmaxf(r.m_lo, mx_lo), mn_hi = fmaxf(r.m_hi, mx_hi);
+  corr_lo = ex2((r.m_lo - mn_lo) * c2);
+  corr_hi = ex2((r.m_hi - mn_hi) * c2);
+  r.m_lo = mn_lo;
+  r.m_hi = mn_hi;
+  const float bl = -mn_lo * c2, bh = -mn_hi * c2;
+  float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float p0 = ex2(fmaf(sc[4 * nt], c2, bl)), p1 = ex2(fmaf(sc[4 * nt + 1], c2, bl));
+    const float p2 = ex2(fmaf(sc[4 * nt + 2], c2, bh)), p3 = ex2(fmaf(sc[4 * nt + 3], c2, bh));
+    sl[nt & 3] += p0 + p1;
+    sh[nt & 3] += p2 + p3;
+    pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  r.l_lo = r.l_lo * corr_lo + ((sl[0] + sl[1]) + (sl[2] + sl[3]));
+  r.l_hi = r.l_hi * corr_hi + ((sh[0] + sh[1]) + (sh[2] + sh[3]));
+}
+
+// A block's work items, (batch, head, 128-row q tile), numbered long (late)
+// q tiles first and, within a q tile, the heads of one KV group together.
+struct Item {
+  int b, h, q0;
+};
+__device__ __forceinline__ Item item_of(const Params& p, int i, int n_qt) {
+  const int bh = p.B * p.Hq, rem = i % bh;
+  return {rem / p.Hq, rem % p.Hq, (n_qt - 1 - i / bh) * kBM};
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Cfg<HD>;
+  constexpr int NCH = C::NCH, STAGES = C::STAGES;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_qfree;
+  __shared__ __align__(8) uint64_t bar_k[STAGES], bar_v[STAGES], bar_free[STAGES];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                              // [NCH][128 rows][128 B]
+  uint8_t* sO = sQ + C::Q_BYTES;                   // the output tile, staged (same layout)
+  uint8_t* sK = sO + C::Q_BYTES;                   // [STAGES][NCH][128 keys][128 B]
+  uint8_t* sV = sK + STAGES * C::KV_BYTES;         // same
+
+  const int n_qt = (p.Sq + kBM - 1) / kBM;
+  const int n_items = n_qt * p.B * p.Hq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_qfree, 8);                      // lane 0 of every consumer warp
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The block is persistent: it walks items blockIdx.x, + gridDim.x, ...; kv
+  // tiles are numbered across items (`it`), so the ring runs on from one item
+  // into the next and the next item's Q and first tiles load while this one
+  // finishes.
+  if (warp >= 8) {
+    // ---- producer: one thread keeps Q and the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int it = 0, k = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++k) {
+        const Item w = item_of(p, i, n_qt);
+        const int hk = w.h / (p.Hq / p.Hkv);
+        const int n_tiles = kv_tiles(p, min(w.q0 + kBM, p.Sq) - 1, kBN);
+        if (k > 0) mbar_wait(&bar_qfree, (k - 1) & 1);   // the last item's Q.K^T are done
+        mbar_expect_tx(&bar_q, C::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load_4d(sQ + c * C::Q_CHUNK, &tq, &bar_q, c * 64, w.h, w.q0, w.b);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&bar_free[s], ((it / STAGES) - 1) & 1);
+          uint8_t* dk = sK + s * C::KV_BYTES;
+          uint8_t* dv = sV + s * C::KV_BYTES;
+          mbar_expect_tx(&bar_k[s], C::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            tma_load_4d(dk + c * C::KV_CHUNK, &tk, &bar_k[s], c * 64, hk, t * kBN, w.b);
+          mbar_expect_tx(&bar_v[s], C::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            tma_load_4d(dv + c * C::KV_CHUNK, &tv, &bar_v[s], c * 64, hk, t * kBN, w.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, w4 = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float c2 = p.scale * 1.4426950408889634f;  // scores in units of log2
+    float o[NCH][32];
+    float sc[64];
+    uint32_t pa[8][4], pb[8][4];       // P of two consecutive tiles, bf16 A fragments
+    int it = 0, k = 0;
+
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++k) {
+      const Item w = item_of(p, i, n_qt);
+      const int n_tiles = kv_tiles(p, min(w.q0 + kBM, p.Sq) - 1, kBN);
+      const int warp_row0 = w.q0 + wg * 64 + w4 * 16;
+      const int row_lo = warp_row0 + g, row_hi = row_lo + 8;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) o[c][j] = 0.f;
+      Rows r{kMasked, kMasked, 0.f, 0.f};
+      float corr_lo, corr_hi;
+      auto release_q = [&]() {         // this warp has done its last Q.K^T of the item
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bar_qfree);
+      };
+
+      // Tile t's S = Q.K^T is issued together with tile t-1's O += P.V; the
+      // softmax of tile t then runs while P.V is still on the tensor cores.
+      // Turns: warpgroup 0 goes first; each of the n_tiles + 1 batches below
+      // waits for its turn and passes it on, except warpgroup 1's last.
+      if (wg == 1) turn_pass(wg);
+      mbar_wait(&bar_q, k & 1);
+      mbar_wait(&bar_k[it % STAGES], (it / STAGES) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_qk<HD>(sc, sQ + wg * 8192, sK + (it % STAGES) * C::KV_BYTES);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      reg_fence(sc);
+      if (n_tiles == 1) release_q();
+      mask_tile(sc, 0, row_lo, row_hi, warp_row0, t4, p);
+      softmax_tile(sc, pa, r, corr_lo, corr_hi, c2);
+
+      // One kv tile t >= 1.  P of tile t-1 is read from `pin` while P of tile
+      // t is written to `pout`: the two alternate, so no register is redefined
+      // while a wgmma reads it.
+      auto step = [&](int t, uint32_t(&pin)[8][4], uint32_t(&pout)[8][4]) {
+        const int n = it + t, s = n % STAGES, sp = (n - 1) % STAGES;
+        mbar_wait(&bar_k[s], (n / STAGES) & 1);
+        mbar_wait(&bar_v[sp], ((n - 1) / STAGES) & 1);
+        reg_fence(sc);
+        reg_fence(pin);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) reg_fence(o[c]);
+        turn_wait(wg);
+        wgmma_fence();
+        issue_qk<HD>(sc, sQ + wg * 8192, sK + s * C::KV_BYTES);
+        wgmma_commit();
+        issue_pv<NCH>(o, pin, sV + sp * C::KV_BYTES);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();               // S of tile t is in
+        reg_fence(sc);
+        if (t == n_tiles - 1) release_q();
+        mask_tile(sc, t * kBN, row_lo, row_hi, warp_row0, t4, p);
+        softmax_tile(sc, pout, r, corr_lo, corr_hi, c2);
+        wgmma_wait<0>();               // P.V of tile t-1 is done: stage sp is free
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) reg_fence(o[c]);
+        reg_fence(pin);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bar_free[sp]);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int j = 0; j < 32; j += 4) {
+            o[c][j] *= corr_lo;
+            o[c][j + 1] *= corr_lo;
+            o[c][j + 2] *= corr_hi;
+            o[c][j + 3] *= corr_hi;
+          }
+      };
+      // The last tile's O += P.V, and its stage freed.
+      auto last = [&](uint32_t(&pin)[8][4]) {
+        const int n = it + n_tiles - 1, sp = n % STAGES;
+        mbar_wait(&bar_v[sp], (n / STAGES) & 1);
+        reg_fence(pin);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) reg_fence(o[c]);
+        turn_wait(wg);
+        wgmma_fence();
+        issue_pv<NCH>(o, pin, sV + sp * C::KV_BYTES);
+        wgmma_commit();
+        if (wg == 0) turn_pass(wg);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) reg_fence(o[c]);
+        reg_fence(pin);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bar_free[sp]);
+      };
+      int t = 1;
+      for (; t + 1 < n_tiles; t += 2) {
+        step(t, pa, pb);
+        step(t + 1, pb, pa);
+      }
+      if (t < n_tiles) {
+        step(t, pa, pb);
+        last(pb);
+      } else {
+        last(pa);
+      }
+      it += n_tiles;
+
+      // ---- epilogue: normalise, stage the warpgroup's 64 rows in sO with the
+      // Q tile's swizzle, then 16-byte stores of the rows < Sq
+      float l_lo = r.l_lo, l_hi = r.l_hi;
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+      const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+      const int r_lo = w4 * 16 + g, r_hi = r_lo + 8;   // rows within the warpgroup's 64
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        uint8_t* base = sO + c * C::Q_CHUNK + wg * 8192;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int byte = ((nt ^ (r_lo & 7)) << 4) + t4 * 4;   // r_hi & 7 == r_lo & 7
+          *reinterpret_cast<uint32_t*>(base + r_lo * 128 + byte) =
+              pack_bf16(o[c][4 * nt] * inv_lo, o[c][4 * nt + 1] * inv_lo);
+          *reinterpret_cast<uint32_t*>(base + r_hi * 128 + byte) =
+              pack_bf16(o[c][4 * nt + 2] * inv_hi, o[c][4 * nt + 3] * inv_hi);
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      constexpr int CPR = HD / 8;                 // 16-byte chunks of an output row
+      __nv_bfloat16* op = (__nv_bfloat16*)p.o + w.b * p.o_sb + w.h * p.o_sh;
+      for (int j = threadIdx.x & 127; j < 64 * CPR; j += 128) {
+        const int rr = j / CPR, cc = j % CPR;
+        const int row = w.q0 + wg * 64 + rr;
+        if (row >= p.Sq) continue;
+        const uint8_t* src =
+            sO + (cc >> 3) * C::Q_CHUNK + wg * 8192 + rr * 128 + (((cc & 7) ^ (rr & 7)) << 4);
+        *reinterpret_cast<uint4*>(op + (long long)row * p.o_ss + cc * 8) =
+            *reinterpret_cast<const uint4*>(src);
+      }
+      // the next item's epilogue rewrites sO only after every thread of this
+      // warpgroup has passed the turn barriers of that item
+    }
+  }
+}
+
+// The encoder of TMA descriptors lives in libcuda; fetch it through the
+// runtime so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A (B, S, H, hd) bf16 tensor as the 4-D map (hd, H, S, B), boxes of 64 columns
+// x `rows` rows of one head, 128-byte swizzle.  Rows past S and columns past hd
+// (hd 80: the second box) are filled with zeros.  Returns false if the encoder
+// refuses (strides not multiples of 16 bytes, address not 16-byte aligned).
+bool make_map(CUtensorMap* map, const void* base, int hd, int H, int S, int B, long long sh,
+              long long ss, long long sb, int rows) {
+  EncodeTiledFn enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const long long st[3] = {sh, ss, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of size 1 is never stepped over: give it a stride the encoder takes
+    strides[i] = dims[i + 1] == 1 ? (i == 0 ? (cuuint64_t)hd * 2 : strides[i - 1] * dims[i])
+                                  : (cuuint64_t)st[i] * 2;
+  }
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, HD, p.Hq, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, kBM) ||
+      !make_map(&tk, p.k, HD, p.Hkv, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, kBN) ||
+      !make_map(&tv, p.v, HD, p.Hkv, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, kBN))
+    return -3;
+  constexpr int smem = Cfg<HD>::SMEM;
+  static bool attr_set = false;  // the attribute sticks to the function
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  static int n_sm = 0;                 // one persistent block per SM
+  if (!n_sm) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long items = (long long)((p.Sq + kBM - 1) / kBM) * p.B * p.Hq;
+  if (items > 2147483647LL) return -2;
+  const int grid = (int)(items < n_sm ? items : n_sm);
+  flash_fwd_bf16<HD><<<grid, kThreadsBf16, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const Params& p, int is_bf16, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<HD>(p, stream);
+  dim3 grid((p.Sq + 15) / 16, p.Hq, p.B);
+  flash_fwd_f32<HD><<<grid, 128, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns 0, a cudaError_t from the launch, or -1 / -2 for a shape this file does not take.
+// Returns 0, a cudaError_t from the launch, -1 / -2 for a shape this file does
+// not take, or -3 if cuTensorMapEncodeTiled refuses a TMA descriptor (bf16).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int Sq, int Sk, int Hq, int Hkv, int hd, long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -440,10 +814,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
            k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 64: launch<64>(p, is_bf16, s); break;
-    case 80: launch<80>(p, is_bf16, s); break;
-    case 128: launch<128>(p, is_bf16, s); break;
+    case 64: return launch<64>(p, is_bf16, s);
+    case 80: return launch<80>(p, is_bf16, s);
+    case 128: return launch<128>(p, is_bf16, s);
     default: return -1;
   }
-  return (int)cudaGetLastError();
 }

@@ -17,29 +17,51 @@
 // What differs from the TPU kernel, and why.  There the grid is
 // (batch*heads, chunks) and the chunk axis runs in order on one core, carrying
 // the state in VMEM scratch.  Here blocks run in parallel and nothing carries
-// between them, so one thread block owns one (batch, head) and walks the
-// chunks itself with the state in shared memory.  The kernel reads x, B, C and
-// dt through their strides: in the model they are slices of one conv output
-// (B, S, d_inner + 2GN), so no moveaxis / pad / contiguous copies are made.
-// Head h reads B/C group h / (H/G) in place; the Pallas wrapper repeats B and
-// C per head, which at H 64, G 1 is 64 times the bytes.  A ragged last chunk
-// is loaded with x = B = C = 0 and dt = 0, so the padded steps have decay 1
-// and add nothing: the final state is the state after token S-1, and padded
-// rows of y are never stored.  exp(cs_i - cs_j) is evaluated only for j <= i:
-// above the diagonal it is positive and can overflow, and inf * 0 is NaN.
+// between them, so a thread block walks the chunks of one (batch, head) itself.
+// The kernel reads x, B, C and dt through their strides: in the model they are
+// slices of one conv output (B, S, d_inner + 2GN), so no moveaxis / pad /
+// contiguous copies are made.  Head h reads B/C group h / (H/G) in place; the
+// Pallas wrapper repeats B and C per head, which at H 64, G 1 is 64 times the
+// bytes.  A ragged last chunk is loaded with x = B = C = 0 and dt = 0, so the
+// padded steps have decay 1 and add nothing: the final state is the state after
+// token S-1, and padded rows of y are never stored.  exp(cs_i - cs_j) is
+// evaluated only for j <= i: above the diagonal it is positive and can
+// overflow, and inf * 0 is NaN.
 //
 // What bounds it on this card.  At mamba2-1.3b's serving prefill (B 8, S 2048,
 // H 64, hd 64, N 128, G 1, bf16) the function moves about 298 MB (x, y, dt, B,
 // C, final state) and does about 47 GFLOP (the causal half of the two
 // chunk-by-chunk products, plus C.state^T and the state update): about 160
 // operations per byte, below the ~295 where an H100 turns from memory- to
-// tensor-core-bound, so the bound is bytes (about 0.089 ms).  This first
-// kernel is far from that bound by design: every product is plain fp32 FMAs
-// out of shared memory (4x4 register tiles, rows padded by 4 floats so float4
-// reads of neighbouring rows hit distinct banks), one block of 256 threads per
-// (batch, head) and, at N 128, one block per SM (137 KB of shared memory).
-// Tensor-core tiling (`mma.sync` / `wgmma`), TMA loads overlapping the
-// products, and chunk-parallel state passing are left for a later change.
+// tensor-core-bound, so the bound is bytes (about 0.089 ms).  What keeps a
+// kernel from it is the chain of 32 dependent chunks per head, so the design
+// is about latency: many blocks in flight, and products short enough that a
+// chunk's chain is a few microseconds.
+//   * bf16 (ssd_scan_tc): the four products run on the tensor cores as
+//     `mma.sync.m16n8k16` (bf16 operands, fp32 accumulation), operands staged
+//     in shared memory as bf16 and read with ldmatrix.  x, B and C are exact
+//     bf16 inputs; M (with its exp and dt factors), w.x and the carried fp32
+//     state are not, so each is split into hi = bf16(v) and lo = bf16(v - hi)
+//     and multiplied twice, which keeps about 16 of fp32's 24 mantissa bits
+//     (a single bf16 rounding of the state-update operand fails the final
+//     state's tolerance; tests/test_torch_ssd_precision.py emulates both).
+//     The state stays in fp32 registers as the accumulator of its own update;
+//     its hi / lo copy in shared memory is the operand of the next chunk's
+//     C.state^T.  The head dimension is split: a block of 4 warps carries 32
+//     (or hd, if smaller) rows of the state, since rows are independent, and
+//     recomputes the cheap C.B^T (G = 1 at the served shapes, so the two
+//     halves of a head read the same B and C from L2).  That gives B*H*2
+//     blocks of 128 threads and about 108 KB of shared memory each at N 128:
+//     two blocks an SM.  Chunk c+1's x, B, C and dt are prefetched with 16-byte
+//     cp.async into a second buffer while chunk c computes (element loads if a
+//     row is not 16-byte aligned).  Two block barriers a chunk; the cumulative
+//     sum is computed by every warp for itself, in units of log2, so each
+//     decay is one 2^x.  N 8 is zero-padded to a depth
+//     of 16.  One device kernel per call.
+//   * fp32 (ssd_scan_kernel): plain fp32 FMAs out of shared memory (4x4
+//     register tiles), one block of 256 threads per (batch, head).  fp32 x, B
+//     and C are not exact in bf16, and this path serves checks and small fp32
+//     models, not the bf16 serving path.
 //
 // Plain C interface (no PyTorch headers): the wrapper in
 // repro_torch/kernels/ssd_scan.py passes raw pointers, element strides and the
@@ -52,7 +74,7 @@
 namespace {
 
 constexpr int kChunk = 64;     // tokens per chunk (the Pallas default)
-constexpr int kThreads = 256;  // 16 x 16 tiles of 4 x 4 for the chunk-by-chunk products
+constexpr int kThreads = 256;  // fp32 path: 16 x 16 tiles of 4 x 4 for the chunk-by-chunk products
 static_assert(kChunk == 64 && kThreads == 256,
               "the cumulative sum is one warp of two steps a lane; the M tile map is 16 x 16");
 
@@ -73,29 +95,8 @@ struct Params {
   long long b_sb, b_ss, b_sg;
   long long c_sb, c_ss, c_sg;
   long long y_sb, y_ss, y_sh;
+  int vec;          // every row of x, B and C starts on a 16-byte boundary (bf16 path)
 };
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -122,7 +123,7 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <typename T, int HD, int N>
+template <int HD, int N>
 __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
   using L = Smem<HD, N>;
   constexpr int NP = L::NP, HP = L::HP, QP = L::QP;
@@ -144,11 +145,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
   const int g = h / (p.H / p.G);
   const float A = p.A[h * p.a_s];
 
-  const T* x = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
-  const T* Bg = static_cast<const T*>(p.Bm) + b * p.b_sb + g * p.b_sg;
-  const T* Cg = static_cast<const T*>(p.Cm) + b * p.c_sb + g * p.c_sg;
+  const float* x = static_cast<const float*>(p.x) + b * p.x_sb + h * p.x_sh;
+  const float* Bg = static_cast<const float*>(p.Bm) + b * p.b_sb + g * p.b_sg;
+  const float* Cg = static_cast<const float*>(p.Cm) + b * p.c_sb + g * p.c_sg;
   const float* dt = p.dt + b * p.dt_sb + h * p.dt_sh;
-  T* y = static_cast<T*>(p.y) + b * p.y_sb + h * p.y_sh;
+  float* y = static_cast<float*>(p.y) + b * p.y_sb + h * p.y_sh;
   const long long state_off = (long long)bh * HD * N;
 
   for (int i = tid; i < HD * N; i += kThreads)
@@ -162,13 +163,13 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
     // ---- load the chunk; rows past the end are zeros (dt = 0: decay 1, no update)
     for (int i = tid; i < kChunk * HD; i += kThreads) {
       const int q = i / HD, d = i % HD;
-      xs[q * HP + d] = q < valid ? to_f32(x[(long long)(s0 + q) * p.x_ss + d]) : 0.f;
+      xs[q * HP + d] = q < valid ? x[(long long)(s0 + q) * p.x_ss + d] : 0.f;
     }
     for (int i = tid; i < kChunk * N; i += kThreads) {
       const int q = i / N, n = i % N;
       const bool ok = q < valid;
-      Bs[q * NP + n] = ok ? to_f32(Bg[(long long)(s0 + q) * p.b_ss + n]) : 0.f;
-      Cs[q * NP + n] = ok ? to_f32(Cg[(long long)(s0 + q) * p.c_ss + n]) : 0.f;
+      Bs[q * NP + n] = ok ? Bg[(long long)(s0 + q) * p.b_ss + n] : 0.f;
+      Cs[q * NP + n] = ok ? Cg[(long long)(s0 + q) * p.c_ss + n] : 0.f;
     }
     if (tid < kChunk) dts[tid] = tid < valid ? dt[(long long)(s0 + tid) * p.dt_ss] : 0.f;
     __syncthreads();
@@ -273,10 +274,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
           const int i = 4 * ti + a;
           if (i < valid) {
             const float e = expf(cs[i]);
-            T* yrow = y + (long long)(s0 + i) * p.y_ss;
+            float* yrow = y + (long long)(s0 + i) * p.y_ss;
 #pragma unroll
             for (int cc = 0; cc < 4; ++cc)
-              yrow[td + TD * cc] = from_f32<T>(acc[a][cc] + acc2[a][cc] * e);
+              yrow[td + TD * cc] = acc[a][cc] + acc2[a][cc] * e;
           }
         }
       }
@@ -327,43 +328,487 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
     for (int i = tid; i < HD * N; i += kThreads) p.hT[state_off + i] = st[(i / N) * NP + i % N];
 }
 
-template <typename T, int HD, int N>
+template <int HD, int N>
 int launch(const Params& p, cudaStream_t s) {
   constexpr size_t bytes = Smem<HD, N>::kBytes;
   static_assert(bytes <= 232448, "shared memory of one block on an H100");
   static bool attr_set = false;  // the attribute sticks to the function
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(ssd_scan_kernel<T, HD, N>,
+    cudaError_t e = cudaFuncSetAttribute(ssd_scan_kernel<HD, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  ssd_scan_kernel<T, HD, N><<<p.B * p.H, kThreads, bytes, s>>>(p);
+  ssd_scan_kernel<HD, N><<<p.B * p.H, kThreads, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_n(const Params& p, int N, cudaStream_t s) {
   switch (N) {
-    case 8: return launch<T, HD, 8>(p, s);
-    case 16: return launch<T, HD, 16>(p, s);
-    case 32: return launch<T, HD, 32>(p, s);
-    case 64: return launch<T, HD, 64>(p, s);
-    case 128: return launch<T, HD, 128>(p, s);
+    case 8: return launch<HD, 8>(p, s);
+    case 16: return launch<HD, 16>(p, s);
+    case 32: return launch<HD, 32>(p, s);
+    case 64: return launch<HD, 64>(p, s);
+    case 128: return launch<HD, 128>(p, s);
     default: return -1;
   }
 }
 
-template <typename T>
 int launch_hd(const Params& p, int hd, int N, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_n<T, 16>(p, N, s);
-    case 32: return launch_n<T, 32>(p, N, s);
-    case 64: return launch_n<T, 64>(p, N, s);
+    case 16: return launch_n<16>(p, N, s);
+    case 32: return launch_n<32>(p, N, s);
+    case 64: return launch_n<64>(p, N, s);
     default: return -1;
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core chunk products (mma.sync m16n8k16, fp32 accumulation)
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of the bf16 kernel, in bytes.  Rows are padded by 16
+// bytes so that the eight row addresses of an ldmatrix hit distinct banks.
+template <int HD, int N>
+struct Tc {
+  static constexpr int D = HD < 32 ? HD : 32;    // state rows (head columns) of a block
+  static constexpr int PARTS = HD / D;           // blocks per (batch, head)
+  static constexpr int N16 = N < 16 ? 16 : N;    // depth of C.B^T and C.state^T (N 8 zero-padded)
+  static constexpr int LDN = N16 + 8;            // row of C, B, state (bf16 elements)
+  static constexpr int LDX = D + 8;              // row of x, w.x
+  static constexpr int kC = 0;                   // [2][64][LDN]  C of this chunk and the next
+  static constexpr int kB = kC + 2 * kChunk * LDN * 2;   // [2][64][LDN]
+  static constexpr int kX = kB + 2 * kChunk * LDN * 2;   // [2][64][LDX]
+  static constexpr int kWh = kX + 2 * kChunk * LDX * 2;  // [64][LDX] bf16(w.x)
+  static constexpr int kWl = kWh + kChunk * LDX * 2;     // [64][LDX] bf16(w.x - hi)
+  static constexpr int kSh = kWl + kChunk * LDX * 2;     // [D][LDN] bf16(state)
+  static constexpr int kSl = kSh + D * LDN * 2;          // [D][LDN] bf16(state - hi)
+  static constexpr int kDt = kSl + D * LDN * 2;          // [2][64] fp32
+  static constexpr int kCs = kDt + 2 * kChunk * 4;       // [4 warps][64] fp32 cumsum(dt*A)
+  static constexpr int kW = kCs + 4 * kChunk * 4;        // [4 warps][64] fp32 dt*exp(cs_last-cs)
+  static constexpr int kBytes = kW + 4 * kChunk * 4;
+  // the state update's (D x N) output, in m16n8 tiles spread over the 4 warps
+  static constexpr int MT = D / 16, NT = N / 8, T = MT * NT, TPW = (T + 3) / 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (MUFU; relative error about 2^-22, results below 2^-126 flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x, y) as hi = bf16(v) and lo = bf16(v - hi): hi + lo keeps about 16 bits
+// of v's 24, so a product of an exact bf16 operand with hi and with lo,
+// summed in fp32, is close to the fp32 product.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Chunk `c` of x (this block's D columns), B, C and dt into buffer `buf`;
+// rows past the end are zeros.  16-byte cp.async when every row is 16-byte
+// aligned, else element by element (synchronous).
+template <int HD, int N>
+__device__ __forceinline__ void load_chunk(const Params& p, uint8_t* smem, int buf, int s0,
+                                           int valid, const __nv_bfloat16* xg,
+                                           const __nv_bfloat16* Bg, const __nv_bfloat16* Cg,
+                                           const float* dtg, bool vec) {
+  using L = Tc<HD, N>;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem + L::kC) + buf * kChunk * L::LDN;
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + L::kB) + buf * kChunk * L::LDN;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L::kX) + buf * kChunk * L::LDX;
+  float* dts = reinterpret_cast<float*>(smem + L::kDt) + buf * kChunk;
+  if (vec) {
+    constexpr int CPR = N / 8, CPX = L::D / 8;
+    for (int i = tid; i < kChunk * CPR; i += 128) {
+      const int q = i / CPR, cc = i % CPR;
+      const bool ok = q < valid;
+      const long long row = s0 + (ok ? q : 0);
+      cp_async16(Cs + q * L::LDN + cc * 8, Cg + row * p.c_ss + cc * 8, ok);
+      cp_async16(Bs + q * L::LDN + cc * 8, Bg + row * p.b_ss + cc * 8, ok);
+    }
+    for (int i = tid; i < kChunk * CPX; i += 128) {
+      const int q = i / CPX, cc = i % CPX;
+      const bool ok = q < valid;
+      cp_async16(xs + q * L::LDX + cc * 8, xg + (long long)(s0 + (ok ? q : 0)) * p.x_ss + cc * 8,
+                 ok);
+    }
+    if (tid < kChunk) {
+      const bool ok = tid < valid;
+      cp_async4(dts + tid, dtg + (long long)(s0 + (ok ? tid : 0)) * p.dt_ss, ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = tid; i < kChunk * N; i += 128) {
+      const int q = i / N, n = i % N;
+      const bool ok = q < valid;
+      Cs[q * L::LDN + n] = ok ? Cg[(long long)(s0 + q) * p.c_ss + n] : zero;
+      Bs[q * L::LDN + n] = ok ? Bg[(long long)(s0 + q) * p.b_ss + n] : zero;
+    }
+    for (int i = tid; i < kChunk * L::D; i += 128) {
+      const int q = i / L::D, d = i % L::D;
+      xs[q * L::LDX + d] = q < valid ? xg[(long long)(s0 + q) * p.x_ss + d] : zero;
+    }
+    if (tid < kChunk) dts[tid] = tid < valid ? dtg[(long long)(s0 + tid) * p.dt_ss] : 0.f;
+  }
+}
+
+// A warp's state tiles (fp32 registers) as the hi / lo bf16 operands of the
+// next chunk's C.state^T.
+template <int TPW, int LDN>
+__device__ __forceinline__ void put_state(const float (&st)[TPW][4], __nv_bfloat16* sth,
+                                          __nv_bfloat16* stl, int sr_lo, int sr_hi, int nt0,
+                                          int t4) {
+#pragma unroll
+  for (int k = 0; k < TPW; ++k) {
+    const int col = 8 * (nt0 + k) + 2 * t4;
+    uint32_t hi, lo;
+    split2(st[k][0], st[k][1], hi, lo);
+    *reinterpret_cast<uint32_t*>(sth + sr_lo * LDN + col) = hi;
+    *reinterpret_cast<uint32_t*>(stl + sr_lo * LDN + col) = lo;
+    split2(st[k][2], st[k][3], hi, lo);
+    *reinterpret_cast<uint32_t*>(sth + sr_hi * LDN + col) = hi;
+    *reinterpret_cast<uint32_t*>(stl + sr_hi * LDN + col) = lo;
+  }
+}
+
+template <int HD, int N>
+__global__ void __launch_bounds__(128) ssd_scan_tc(Params p) {
+  using L = Tc<HD, N>;
+  constexpr int D = L::D, LDN = L::LDN, LDX = L::LDX, KS = L::N16 / 16;
+  constexpr int NT = L::NT, TPW = L::TPW;
+  static_assert(D % 16 == 0 && N % 8 == 0, "head slice of 16 or 32, N a multiple of 8");
+
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __nv_bfloat16* const Cs0 = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kC);
+  __nv_bfloat16* const Bs0 = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kB);
+  __nv_bfloat16* const xs0 = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kX);
+  __nv_bfloat16* const wxh = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kWh);
+  __nv_bfloat16* const wxl = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kWl);
+  __nv_bfloat16* const sth = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kSh);
+  __nv_bfloat16* const stl = reinterpret_cast<__nv_bfloat16*>(smem_tc + L::kSl);
+  const float* const dts0 = reinterpret_cast<const float*>(smem_tc + L::kDt);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* const csw = reinterpret_cast<float*>(smem_tc + L::kCs) + warp * kChunk;  // this warp's
+  float* const ww = reinterpret_cast<float*>(smem_tc + L::kW) + warp * kChunk;
+
+  const int part = blockIdx.x % L::PARTS, bh = blockIdx.x / L::PARTS;
+  const int b = bh / p.H, h = bh % p.H;
+  const int grp = h / (p.H / p.G);
+  const int d0 = part * D;
+  const float A2 = p.A[h * p.a_s] * 1.4426950408889634f;   // dt*A in units of log2
+  const __nv_bfloat16* xg =
+      static_cast<const __nv_bfloat16*>(p.x) + b * p.x_sb + h * p.x_sh + d0;
+  const __nv_bfloat16* Bg = static_cast<const __nv_bfloat16*>(p.Bm) + b * p.b_sb + grp * p.b_sg;
+  const __nv_bfloat16* Cg = static_cast<const __nv_bfloat16*>(p.Cm) + b * p.c_sb + grp * p.c_sg;
+  const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
+  __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) + b * p.y_sb + h * p.y_sh + d0;
+  const long long state_off = (long long)bh * HD * N + (long long)d0 * N;
+
+  // The state rows this warp updates: m16n8 tiles nt0 .. nt0 + TPW - 1 of m-tile mt.
+  const bool owns = warp * TPW < L::T;
+  const int mt = (warp * TPW) / NT, nt0 = (warp * TPW) % NT;
+  const int sr_lo = 16 * mt + g, sr_hi = sr_lo + 8;      // state rows (within the slice)
+  float st[TPW][4];
+#pragma unroll
+  for (int k = 0; k < TPW; ++k) {
+    const int col = 8 * (nt0 + k) + 2 * t4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[k][e] = owns && p.h0 ? p.h0[state_off + (long long)(e & 2 ? sr_hi : sr_lo) * N + col +
+                                     (e & 1)]
+                              : 0.f;
+  }
+
+  // zero what no load writes (N 8: columns 8..15 of C, B and the state), then
+  // the initial state as hi / lo operands
+  if (N < 16) {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = tid; i < 2 * kChunk * 8; i += 128) {
+      Cs0[(i / 8) * LDN + 8 + i % 8] = zero;
+      Bs0[(i / 8) * LDN + 8 + i % 8] = zero;
+    }
+    for (int i = tid; i < D * 8; i += 128) {
+      sth[(i / 8) * LDN + 8 + i % 8] = zero;
+      stl[(i / 8) * LDN + 8 + i % 8] = zero;
+    }
+  }
+  if (owns) put_state<TPW, LDN>(st, sth, stl, sr_lo, sr_hi, nt0, t4);
+
+  const int n_chunks = (p.S + kChunk - 1) / kChunk;
+  load_chunk<HD, N>(p, smem_tc, 0, 0, min(kChunk, p.S), xg, Bg, Cg, dtg, p.vec);
+  cp_async_commit();
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    const int s0 = c * kChunk;
+    const int valid = min(kChunk, p.S - s0);
+    cp_async_wait_all();
+    __syncthreads();   // chunk c has landed everywhere; chunk c-1 is finished by every warp
+    if (c + 1 < n_chunks) {
+      const int s1 = s0 + kChunk;
+      load_chunk<HD, N>(p, smem_tc, buf ^ 1, s1, min(kChunk, p.S - s1), xg, Bg, Cg, dtg, p.vec);
+    }
+    cp_async_commit();
+
+    const __nv_bfloat16* Cs = Cs0 + buf * kChunk * LDN;
+    const __nv_bfloat16* Bs = Bs0 + buf * kChunk * LDN;
+    const __nv_bfloat16* xs = xs0 + buf * kChunk * LDX;
+    const float* dts = dts0 + buf * kChunk;
+
+    // ---- cs = cumsum(dt*A) (in units of log2) and w = dt*exp(cs_last - cs):
+    // every warp its own copy
+    {
+      const float a0 = dts[2 * lane] * A2, a1 = dts[2 * lane + 1] * A2;
+      float incl = a0 + a1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      const float prev = __shfl_up_sync(0xffffffffu, incl, 1);
+      const float c0 = (lane ? prev : 0.f) + a0, c1 = incl;
+      const float last = __shfl_sync(0xffffffffu, incl, 31);
+      csw[2 * lane] = c0;
+      csw[2 * lane + 1] = c1;
+      ww[2 * lane] = dts[2 * lane] * ex2(last - c0);
+      ww[2 * lane + 1] = dts[2 * lane + 1] * ex2(last - c1);
+      __syncwarp();
+    }
+
+    // ---- CB = C.B^T on this warp's 16 rows i, columns j < 16 (warp + 1)
+    uint32_t ca[KS][4];   // C's rows as A fragments, kept for C.state^T
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldsm_x4(ca[kk], Cs + (16 * warp + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8);
+    float m[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) m[nt][0] = m[nt][1] = m[nt][2] = m[nt][3] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (jp > warp) break;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bb[4];
+        ldsm_x4(bb, Bs + (16 * jp + (lane & 7) + (lane >> 4) * 8) * LDN + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma16816(m[2 * jp], ca[kk], bb[0], bb[1]);
+        mma16816(m[2 * jp + 1], ca[kk], bb[2], bb[3]);
+      }
+    }
+    // ---- M = CB o exp(cs_i - cs_j) o dt_j for j <= i (exp only there: above it may overflow)
+    const int i_lo = 16 * warp + g, i_hi = i_lo + 8;
+    const float cs_lo = csw[i_lo], cs_hi = csw[i_hi];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt > 2 * warp + 1) break;
+      const bool diag = nt >= 2 * warp;   // tiles left of the diagonal need no test
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * nt + 2 * t4 + (e & 1);
+        const int i = (e & 2) ? i_hi : i_lo;
+        const float ci = (e & 2) ? cs_hi : cs_lo;
+        m[nt][e] = !diag || j <= i ? m[nt][e] * ex2(ci - csw[j]) * dts[j] : 0.f;
+      }
+    }
+
+    // ---- y = M.x (M split hi + lo) + (C.state^T, state split hi + lo) * exp(cs)
+    float yi[D / 8][4], yx[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yi[nt][e] = yx[nt][e] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (jp > warp) break;
+      uint32_t ah[4], al[4];
+      split2(m[2 * jp][0], m[2 * jp][1], ah[0], al[0]);
+      split2(m[2 * jp][2], m[2 * jp][3], ah[1], al[1]);
+      split2(m[2 * jp + 1][0], m[2 * jp + 1][1], ah[2], al[2]);
+      split2(m[2 * jp + 1][2], m[2 * jp + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, xs + (16 * jp + (lane & 7) + ((lane >> 3) & 1) * 8) * LDX + 16 * np +
+                          (lane >> 4) * 8);
+        mma16816(yi[2 * np], ah, bb[0], bb[1]);
+        mma16816(yi[2 * np], al, bb[0], bb[1]);
+        mma16816(yi[2 * np + 1], ah, bb[2], bb[3]);
+        mma16816(yi[2 * np + 1], al, bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        const int off = (16 * np + (lane & 7) + (lane >> 4) * 8) * LDN + kk * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, sth + off);
+        ldsm_x4(bl, stl + off);
+        mma16816(yx[2 * np], ca[kk], bh[0], bh[1]);
+        mma16816(yx[2 * np], ca[kk], bl[0], bl[1]);
+        mma16816(yx[2 * np + 1], ca[kk], bh[2], bh[3]);
+        mma16816(yx[2 * np + 1], ca[kk], bl[2], bl[3]);
+      }
+    {
+      const float e_lo = ex2(cs_lo), e_hi = ex2(cs_hi);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        if (i_lo < valid)
+          *reinterpret_cast<__nv_bfloat162*>(yg + (long long)(s0 + i_lo) * p.y_ss + col) =
+              __floats2bfloat162_rn(yi[nt][0] + yx[nt][0] * e_lo, yi[nt][1] + yx[nt][1] * e_lo);
+        if (i_hi < valid)
+          *reinterpret_cast<__nv_bfloat162*>(yg + (long long)(s0 + i_hi) * p.y_ss + col) =
+              __floats2bfloat162_rn(yi[nt][2] + yx[nt][2] * e_hi, yi[nt][3] + yx[nt][3] * e_hi);
+      }
+    }
+
+    // ---- w.x as hi / lo operands of the state update
+    for (int e = tid; e < kChunk * (D / 2); e += 128) {
+      const int q = e / (D / 2), dp = 2 * (e % (D / 2));
+      const float2 xf =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + q * LDX + dp));
+      const float wq = ww[q];
+      uint32_t hi, lo;
+      split2(xf.x * wq, xf.y * wq, hi, lo);
+      *reinterpret_cast<uint32_t*>(wxh + q * LDX + dp) = hi;
+      *reinterpret_cast<uint32_t*>(wxl + q * LDX + dp) = lo;
+    }
+    __syncthreads();   // w.x complete; every warp is done reading the old state
+
+    // ---- state = exp(cs_last) * state + (w.x)^T . B, in this warp's registers
+    if (owns) {
+      const float decay = ex2(csw[kChunk - 1]);
+#pragma unroll
+      for (int k = 0; k < TPW; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[k][e] *= decay;
+#pragma unroll
+      for (int kq = 0; kq < kChunk / 16; ++kq) {
+        const int off = (16 * kq + (lane & 7) + (lane >> 4) * 8) * LDX + 16 * mt +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t ah[4], al[4];
+        ldsm_x4_t(ah, wxh + off);
+        ldsm_x4_t(al, wxl + off);
+#pragma unroll
+        for (int k = 0; k < TPW; ++k) {
+          uint32_t bb[2];
+          ldsm_x2_t(bb, Bs + (16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN +
+                            8 * (nt0 + k));
+          mma16816(st[k], ah, bb[0], bb[1]);
+          mma16816(st[k], al, bb[0], bb[1]);
+        }
+      }
+      put_state<TPW, LDN>(st, sth, stl, sr_lo, sr_hi, nt0, t4);
+    }
+  }
+
+  if (p.hT && owns) {
+#pragma unroll
+    for (int k = 0; k < TPW; ++k) {
+      const int col = 8 * (nt0 + k) + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p.hT[state_off + (long long)(e & 2 ? sr_hi : sr_lo) * N + col + (e & 1)] = st[k][e];
+    }
+  }
+}
+
+template <int HD, int N>
+int launch_tc(const Params& p, cudaStream_t s) {
+  constexpr int bytes = Tc<HD, N>::kBytes;
+  static_assert(bytes <= 232448, "shared memory of one block on an H100");
+  static bool attr_set = false;  // the attribute sticks to the function
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(ssd_scan_tc<HD, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  ssd_scan_tc<HD, N><<<p.B * p.H * Tc<HD, N>::PARTS, 128, bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tc_n(const Params& p, int N, cudaStream_t s) {
+  switch (N) {
+    case 8: return launch_tc<HD, 8>(p, s);
+    case 16: return launch_tc<HD, 16>(p, s);
+    case 32: return launch_tc<HD, 32>(p, s);
+    case 64: return launch_tc<HD, 64>(p, s);
+    case 128: return launch_tc<HD, 128>(p, s);
+    default: return -1;
+  }
+}
+
+int launch_tc_hd(const Params& p, int hd, int N, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_tc_n<16>(p, N, s);
+    case 32: return launch_tc_n<32>(p, N, s);
+    case 64: return launch_tc_n<64>(p, N, s);
+    default: return -1;
+  }
+}
 }  // namespace
 
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, const void* Bm,
@@ -374,10 +819,15 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, cons
                             long long c_sb, long long c_ss, long long c_sg, long long y_sb,
                             long long y_ss, long long y_sh, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -2;
-  if ((long long)B * H > 2147483647LL) return -2;
-  Params p{x,    dt,   A,    Bm,   Cm,   h0,   y,    hT,   B,    S,    H,    G,
-           x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, a_s, b_sb, b_ss, b_sg, c_sb, c_ss,
-           c_sg, y_sb, y_ss, y_sh};
+  if ((long long)B * H * 2 > 2147483647LL) return -2;
+  auto rows16 = [](const void* ptr, long long s0, long long s1, long long s2) {
+    return (uintptr_t)ptr % 16 == 0 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0;
+  };
+  const int vec = rows16(x, x_sb, x_ss, x_sh) && rows16(Bm, b_sb, b_ss, b_sg) &&
+                  rows16(Cm, c_sb, c_ss, c_sg);
+  Params p{x,    dt,   A,    Bm,   Cm,   h0,   y,    hT,   B,    S,    H,    G,    x_sb, x_ss,
+           x_sh, dt_sb, dt_ss, dt_sh, a_s, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg, y_sb, y_ss, y_sh,
+           vec};
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_hd<__nv_bfloat16>(p, hd, N, s) : launch_hd<float>(p, hd, N, s);
+  return is_bf16 ? launch_tc_hd(p, hd, N, s) : launch_hd(p, hd, N, s);
 }

@@ -64,7 +64,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
             raise ValueError(f"{name} must be (B, S, H, hd), got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k, v must share dtype and device")
-        vec = 16 // t.element_size()          # elements of one 16-byte load
+        # 16-byte rows: what the fp32 kernel's vector loads and the bf16
+        # kernel's TMA descriptors (address and strides multiples of 16 bytes) need
+        vec = 16 // t.element_size()
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous")
         if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
@@ -106,7 +108,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  float(scale), int(bool(causal)),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd failed to launch (code {err}) "
+        why = " (cuTensorMapEncodeTiled refused a TMA descriptor)" if err == -3 else ""
+        raise RuntimeError(f"flash_attention_fwd failed to launch (code {err}{why}) "
                            f"for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention.launches += 1
     return out

@@ -180,12 +180,14 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
     text = (build.CSRC / "flash_attention.cu").read_text()
     assert 'extern "C" int flash_attention_fwd' in text
-    assert "mma.sync" in text
+    # the bf16 path: wgmma products on K/V tiles loaded by TMA
+    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
     ssd = (build.CSRC / "ssd_scan.cu").read_text()
     assert 'extern "C" int ssd_scan_fwd' in ssd
     # above 48 KB of shared memory a block needs the attribute raised
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd
     assert "src/repro/kernels/ssd_scan.py" in ssd
+    assert "mma.sync" in ssd            # the bf16 path's products on the tensor cores
     q8 = (build.CSRC / "quant8.cu").read_text()
     for entry in ('extern "C" int quantize_fwd', 'extern "C" int dequantize_fwd'):
         assert entry in q8

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Mutation check of the flash-attention and SSD kernels on a GPU.
+
+    python3 tools/kernel_mutants.py
+
+Copies the tree into a temporary directory once per mutant, plants one
+deliberate fault in a CUDA source there, and runs
+``python3 chip_smoke.py --phases kernels`` in the copy.  Each mutant must make
+it exit non-zero; the script prints the exit code and the assertion that
+stopped it, and exits non-zero itself if any mutant passed.  The checkout is
+never modified.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH = "src/repro_torch/csrc/flash_attention.cu"
+SSD = "src/repro_torch/csrc/ssd_scan.cu"
+
+# name: (source, text, replacement)
+MUTANTS = {
+    # kv tile 10 of 128 keys (keys 1280..1407) leaves every row's sum
+    "flash skips kv tile 10": (
+        FLASH,
+        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;",
+        "  if (k0 == 10 * kBN) {\n    for (int i = 0; i < 64; ++i) sc[i] = kMasked;\n"
+        "    return;\n  }\n"
+        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;"),
+    "ssd skips chunk 20's state update": (
+        SSD, "    if (owns) {\n      const float decay",
+        "    if (owns && c != 20) {\n      const float decay"),
+    "ssd drops the lo half of the state update": (
+        SSD, "          mma16816(st[k], al, bb[0], bb[1]);\n", ""),
+}
+
+
+def run(name: str, source: str, text: str, new: str) -> int:
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / "tree"
+        shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+            "build", "artifacts", ".git", "__pycache__"))
+        path = copy / source
+        src = path.read_text()
+        if src.count(text) != 1:
+            raise SystemExit(f"{name}: the text to mutate is not in {source} exactly once")
+        path.write_text(src.replace(text, new))
+        r = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "kernels"],
+                           cwd=copy, capture_output=True, text=True)
+    why = [ln for ln in r.stderr.splitlines() if "Error" in ln][-1:]
+    print(f"{name}: exit {r.returncode}: {why[0] if why else r.stderr[-400:]}", flush=True)
+    return r.returncode
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_mutants: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    passed = [name for name, spec in MUTANTS.items() if run(name, *spec) == 0]
+    if passed:
+        print(f"mutants not caught: {passed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
