@@ -5,9 +5,10 @@
     python3 chip_smoke.py --phases kernels     # bring-up: build and check only
 
 Drives the port's main paths (``repro_torch``: serving llama3.2-1b, serving
-mamba2-1.3b, and FRED's gradient synchronisation of llama3.2-1b's gradients
-over a pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback
-modes) through the entry points a user calls, builds every CUDA kernel from the
+mamba2-1.3b, FRED's gradient synchronisation of llama3.2-1b's gradients over a
+pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback modes, and
+training llama3.2-1b through ``Trainer.run()``) through the entry points a user
+calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
 through its kernels.  Each phase prints one JSON line; any failure exits
@@ -20,7 +21,12 @@ Phases:
   kernels  flash_attention against flash_attention_plain: a sweep of small
            shapes, ragged shapes at each head dim and the parity phase's
            shape, then the serving prefill shape (peaked and near-uniform
-           softmax) with timings; ssd_scan against ssd_scan_plain: the
+           softmax) with timings; flash_attention_bwd against autograd through
+           flash_attention_plain (fp32): the same sweep in fp32 and bf16,
+           causal and not, then llama3.2-1b's training shape (B 4, S 2048,
+           peaked and near-uniform softmax) with timings, the plain backward
+           and autograd through scaled_dot_product_attention beside it;
+           ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
            of one conv output,
@@ -42,11 +48,22 @@ Phases:
            each: the mean against an fp32 sum, error buffers, launch counts,
            wall time and peak memory; then 20 error-feedback steps on the
            embedding gradient
+  train    fault F1 (the SSD scan raises under grad; an attention gradient
+           through the kernels equals autograd through the plain version);
+           llama3.2-1b at full width and 2 layers, fp32: loss and every
+           gradient on the card against the CPU; then llama3.2-1b at full
+           width and depth (bf16 params, fp32 master and moments, block
+           remat, B 4 x S 2048) through ``Trainer.run()``: 4 steps and a
+           checkpoint, a resume, one more step; step time, tokens/s, MFU
+           against 989 TFLOP/s, peak memory, launches per step (asserted:
+           32 forward, 16 backward)
   profile  (only when named) device time by kernel over one prefill and four
-           decode steps of each served model, and over one sync of each
-           mode, from torch.profiler
+           decode steps of each served model, over one sync of each mode,
+           and over one train step, from torch.profiler
 
-The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
+Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
+script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
+gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
 path); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -54,12 +71,16 @@ path); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -70,7 +91,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.configs.registry import get_config          # noqa: E402
 from repro_torch.kernels import build, ops                   # noqa: E402
 from repro_torch.kernels.flash_attention import (             # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain)
 from repro_torch.kernels.quant8 import (                      # noqa: E402
     dequantize, dequantize_plain, quantize, quantize_plain)
 from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # noqa: E402
@@ -78,17 +99,28 @@ from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
-from repro_torch.models.modules import tree_map              # noqa: E402
+from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
+from repro_torch.models.modules import (                      # noqa: E402
+    tree_flatten, tree_map, tree_unflatten)
 from repro_torch.parallel import compress                    # noqa: E402
 from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
+from repro_torch.train import checkpoint as ckpt             # noqa: E402
+from repro_torch.train.optim import OptimConfig              # noqa: E402
+from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-PHASES = ("env", "build", "kernels", "parity", "serve", "sync")
+PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train")
+# Wall-clock limit of each phase in seconds, several times its time on an H100
+# (the `phase_seconds` line).  A phase past its limit (a kernel that never
+# returns, a stalled disk) ends the process with exit code 3 and a message that
+# names the phase, instead of using up the whole run's time.
+PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
+                 "sync": 300, "train": 600, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -170,15 +202,16 @@ def check_close(name, got, want, atol, rtol):
     return float(err.max())
 
 
-def row_rel_err(got, want):
-    """Largest error of a row (the last axis) over that row's rms in ``want``."""
+def row_rel_err(got, want, row_floor=1e-30):
+    """Largest error of a row (the last axis) over that row's rms in ``want``,
+    or over ``row_floor`` where the row's rms is smaller."""
     got, want = got.float(), want.float()
     err = (got - want).abs().amax(dim=-1)
-    rms = want.pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
+    rms = want.pow(2).mean(dim=-1).sqrt().clamp_min(row_floor)
     return float((err / rms).max())
 
 
-def hold(name, got, want, atol, rtol, row_limit):
+def hold(name, got, want, atol, rtol, row_limit, row_floor=1e-30):
     """check_close and the row measure together; on failure the message
     carries both, so a run that fails says by how much."""
     got, want = got.float(), want.float()
@@ -188,7 +221,7 @@ def hold(name, got, want, atol, rtol, row_limit):
         raise AssertionError(f"{name}: non-finite values")
     err = (got - want).abs()
     n_bad = int((err > atol + rtol * want.abs()).sum())
-    rel = row_rel_err(got, want)
+    rel = row_rel_err(got, want, row_floor)
     if n_bad or rel > row_limit:
         raise AssertionError(
             f"{name}: {n_bad} of {err.numel()} elements outside atol={atol} "
@@ -396,6 +429,173 @@ def kernels_flash(dev):
           "sweep_max_abs_err": {"float32": worst[torch.float32],
                                 "bfloat16": worst[torch.bfloat16]},
           "main_shape": entry})
+    return entry
+
+
+# The backward against autograd through flash_attention_plain on the same
+# values in fp32, so that the oracle carries no bf16 rounding of its own.  The
+# fp32 kernel sums in another order: its gradients agree to a few ulp of the
+# largest.  The bf16 kernel rounds P and dS to bf16 for its products (2^-9 of
+# each term), takes D = rowsum(dO * O) from the bf16 O, and writes bf16, so a
+# gradient is off by a few 2^-9 of its size.  Each of dq, dk, dv is held
+#   * elementwise to atol = BWD_ATOL x its largest magnitude + BWD_RTOL x |value|,
+#   * as a whole to ||err|| / ||want|| <= BWD_FRO_TOL (Frobenius norms), and
+#   * row by row: the largest error of a row over the row's rms (or over 0.1
+#     of the gradient's overall rms where the row's is smaller), to BWD_ROW_TOL
+#     or to 1.5 times the same measure of flash_attention_bwd_plain on the same
+#     inputs (the forward's output and log-sum-exp), whichever is larger.  In
+#     bf16 a dq row whose terms nearly cancel (dS sums to 0 over a row's keys)
+#     keeps the roundings of P, dS and O at their own size: the plain version,
+#     which rounds at the same points, measures 0.054-0.16 on such rows (CPU,
+#     the sweep's inputs), and the kernel the same to three digits.
+# A key tile or a query head of a group left out moves whole rows by their own
+# size, and the whole gradient by some 0.1-0.2 of its norm.
+BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+BWD_FRO_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+BWD_ROW_TOL = {torch.float32: 1e-2, torch.bfloat16: 5e-2}
+# llama3.2-1b's training shape: B 4 x S 2048 tokens, 32 / 8 heads of hd 64
+TRAIN_SHAPE = dict(B=4, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16, causal=True)
+
+
+def attention_grads_oracle(q, k, v, do, causal):
+    """(dq, dk, dv) by autograd through flash_attention_plain, in fp32."""
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = flash_attention_plain(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, do.float())
+
+
+def hold_grads(name, got, want, dtype, plain):
+    """Each of dq, dk, dv against the oracle ``want``, the row measure also
+    against ``plain`` (see BWD_ATOL); returns the worst (max abs err over the
+    gradient's largest magnitude, Frobenius relative error, row measure, the
+    plain version's row measure)."""
+    worst = [0.0] * 4
+    for g_name, a, b, c in zip(("dq", "dk", "dv"), got, want, plain):
+        if a.dtype != dtype:
+            raise AssertionError(f"{name} {g_name}: dtype {a.dtype}, expected {dtype}")
+        b = b.float()
+        scale = float(b.abs().max())
+        floor = 0.1 * float(b.pow(2).mean().sqrt())
+        fro = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+        if not fro <= BWD_FRO_TOL[dtype]:
+            raise AssertionError(f"{name} {g_name}: ||err|| / ||want|| = {fro:.3e} "
+                                 f"(limit {BWD_FRO_TOL[dtype]})")
+        rel_plain = row_rel_err(c, b, floor)
+        err, rel = hold(f"{name} {g_name}", a, b, atol=BWD_ATOL[dtype] * scale,
+                        rtol=BWD_RTOL[dtype],
+                        row_limit=max(BWD_ROW_TOL[dtype], 1.5 * rel_plain), row_floor=floor)
+        worst = [max(w, x) for w, x in zip(worst, (err / scale, fro, rel, rel_plain))]
+    return worst
+
+
+def kernels_flash_bwd(dev):
+    """The flash-attention backward kernel against autograd through the plain
+    forward: the forward's sweep (hd 64 / 80 / 128, GQA 4:1 and 1:1, ragged
+    S 1000 / 333 / 257, Sq != Sk) in fp32 and bf16, causal and not, then
+    llama3.2-1b's training shape (peaked and near-uniform softmax) with
+    timings, the plain backward held to the same oracle."""
+    worst = {torch.float32: [0.0] * 4, torch.bfloat16: [0.0] * 4}
+    n_cases = 0
+    for (B, Sq, Sk, Hq, Hkv, hd) in SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = make_qkv(17, B, Sq, Sk, Hq, Hkv, hd, dtype, dev)
+                do = make_qkv(18, B, Sq, Sq, Hq, Hq, hd, dtype, dev)[2]
+                out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+                got = flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+                torch.cuda.synchronize()
+                want = attention_grads_oracle(q, k, v, do, causal)
+                plain = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
+                w = hold_grads(f"flash_attention_bwd {(B, Sq, Sk, Hq, Hkv, hd)} {dtype} "
+                               f"causal={causal}", got, want, dtype, plain)
+                worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], w)]
+                n_cases += 1
+
+    m = TRAIN_SHAPE
+    shape = (m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["hd"])
+    # peaked softmax (scores of std 4), as in the forward's check
+    q, k, v = make_qkv(25, *shape, m["dtype"], dev, qk_scale=2.0)
+    do = make_qkv(26, m["B"], m["S"], m["S"], m["Hq"], m["Hq"], m["hd"], m["dtype"], dev)[2]
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    peaked = hold_grads("flash_attention_bwd training shape, peaked softmax",
+                        flash_attention_bwd(q, k, v, out, do, lse, causal=True),
+                        attention_grads_oracle(q, k, v, do, True), m["dtype"],
+                        flash_attention_bwd_plain(q, k, v, out, do, lse, causal=True))
+    # near-uniform softmax, timed
+    q, k, v = make_qkv(27, *shape, m["dtype"], dev)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    want = attention_grads_oracle(q, k, v, do, True)
+    plain_g = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=True)
+    main = hold_grads("flash_attention_bwd training shape", got, want, m["dtype"], plain_g)
+    # the plain version against the same oracle; its own row measure is the yardstick
+    plain = hold_grads("flash_attention_bwd_plain training shape", plain_g, want,
+                       m["dtype"], plain_g)
+    del plain_g
+    kernel_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, causal=True),
+                        warmup=3, reps=15)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, causal=True),
+                       warmup=1, reps=3)
+    del want
+
+    # yardstick only: autograd through one library call computing the same
+    # forward (K/V repeated over the group, as the forward's yardstick does)
+    rep = m["Hq"] // m["Hkv"]
+    leaves = [t.detach().permute(0, 2, 1, 3).requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            leaves[0], leaves[1].repeat_interleave(rep, dim=1),
+            leaves[2].repeat_interleave(rep, dim=1), is_causal=True)
+    do_h = do.permute(0, 2, 1, 3)
+    lib = torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True)
+    check_close("library backward vs kernel dv", lib[2].permute(0, 2, 1, 3), got[2],
+                atol=BWD_ATOL[m["dtype"]] * 2 * float(got[2].abs().max()), rtol=4e-2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
+                         warmup=3, reps=15)
+    del lib_out, lib, leaves
+
+    # roofline bound: five products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5
+    # times the forward's work, causal halving each; every input read once
+    # (q, k, v, o, dO, lse) and dq, dk, dv written once
+    flops = 5 * 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / 2
+    n_bytes = nbytes(q, k, v, out, do, lse, *got)
+    t_ops = flops / PEAK_FLOPS[m["dtype"]] * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:102",
+        "replaces_note": "the gradient of that kernel's function; the Pallas kernel has no "
+                         "backward and the JAX package differentiates chunked_attention "
+                         "(src/repro/models/attention.py:109)",
+        "shape": {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m.items()},
+        "launches": None,
+        "max_abs_err": main[0], "max_abs_err_is": "over the gradient's largest magnitude",
+        "tolerance": {"atol_times_max": BWD_ATOL[m["dtype"]], "rtol": BWD_RTOL[m["dtype"]],
+                      "frobenius": BWD_FRO_TOL[m["dtype"]], "row": BWD_ROW_TOL[m["dtype"]]},
+        "frobenius_rel_err": main[1], "max_row_err_over_row_rms": main[2],
+        "plain_max_row_err_over_row_rms": main[3],
+        "peaked_softmax": dict(zip(("max_abs_err", "frobenius_rel_err",
+                                    "max_row_err_over_row_rms",
+                                    "plain_max_row_err_over_row_rms"), peaked)),
+        "plain": dict(zip(("max_abs_err", "frobenius_rel_err"), plain)),
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+        "library_call": "torch.autograd.grad through scaled_dot_product_attention",
+        "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "cases": n_cases + 2,
+          "sweep_worst": {str(k_): dict(zip(("max_abs_err_over_max", "frobenius_rel_err",
+                                             "row_measure", "plain_row_measure"), v_))
+                          for k_, v_ in worst.items()},
+          "training_shape": entry})
+    del q, k, v, out, do, lse, got
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -676,11 +876,12 @@ def phase_kernels(dev):
     """Every kernel against its plain version, both on the card."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    return [kernels_flash(dev), kernels_ssd(dev), kernels_tree(dev, gen),
-            *kernels_quant(dev, gen)]
+    return [kernels_flash(dev), kernels_flash_bwd(dev), kernels_ssd(dev),
+            kernels_tree(dev, gen), *kernels_quant(dev, gen)]
 
 
-WRAPPERS = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+WRAPPERS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan": ssd_scan,
             "tree_reduce": tree_reduce, "quantize_int8": quantize,
             "dequantize_int8": dequantize}
 
@@ -1002,6 +1203,238 @@ def phase_sync(dev, profile=False):
     return compressed_launches
 
 
+# the train phase: llama3.2-1b at full width and depth, B 4 x S 2048 (8192
+# tokens a step), bf16 params, fp32 master and moments, block remat
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS = 4            # then one more after the resume
+# card (kernels) against CPU (plain versions) at full width, 2 layers, fp32:
+# the same function, products summed in another order on the two devices
+TRAIN_PARITY = dict(layers=2, B=2, S=256)
+GRAD_FRO_TOL = 1e-4        # ||card - cpu|| / ||cpu|| per gradient leaf
+GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3   # elementwise: atol x the leaf's largest magnitude
+
+
+def expected_train_launches(cfg, pcfg):
+    """Kernel launches of one train step of a dense model: each layer's
+    attention forward once, again when block remat recomputes the layer in
+    the backward, and its backward once."""
+    fwd = cfg.num_layers * (1 if pcfg.remat == "none" else 2)
+    return {**{name: 0 for name in WRAPPERS}, "flash_attention": fwd,
+            "flash_attention_bwd": cfg.num_layers}
+
+
+def train_flops_per_step(cfg, B, S):
+    """Model FLOPs of one step, recompute not counted: 6 x the parameters
+    that enter products x tokens, plus the attention products (forward
+    2 x 2 x B x S^2 x Hq x hd / 2 causal, three times that with the
+    backward)."""
+    d, hq, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * f
+    matmul_params = cfg.num_layers * per_layer + d * cfg.padded_vocab
+    attn = 3 * cfg.num_layers * 2 * 2 * B * S * S * hq * hd / 2
+    return 6 * matmul_params * B * S + attn
+
+
+def train_f1(dev):
+    """Fault F1 on the card: the SSD scan refuses to run under grad, and an
+    attention whose inputs require grad has a gradient, through the kernels,
+    equal to autograd through the plain version."""
+    x, dt, A, Bm, Cm, _ = make_ssd(31, 1, 128, 4, 64, 64, 1, torch.bfloat16, dev, served=True)
+    x.requires_grad_()
+    _zero_launches()
+    for name, fn in (("ops.ssd", ops.ssd), ("ssd_scan", ssd_scan)):
+        try:
+            fn(x, dt, A, Bm, Cm)
+        except NotImplementedError as e:
+            if "K2-bwd" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran under grad: the SSD scan has no backward")
+    if _launches()["ssd_scan"]:
+        raise AssertionError("the SSD scan launched under grad")
+    with torch.no_grad():
+        ops.ssd(x, dt, A, Bm, Cm)                 # without a gradient it runs
+    q, k, v = (t.requires_grad_() for t in make_qkv(33, 2, 256, 256, 8, 2, 64, torch.bfloat16,
+                                                   dev))
+    do = make_qkv(34, 2, 256, 256, 8, 8, 64, torch.bfloat16, dev)[2]
+    _zero_launches()
+    out = ops.attention(q, k, v, causal=True)
+    if out.grad_fn is None or "FlashAttention" not in type(out.grad_fn).__name__:
+        raise AssertionError(f"ops.attention under grad: grad_fn {out.grad_fn}")
+    out.backward(do)
+    used = _launches()
+    if used["flash_attention"] != 1 or used["flash_attention_bwd"] != 1:
+        raise AssertionError(f"ops.attention forward + backward launched {used}")
+    grads = [t.grad for t in (q, k, v)]
+    if not all(float(g.float().abs().max()) > 0 for g in grads):
+        raise AssertionError("ops.attention: a gradient is all zero")
+    lse = flash_attention_plain(q.detach(), k.detach(), v.detach(), return_lse=True)[1]
+    err = hold_grads("ops.attention gradient", grads,
+                     attention_grads_oracle(q, k, v, do, True), torch.bfloat16,
+                     flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                               out.detach(), do, lse, causal=True))
+    return {"ssd_under_grad": "raises NotImplementedError (K2-bwd)",
+            "attention_grad_fn": type(out.grad_fn).__name__, "launches": used,
+            "attention_grad_abs_max": [float(g.float().abs().max()) for g in grads],
+            "attention_grad_vs_plain": dict(zip(("max_abs_err", "frobenius_rel_err",
+                                                 "max_row_err_over_row_rms",
+                                                 "plain_max_row_err_over_row_rms"), err))}
+
+
+def train_parity(dev):
+    """llama3.2-1b at full width, 2 layers, fp32: loss and every gradient
+    on the card (kernels) against the CPU (plain versions), same weights and
+    batch, block remat on both."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_PARITY["layers"])
+    pcfg = ParallelConfig(remat="block")
+    B, S = TRAIN_PARITY["B"], TRAIN_PARITY["S"]
+    params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][:, :7] = -1                      # masked labels count too
+    results = []
+    for where in (dev, torch.device("cpu")):
+        leaves, spec = tree_flatten(params)
+        live = [p.detach().to(where).requires_grad_() for p in leaves]
+        _zero_launches()
+        total, metrics = tfm.loss_fn(tree_unflatten(spec, live),
+                                     {k: t.to(where) for k, t in batch.items()}, cfg, pcfg)
+        total.backward()
+        results.append((float(total.detach()), [p.grad.cpu() for p in live], _launches(),
+                        float(metrics["tokens"])))
+        del live, total
+    (loss_c, g_c, used, count), (loss_h, g_h, _, count_h) = results
+    if used != expected_train_launches(cfg, pcfg):
+        raise AssertionError(f"train parity: launched {used}, expected "
+                             f"{expected_train_launches(cfg, pcfg)}")
+    if count != count_h or count != B * (S - 7):
+        raise AssertionError(f"train parity: token counts {count}, {count_h}")
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    if not (np.isfinite(loss_c) and loss_rel <= 1e-5):
+        raise AssertionError(f"train parity: loss {loss_c} on the card, {loss_h} on the CPU")
+    worst_fro, worst_el = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(g_c, g_h)):
+        scale = float(b.abs().max())
+        fro = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if not fro <= GRAD_FRO_TOL:
+            raise AssertionError(f"train parity: gradient leaf {i} {tuple(b.shape)}: "
+                                 f"||err|| / ||cpu|| = {fro:.3e} (limit {GRAD_FRO_TOL})")
+        worst_el = max(worst_el, check_close(f"train parity gradient leaf {i}", a, b,
+                                             atol=GRAD_ATOL * scale, rtol=GRAD_RTOL) / scale)
+        worst_fro = max(worst_fro, fro)
+    del params
+    return {"config": f"{TRAIN_ARCH} full width, {cfg.num_layers} layers, fp32, block remat",
+            "batch": B, "seq": S, "masked_labels": B * 7, "launches": used,
+            "loss_card": loss_c, "loss_cpu": loss_h, "loss_rel_err": loss_rel,
+            "gradient_leaves": len(g_c), "grad_max_frobenius_rel_err": worst_fro,
+            "grad_max_abs_err_over_max": worst_el,
+            "tolerance": {"loss_rel": 1e-5, "frobenius": GRAD_FRO_TOL,
+                          "atol_times_max": GRAD_ATOL, "rtol": GRAD_RTOL}}
+
+
+def phase_train(dev, card):
+    """F1 on the card, card against CPU, then llama3.2-1b at full width and
+    depth through ``Trainer.run()``: TRAIN_STEPS steps, a checkpoint, a
+    resume, one more step.  Returns the launches of the main path's run."""
+    report = {"phase": "train", "f1": train_f1(dev)}
+    report["parity"] = train_parity(dev)
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+    shape = ShapeConfig("train_4x2048", "train", S, B)
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
+    ocfg = OptimConfig()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
+    try:
+        tcfg = TrainerConfig(steps=TRAIN_STEPS, log_every=1, checkpoint_every=10 ** 9,
+                             checkpoint_dir=ckpt_dir)
+        tr = Trainer(cfg, shape, pcfg, ocfg, tcfg, device=dev)
+        state = tr.init_state()
+        n_params = sum(t.numel() for t in _leaves(state.params))
+        per_step = []
+        step_fn = tr.step_fn
+
+        def counted_step(st, batch):
+            before = _launches()
+            out = step_fn(st, batch)
+            after = _launches()
+            per_step.append({k: after[k] - before[k] for k in after})
+            return out
+        tr.step_fn = counted_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()                          # counts of this path only
+        t0 = time.perf_counter()
+        state = tr.run(state)                     # TRAIN_STEPS steps, then a checkpoint
+        run_s = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_train_launches(cfg, pcfg)
+        if len(per_step) != TRAIN_STEPS or any(c != want for c in per_step):
+            raise AssertionError(f"train: launches per step {per_step}, expected {want}")
+        hist = tr.history
+        if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+            raise AssertionError(f"train: history {hist}")
+        if ckpt.latest_step(ckpt_dir) != TRAIN_STEPS:
+            raise AssertionError(f"train: latest checkpoint {ckpt.latest_step(ckpt_dir)}")
+        probe = {"final_norm": state.params["final_norm"].float().cpu(),
+                 "wq0": state.params["blocks"][0]["attn"]["wq"][:64].float().cpu(),
+                 "m_embed": state.opt.m["embed"][:8].cpu()}
+        save_s = run_s - sum(h["seconds"] for h in hist)
+        del state, tr
+        torch.cuda.empty_cache()
+
+        # resume: a new trainer finds the checkpoint and takes one more step
+        tr2 = Trainer(cfg, shape, pcfg, ocfg,
+                      dataclasses.replace(tcfg, steps=TRAIN_STEPS + 1), device=dev)
+        t0 = time.perf_counter()
+        state = tr2.resume_or_init()
+        resume_s = time.perf_counter() - t0
+        if tr2.step != TRAIN_STEPS:
+            raise AssertionError(f"train: resumed at step {tr2.step}")
+        for name, got in (("final_norm", state.params["final_norm"]),
+                          ("wq0", state.params["blocks"][0]["attn"]["wq"][:64]),
+                          ("m_embed", state.opt.m["embed"][:8])):
+            if not torch.equal(got.float().cpu(), probe[name].float()):
+                raise AssertionError(f"train: {name} after the resume differs from the save")
+        state = tr2.run(state)
+        if tr2.step != TRAIN_STEPS + 1 or not np.isfinite(tr2.history[-1]["loss"]):
+            raise AssertionError(f"train: after the resume {tr2.step} {tr2.history}")
+        resumed = tr2.history[-1]
+        del state, tr2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    steady = [h["seconds"] for h in hist[1:]]
+    step_s = statistics.median(steady)
+    flops = train_flops_per_step(cfg, B, S)
+    report["run"] = {
+        "config": f"{cfg.name} full width and depth ({cfg.num_layers} layers, d {cfg.d_model}, "
+                  f"vocab {cfg.vocab_size}), bf16 params, fp32 master and moments, block remat",
+        "parameters": n_params, "batch": B, "seq": S, "tokens_per_step": B * S,
+        "steps": TRAIN_STEPS, "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_seconds": [h["seconds"] for h in hist],
+        "step_s_median_after_first": step_s,
+        "tokens_per_s": B * S / step_s,
+        "model_tflop_per_step": flops / 1e12,
+        "mfu": flops / step_s / TrainerConfig().peak_flops_per_device,
+        "mfu_peak_flops": TrainerConfig().peak_flops_per_device,
+        "max_memory_allocated_bytes": peak,
+        "launches_per_step": per_step[-1], "launches": launches,
+        "run_s_with_final_checkpoint": run_s, "checkpoint_save_s": save_s,
+        "resume_s": resume_s, "step_after_resume": resumed, "card": card,
+    }
+    emit(report)
+    return launches
+
+
 def _device_time_by_kernel(fn):
     """Run ``fn`` under torch.profiler; (wall ms, {kernel name: device ms})."""
     from torch.autograd import DeviceType
@@ -1020,7 +1453,8 @@ def _device_time_by_kernel(fn):
 
 
 def _summarise(wall_ms, by_name):
-    groups = {"flash_attention kernel": 0.0, "ssd_scan kernel": 0.0,
+    groups = {"flash_attention kernel": 0.0, "flash_attention backward kernels": 0.0,
+              "ssd_scan kernel": 0.0,
               "tree_reduce kernel": 0.0, "quantize / dequantize kernels": 0.0,
               "matrix products (library)": 0.0, "copies": 0.0,
               "elementwise and other": 0.0}
@@ -1028,6 +1462,8 @@ def _summarise(wall_ms, by_name):
         low = name.lower()
         if "flash_fwd" in low:
             groups["flash_attention kernel"] += ms
+        elif "flash_bwd" in low or "bwd_delta" in low:
+            groups["flash_attention backward kernels"] += ms
         elif "ssd_scan" in low:
             groups["ssd_scan kernel"] += ms
         elif "tree_reduce" in low:
@@ -1074,6 +1510,52 @@ def phase_profile(dev, arch):
     torch.cuda.empty_cache()
 
 
+def phase_profile_train(dev):
+    """Optional (``--phases profile``): where one train step of llama3.2-1b
+    at the train phase's configuration spends its device time (two steps
+    first, unprofiled, to warm up)."""
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+    tr = Trainer(cfg, ShapeConfig("train_4x2048", "train", S, B),
+                 ParallelConfig(remat="block", param_dtype="bfloat16"), OptimConfig(),
+                 device=dev)
+    state = tr.init_state()
+    for i in range(2):
+        state, _ = tr.step_fn(state, tr.data.batch(i))
+    batch = tr.data.batch(2)
+    box = [state]
+
+    def one_step():
+        box[0], metrics = tr.step_fn(box[0], batch)
+        float(metrics["loss"])
+    summary = _summarise(*_device_time_by_kernel(one_step))
+    emit({"phase": "profile", "config": f"{cfg.name} train step, B {B} x S {S}, block remat",
+          "train_step": summary})
+    del state, box, tr
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def phase_limit(name, seconds):
+    """Run the body under PHASE_LIMIT_S[name]; record its wall time."""
+    done = threading.Event()
+
+    def watch():
+        if not done.wait(PHASE_LIMIT_S[name]):
+            print(f"chip_smoke: phase {name} ran past its limit of "
+                  f"{PHASE_LIMIT_S[name]} s", file=sys.stderr, flush=True)
+            os._exit(3)
+    watcher = threading.Thread(target=watch, daemon=True)
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        yield
+    finally:
+        done.set()
+        watcher.join()
+        seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1092,23 +1574,38 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_env()
-    phase_build()         # every later phase needs the kernels
-    entries = phase_kernels(dev) if "kernels" in phases else []
+    seconds = {}
+    with phase_limit("env", seconds):
+        card = phase_env()
+    with phase_limit("build", seconds):
+        phase_build()     # every later phase needs the kernels
+    entries = []
+    if "kernels" in phases:
+        with phase_limit("kernels", seconds):
+            entries = phase_kernels(dev)
     if "parity" in phases:
-        phase_parity(dev)
-    # each served path is read with the counts set to 0 just before it
+        with phase_limit("parity", seconds):
+            phase_parity(dev)
+    # each main path is read with the counts set to 0 just before it
     launches = {}
     if "serve" in phases:
-        launches["flash_attention_fwd"] = phase_serve(dev, "llama3.2-1b")["flash_attention"]
-        launches["ssd_scan_fwd"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
+        with phase_limit("serve", seconds):
+            launches["flash_attention_fwd"] = phase_serve(dev, "llama3.2-1b")["flash_attention"]
+            launches["ssd_scan_fwd"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
     if "sync" in phases:
-        used = phase_sync(dev, profile="profile" in phases)
+        with phase_limit("sync", seconds):
+            used = phase_sync(dev, profile="profile" in phases)
         for name in ("tree_reduce", "quantize_int8", "dequantize_int8"):
             launches[name] = used[name]
+    if "train" in phases:
+        with phase_limit("train", seconds):
+            launches["flash_attention_bwd"] = phase_train(dev, card)["flash_attention_bwd"]
     if "profile" in phases:
-        for arch in ("llama3.2-1b", "mamba2-1.3b"):
-            phase_profile(dev, arch)
+        with phase_limit("profile", seconds):
+            for arch in ("llama3.2-1b", "mamba2-1.3b"):
+                phase_profile(dev, arch)
+            phase_profile_train(dev)
+    emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds}})
 
     full = set(PHASES) <= set(phases)
     for entry in entries:

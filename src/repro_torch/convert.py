@@ -12,6 +12,11 @@ compute the same function, which is what the parity tests rest on.
 
 Takes numpy only and imports no JAX: the caller converts
 (``jax.tree.map(np.asarray, values)``).
+
+``to_jax_params`` is the inverse: the port's parameters back to a numpy tree
+in the JAX layout (``blocks`` stacked on a leading ``layers`` axis), so that
+tests can hold the two packages' parameters against each other after
+training steps.
 """
 
 from __future__ import annotations
@@ -75,4 +80,33 @@ def from_jax_params(values: Dict[str, Any], cfg: ModelConfig,
                          f"configuration has {n_layers} layers")
     out["blocks"] = [_convert(_layer(values["blocks"], l), dev, dtype)
                      for l in range(n_layers)]
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    # numpy has no bfloat16: such leaves come back as float32 (exact)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _to_numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy_tree(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """repro_torch parameters → JAX value tree (numpy leaves, ``blocks``
+    stacked on a leading ``layers`` axis; bf16 tensors as float32 arrays)."""
+    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet")
+    out = {k: _to_numpy_tree(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = _stack([_to_numpy_tree(b) for b in params["blocks"]])
     return out

@@ -79,6 +79,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) fp32 log-sum-exp of the scaled scores, or nullptr: not written
   int B, Sq, Sk, Hq, Hkv;
   // strides in elements: batch, sequence, head (the last dimension has stride 1)
   long long q_sb, q_ss, q_sh;
@@ -226,6 +227,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
   for (int r = 0; r < R; ++r) {
     const int qpos = q0 + warp * R + r;
     if (qpos >= p.Sq) continue;
+    if (p.lse && lane == 0) p.lse[((long long)b * p.Hq + h) * p.Sq + qpos] = m[r] + logf(l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
@@ -687,6 +689,11 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
       }
       const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+      if (p.lse && t4 == 0) {        // the backward's lse = m + log l, m in scaled units
+        float* lp = p.lse + ((long long)w.b * p.Hq + w.h) * p.Sq;
+        if (row_lo < p.Sq) lp[row_lo] = r.m_lo * p.scale + logf(l_lo);
+        if (row_hi < p.Sq) lp[row_hi] = r.m_hi * p.scale + logf(l_hi);
+      }
       const int r_lo = w4 * 16 + g, r_hi = r_lo + 8;   // rows within the warpgroup's 64
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
@@ -802,16 +809,19 @@ int launch(const Params& p, int is_bf16, cudaStream_t stream) {
 
 // Returns 0, a cudaError_t from the launch, -1 / -2 for a shape this file does
 // not take, or -3 if cuTensorMapEncodeTiled refuses a TMA descriptor (bf16).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Sk, int Hq, int Hkv, int hd, long long q_sb,
+// `lse`, if not nullptr, receives each row's log-sum-exp (fp32, (B, Hq, Sq)
+// contiguous) for the backward (csrc/flash_attention_bwd.cu).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int hd,
+                                   long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                                    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss, long long o_sh, float scale,
                                    int causal, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -2;
   if (Hq > 65535 || B > 65535) return -2;
-  Params p{q,    k,    v,    o,    B,    Sq,   Sk,   Hq,   Hkv,  q_sb, q_ss, q_sh,  k_sb,
-           k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
+  Params p{q,    k,    v,    o,    lse,  B,    Sq,   Sk,   Hq,    Hkv,  q_sb, q_ss,
+           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 64: return launch<64>(p, is_bf16, s);

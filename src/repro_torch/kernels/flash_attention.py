@@ -1,17 +1,29 @@
-"""Flash-attention forward: the wrapper of the hand-written CUDA kernel and,
-beside it, the plain PyTorch version of the same arithmetic.
+"""Flash attention, forward and backward: the wrappers of the hand-written
+CUDA kernels and, beside each, the plain PyTorch version of the same
+arithmetic.
 
-Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).
-The kernel's source is ``csrc/flash_attention.cu``; the note at its top says
-what it replaces, what bounds it on an H100 and what its design does about it.
+Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel,
+which has no backward: the JAX package trains through attention that JAX
+differentiates).  The kernels' sources are ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``; the note at the top of each says what it
+replaces, what bounds it on an H100 and what its design does about it.
 
-* ``flash_attention(q, k, v, causal=, scale=)`` launches the kernel.  It
-  takes CUDA tensors only and raises on anything the kernel does not take; it
-  never falls back to the plain version.  ``flash_attention.launches`` counts
-  the launches.
-* ``flash_attention_plain`` is blocked online-softmax attention in tensor
-  ops: the oracle the kernel is held against on the card, and what
-  ``ops.attention`` takes for a tensor that lies on the CPU.
+* ``flash_attention(q, k, v, causal=, scale=)`` launches the forward kernel,
+  and with ``return_lse=True`` also has it write each row's log-sum-exp for
+  the backward.  ``flash_attention_bwd(q, k, v, o, do, lse, ...)`` launches
+  the backward kernel and returns ``(dq, dk, dv)``.  Both take CUDA tensors
+  only and raise on anything the kernels do not take; they never fall back to
+  the plain versions.  ``flash_attention.launches`` and
+  ``flash_attention_bwd.launches`` count the launches.
+* ``flash_attention_plain`` (blocked online-softmax attention) and
+  ``flash_attention_bwd_plain`` (the backward recomputing P block by block
+  from the log-sum-exp) are the same arithmetic in tensor ops: the oracles
+  the kernels are held against on the card, and what ``ops.attention`` takes
+  for a tensor that lies on the CPU.
+* ``FlashAttention`` is the ``torch.autograd.Function`` that joins a forward
+  to its backward, kernel to kernel or plain to plain.  ``ops.attention``
+  sends every call whose inputs need a gradient there, and every other call
+  to the forward alone, which then writes no log-sum-exp.
 
 Layout ``(B, S, H, hd)`` as in the JAX package.  Unlike the Pallas kernel,
 which wants equal head counts (``ops.attention`` repeats K/V first), both
@@ -32,22 +44,49 @@ from ..models.attention import NEG_INF, matmul_f32, repeat_kv
 HEAD_DIMS = (64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
-_fn = None
+_fn = None        # flash_attention_fwd, bound at first use
+_bwd_fn = None    # flash_attention_bwd, bound at first use
+
+
+def _bind(fn, n_ptr: int, n_strides: int):
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 +
+                   [ctypes.c_longlong] * n_strides +
+                   [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return fn
 
 
 def _kernel_fn():
-    """The C entry point, built and bound at first use."""
+    """The forward's C entry point, built and bound at first use."""
     global _fn
-    if _fn is None:
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
-                       [ctypes.c_longlong] * 12 +
-                       [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p])
-        _fn = fn
+    if _fn is None:     # q, k, v, o, lse; strides of q, k, v, o
+        _fn = _bind(build.load("flash_attention").flash_attention_fwd, 5, 12)
     return _fn
+
+
+def _bwd_kernel_fn():
+    """The backward's C entry point, built and bound at first use."""
+    global _bwd_fn
+    if _bwd_fn is None:  # q, k, v, o, do, lse, delta, dq, dk, dv; 8 tensors' strides
+        _bwd_fn = _bind(build.load("flash_attention_bwd").flash_attention_bwd, 10, 24)
+    return _bwd_fn
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """16-byte rows: what the fp32 kernels' vector loads, the bf16 forward's
+    TMA descriptors (address and strides multiples of 16 bytes) and the bf16
+    backward's 16-byte loads need."""
+    vec = 16 // t.element_size()
+    return (t.stride(3) == 1 and not any(s % vec for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous")
+    if not _rows_aligned(t):
+        raise ValueError(f"{name}: rows must be 16-byte aligned "
+                         f"(strides {t.stride()}, offset {t.storage_offset()})")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
@@ -64,14 +103,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
             raise ValueError(f"{name} must be (B, S, H, hd), got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k, v must share dtype and device")
-        # 16-byte rows: what the fp32 kernel's vector loads and the bf16
-        # kernel's TMA descriptors (address and strides multiples of 16 bytes) need
-        vec = 16 // t.element_size()
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: the last dimension must be contiguous")
-        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: rows must be 16-byte aligned "
-                             f"(strides {t.stride()}, offset {t.storage_offset()})")
+        _check_rows(name, t)
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
     B, Sq, Hq, hd = q.shape
@@ -87,21 +119,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, return_lse: bool = False):
     """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd), CUDA, fp32 or bf16.
 
-    Returns (B, Sq, Hq, hd) in q.dtype.  Launches on the current stream and
-    does not synchronise.
+    Returns (B, Sq, Hq, hd) in q.dtype and, with ``return_lse``, also each
+    row's log-sum-exp of the scaled scores, fp32 (B, Hq, Sq).  Launches on
+    the current stream and does not synchronise.
     """
     _check(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  B, Sq, Sk, Hq, Hkv, hd,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3],
@@ -112,23 +148,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention_fwd failed to launch (code {err}{why}) "
                            f"for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
+    cotangent ``do`` of its output ``o``, from the forward's log-sum-exp
+    ``lse`` (fp32 (B, Hq, Sq)).  CUDA tensors; dk and dv are summed over the
+    query heads of each KV group.  Launches on the current stream (three
+    kernels: the row sums D, dK/dV, dQ) and does not synchronise.
+    """
+    _check(q, k, v, 0)
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} "
+                             f"{t.device} against {tuple(q.shape)} {q.dtype}")
+    if not _rows_aligned(do):
+        do = do.contiguous()          # a cotangent may come in any layout
+    _check_rows("o", o)
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous fp32 {(B, Hq, Sq)} on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+                 B, Sq, Sk, Hq, Hkv, hd,
+                 *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+                 float(scale), int(bool(causal)),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd failed to launch (code {err}) "
+                           f"for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, scale: Optional[float] = None,
-                          block_q: int = 128, block_k: int = 128
-                          ) -> torch.Tensor:
+                          block_q: int = 128, block_k: int = 128,
+                          return_lse: bool = False):
     """The kernel's arithmetic in tensor ops, on any device.
 
     Blocks of ``block_q`` x ``block_k``; per kv block: scores in fp32, mask
     as ``where(mask, s, -1e30)``, running max ``m``, denominator ``l`` and
     accumulator in fp32, ``p`` cast to v's dtype for the second product;
     finalise ``acc / max(l, 1e-30)``.  With a causal mask the kv loop stops at
-    the diagonal, as the kernel's does.
+    the diagonal, as the kernel's does.  With ``return_lse`` also returns
+    ``m + log l`` per row, fp32 (B, Hq, Sq).
     """
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -138,6 +221,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))      # (B,H,S,hd)
     out = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, block_q):
         qb = qh[:, :, q0:q0 + block_q]
@@ -164,4 +248,78 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, :, q0:q0 + nq] = o.to(q.dtype)
-    return out.permute(0, 2, 1, 3)
+        lse[:, :, q0:q0 + nq] = m + torch.log(l)
+    out = out.permute(0, 2, 1, 3)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                              *, causal: bool = True, scale: Optional[float] = None,
+                              block_q: int = 128, block_k: int = 128):
+    """The backward kernel's arithmetic in tensor ops, on any device.
+
+    ``D = rowsum(do * o)`` in fp32; per (q block, kv block), up to the
+    diagonal if causal: ``P = exp(s - lse)`` recomputed from fp32 scores and
+    set to 0 where masked, ``dv += P^T do`` and ``dS = P * (do v^T - D)``,
+    ``dq += dS k``, ``dk += dS^T q``, with P and dS rounded to the input dtype
+    for those products and every sum in fp32; dq and dk are scaled at the
+    end.  dk and dv are summed over the query heads of each KV group.
+    Returns (dq, dk, dv) in the input dtype.
+    """
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dt = q.dtype
+    qh, oh, doh = (t.permute(0, 2, 1, 3) for t in (q, o, do))      # (B,Hq,Sq,hd)
+    kh, vh = (repeat_kv(t, rep).permute(0, 2, 1, 3) for t in (k, v))
+    delta = (doh.float() * oh.float()).sum(dim=-1)                   # (B,Hq,Sq)
+    dq = torch.zeros((B, Hq, Sq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Hq, Sk, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, block_q):
+        qb, dob = qh[:, :, q0:q0 + block_q], doh[:, :, q0:q0 + block_q]
+        nq = qb.shape[2]
+        q_pos = q0 + torch.arange(nq, device=q.device)
+        lse_b = lse[:, :, q0:q0 + nq, None]
+        d_b = delta[:, :, q0:q0 + nq, None]
+        k_end = min(Sk, q0 + nq) if causal else Sk
+        for k0 in range(0, k_end, block_k):
+            kb, vb = kh[:, :, k0:k0 + block_k], vh[:, :, k0:k0 + block_k]
+            s = matmul_f32(qb, kb.transpose(-1, -2)) * scale
+            p = torch.exp(s - lse_b)
+            if causal:
+                k_pos = k0 + torch.arange(kb.shape[2], device=q.device)
+                p = torch.where(k_pos[None, :] <= q_pos[:, None], p, 0.0)
+            dv[:, :, k0:k0 + block_k] += matmul_f32(p.to(dt).transpose(-1, -2), dob)
+            ds = (p * (matmul_f32(dob, vb.transpose(-1, -2)) - d_b)).to(dt)
+            dq[:, :, q0:q0 + nq] += matmul_f32(ds, kb)
+            dk[:, :, k0:k0 + block_k] += matmul_f32(ds.transpose(-1, -2), qb)
+    dk = dk.view(B, Hkv, rep, Sk, hd).sum(dim=2)
+    dv = dv.view(B, Hkv, rep, Sk, hd).sum(dim=2)
+    return ((dq * scale).to(dt).permute(0, 2, 1, 3),
+            (dk * scale).to(dt).permute(0, 2, 1, 3),
+            dv.to(dt).permute(0, 2, 1, 3))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward saves its output and the
+    per-row log-sum-exp, the backward recomputes P from them.  ``kernel``
+    chooses the CUDA kernels or the plain versions, for both directions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float], kernel: bool):
+        fwd = flash_attention if kernel else flash_attention_plain
+        out, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if ctx.kernel else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, do, lse, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None

@@ -13,6 +13,12 @@ Neither the attention kernel nor its plain version has a sliding window (nor
 has the Pallas kernel they replace), so ``window != 0`` raises on every device
 until a windowed family is ported.
 
+Gradients: an ``attention`` call whose inputs require a gradient (with
+gradients enabled) goes through ``FlashAttention``, which pairs the forward
+with its backward (kernel with kernel, plain with plain); any other call runs
+the forward alone.  ``ssd`` raises in that case: the SSD scan has no backward
+yet (ROADMAP.md K2-bwd), on either route.
+
 Every function of the JAX module has its counterpart here: ``attention``,
 ``ssd``, and the gradient-synchronisation kernels ``reduce_shards``,
 ``quantize`` and ``dequantize`` (``repro_torch.parallel`` calls them).
@@ -24,13 +30,14 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (FlashAttention, flash_attention,
+                              flash_attention_plain)
 from .quant8 import dequantize as _dequantize
 from .quant8 import dequantize_plain
 from .quant8 import quantize as _quantize
 from .quant8 import quantize_plain
 from .reduce_tree import tree_reduce, tree_reduce_plain
-from .ssd_scan import ssd_scan, ssd_scan_plain
+from .ssd_scan import refuse_grad, ssd_scan, ssd_scan_plain
 
 IMPLS = ("auto", "kernel", "plain")
 
@@ -53,6 +60,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "ops.attention has no sliding window: window must be 0, got "
             f"{window} (no ported configuration has one)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, None, on_kernel)
     if on_kernel:
         return flash_attention(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal)
@@ -64,7 +74,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return_state: bool = False, impl: str = "auto"):
     """Mamba2 SSD chunked scan.  x: (B,S,H,hd); dt: (B,S,H) fp32; A: (H,)
     fp32; B/C: (B,S,G,N) read in place per group.  Returns y (B,S,H,hd) and,
-    if ``return_state``, the final state (B,H,hd,N) fp32."""
+    if ``return_state``, the final state (B,H,hd,N) fp32.  Raises if an
+    input requires a gradient while gradients are enabled."""
+    refuse_grad(x, dt, A, Bmat, Cmat, initial_state)
     if _on_kernel(impl, x):
         return ssd_scan(x, dt, A, Bmat, Cmat, initial_state=initial_state,
                         return_state=return_state)

@@ -13,6 +13,10 @@ replaces, what bounds it on an H100 and what its design does about it.
   with the carried state, fp32 inside, y cast to x's dtype.  It is the
   oracle the kernel is held against on the card, and what ``ops.ssd`` takes
   for a tensor that lies on the CPU.
+* The kernel has no backward yet (ROADMAP.md, K2-bwd with M3b), and writing
+  into a fresh tensor through ``ctypes`` would cut the autograd graph without
+  a word; so ``ssd_scan`` and ``ops.ssd`` raise (``refuse_grad``) when
+  gradients are enabled and an input requires one.
 
 Shapes as in the JAX package: x ``(B, S, H, hd)``, dt ``(B, S, H)`` (softplus
 already applied), A ``(H,)`` (negative), B / C ``(B, S, G, N)`` with G
@@ -102,6 +106,17 @@ def _check(x, dt, A, Bmat, Cmat, initial_state):
                              f"{tuple(initial_state.shape)} {initial_state.dtype}")
 
 
+def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need the scan's gradient: it has none yet."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            "the SSD scan has no backward yet: the SSD backward kernel "
+            "(ROADMAP.md K2-bwd, with the SSM / hybrid training step M3b) is "
+            "still to be ported; run the scan under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, *,
              initial_state: Optional[torch.Tensor] = None,
@@ -110,8 +125,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Returns y ``(B, S, H, hd)`` in x's dtype, and the final state
     ``(B, H, hd, N)`` fp32 if ``return_state``.  Launches on the current
-    stream and does not synchronise.
+    stream and does not synchronise.  Raises if an input requires a gradient
+    while gradients are enabled (``refuse_grad``).
     """
+    refuse_grad(x, dt, A, Bmat, Cmat, initial_state)
     _check(x, dt, A, Bmat, Cmat, initial_state)
     Bsz, S, H, hd = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]

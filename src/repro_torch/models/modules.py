@@ -14,7 +14,7 @@ target device; they never touch the global generator.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,6 +27,51 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_flatten(tree, is_leaf: Callable[[Any], bool] = lambda _: False
+                 ) -> Tuple[List[Any], Any]:
+    """Leaves of a tree of dicts, lists, tuples and named tuples, in the
+    order ``jax.tree.flatten`` takes them (dict keys sorted; ``None`` is an
+    empty subtree), and a spec that ``tree_unflatten`` rebuilds it from.
+    ``is_leaf`` stops the walk at a node (e.g. a quantised moment)."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if t is None:
+            return None
+        if is_leaf(t):
+            leaves.append(t)
+            return "*"
+        if isinstance(t, dict):
+            return (dict, tuple((k, walk(t[k])) for k in sorted(t)))
+        if isinstance(t, (list, tuple)):
+            return (type(t), tuple(walk(x) for x in t))
+        leaves.append(t)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(spec, leaves: Sequence[Any]):
+    """Inverse of ``tree_flatten``."""
+    it = iter(leaves)
+
+    def build(sp):
+        if sp is None:
+            return None
+        if sp == "*":
+            return next(it)
+        kind, children = sp
+        if kind is dict:
+            return {k: build(c) for k, c in children}
+        items = [build(c) for c in children]
+        return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+    out = build(spec)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has places")
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -95,3 +140,82 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     # tanh approximation, which is what jax.nn.gelu computes by default
     return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+NEG_BIG = -3e38  # near-min float32; representable in bf16 too
+
+# rows of the (N, V) logits taken at a time, so that the fp32 copy of a chunk
+# stays near 256 MB whatever the vocabulary
+_CE_CHUNK_ELEMENTS = 1 << 26
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Mean token cross-entropy with its gradient written out, chunk by chunk
+    of rows, so that no fp32 (B, S, V) tensor exists at any time: the forward
+    saves the logits as they are (their dtype) and the per-row log-sum-exp,
+    and the backward writes the gradient in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size: int, z_weight: float):
+        v = logits.shape[-1]
+        flat = logits.reshape(-1, v)
+        lab = labels.reshape(-1).long()
+        lse = torch.empty(flat.shape[0], dtype=torch.float32, device=logits.device)
+        rows = max(1, _CE_CHUNK_ELEMENTS // v)
+        for r0 in range(0, flat.shape[0], rows):
+            x = flat[r0:r0 + rows].float()
+            if vocab_size < v:                 # padded vocab: out of the exp-sum
+                x[:, vocab_size:] = NEG_BIG
+            m = x.amax(dim=-1)
+            lse[r0:r0 + rows] = m + torch.log(torch.exp(x - m[:, None]).sum(dim=-1))
+        picked = flat.gather(1, lab.clamp_min(0)[:, None])[:, 0].float()
+        nll = lse - picked
+        if z_weight:
+            nll = nll + z_weight * lse.square()
+        mask = (lab >= 0).float()
+        count = mask.sum().clamp_min(1.0)
+        ctx.save_for_backward(logits, lab, lse, count)
+        ctx.vocab_size, ctx.z_weight = vocab_size, z_weight
+        ctx.mark_non_differentiable(count)
+        return (nll * mask).sum() / count, count
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_loss, _g_count):
+        logits, lab, lse, count = ctx.saved_tensors
+        v = logits.shape[-1]
+        flat = logits.reshape(-1, v)
+        grad = torch.empty_like(flat)
+        # d loss / d logit = w * (softmax * (1 + 2 z lse) - onehot(label)),
+        # w = g / count on unmasked rows, 0 on masked ones
+        w = g_loss.float() * (lab >= 0).float() / count
+        rows = max(1, _CE_CHUNK_ELEMENTS // v)
+        for r0 in range(0, flat.shape[0], rows):
+            x = flat[r0:r0 + rows].float()
+            if ctx.vocab_size < v:
+                x[:, ctx.vocab_size:] = NEG_BIG
+            lse_c = lse[r0:r0 + rows, None]
+            p = torch.exp(x - lse_c)
+            if ctx.z_weight:
+                p = p * (1 + 2 * ctx.z_weight * lse_c)
+            w_c = w[r0:r0 + rows]
+            p = p * w_c[:, None]
+            lab_c = lab[r0:r0 + rows].clamp_min(0)[:, None]
+            p.scatter_add_(1, lab_c, -w_c[:, None])
+            grad[r0:r0 + rows] = p.to(grad.dtype)
+        return grad.view_as(logits), None, None, None
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int, z_weight: float = 0.0):
+    """Token-level CE over a (possibly padded) vocab; labels < 0 are masked.
+
+    Counterpart of ``repro.models.modules.softmax_cross_entropy``: logits
+    stay in their dtype; fp32 appears only inside the reductions (max,
+    exp-sum, the picked logit), taken over chunks of rows, so no fp32 (B, S, V)
+    tensor is materialised; padded vocab entries are set to -3e38 inside each
+    fp32 chunk, out of the exp-sum.  The gradient is written out by hand
+    (``_CrossEntropy``), chunk by chunk, in the logits' dtype.
+    Returns (mean_loss, token_count), both fp32 scalars.
+    """
+    return _CrossEntropy.apply(logits, labels, vocab_size, float(z_weight))

@@ -5,8 +5,9 @@ Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers on a leading ``layers`` axis and runs them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dictionary per layer and the stack is
 a Python loop.  The other families (moe, vlm, audio) raise
-``NotImplementedError`` until their slice is ported; ``loss_fn`` arrives with
-the training slice.
+``NotImplementedError`` until their slice is ported.  ``loss_fn`` trains the
+dense family; the ssm and hybrid families raise there until the SSD scan has
+a backward (ROADMAP.md M3b / K2-bwd).
 
 Hybrid (zamba2) structure, as in the JAX package: ``num_layers`` Mamba2
 blocks; after every ``attn_every`` of them, one *shared* attention block
@@ -15,6 +16,7 @@ blocks; after every ``attn_every`` of them, one *shared* attention block
 
 Entry points:
   * ``init``              — dictionary of parameters from a seed.
+  * ``loss_fn``           — causal LM loss of a batch (dense family).
   * ``init_decode_state`` — an empty decode state for a cache length.
   * ``prefill``           — runs the prompt, builds the decode state.
   * ``decode_step``       — one token for every sequence in the batch.
@@ -33,11 +35,12 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .config import ModelConfig, ParallelConfig
 from .layers import KVCache, apply_attn_block, init_attn_block
 from .modules import (dense_init, embed_init, ones_init, resolve_device,
-                      rms_norm)
+                      rms_norm, softmax_cross_entropy)
 from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_forward
 
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
@@ -127,6 +130,51 @@ def _embed_inputs(params, cfg, batch):
 
 def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _maybe_remat(fn, pcfg: ParallelConfig):
+    """``pcfg.remat`` "block" or "full": ``fn`` under non-reentrant activation
+    checkpointing, which keeps its inputs and recomputes the rest in the
+    backward.  The JAX package's "block" keeps the outputs of products without
+    batch dimensions besides; ``torch.utils.checkpoint`` has no such policy,
+    so "block" and "full" are the same here.  "none": ``fn`` itself."""
+    if pcfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args,
+                                                            use_reentrant=False)
+
+
+# --------------------------------------------------------------------------
+# training loss
+# --------------------------------------------------------------------------
+
+def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None):
+    """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
+    tensors (-1 = masked).  Returns ``(total, {"loss", "aux_loss",
+    "tokens"})`` as fp32 scalars; ``total`` is what the gradient is taken of,
+    the metrics are detached from the graph.
+    On a CUDA tensor every self-attention goes through the flash-attention
+    forward and backward kernels (``kernels.ops.attention``)."""
+    _require_ported(cfg)
+    if _is_ssm(cfg):
+        raise NotImplementedError(
+            f"loss_fn: training the {cfg.family} family ({cfg.name}) needs the "
+            "SSD scan's backward, not ported yet (ROADMAP.md M3b with K2-bwd)")
+    pcfg = pcfg or ParallelConfig()
+    x, positions = _embed_inputs(params, cfg, batch)
+
+    def run(h, bp):
+        return apply_attn_block(bp, cfg, pcfg, h, positions=positions,
+                                mode="train")[0]
+    run = _maybe_remat(run, pcfg)
+    for bp in params["blocks"]:
+        x = run(x, bp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ _head(params, cfg)
+    loss, count = softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)   # MoE only (M7)
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss.detach(), "aux_loss": aux, "tokens": count}
 
 
 # --------------------------------------------------------------------------

@@ -47,7 +47,8 @@ def test_the_walk_sees_the_whole_port():
             "attention.py", "modules.py", "config.py", "ops.py", "build.py",
             "flash_attention.py", "convert.py", "registry.py", "ssm.py",
             "ssd_scan.py", "mamba2_1_3b.py", "zamba2_2_7b.py", "quant8.py",
-            "reduce_tree.py", "compress.py", "collectives.py", "mesh.py"} <= names
+            "reduce_tree.py", "compress.py", "collectives.py", "mesh.py",
+            "optim.py", "steps.py", "data.py", "checkpoint.py", "train_loop.py"} <= names
     assert len(MODULES) >= 20
 
 

@@ -175,11 +175,17 @@ def test_kernel_wrapper_rejects_window_before_anything_else():
 
 
 def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
-    assert build.sources() == ["flash_attention", "quant8", "reduce_tree", "ssd_scan"]
+    assert build.sources() == ["flash_attention", "flash_attention_bwd", "quant8",
+                               "reduce_tree", "ssd_scan"]
     assert (build.CSRC / "flash_attention.cu").is_file()
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
     text = (build.CSRC / "flash_attention.cu").read_text()
     assert 'extern "C" int flash_attention_fwd' in text
+    assert "float* lse" in text          # the optional log-sum-exp output
+    bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert 'extern "C" int flash_attention_bwd' in bwd
+    assert "mma.sync" in bwd and "atomicAdd" not in bwd   # deterministic: no atomics
+    assert "src/repro/kernels/flash_attention.py" in bwd
     # the bf16 path: wgmma products on K/V tiles loaded by TMA
     assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
     ssd = (build.CSRC / "ssd_scan.cu").read_text()

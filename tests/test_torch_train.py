@@ -1,0 +1,298 @@
+"""The port's training slice on the CPU against the JAX package: the data
+pipeline copy, the cross-entropy, ``loss_fn`` and its gradients, and the
+``Trainer`` loop (resume, signal, final checkpoint).  Five whole train steps
+against JAX are in ``tests/test_torch_optim.py``.
+
+Same numpy inputs and converted weights on both sides, fp32.  Tolerances:
+the loss to rtol 1e-5; each gradient leaf to relative 1e-4 (``rel_close``:
+every element within 1e-4 of the leaf's largest magnitude, and the leaf's
+Frobenius error within 1e-4 of its norm).  The two packages compute the same
+function with sums taken in another order.
+
+Every checkpoint directory is a ``tmp_path``; the trainer's prefetch thread
+is joined by ``run`` and its signal handlers are restored (both asserted).
+"""
+
+import dataclasses
+import signal
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as j_get_config
+from repro.models import modules as jmod
+from repro.models import transformer as jtfm
+from repro.models.config import ParallelConfig as JParallelConfig
+from repro.train import data as jdata
+from repro.train import train_loop as jloop
+
+from repro_torch.configs.registry import get_config
+from repro_torch.convert import from_jax_params, to_jax_params
+from repro_torch.models import modules
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ParallelConfig, ShapeConfig
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import data
+from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+DENSE = ["llama3.2-1b", "qwen3-32b", "qwen1.5-4b", "chatglm3-6b"]
+JPCFG = JParallelConfig(remat="none")
+PCFG = ParallelConfig(remat="none")
+
+
+def rel_close(got, want, rel=1e-4, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale, err_msg=what)
+    fro = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+    assert fro <= rel, f"{what}: Frobenius relative error {fro:.3e}"
+
+
+def leaves_with_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_paths(tree[k], path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def converted(arch, seed=0):
+    """Reduced configuration, JAX weights (biases and qk-norms made to count)
+    and the port's conversion of them."""
+    jcfg, cfg = j_get_config(arch).reduced(), get_config(arch).reduced()
+    jv, _ = jmod.split(jtfm.init(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(40)
+    for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+        if name in jv["blocks"]["attn"]:
+            a = jv["blocks"]["attn"][name]
+            base = 1.0 if name.endswith("norm") else 0.0
+            jv["blocks"]["attn"][name] = jnp.asarray(
+                base + 0.1 * rng.standard_normal(a.shape).astype(np.float32))
+    tp = from_jax_params(jax.tree.map(np.asarray, jv), cfg, device="cpu")
+    return jcfg, cfg, jv, tp
+
+
+def make_batch(cfg, B=2, S=16, seed=1):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1                          # masked positions
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+# --------------------------------------------------------------------------
+# data pipeline: the port's own copy
+# --------------------------------------------------------------------------
+
+def test_data_config_copy_equals_jax():
+    a = [(f.name, f.default) for f in dataclasses.fields(data.DataConfig)]
+    b = [(f.name, f.default) for f in dataclasses.fields(jdata.DataConfig)]
+    assert a == b
+
+
+@pytest.mark.parametrize("kw,step", [
+    (dict(vocab_size=101, seq_len=16, global_batch=4), 0),
+    (dict(vocab_size=101, seq_len=16, global_batch=4), 7),
+    (dict(vocab_size=4096, seq_len=64, global_batch=8, seed=9, num_shards=2, shard_id=1), 3),
+    (dict(vocab_size=128256, seq_len=32, global_batch=2, zipf_a=1.1, ngram_repeat_p=0.5), 11),
+])
+def test_synthetic_batches_identical_in_both_packages(kw, step):
+    a = data.SyntheticLM(data.DataConfig(**kw)).batch(step)
+    b = jdata.SyntheticLM(jdata.DataConfig(**kw)).batch(step)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype == np.int32
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_prefetch_iterator_resumes_and_joins():
+    src = data.SyntheticLM(data.DataConfig(vocab_size=101, seq_len=16, global_batch=4))
+    it = data.PrefetchIterator(src, start_step=5)
+    try:
+        got = next(it)
+    finally:
+        it.close()
+    assert not it._thread.is_alive()
+    np.testing.assert_array_equal(got["tokens"], src.batch(5)["tokens"])
+    assert it.state()["step"] == 6
+
+
+# --------------------------------------------------------------------------
+# cross-entropy
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vocab_size", [40, 37])          # 37: three padded entries
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("z_weight", [0.0, 1e-2])
+def test_softmax_cross_entropy_matches_jax(vocab_size, dtype, z_weight, monkeypatch):
+    # a small chunk so that the rows are taken in several chunks
+    monkeypatch.setattr(modules, "_CE_CHUNK_ELEMENTS", 40 * 3)
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal((2, 9, 40)) * 3).astype(np.float32)
+    labels = rng.integers(0, vocab_size, (2, 9)).astype(np.int32)
+    labels[1, 4:] = -1
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    x = torch.from_numpy(logits).to(td).requires_grad_()
+    loss, count = modules.softmax_cross_entropy(x, torch.from_numpy(labels), vocab_size,
+                                                z_weight)
+    loss.backward()
+
+    def jloss(lg):
+        return jmod.softmax_cross_entropy(lg, jnp.asarray(labels), vocab_size, z_weight)
+    jx = jnp.asarray(logits).astype(jd)
+    jl, jc = jloss(jx)
+    jg = jax.grad(lambda lg: jloss(lg)[0])(jx)
+    assert loss.dtype == count.dtype == torch.float32
+    assert float(count) == float(jc) == 2 * 9 - 5
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), **tol)
+    assert x.grad.dtype == td
+    g = x.grad.float().numpy()
+    np.testing.assert_allclose(g, np.asarray(jg.astype(jnp.float32)),
+                               **(dict(rtol=1e-4, atol=1e-7) if dtype == "float32"
+                                  else dict(rtol=2e-2, atol=1e-3)))
+    assert not g[..., vocab_size:].any()           # padded entries get no gradient
+    assert not g[1, 4:].any()                      # masked rows neither
+
+
+def test_cross_entropy_all_masked_counts_one():
+    x = torch.zeros(1, 3, 8, requires_grad=True)
+    loss, count = modules.softmax_cross_entropy(x, torch.full((1, 3), -1), 8)
+    loss.backward()
+    assert float(count) == 1.0 and float(loss.detach()) == 0.0 and not x.grad.any()
+
+
+# --------------------------------------------------------------------------
+# loss_fn and its gradients
+# --------------------------------------------------------------------------
+
+def port_loss_and_grads(tp, cfg, batch, pcfg=PCFG):
+    leaves, spec = modules.tree_flatten(tp)
+    live = [p.detach().clone().requires_grad_() for p in leaves]
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    total, metrics = tfm.loss_fn(modules.tree_unflatten(spec, live), tb, cfg, pcfg)
+    total.backward()
+    return total, metrics, modules.tree_unflatten(spec, [p.grad for p in live])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_loss_fn_and_grads_match_jax(arch):
+    jcfg, cfg, jv, tp = converted(arch)
+    batch = make_batch(cfg)
+    total, metrics, grads = port_loss_and_grads(tp, cfg, batch)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtfm.loss_fn(p, jb, jcfg, JPCFG), has_aux=True))(jv)
+    np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
+    assert float(metrics["tokens"]) == float(jmetrics["tokens"]) == 2 * 16 - 3
+    assert float(metrics["aux_loss"]) == float(jmetrics["aux_loss"]) == 0.0
+    want = dict(leaves_with_paths(jax.tree.map(np.asarray, jgrads)))
+    got = dict(leaves_with_paths(to_jax_params(grads, cfg)))
+    assert got.keys() == want.keys()
+    for path in want:
+        rel_close(got[path], want[path], 1e-4, "/".join(path))
+
+
+@pytest.mark.parametrize("remat", ["block", "full"])
+def test_remat_gives_the_same_loss_and_gradients(remat):
+    _, cfg, _, tp = converted("qwen3-32b")
+    batch = make_batch(cfg, seed=3)
+    t0, _, g0 = port_loss_and_grads(tp, cfg, batch, PCFG)
+    t1, _, g1 = port_loss_and_grads(tp, cfg, batch, ParallelConfig(remat=remat))
+    assert float(t0.detach()) == float(t1.detach())
+    for a, b in zip(modules.tree_flatten(g0)[0], modules.tree_flatten(g1)[0]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_and_hybrid_training_raise_until_the_ssd_backward(arch):
+    cfg = get_config(arch).reduced()
+    params = tfm.init(0, cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg).items()}
+    with pytest.raises(NotImplementedError, match="M3b"):
+        tfm.loss_fn(params, batch, cfg, PCFG)
+
+
+def test_to_jax_params_inverts_from_jax_params():
+    jcfg, cfg, jv, tp = converted("chatglm3-6b")
+    back = dict(leaves_with_paths(to_jax_params(tp, cfg)))
+    orig = dict(leaves_with_paths(jax.tree.map(np.asarray, jv)))
+    assert back.keys() == orig.keys()
+    for path in orig:
+        np.testing.assert_array_equal(back[path], orig[path])
+
+
+# --------------------------------------------------------------------------
+# Trainer
+# --------------------------------------------------------------------------
+
+def test_trainer_config_copy_differs_only_in_the_peak():
+    a = {f.name: f.default for f in dataclasses.fields(TrainerConfig)}
+    b = {f.name: f.default for f in dataclasses.fields(jloop.TrainerConfig)}
+    assert a.pop("peak_flops_per_device") == 989e12      # one H100, dense bf16
+    assert b.pop("peak_flops_per_device") == 197e12
+    assert a == b
+
+
+def test_trainer_runs_and_resumes(tmp_path):
+    cfg = get_config("llama3.2-1b").reduced()
+    shape = ShapeConfig("t", "train", 32, 4)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    tcfg = TrainerConfig(steps=6, log_every=3, checkpoint_every=3,
+                         checkpoint_dir=str(tmp_path))
+    tr = Trainer(cfg, shape, PCFG, tcfg=tcfg, device="cpu")
+    state = tr.run()
+    assert ckpt.latest_step(tmp_path) == 6
+    assert [h["step"] for h in tr.history] == [3, 6]
+    losses = [h["loss"] for h in tr.history]
+    assert losses[-1] < losses[0] + 0.1
+    assert {s: signal.getsignal(s) for s in handlers} == handlers
+    # resume continues from step 6 with the saved parameters
+    tcfg2 = TrainerConfig(steps=8, log_every=2, checkpoint_every=100,
+                          checkpoint_dir=str(tmp_path))
+    tr2 = Trainer(cfg, shape, PCFG, tcfg=tcfg2, device="cpu")
+    resumed = tr2.resume_or_init()
+    assert tr2.step == 6
+    for a, b in zip(modules.tree_flatten(resumed)[0], modules.tree_flatten(state)[0]):
+        assert torch.equal(a, b)
+    tr2.run(resumed)
+    assert tr2.step == 8 and ckpt.latest_step(tmp_path) == 8
+
+
+def test_trainer_stops_on_sigterm_with_a_final_checkpoint(tmp_path):
+    """The handler ``run`` installs sets the stop flag; the loop ends after
+    the current step and writes a synchronous checkpoint, then the previous
+    handlers are back."""
+    cfg = get_config("qwen1.5-4b").reduced()
+    before = signal.getsignal(signal.SIGTERM)
+    tr = Trainer(cfg, ShapeConfig("t", "train", 16, 2), PCFG,
+                 tcfg=TrainerConfig(steps=10, log_every=1, checkpoint_every=100,
+                                    checkpoint_dir=str(tmp_path)), device="cpu")
+    step_fn = tr.step_fn
+
+    def step_then_preempt(state, batch):
+        out = step_fn(state, batch)
+        if tr.step == 1:                  # the second step is the last
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+        return out
+    tr.step_fn = step_then_preempt
+    tr.run()
+    assert tr.step == 2 and ckpt.latest_step(tmp_path) == 2
+    _, extras = ckpt.restore(tmp_path, tr.init_state())
+    assert extras["step"] == 2 and extras["data"]["step"] == 2
+    assert signal.getsignal(signal.SIGTERM) is before
+
+
+def test_trainer_flags_a_straggler(capsys):
+    tr = Trainer(get_config("llama3.2-1b").reduced(), ShapeConfig("t", "train", 8, 1), PCFG,
+                 device="cpu")
+    tr._durations = [0.1] * 10
+    tr._observe_stragglers()
+    tr._durations.append(0.5)
+    tr._observe_stragglers()
+    assert "straggler" in capsys.readouterr().out

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of the flash-attention and SSD kernels on a GPU.
+"""Mutation check of the flash-attention (forward and backward) and SSD
+kernels on a GPU.
 
     python3 tools/kernel_mutants.py
 
@@ -22,6 +23,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 FLASH = "src/repro_torch/csrc/flash_attention.cu"
 SSD = "src/repro_torch/csrc/ssd_scan.cu"
+FLASH_BWD = "src/repro_torch/csrc/flash_attention_bwd.cu"
 
 # name: (source, text, replacement)
 MUTANTS = {
@@ -37,6 +39,18 @@ MUTANTS = {
         "    if (owns && c != 20) {\n      const float decay"),
     "ssd drops the lo half of the state update": (
         SSD, "          mma16816(st[k], al, bb[0], bb[1]);\n", ""),
+    # dK / dV of a KV head take only the first query head of its group
+    "flash bwd drops the grouped-query sum": (
+        FLASH_BWD,
+        "  for (int h = hk * group; h < (hk + 1) * group; ++h) {\n"
+        "    for (int qt = qt0; qt < n_qt; ++qt) {\n      const int q0 = qt * kRows;",
+        "  for (int h = hk * group; h < hk * group + 1; ++h) {\n"
+        "    for (int qt = qt0; qt < n_qt; ++qt) {\n      const int q0 = qt * kRows;"),
+    # dQ leaves out key tile 5 (keys 320..383) of every row that sees it
+    "flash bwd dQ skips key tile 5": (
+        FLASH_BWD,
+        "    const int k0 = kt * kRows;\n    __syncthreads();",
+        "    if (kt == 5) continue;\n    const int k0 = kt * kRows;\n    __syncthreads();"),
 }
 
 
