@@ -24,8 +24,10 @@ Phases:
            softmax) with timings; flash_attention_bwd against autograd through
            flash_attention_plain (fp32): the same sweep in fp32 and bf16,
            causal and not, then llama3.2-1b's training shape (B 4, S 2048,
-           peaked and near-uniform softmax) with timings, the plain backward
-           and autograd through scaled_dot_product_attention beside it;
+           peaked and near-uniform softmax, two calls bit-equal) with timings,
+           the plain backward and autograd through
+           scaled_dot_product_attention beside it, and the same work at hd 128
+           (B 2), timed;
            ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
@@ -75,6 +77,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -338,9 +341,11 @@ def phase_build():
     out = {"phase": "build", "sources": build.sources(),
            "seconds": round(time.perf_counter() - t0, 3),
            "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}}
-    # per source: registers, shared memory and spills of every instantiation
+    # per source: registers, shared memory and spills of every instantiation,
+    # and any wgmma serialisation ptxas reports (info C75xx "Potential
+    # Performance Loss", printed as info, not as a warning)
     out["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
                     for name, log in build.ptxas_log.items()}
     emit(out)
 
@@ -454,8 +459,10 @@ BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 BWD_FRO_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 BWD_ROW_TOL = {torch.float32: 1e-2, torch.bfloat16: 5e-2}
-# llama3.2-1b's training shape: B 4 x S 2048 tokens, 32 / 8 heads of hd 64
+# llama3.2-1b's training shape: B 4 x S 2048 tokens, 32 / 8 heads of hd 64; and
+# the same 240 GFLOP at hd 128 (qwen3 / qwen1.5 / chatglm3's head dim), B 2
 TRAIN_SHAPE = dict(B=4, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16, causal=True)
+TRAIN_SHAPE_HD128 = dict(TRAIN_SHAPE, B=2, hd=128)
 
 
 def attention_grads_oracle(q, k, v, do, causal):
@@ -490,12 +497,43 @@ def hold_grads(name, got, want, dtype, plain):
     return worst
 
 
+def bwd_bounds(m, *tensors):
+    """(bound ms, bound_by, bound ms of the kernels' seven products): five
+    products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5 times the forward's
+    work, causal halving each, against every input read once (q, k, v, o, dO,
+    lse) and dq, dk, dv written once; the kernels recompute Q.K^T and dO.V^T
+    for dQ, seven products."""
+    one = 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / (2 if m["causal"] else 1)
+    t_bytes = nbytes(*tensors) / PEAK_BYTES_PER_S * 1e3
+    t5, t7 = (n * one / PEAK_FLOPS[m["dtype"]] * 1e3 for n in (5, 7))
+    return max(t5, t_bytes), ("operations" if t5 >= t_bytes else "bytes"), max(t7, t_bytes), 5 * one
+
+
+def sdpa_backward_ms(m, q, k, v, do, got):
+    """Yardstick only: autograd through one library call computing the same
+    forward (K/V repeated over the group, as the forward's yardstick does),
+    its dv checked against the kernel's, then timed."""
+    rep = m["Hq"] // m["Hkv"]
+    leaves = [t.detach().permute(0, 2, 1, 3).requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            leaves[0], leaves[1].repeat_interleave(rep, dim=1),
+            leaves[2].repeat_interleave(rep, dim=1), is_causal=True)
+    do_h = do.permute(0, 2, 1, 3)
+    lib = torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True)
+    check_close("library backward vs kernel dv", lib[2].permute(0, 2, 1, 3), got[2],
+                atol=BWD_ATOL[m["dtype"]] * 2 * float(got[2].abs().max()), rtol=4e-2)
+    return cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
+                   warmup=3, reps=15)
+
+
 def kernels_flash_bwd(dev):
     """The flash-attention backward kernel against autograd through the plain
     forward: the forward's sweep (hd 64 / 80 / 128, GQA 4:1 and 1:1, ragged
     S 1000 / 333 / 257, Sq != Sk) in fp32 and bf16, causal and not, then
-    llama3.2-1b's training shape (peaked and near-uniform softmax) with
-    timings, the plain backward held to the same oracle."""
+    llama3.2-1b's training shape (peaked and near-uniform softmax; two calls
+    bit-equal) with timings, the plain backward held to the same oracle, then
+    the same training shape at hd 128, timed."""
     worst = {torch.float32: [0.0] * 4, torch.bfloat16: [0.0] * 4}
     n_cases = 0
     for (B, Sq, Sk, Hq, Hkv, hd) in SWEEP:
@@ -527,7 +565,14 @@ def kernels_flash_bwd(dev):
     q, k, v = make_qkv(27, *shape, m["dtype"], dev)
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     got = flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    # no atomics, every item summed in one order: two calls give the same bits
+    again = flash_attention_bwd(q, k, v, out, do, lse, causal=True)
     torch.cuda.synchronize()
+    for g_name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention_bwd training shape {g_name}: two calls "
+                                 f"differ in {int((a != b).sum())} elements")
+    del again
     want = attention_grads_oracle(q, k, v, do, True)
     plain_g = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=True)
     main = hold_grads("flash_attention_bwd training shape", got, want, m["dtype"], plain_g)
@@ -541,29 +586,27 @@ def kernels_flash_bwd(dev):
                        warmup=1, reps=3)
     del want
 
-    # yardstick only: autograd through one library call computing the same
-    # forward (K/V repeated over the group, as the forward's yardstick does)
-    rep = m["Hq"] // m["Hkv"]
-    leaves = [t.detach().permute(0, 2, 1, 3).requires_grad_() for t in (q, k, v)]
-    with torch.enable_grad():
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            leaves[0], leaves[1].repeat_interleave(rep, dim=1),
-            leaves[2].repeat_interleave(rep, dim=1), is_causal=True)
-    do_h = do.permute(0, 2, 1, 3)
-    lib = torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True)
-    check_close("library backward vs kernel dv", lib[2].permute(0, 2, 1, 3), got[2],
-                atol=BWD_ATOL[m["dtype"]] * 2 * float(got[2].abs().max()), rtol=4e-2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
-                         warmup=3, reps=15)
-    del lib_out, lib, leaves
+    library_ms = sdpa_backward_ms(m, q, k, v, do, got)
+    bound_ms, bound_by, bound7_ms, flops = bwd_bounds(m, q, k, v, out, do, lse, *got)
 
-    # roofline bound: five products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5
-    # times the forward's work, causal halving each; every input read once
-    # (q, k, v, o, dO, lse) and dq, dk, dv written once
-    flops = 5 * 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / 2
-    n_bytes = nbytes(q, k, v, out, do, lse, *got)
-    t_ops = flops / PEAK_FLOPS[m["dtype"]] * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    # the same work at hd 128 (B 2), near-uniform softmax, timed
+    m128 = TRAIN_SHAPE_HD128
+    shape128 = (m128["B"], m128["S"], m128["S"], m128["Hq"], m128["Hkv"], m128["hd"])
+    q2, k2, v2 = make_qkv(28, *shape128, m128["dtype"], dev)
+    do2 = make_qkv(29, m128["B"], m128["S"], m128["S"], m128["Hq"], m128["Hq"], m128["hd"],
+                   m128["dtype"], dev)[2]
+    out2, lse2 = flash_attention(q2, k2, v2, causal=True, return_lse=True)
+    got2 = flash_attention_bwd(q2, k2, v2, out2, do2, lse2, causal=True)
+    torch.cuda.synchronize()
+    hd128 = hold_grads("flash_attention_bwd hd 128 training shape", got2,
+                       attention_grads_oracle(q2, k2, v2, do2, True), m128["dtype"],
+                       flash_attention_bwd_plain(q2, k2, v2, out2, do2, lse2, causal=True))
+    ms128 = cuda_ms(lambda: flash_attention_bwd(q2, k2, v2, out2, do2, lse2, causal=True),
+                    warmup=3, reps=15)
+    lib128 = sdpa_backward_ms(m128, q2, k2, v2, do2, got2)
+    b128, by128, b7_128, flops128 = bwd_bounds(m128, q2, k2, v2, out2, do2, lse2, *got2)
+    del q2, k2, v2, do2, out2, lse2, got2
+
     entry = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -582,14 +625,21 @@ def kernels_flash_bwd(dev):
                                     "max_row_err_over_row_rms",
                                     "plain_max_row_err_over_row_rms"), peaked)),
         "plain": dict(zip(("max_abs_err", "frobenius_rel_err"), plain)),
+        "two_calls_bit_equal": True,
         "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_7_products_ms": bound7_ms,
         "library_ms": library_ms,
         "library_call": "torch.autograd.grad through scaled_dot_product_attention",
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "hd128": {"shape": {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m128.items()},
+                  "ms": ms128, "bound_ms": b128, "bound_by": by128,
+                  "bound_7_products_ms": b7_128, "library_ms": lib128,
+                  "tflops": flops128 / (ms128 * 1e-3) / 1e12,
+                  **dict(zip(("max_abs_err", "frobenius_rel_err", "max_row_err_over_row_rms",
+                              "plain_max_row_err_over_row_rms"), hd128))},
     }
-    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "cases": n_cases + 2,
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "cases": n_cases + 3,
           "sweep_worst": {str(k_): dict(zip(("max_abs_err_over_max", "frobenius_rel_err",
                                              "row_measure", "plain_row_measure"), v_))
                           for k_, v_ in worst.items()},
@@ -1478,9 +1528,18 @@ def _summarise(wall_ms, by_name):
             groups["elementwise and other"] += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # the hand-written kernels one by one (the backward is three: D pass,
+    # dK/dV, dQ), by the function name inside the demangled signature
+    own = {}
+    for name, ms in by_name.items():
+        m = re.search(r"\w*(flash_fwd|bwd_delta|flash_bwd|ssd_scan|tree_reduce|quantize)\w*"
+                      r"(<[^>]*>)?", name)
+        if m:
+            own[m.group(0)] = own.get(m.group(0), 0.0) + ms
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
             "groups_ms": groups,
+            "hand_written_kernels_ms": own,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 

@@ -7,8 +7,9 @@ build takes seconds.  Each source is compiled on its own, all at once, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``.  The hash covers the source text and the flags,
-so an edited source is rebuilt and a stale library is never loaded.  The
+and loaded with ``ctypes``.  The hash covers the source text, the text of
+every ``csrc/`` header it includes (``hopper.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.  The
 build directory is ``build/repro_torch`` under the repository root (git
 ignores it).
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +31,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_INCLUDE = r'^\s*#\s*include\s+"([^"]+)"'   # a local header: #include "x.cuh"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,10 +65,26 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _included(src: Path) -> List[Path]:
+    """The headers of ``csrc/`` that ``src`` includes (``#include "x.cuh"``),
+    and theirs, each once."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        for name in re.findall(_INCLUDE, todo.pop().read_text(), re.M):
+            path = src.parent / name
+            if path.exists() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in _included(src):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -104,8 +123,14 @@ def build_all() -> Dict[str, float]:
             return {}
         nvcc = find_nvcc()
         jobs = [_Job(n, nvcc) for n in todo]
-        for job in jobs:
-            job.finish()
+        failed = []
+        for job in jobs:                  # wait for every nvcc, even after a failure
+            try:
+                job.finish()
+            except RuntimeError as e:
+                failed.append(e)
+        if failed:
+            raise failed[0]
         return {n: build_seconds[n] for n in todo}
 
 

@@ -73,9 +73,9 @@ def _bwd_kernel_fn():
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """16-byte rows: what the fp32 kernels' vector loads, the bf16 forward's
-    TMA descriptors (address and strides multiples of 16 bytes) and the bf16
-    backward's 16-byte loads need."""
+    """16-byte rows: what the fp32 kernels' vector loads, the bf16 kernels' TMA
+    descriptors (address and strides multiples of 16 bytes), the D pass's and
+    hd 80's 16-byte loads need."""
     vec = 16 // t.element_size()
     return (t.stride(3) == 1 and not any(s % vec for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
@@ -181,7 +181,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # the D pass's output: D = rowsum(do * o), then lse * log2(e), each
+    # (B, Hq, Sq rounded up to 128) so that the kernels copy whole 64-row tiles
+    sqp = -(-Sq // 128) * 128
+    delta = torch.empty(2 * B * Hq * sqp, dtype=torch.float32, device=q.device)
     fn = _bwd_kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -191,7 +194,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  float(scale), int(bool(causal)),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd failed to launch (code {err}) "
+        why = " (cuTensorMapEncodeTiled refused a TMA descriptor)" if err == -3 else ""
+        raise RuntimeError(f"flash_attention_bwd failed to launch (code {err}{why}) "
                            f"for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

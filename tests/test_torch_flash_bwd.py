@@ -79,13 +79,30 @@ def test_bwd_plain_matches_jax_grad_of_chunked_attention(case, causal):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
 
 
-@pytest.mark.parametrize("block", [(16, 16), (64, 32), (128, 128)])
+# (block_q, block_k, (B, Sq, Sk, Hq, Hkv, hd), causal): three blockings on one
+# shape, then the bf16 kernels' own, also held to JAX's gradient: the dK/dV
+# kernel walks 64-row q tiles against 128 keys, the dQ kernel 128-row q tiles
+# against 64-key tiles; ragged Sq 333 / Sk 257 (and the other way round),
+# causal and not, hd 64 and 128, GQA 2:1 and 4:1
+BLOCK_CASES = [(16, 16, (1, 130, 130, 4, 2, 64), True), (64, 32, (1, 130, 130, 4, 2, 64), True),
+               (128, 128, (1, 130, 130, 4, 2, 64), True),
+               (64, 128, (1, 333, 257, 4, 2, 64), True), (128, 64, (1, 333, 257, 4, 2, 64), True),
+               (64, 128, (1, 333, 257, 4, 2, 128), False),
+               (128, 64, (1, 257, 333, 4, 2, 128), False),
+               (64, 128, (2, 200, 200, 8, 2, 64), True), (128, 64, (2, 200, 200, 8, 2, 64), False)]
+
+
+@pytest.mark.parametrize("block", BLOCK_CASES)
 def test_bwd_plain_independent_of_block_size(block):
-    q, k, v, do = make(1, 130, 130, 4, 2, 64, seed=2)
-    ref = plain_grads(q, k, v, do, True)
-    got = plain_grads(q, k, v, do, True, block_q=block[0], block_k=block[1])
+    block_q, block_k, shape, causal = block
+    q, k, v, do = make(*shape, seed=2)
+    ref = plain_grads(q, k, v, do, causal)
+    got = plain_grads(q, k, v, do, causal, block_q=block_q, block_k=block_k)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **FP32_TOL)
+    if shape[1] != 130:                               # the kernels' blockings
+        for a, b in zip(got, jax_grads(q, k, v, do, causal)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **FP32_TOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -186,8 +186,13 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     assert 'extern "C" int flash_attention_bwd' in bwd
     assert "mma.sync" in bwd and "atomicAdd" not in bwd   # deterministic: no atomics
     assert "src/repro/kernels/flash_attention.py" in bwd
-    # the bf16 path: wgmma products on K/V tiles loaded by TMA
-    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
+    # the bf16 paths: wgmma products on tiles loaded by TMA, the helpers shared
+    # by forward and backward in one header
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in hopper
+    for src in (text, bwd):
+        assert '#include "hopper.cuh"' in src
+    assert "wgmma_m64n64k16_ss" in bwd and "tma_load_4d" in bwd and "setmaxnreg" in bwd
     ssd = (build.CSRC / "ssd_scan.cu").read_text()
     assert 'extern "C" int ssd_scan_fwd' in ssd
     # above 48 KB of shared memory a block needs the attribute raised
@@ -209,6 +214,31 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     # a source that does not exist is an error, not a silent fallback
     with pytest.raises(FileNotFoundError):
         build.load("no_such_kernel")
+
+
+def test_build_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n#include <stdint.h>\nint f();\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// g\n")
+    (tmp_path / "other.cuh").write_text("// included by nothing\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.sources() == ["k"]                   # headers are not built on their own
+    assert build._included(tmp_path / "k.cu") == [tmp_path / "h.cuh", tmp_path / "g.cuh"]
+    first = build._target("k")
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert build._target("k") == first                # a header k.cu does not include
+    (tmp_path / "g.cuh").write_text("// g, edited\n")
+    second = build._target("k")
+    assert second != first                            # a header included through another
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n// edited\n')
+    assert build._target("k") not in (first, second)
+
+
+def test_both_flash_sources_include_the_shared_header():
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert build._included(build.CSRC / f"{name}.cu") == [build.CSRC / "hopper.cuh"]
+    for name in ("quant8", "reduce_tree", "ssd_scan"):
+        assert build._included(build.CSRC / f"{name}.cu") == []
 
 
 # --------------------------------------------------------------------------

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the bf16 flash-attention and SSD kernels spend their time, by ablation.
+"""Where the bf16 flash-attention (forward and backward) and SSD kernels spend
+their time, by ablation.
 
     python3 tools/kernel_ablations.py
 
-Builds copies of ``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` with one
-part of the work taken out (the results are wrong on purpose), one nvcc each,
-all at once, into ``build/ablations/``; binds each in place of the wrapper's
-library and times it at ``chip_smoke.py``'s main shapes (llama3.2-1b's
-prefill attention, mamba2-1.3b's SSD scan), the unchanged source first, in two
-alternating rounds.  Prints one JSON line per variant: median ms of each
-round (CUDA events, as ``chip_smoke.cuda_ms``).  Needs one NVIDIA GPU.
+Builds copies of ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``
+and ``csrc/ssd_scan.cu`` with one part of the work taken out (the results are
+wrong on purpose), one nvcc each, all at once, into ``build/ablations/``
+(each copy beside its own copy of ``csrc/hopper.cuh``, which a variant may
+change too); binds each in place of the wrapper's library and times it at
+``chip_smoke.py``'s main shapes (llama3.2-1b's prefill attention, its training
+shape's attention backward, mamba2-1.3b's SSD scan), the unchanged source
+first, in two alternating rounds.  Prints one JSON line per variant: median
+ms of each round (CUDA events, as ``chip_smoke.cuda_ms``).  Needs one NVIDIA
+GPU.
 """
 
 from __future__ import annotations
@@ -41,9 +45,18 @@ ABLATIONS = {
                         "    pa[nt >> 1][(nt & 1) * 2] = pack_bf16(sc[4 * nt], sc[4 * nt + 1]);\n"
                         "    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(sc[4 * nt + 2], sc[4 * nt + 3]);\n"
                         "  }\n  return;\n" + FLASH_SOFTMAX)],
-        # 2^x replaced by a multiply
+        # 2^x replaced by a multiply (in the shared header)
         "no_exp2": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                      "y = x * 0.001f;")],
+    },
+    "flash_attention_bwd": {
+        # the softmax recompute taken out of both kernels: P = S (P^T = S^T)
+        # rounded, no exp2, the products, loads and masks stay
+        "no_softmax": [("return ex2(fmaf(s, c2, -l2));", "return s;")],
+        # a step's dK/dV (dQ) products issued at its end (dK/dV also waited
+        # for there) instead of after the next step's S and dP
+        "no_defer": [("static constexpr bool DEFER = NCH == 1;",
+                      "static constexpr bool DEFER = false;")],
     },
     "ssd_scan": {
         # every tensor-core product removed: loads, cumsum, exps, splits, stores, barriers
@@ -56,26 +69,38 @@ ABLATIONS = {
 }
 
 
+HEADER = "hopper.cuh"
+
+
 def variants(name):
+    """{tag: (source text, header text)}: each substitution applies to the
+    source if it holds the text, else to the shared header."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    out = {"unchanged": src}
+    hdr = (build.CSRC / HEADER).read_text()
+    out = {"unchanged": (src, hdr)}
     for tag, subs in ABLATIONS[name].items():
-        text = src
+        text, head = src, hdr
         for a, b in subs:
-            if text.count(a) < 1:
+            if text.count(a):
+                text = text.replace(a, b)
+            elif head.count(a):
+                head = head.replace(a, b)
+            else:
                 raise SystemExit(f"{name} {tag}: the text to remove is not in the source")
-            text = text.replace(a, b)
-        out[tag] = text
+        out[tag] = (text, head)
     return out
 
 
 def build_all(sources):
-    """{(name, tag): source text} -> {(name, tag): CDLL}, one nvcc each, in parallel."""
-    d = build.build_dir().parent / "ablations"
-    d.mkdir(parents=True, exist_ok=True)
+    """{(name, tag): (source, header)} -> {(name, tag): CDLL}, one nvcc each, in
+    parallel, each copy in its own directory with its header."""
+    root = build.build_dir().parent / "ablations"
     nvcc, procs = build.find_nvcc(), {}
-    for (name, tag), text in sources.items():
-        cu = d / f"{name}_{tag}.cu"
+    for (name, tag), (text, head) in sources.items():
+        d = root / f"{name}_{tag}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / HEADER).write_text(head)
+        cu = d / f"{name}.cu"
         cu.write_text(text)
         procs[name, tag] = subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
@@ -85,17 +110,17 @@ def build_all(sources):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {key}:\n{log}")
-        libs[key] = ctypes.CDLL(str(d / f"{key[0]}_{key[1]}.so"))
+        libs[key] = ctypes.CDLL(str(root / f"{key[0]}_{key[1]}" / f"{key[0]}.so"))
     return libs
 
 
-def bind(module, lib, entry):
+def bind(module, lib, entry, fn="_fn", getter="_kernel_fn"):
     """Point ``module``'s wrapper at ``lib`` (same C interface)."""
-    module._fn = None
+    setattr(module, fn, None)
     real = build.load
     build.load = lambda name: lib
     try:
-        module._kernel_fn()
+        getattr(module, getter)()
     finally:
         build.load = real
     assert getattr(lib, entry) is not None
@@ -108,22 +133,31 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     m = cs.MAIN_SHAPE
     q, k, v = cs.make_qkv(3, m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["hd"], m["dtype"], dev)
+    t = cs.TRAIN_SHAPE
+    tq, tk, tv = cs.make_qkv(27, t["B"], t["S"], t["S"], t["Hq"], t["Hkv"], t["hd"], t["dtype"],
+                             dev)
+    tdo = cs.make_qkv(26, t["B"], t["S"], t["S"], t["Hq"], t["Hq"], t["hd"], t["dtype"], dev)[2]
+    tout, tlse = fa.flash_attention(tq, tk, tv, causal=True, return_lse=True)
     cfg = get_config("mamba2-1.3b")
     args = cs.make_ssd(21, 8, 2048, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
                        cfg.ssm_groups, torch.bfloat16, dev, served=True, fused=True)
-    calls = {"flash_attention": (fa, "flash_attention_fwd", lambda: fa.flash_attention(q, k, v)),
-             "ssd_scan": (ssd, "ssd_scan_fwd",
+    # name: (module, C entry, wrapper's bound-function attribute, its getter, call)
+    calls = {"flash_attention": (fa, "flash_attention_fwd", "_fn", "_kernel_fn",
+                                 lambda: fa.flash_attention(q, k, v)),
+             "flash_attention_bwd": (fa, "flash_attention_bwd", "_bwd_fn", "_bwd_kernel_fn",
+                                     lambda: fa.flash_attention_bwd(tq, tk, tv, tout, tdo, tlse)),
+             "ssd_scan": (ssd, "ssd_scan_fwd", "_fn", "_kernel_fn",
                           lambda: ssd.ssd_scan(*args[:5], return_state=True))}
     sources = {(name, tag): text for name in ABLATIONS for tag, text in variants(name).items()}
     libs = build_all(sources)
     times = {key: [] for key in libs}
     for _ in range(2):
         for (name, tag), lib in libs.items():
-            module, entry, call = calls[name]
-            bind(module, lib, entry)
+            module, entry, fn, getter, call = calls[name]
+            bind(module, lib, entry, fn, getter)
             times[name, tag].append(cs.cuda_ms(call, warmup=3, reps=15))
     for name in ABLATIONS:
-        calls[name][0]._fn = None            # the wrappers' own libraries again
+        setattr(calls[name][0], calls[name][2], None)   # the wrappers' own libraries again
     for (name, tag), ms in times.items():
         print(json.dumps({"kernel": name, "variant": tag, "ms": ms}), flush=True)
     return 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation check of the flash-attention (forward and backward) and SSD
-kernels on a GPU.
+kernels on a GPU: six planted faults, three of them in the backward.
 
     python3 tools/kernel_mutants.py
 
@@ -40,17 +40,20 @@ MUTANTS = {
     "ssd drops the lo half of the state update": (
         SSD, "          mma16816(st[k], al, bb[0], bb[1]);\n", ""),
     # dK / dV of a KV head take only the first query head of its group
+    # (producer and consumers walk the same, shortened head range)
     "flash bwd drops the grouped-query sum": (
-        FLASH_BWD,
-        "  for (int h = hk * group; h < (hk + 1) * group; ++h) {\n"
-        "    for (int qt = qt0; qt < n_qt; ++qt) {\n      const int q0 = qt * kRows;",
-        "  for (int h = hk * group; h < hk * group + 1; ++h) {\n"
-        "    for (int qt = qt0; qt < n_qt; ++qt) {\n      const int q0 = qt * kRows;"),
+        FLASH_BWD, "  w.h1 = w.h0 + group;\n", "  w.h1 = w.h0 + 1;\n"),
     # dQ leaves out key tile 5 (keys 320..383) of every row that sees it
     "flash bwd dQ skips key tile 5": (
-        FLASH_BWD,
-        "    const int k0 = kt * kRows;\n    __syncthreads();",
-        "    if (kt == 5) continue;\n    const int k0 = kt * kRows;\n    __syncthreads();"),
+        FLASH_BWD, "        if (r0 >= p.Sq || (p.causal && k0 > r0 + 63)) {",
+        "        if (k0 == 5 * kRingRows || r0 >= p.Sq || (p.causal && k0 > r0 + 63)) {"),
+    # a fault of the pipeline: at hd 64 the dK/dV consumers read Q and dO for
+    # S^T and dP^T from the ring stage after the one their full barrier guards
+    # (the barriers are kept, so the call returns; the tile is another step's,
+    # or not yet loaded)
+    "flash bwd dK/dV reads the wrong ring stage": (
+        FLASH_BWD, "          issue_step(first, sRing + s * 2 * C::RING_TILE);",
+        "          issue_step(first, sRing + ((s + 1) % STAGES) * 2 * C::RING_TILE);"),
 }
 
 
