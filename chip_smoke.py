@@ -7,8 +7,8 @@
 Drives the port's main paths (``repro_torch``: serving llama3.2-1b, serving
 mamba2-1.3b, FRED's gradient synchronisation of llama3.2-1b's gradients over a
 pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback modes, and
-training llama3.2-1b through ``Trainer.run()``) through the entry points a user
-calls, builds every CUDA kernel from the
+training llama3.2-1b and mamba2-1.3b through ``Trainer.run()``) through the
+entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
 through its kernels.  Each phase prints one JSON line; any failure exits
@@ -33,11 +33,17 @@ Phases:
            (fp32 / bf16, with and without an initial state), strided slices
            of one conv output,
            then mamba2's and zamba2's serving prefill shapes, y and the final
-           state, with timings; tree_reduce, quantize and dequantize bit for
-           bit against their plain versions: the reference's sweeps in fp32
-           and bf16, strided batch views, a rounding-tie case, then the sync
-           phase's largest leaf (llama3.2-1b's embedding) at the shapes the
-           sync gives them, with timings
+           state, with timings; ssd_scan_bwd against ssd_scan_bwd_plain: the
+           same sweep in fp32 and bf16, with and without an initial state and
+           a final-state cotangent, contiguous and as strided slices of one
+           conv output, then mamba2's and zamba2's training shapes (B 4,
+           S 2048; two calls bit-equal) with timings, the plain backward and
+           autograd through ssd_scan_plain beside them; tree_reduce,
+           quantize and dequantize bit for bit against their plain
+           versions: the reference's sweeps in fp32 and bf16, strided batch
+           views, a rounding-tie case, then the sync phase's largest leaf
+           (llama3.2-1b's embedding) at the shapes the sync gives them, with
+           timings
   parity   on the card (kernels) against the CPU (plain versions), fp32 at
            full width: llama3.2-1b at 2 layers, mamba2-1.3b at 2 layers and
            zamba2-2.7b at 12 layers (two applications of the shared block);
@@ -50,18 +56,23 @@ Phases:
            each: the mean against an fp32 sum, error buffers, launch counts,
            wall time and peak memory; then 20 error-feedback steps on the
            embedding gradient
-  train    fault F1 (the SSD scan raises under grad; an attention gradient
-           through the kernels equals autograd through the plain version);
-           llama3.2-1b at full width and 2 layers, fp32: loss and every
-           gradient on the card against the CPU; then llama3.2-1b at full
-           width and depth (bf16 params, fp32 master and moments, block
-           remat, B 4 x S 2048) through ``Trainer.run()``: 4 steps and a
-           checkpoint, a resume, one more step; step time, tokens/s, MFU
-           against 989 TFLOP/s, peak memory, launches per step (asserted:
-           32 forward, 16 backward)
+  train    fault F1 (an SSD scan and an attention whose inputs require
+           grad launch their forward and backward kernels once each and give
+           the plain versions' gradients); fp32 at full width, loss and every
+           gradient on the card against the CPU: llama3.2-1b and mamba2-1.3b
+           at 2 layers, zamba2-2.7b at 12 (two applications of the shared
+           block); then llama3.2-1b at full width and depth (bf16 params,
+           fp32 master and moments, block remat, B 4 x S 2048) through
+           ``Trainer.run()``: 4 steps and a checkpoint, a resume, one more
+           step; step time, tokens/s, MFU against 989 TFLOP/s, peak memory,
+           launches per step (asserted: 32 forward, 16 backward); then
+           mamba2-1.3b the same way, 3 steps (its final checkpoint is
+           written, its step checked, and removed; asserted: 96 SSD
+           forward, 48 backward)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of each served model, over one sync of each mode,
-           and over one train step, from torch.profiler
+           and over one train step of llama3.2-1b and of mamba2-1.3b, from
+           torch.profiler
 
 Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
@@ -99,7 +110,8 @@ from repro_torch.kernels.quant8 import (                      # noqa: E402
     dequantize, dequantize_plain, quantize, quantize_plain)
 from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (                    # noqa: E402
+    ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
@@ -175,6 +187,24 @@ SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
 # the row's rms (hd 64).  A state update left out of one chunk moves the next
 # chunk's first rows by about their own size.
 SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+# The SSD backward against ssd_scan_bwd_plain on the card, in the style of the
+# BWD_* limits: elementwise within ATOL x the gradient's largest magnitude +
+# RTOL x the element, and a Frobenius limit.  Both compute in fp32 from the same
+# inputs, sums in another order (about 1e-5 of the norm apart in fp32); in bf16
+# dx, dB and dC are rounded once to bf16 on both sides, so an element differs
+# by at most one ulp, at most 2^-7 of itself (inside RTOL 1e-2), and the few
+# elements that round apart give some 6e-5 of the norm.  The bf16 Frobenius
+# limits sit 5x above that and below what one bf16 rounding inside the
+# arithmetic gives: M rounded to bf16 moves dx by 2.4e-3-2.8e-3 of its norm,
+# the carried states rounded move dx, dB, dC or dA by up to 3.2e-4-7.1e-4
+# (the plain version so altered, on the sweep's bf16 cases).  ddt and dA are
+# long sums whose terms cancel, held by Frobenius only; dh0 is fp32 on both
+# sides, held to the fp32 limits.
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+SSD_BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+SSD_BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+SSD_BWD_FRO_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-4}
+SSD_BWD_SUM_FRO_TOL = 3e-4
 
 # the gradient sync: llama3.2-1b's gradients over pod 2 x data 4 (R = 8, the
 # mesh of tests/test_multidevice.py); its largest leaf is the embedding
@@ -738,6 +768,192 @@ def kernels_ssd(dev):
     return entry
 
 
+def ssd_cotangents(seed, B, S, H, hd, N, dtype, device, final=False):
+    """dy (N(0,1) in x's dtype) and, with ``final``, the final state's
+    cotangent (N(0,1), fp32)."""
+    rng = np.random.default_rng(seed)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32)).to(device, dtype)
+    dh = (torch.from_numpy(rng.standard_normal((B, H, hd, N), np.float32)).to(device)
+          if final else None)
+    return dy, dh
+
+
+def hold_ssd_grads(name, got, want, dtype):
+    """Each gradient against ``want`` (see SSD_BWD_ATOL); returns {gradient:
+    [max abs err over its largest magnitude, Frobenius relative error]}."""
+    readings = {}
+    for g_name, a, b in zip(SSD_GRADS, got, want):
+        if b is None or a is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name} {g_name}: {a is None} / {b is None} is None")
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} {g_name}: {a.dtype} {tuple(a.shape)}, expected "
+                                 f"{b.dtype} {tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} {g_name}: non-finite values")
+        scale = float(b.abs().max())
+        fro = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        err = float((a - b).abs().max())
+        if g_name in ("ddt", "dA"):
+            limit = SSD_BWD_SUM_FRO_TOL
+        else:
+            lim = torch.float32 if g_name == "dh0" else dtype
+            limit = SSD_BWD_FRO_TOL[lim]
+            check_close(f"{name} {g_name}", a, b, atol=SSD_BWD_ATOL[lim] * scale,
+                        rtol=SSD_BWD_RTOL[lim])
+        if not fro <= limit:
+            raise AssertionError(f"{name} {g_name}: ||err|| / ||want|| = {fro:.3e} "
+                                 f"(limit {limit})")
+        readings[g_name] = [err / max(scale, 1e-30), fro]
+    return readings
+
+
+def worst_of(readings):
+    """The largest of each reading of ``hold_ssd_grads`` over the gradients."""
+    return [max((r[i] for r in readings.values()), default=0.0) for i in (0, 1)]
+
+
+def merge_readings(into, readings):
+    """Per gradient, the largest of each reading so far."""
+    for g, r in readings.items():
+        into[g] = [max(a, b) for a, b in zip(into.get(g, [0.0, 0.0]), r)]
+
+
+def ssd_bwd_bound(args, dy, got):
+    """(bound ms, bound_by, flops, bytes, bytes of the chunk states): every
+    input (x, dt, A, B, C, h0, dy) read once and every gradient written once,
+    against the products: the causal halves of C.B^T and dy.x^T and of the
+    three chunk-by-chunk products of dx, dB and dC, and five (hd x N)
+    products a chunk (dh.B, x^T.dh, dy.h_c, the state and the gradient
+    chains).  The chunk states, (B, nc, H, hd, N) fp32, are scratch of this
+    kernel's design, not bytes the function must move: they are returned
+    apart and not counted in the bound."""
+    x, dt, A, Bm, Cm, h0 = args
+    Bsz, S, H, hd = x.shape
+    N = Bm.shape[3]
+    flops, nc = 0, 0
+    for s0 in range(0, S, SSD_CHUNK):
+        q = min(SSD_CHUNK, S - s0)
+        flops += q * (q + 1) * (N + hd) + q * (q + 1) * (hd + 2 * N) + 10 * q * hd * N
+        nc += 1
+    flops *= Bsz * H
+    n_bytes = nbytes(*(t for t in (x, dt, A, Bm, Cm, h0, dy, *got) if t is not None))
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops,
+            n_bytes, Bsz * nc * H * hd * N * 4)
+
+
+def kernels_ssd_bwd(dev):
+    """The SSD backward kernel against ssd_scan_bwd_plain, both on the card:
+    the forward's sweep (ragged last chunks, G 1 and 2, the bf16 forward's
+    tile edges) in fp32 and bf16, with and without an initial state and a
+    final-state cotangent, contiguous and as strided slices of one conv
+    output; then mamba2's and zamba2's training shapes (the model's decays,
+    slices of one conv output, no final-state cotangent as in training; two
+    calls bit-equal), timed beside the plain backward and autograd through
+    ssd_scan_plain."""
+    n_cases = 0
+    worst = {torch.float32: {}, torch.bfloat16: {}}
+    for (B, S, H, hd, N, G) in SSD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for h0, final in ((False, False), (True, True), (True, False), (False, True)):
+                for fused in (False, True):
+                    args = make_ssd(13, B, S, H, hd, N, G, dtype, dev, fused=fused,
+                                    initial_state=h0)
+                    dy, dh = ssd_cotangents(14, B, S, H, hd, N, dtype, dev, final)
+                    got = ssd_scan_bwd(*args[:5], dy, initial_state=args[5],
+                                       final_state_grad=dh)
+                    torch.cuda.synchronize()
+                    want = ssd_scan_bwd_plain(*args[:5], dy, initial_state=args[5],
+                                              final_state_grad=dh)
+                    merge_readings(worst[dtype], hold_ssd_grads(
+                        f"ssd_scan_bwd {(B, S, H, hd, N, G)} {dtype} h0={h0} dhT={final} "
+                        f"fused={fused}", got, want, dtype))
+                    n_cases += 1
+
+    shapes = {}
+    for arch in SSD_SERVED:
+        cfg = get_config(arch)
+        B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]        # the train phase's batch
+        shape = dict(B=B, S=S, H=cfg.ssm_heads, hd=cfg.ssm_headdim, N=cfg.ssm_state,
+                     G=cfg.ssm_groups)
+        args = make_ssd(22, **shape, dtype=torch.bfloat16, device=dev, served=True, fused=True)
+        dy, _ = ssd_cotangents(23, B, S, shape["H"], shape["hd"], shape["N"],
+                               torch.bfloat16, dev)
+        got = ssd_scan_bwd(*args[:5], dy)
+        # no atomics, every sum in one order: two calls give the same bits
+        again = ssd_scan_bwd(*args[:5], dy)
+        torch.cuda.synchronize()
+        for g_name, a, b in zip(SSD_GRADS, got, again):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"ssd_scan_bwd {arch} training shape {g_name}: two calls "
+                                     f"differ in {int((a != b).sum())} elements")
+        del again
+        want = ssd_scan_bwd_plain(*args[:5], dy)
+        readings = hold_ssd_grads(f"ssd_scan_bwd {arch} training shape", got, want,
+                                  torch.bfloat16)
+        err, fro = worst_of(readings)
+        del want
+        n_cases += 1
+        kernel_ms = cuda_ms(lambda: ssd_scan_bwd(*args[:5], dy), warmup=3, reps=15)
+        plain_ms = cuda_ms(lambda: ssd_scan_bwd_plain(*args[:5], dy), warmup=1, reps=3)
+        # for reference (no single library call computes this function):
+        # autograd through the plain forward, its dx checked against the kernel's
+        leaves = [t.detach().requires_grad_() for t in args[:5]]
+        with torch.enable_grad():
+            y = ssd_scan_plain(*leaves)
+        auto = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        check_close(f"ssd_scan_bwd {arch}: autograd through the plain forward vs kernel dx",
+                    auto[0], got[0], atol=2e-2 * float(got[0].float().abs().max()),
+                    rtol=4e-2)
+        del auto
+        autograd_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                              warmup=1, reps=3)
+        bound_ms, bound_by, flops, n_bytes, state_bytes = ssd_bwd_bound(args, dy, got)
+        shapes[arch] = {
+            "shape": {**shape, "dtype": "torch.bfloat16",
+                      "inputs": "x, B, C slices of one conv output; no final-state cotangent"},
+            "max_abs_err": err, "max_abs_err_is": "over the gradient's largest magnitude",
+            "frobenius_rel_err": fro, "by_gradient": readings,
+            "tolerance": {"atol_times_max": SSD_BWD_ATOL[torch.bfloat16],
+                          "rtol": SSD_BWD_RTOL[torch.bfloat16],
+                          "frobenius": SSD_BWD_FRO_TOL[torch.bfloat16],
+                          "ddt_dA_frobenius": SSD_BWD_SUM_FRO_TOL},
+            "two_calls_bit_equal": True,
+            "ms": kernel_ms, "plain_ms": plain_ms, "autograd_through_plain_ms": autograd_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "mbytes": n_bytes / 1e6, "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+            "chunk_states_mbytes_not_in_bound": state_bytes / 1e6,
+        }
+        del y, leaves, got, args, dy
+        torch.cuda.empty_cache()
+    main = shapes[SSD_SERVED[0]]
+    entry = {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:94",
+        "replaces_note": "the gradient of that kernel's function; the Pallas kernel has no "
+                         "backward and the JAX package differentiates ssd_chunked "
+                         "(src/repro/models/ssm.py:100)",
+        "launches": None,
+        **{k: main[k] for k in ("shape", "max_abs_err", "max_abs_err_is", "frobenius_rel_err",
+                                "tolerance", "two_calls_bit_equal", "ms", "plain_ms",
+                                "autograd_through_plain_ms", "bound_ms", "bound_by",
+                                "achieved_tflops")},
+        "library_ms": None,            # no single PyTorch call computes this function
+        "zamba2_shape": shapes[SSD_SERVED[1]],
+    }
+    emit({"phase": "kernels", "kernel": "ssd_scan_bwd", "cases": n_cases,
+          "sweep_worst": {str(k): dict(zip(("max_abs_err_over_max", "frobenius_rel_err"),
+                                           worst_of(v)), by_gradient=v)
+                          for k, v in worst.items()},
+          "training_shapes": shapes})
+    return entry
+
+
 def check_equal(name, got, want):
     """Bit-equality of a kernel's output with its plain version."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -927,11 +1143,11 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     return [kernels_flash(dev), kernels_flash_bwd(dev), kernels_ssd(dev),
-            kernels_tree(dev, gen), *kernels_quant(dev, gen)]
+            kernels_ssd_bwd(dev), kernels_tree(dev, gen), *kernels_quant(dev, gen)]
 
 
 WRAPPERS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-            "ssd_scan": ssd_scan,
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
             "tree_reduce": tree_reduce, "quantize_int8": quantize,
             "dequantize_int8": dequantize}
 
@@ -1253,57 +1469,87 @@ def phase_sync(dev, profile=False):
     return compressed_launches
 
 
-# the train phase: llama3.2-1b at full width and depth, B 4 x S 2048 (8192
-# tokens a step), bf16 params, fp32 master and moments, block remat
+# the train phase: llama3.2-1b, then mamba2-1.3b, at full width and depth,
+# B 4 x S 2048 (8192 tokens a step), bf16 params, fp32 master and moments,
+# block remat
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_STEPS = 4            # then one more after the resume
-# card (kernels) against CPU (plain versions) at full width, 2 layers, fp32:
-# the same function, products summed in another order on the two devices
-TRAIN_PARITY = dict(layers=2, B=2, S=256)
+SSM_TRAIN_ARCH = "mamba2-1.3b"
+SSM_TRAIN_STEPS = 3
+# card (kernels) against CPU (plain versions) at full width, fp32, as (arch,
+# layers, B, S): the same function, products summed in another order on the
+# two devices; zamba2 at 12 layers applies its shared block twice
+TRAIN_PARITY = [("llama3.2-1b", 2, 2, 256), ("mamba2-1.3b", 2, 2, 256),
+                ("zamba2-2.7b", 12, 2, 256)]
 GRAD_FRO_TOL = 1e-4        # ||card - cpu|| / ||cpu|| per gradient leaf
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3   # elementwise: atol x the leaf's largest magnitude
 
 
 def expected_train_launches(cfg, pcfg):
-    """Kernel launches of one train step of a dense model: each layer's
-    attention forward once, again when block remat recomputes the layer in
-    the backward, and its backward once."""
-    fwd = cfg.num_layers * (1 if pcfg.remat == "none" else 2)
-    return {**{name: 0 for name in WRAPPERS}, "flash_attention": fwd,
-            "flash_attention_bwd": cfg.num_layers}
+    """Kernel launches of one train step: each attention block application's
+    flash forward once, again when block remat recomputes it in the backward,
+    and its backward once; likewise each Mamba2 layer's SSD scan."""
+    remat = 1 if pcfg.remat == "none" else 2
+    out = {name: 0 for name in WRAPPERS}
+    if cfg.family == "dense":
+        attn = cfg.num_layers
+    else:
+        attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+        out.update(ssd_scan=cfg.num_layers * remat, ssd_scan_bwd=cfg.num_layers)
+    out.update(flash_attention=attn * remat, flash_attention_bwd=attn)
+    return out
 
 
 def train_flops_per_step(cfg, B, S):
     """Model FLOPs of one step, recompute not counted: 6 x the parameters
-    that enter products x tokens, plus the attention products (forward
-    2 x 2 x B x S^2 x Hq x hd / 2 causal, three times that with the
-    backward)."""
+    that enter products (each attention block application's, each Mamba2
+    layer's in_proj and out_proj, the head) x tokens, plus the attention
+    products (forward 2 x 2 x B x S^2 x Hq x hd / 2 causal, three times that
+    with the backward) and three times each Mamba2 layer's SSD scan products
+    (ssd_bound's count: the causal halves of the chunk-by-chunk products,
+    C.state^T and the state update)."""
     d, hq, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    per_layer = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * f
-    matmul_params = cfg.num_layers * per_layer + d * cfg.padded_vocab
-    attn = 3 * cfg.num_layers * 2 * 2 * B * S * S * hq * hd / 2
-    return 6 * matmul_params * B * S + attn
+    attn_block = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * f
+    scan = 0
+    if cfg.family == "dense":
+        n_attn, matmul_params = cfg.num_layers, cfg.num_layers * attn_block
+    else:
+        n_attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+        di, H, N, G = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+        P = cfg.ssm_headdim
+        matmul_params = cfg.num_layers * (d * (2 * di + 2 * G * N + H) + di * d) + \
+            n_attn * attn_block
+        for s0 in range(0, S, SSD_CHUNK):
+            q = min(SSD_CHUNK, S - s0)
+            scan += q * (q + 1) * (N + P) + 4 * q * P * N
+        scan *= 3 * cfg.num_layers * B * H
+    matmul_params += d * cfg.padded_vocab
+    attn = 3 * n_attn * 2 * 2 * B * S * S * hq * hd / 2
+    return 6 * matmul_params * B * S + attn + scan
 
 
 def train_f1(dev):
-    """Fault F1 on the card: the SSD scan refuses to run under grad, and an
-    attention whose inputs require grad has a gradient, through the kernels,
-    equal to autograd through the plain version."""
+    """Fault F1 on the card: an SSD scan and an attention whose inputs require
+    grad go through their autograd Functions, launch their forward and
+    backward kernels once each, and give the gradients of the plain
+    versions (the scan: ssd_scan_bwd_plain; the attention: autograd through
+    flash_attention_plain)."""
     x, dt, A, Bm, Cm, _ = make_ssd(31, 1, 128, 4, 64, 64, 1, torch.bfloat16, dev, served=True)
-    x.requires_grad_()
+    leaves = [t.requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    dy, _ = ssd_cotangents(32, 1, 128, 4, 64, 64, torch.bfloat16, dev)
     _zero_launches()
-    for name, fn in (("ops.ssd", ops.ssd), ("ssd_scan", ssd_scan)):
-        try:
-            fn(x, dt, A, Bm, Cm)
-        except NotImplementedError as e:
-            if "K2-bwd" not in str(e):
-                raise
-        else:
-            raise AssertionError(f"{name} ran under grad: the SSD scan has no backward")
-    if _launches()["ssd_scan"]:
-        raise AssertionError("the SSD scan launched under grad")
-    with torch.no_grad():
-        ops.ssd(x, dt, A, Bm, Cm)                 # without a gradient it runs
+    y = ops.ssd(*leaves)
+    if y.grad_fn is None or "SSDScan" not in type(y.grad_fn).__name__:
+        raise AssertionError(f"ops.ssd under grad: grad_fn {y.grad_fn}")
+    ssd_grads = torch.autograd.grad(y, leaves, dy)
+    ssd_used = _launches()
+    if ssd_used != {**{n: 0 for n in WRAPPERS}, "ssd_scan": 1, "ssd_scan_bwd": 1}:
+        raise AssertionError(f"ops.ssd forward + backward launched {ssd_used}")
+    if not all(float(g.float().abs().max()) > 0 for g in ssd_grads):
+        raise AssertionError("ops.ssd: a gradient is all zero")
+    ssd_err = worst_of(hold_ssd_grads(
+        "ops.ssd gradient", ssd_grads,
+        ssd_scan_bwd_plain(*(t.detach() for t in leaves), dy)[:5], torch.bfloat16))
     q, k, v = (t.requires_grad_() for t in make_qkv(33, 2, 256, 256, 8, 2, 64, torch.bfloat16,
                                                    dev))
     do = make_qkv(34, 2, 256, 256, 8, 8, 64, torch.bfloat16, dev)[2]
@@ -1323,7 +1569,8 @@ def train_f1(dev):
                      attention_grads_oracle(q, k, v, do, True), torch.bfloat16,
                      flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
                                                out.detach(), do, lse, causal=True))
-    return {"ssd_under_grad": "raises NotImplementedError (K2-bwd)",
+    return {"ssd_grad_fn": type(y.grad_fn).__name__, "ssd_launches": ssd_used,
+            "ssd_grad_vs_plain": dict(zip(("max_abs_err", "frobenius_rel_err"), ssd_err)),
             "attention_grad_fn": type(out.grad_fn).__name__, "launches": used,
             "attention_grad_abs_max": [float(g.float().abs().max()) for g in grads],
             "attention_grad_vs_plain": dict(zip(("max_abs_err", "frobenius_rel_err",
@@ -1331,13 +1578,12 @@ def train_f1(dev):
                                                  "plain_max_row_err_over_row_rms"), err))}
 
 
-def train_parity(dev):
-    """llama3.2-1b at full width, 2 layers, fp32: loss and every gradient
-    on the card (kernels) against the CPU (plain versions), same weights and
-    batch, block remat on both."""
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_PARITY["layers"])
+def train_parity(dev, arch, layers, B, S):
+    """``arch`` at full width, ``layers`` layers, fp32: loss and every
+    gradient on the card (kernels) against the CPU (plain versions), same
+    weights and batch, block remat on both."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     pcfg = ParallelConfig(remat="block")
-    B, S = TRAIN_PARITY["B"], TRAIN_PARITY["S"]
     params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))
@@ -1374,7 +1620,7 @@ def train_parity(dev):
                                              atol=GRAD_ATOL * scale, rtol=GRAD_RTOL) / scale)
         worst_fro = max(worst_fro, fro)
     del params
-    return {"config": f"{TRAIN_ARCH} full width, {cfg.num_layers} layers, fp32, block remat",
+    return {"config": f"{arch} full width, {cfg.num_layers} layers, fp32, block remat",
             "batch": B, "seq": S, "masked_labels": B * 7, "launches": used,
             "loss_card": loss_c, "loss_cpu": loss_h, "loss_rel_err": loss_rel,
             "gradient_leaves": len(g_c), "grad_max_frobenius_rel_err": worst_fro,
@@ -1383,65 +1629,101 @@ def train_parity(dev):
                           "atol_times_max": GRAD_ATOL, "rtol": GRAD_RTOL}}
 
 
-def phase_train(dev, card):
-    """F1 on the card, card against CPU, then llama3.2-1b at full width and
-    depth through ``Trainer.run()``: TRAIN_STEPS steps, a checkpoint, a
-    resume, one more step.  Returns the launches of the main path's run."""
-    report = {"phase": "train", "f1": train_f1(dev)}
-    report["parity"] = train_parity(dev)
-    torch.cuda.empty_cache()
-
-    cfg = get_config(TRAIN_ARCH)
+def _trainer_run(dev, card, arch, steps, ckpt_dir):
+    """``arch`` at full width and depth through ``Trainer.run()``: bf16
+    params, fp32 master and moments, block remat, TRAIN_SHAPE's batch of
+    SyntheticLM, ``steps`` steps, then the run's final checkpoint in
+    ``ckpt_dir``.  Checks the launches of every step, the history and the
+    checkpoint's step.  Returns (state, trainer, report, the run's launches)."""
+    cfg = get_config(arch)
     B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
     shape = ShapeConfig("train_4x2048", "train", S, B)
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
-    ocfg = OptimConfig()
+    tcfg = TrainerConfig(steps=steps, log_every=1, checkpoint_every=10 ** 9,
+                         checkpoint_dir=ckpt_dir)
+    tr = Trainer(cfg, shape, pcfg, OptimConfig(), tcfg, device=dev)
+    state = tr.init_state()
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    per_step = []
+    step_fn = tr.step_fn
+
+    def counted_step(st, batch):
+        before = _launches()
+        out = step_fn(st, batch)
+        after = _launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+    tr.step_fn = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()                              # counts of this path only
+    t0 = time.perf_counter()
+    state = tr.run(state)                         # ``steps`` steps, then a checkpoint
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(cfg, pcfg)
+    if len(per_step) != steps or any(c != want for c in per_step):
+        raise AssertionError(f"train {arch}: launches per step {per_step}, expected {want}")
+    hist = tr.history
+    if [h["step"] for h in hist] != list(range(1, steps + 1)) or \
+            not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"train {arch}: history {hist}")
+    if ckpt.latest_step(ckpt_dir) != steps:
+        raise AssertionError(f"train {arch}: latest checkpoint {ckpt.latest_step(ckpt_dir)}")
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    flops = train_flops_per_step(cfg, B, S)
+    ssm = (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, N {cfg.ssm_state}"
+           if cfg.family != "dense" else "")
+    report = {
+        "config": f"{cfg.name} full width and depth ({cfg.num_layers} layers, d {cfg.d_model}"
+                  f"{ssm}, vocab {cfg.vocab_size}), bf16 params, fp32 master and moments, "
+                  f"block remat",
+        "parameters": n_params, "batch": B, "seq": S, "tokens_per_step": B * S,
+        "steps": steps, "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_seconds": [h["seconds"] for h in hist],
+        "step_s_median_after_first": step_s,
+        "tokens_per_s": B * S / step_s,
+        "model_tflop_per_step": flops / 1e12,
+        "mfu": flops / step_s / TrainerConfig().peak_flops_per_device,
+        "mfu_peak_flops": TrainerConfig().peak_flops_per_device,
+        "max_memory_allocated_bytes": peak,
+        "launches_per_step": per_step[-1], "launches": launches,
+        "run_s_with_final_checkpoint": run_s,
+        "checkpoint_save_s": run_s - sum(h["seconds"] for h in hist), "card": card,
+    }
+    return state, tr, report, launches
+
+
+def phase_train(dev, card):
+    """F1 on the card, card against CPU, then llama3.2-1b at full width and
+    depth through ``Trainer.run()`` (TRAIN_STEPS steps, its checkpoint, a
+    resume, one more step) and mamba2-1.3b likewise (SSM_TRAIN_STEPS steps,
+    no resume).  Returns the launches of the main path's runs."""
+    report = {"phase": "train", "f1": train_f1(dev)}
+    report["parity"] = []
+    for case in TRAIN_PARITY:
+        report["parity"].append(train_parity(dev, *case))
+        torch.cuda.empty_cache()
+
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
     try:
-        tcfg = TrainerConfig(steps=TRAIN_STEPS, log_every=1, checkpoint_every=10 ** 9,
-                             checkpoint_dir=ckpt_dir)
-        tr = Trainer(cfg, shape, pcfg, ocfg, tcfg, device=dev)
-        state = tr.init_state()
-        n_params = sum(t.numel() for t in _leaves(state.params))
-        per_step = []
-        step_fn = tr.step_fn
-
-        def counted_step(st, batch):
-            before = _launches()
-            out = step_fn(st, batch)
-            after = _launches()
-            per_step.append({k: after[k] - before[k] for k in after})
-            return out
-        tr.step_fn = counted_step
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_launches()                          # counts of this path only
-        t0 = time.perf_counter()
-        state = tr.run(state)                     # TRAIN_STEPS steps, then a checkpoint
-        run_s = time.perf_counter() - t0
-        launches = _launches()
-        peak = torch.cuda.max_memory_allocated()
-        want = expected_train_launches(cfg, pcfg)
-        if len(per_step) != TRAIN_STEPS or any(c != want for c in per_step):
-            raise AssertionError(f"train: launches per step {per_step}, expected {want}")
-        hist = tr.history
-        if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)) or \
-                not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
-            raise AssertionError(f"train: history {hist}")
-        if ckpt.latest_step(ckpt_dir) != TRAIN_STEPS:
-            raise AssertionError(f"train: latest checkpoint {ckpt.latest_step(ckpt_dir)}")
+        ckpt_dir = os.path.join(ckpt_root, TRAIN_ARCH)
+        state, tr, report["run"], launches = _trainer_run(dev, card, TRAIN_ARCH, TRAIN_STEPS,
+                                                          ckpt_dir)
         probe = {"final_norm": state.params["final_norm"].float().cpu(),
                  "wq0": state.params["blocks"][0]["attn"]["wq"][:64].float().cpu(),
                  "m_embed": state.opt.m["embed"][:8].cpu()}
-        save_s = run_s - sum(h["seconds"] for h in hist)
+        configs = (tr.cfg, tr.shape, tr.pcfg, tr.ocfg,
+                   dataclasses.replace(tr.tcfg, steps=TRAIN_STEPS + 1))
         del state, tr
         torch.cuda.empty_cache()
 
         # resume: a new trainer finds the checkpoint and takes one more step
-        tr2 = Trainer(cfg, shape, pcfg, ocfg,
-                      dataclasses.replace(tcfg, steps=TRAIN_STEPS + 1), device=dev)
+        tr2 = Trainer(*configs, device=dev)
         t0 = time.perf_counter()
         state = tr2.resume_or_init()
         resume_s = time.perf_counter() - t0
@@ -1455,34 +1737,20 @@ def phase_train(dev, card):
         state = tr2.run(state)
         if tr2.step != TRAIN_STEPS + 1 or not np.isfinite(tr2.history[-1]["loss"]):
             raise AssertionError(f"train: after the resume {tr2.step} {tr2.history}")
-        resumed = tr2.history[-1]
+        report["run"].update(resume_s=resume_s, step_after_resume=tr2.history[-1])
         del state, tr2
-    finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    steady = [h["seconds"] for h in hist[1:]]
-    step_s = statistics.median(steady)
-    flops = train_flops_per_step(cfg, B, S)
-    report["run"] = {
-        "config": f"{cfg.name} full width and depth ({cfg.num_layers} layers, d {cfg.d_model}, "
-                  f"vocab {cfg.vocab_size}), bf16 params, fp32 master and moments, block remat",
-        "parameters": n_params, "batch": B, "seq": S, "tokens_per_step": B * S,
-        "steps": TRAIN_STEPS, "losses": [h["loss"] for h in hist],
-        "grad_norms": [h["grad_norm"] for h in hist],
-        "step_seconds": [h["seconds"] for h in hist],
-        "step_s_median_after_first": step_s,
-        "tokens_per_s": B * S / step_s,
-        "model_tflop_per_step": flops / 1e12,
-        "mfu": flops / step_s / TrainerConfig().peak_flops_per_device,
-        "mfu_peak_flops": TrainerConfig().peak_flops_per_device,
-        "max_memory_allocated_bytes": peak,
-        "launches_per_step": per_step[-1], "launches": launches,
-        "run_s_with_final_checkpoint": run_s, "checkpoint_save_s": save_s,
-        "resume_s": resume_s, "step_after_resume": resumed, "card": card,
-    }
+        state, tr, report["ssm_run"], ssm_launches = _trainer_run(
+            dev, card, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, os.path.join(ckpt_root, SSM_TRAIN_ARCH))
+        del state, tr
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
     emit(report)
-    return launches
+    return {"flash_attention_bwd": launches["flash_attention_bwd"],
+            "ssd_scan_bwd": ssm_launches["ssd_scan_bwd"]}
 
 
 def _device_time_by_kernel(fn):
@@ -1504,7 +1772,7 @@ def _device_time_by_kernel(fn):
 
 def _summarise(wall_ms, by_name):
     groups = {"flash_attention kernel": 0.0, "flash_attention backward kernels": 0.0,
-              "ssd_scan kernel": 0.0,
+              "ssd_scan kernel": 0.0, "ssd_scan backward kernels": 0.0,
               "tree_reduce kernel": 0.0, "quantize / dequantize kernels": 0.0,
               "matrix products (library)": 0.0, "copies": 0.0,
               "elementwise and other": 0.0}
@@ -1514,6 +1782,8 @@ def _summarise(wall_ms, by_name):
             groups["flash_attention kernel"] += ms
         elif "flash_bwd" in low or "bwd_delta" in low:
             groups["flash_attention backward kernels"] += ms
+        elif "ssd_bwd" in low:
+            groups["ssd_scan backward kernels"] += ms
         elif "ssd_scan" in low:
             groups["ssd_scan kernel"] += ms
         elif "tree_reduce" in low:
@@ -1528,11 +1798,12 @@ def _summarise(wall_ms, by_name):
             groups["elementwise and other"] += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # the hand-written kernels one by one (the backward is three: D pass,
-    # dK/dV, dQ), by the function name inside the demangled signature
+    # the hand-written kernels one by one (the flash backward is three: D
+    # pass, dK/dV, dQ; the SSD backward four: chains, chunk, two sums), by
+    # the function name inside the demangled signature
     own = {}
     for name, ms in by_name.items():
-        m = re.search(r"\w*(flash_fwd|bwd_delta|flash_bwd|ssd_scan|tree_reduce|quantize)\w*"
+        m = re.search(r"\w*(flash_fwd|bwd_delta|flash_bwd|ssd_scan|ssd_bwd|tree_reduce|quantize)\w*"
                       r"(<[^>]*>)?", name)
         if m:
             own[m.group(0)] = own.get(m.group(0), 0.0) + ms
@@ -1569,11 +1840,11 @@ def phase_profile(dev, arch):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(dev):
-    """Optional (``--phases profile``): where one train step of llama3.2-1b
-    at the train phase's configuration spends its device time (two steps
-    first, unprofiled, to warm up)."""
-    cfg = get_config(TRAIN_ARCH)
+def phase_profile_train(dev, arch):
+    """Optional (``--phases profile``): where one train step of ``arch`` at
+    the train phase's configuration spends its device time (two steps first,
+    unprofiled, to warm up)."""
+    cfg = get_config(arch)
     B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
     tr = Trainer(cfg, ShapeConfig("train_4x2048", "train", S, B),
                  ParallelConfig(remat="block", param_dtype="bfloat16"), OptimConfig(),
@@ -1658,12 +1929,13 @@ def main() -> int:
             launches[name] = used[name]
     if "train" in phases:
         with phase_limit("train", seconds):
-            launches["flash_attention_bwd"] = phase_train(dev, card)["flash_attention_bwd"]
+            launches.update(phase_train(dev, card))
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
                 phase_profile(dev, arch)
-            phase_profile_train(dev)
+            for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
+                phase_profile_train(dev, arch)
     emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds}})
 
     full = set(PHASES) <= set(phases)

@@ -15,9 +15,9 @@ until a windowed family is ported.
 
 Gradients: an ``attention`` call whose inputs require a gradient (with
 gradients enabled) goes through ``FlashAttention``, which pairs the forward
-with its backward (kernel with kernel, plain with plain); any other call runs
-the forward alone.  ``ssd`` raises in that case: the SSD scan has no backward
-yet (ROADMAP.md K2-bwd), on either route.
+with its backward (kernel with kernel, plain with plain), and such an
+``ssd`` call goes through ``SSDScan`` likewise; any other call runs the
+forward alone.
 
 Every function of the JAX module has its counterpart here: ``attention``,
 ``ssd``, and the gradient-synchronisation kernels ``reduce_shards``,
@@ -37,7 +37,7 @@ from .quant8 import dequantize_plain
 from .quant8 import quantize as _quantize
 from .quant8 import quantize_plain
 from .reduce_tree import tree_reduce, tree_reduce_plain
-from .ssd_scan import refuse_grad, ssd_scan, ssd_scan_plain
+from .ssd_scan import SSDScan, ssd_scan, ssd_scan_plain
 
 IMPLS = ("auto", "kernel", "plain")
 
@@ -74,10 +74,15 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return_state: bool = False, impl: str = "auto"):
     """Mamba2 SSD chunked scan.  x: (B,S,H,hd); dt: (B,S,H) fp32; A: (H,)
     fp32; B/C: (B,S,G,N) read in place per group.  Returns y (B,S,H,hd) and,
-    if ``return_state``, the final state (B,H,hd,N) fp32.  Raises if an
-    input requires a gradient while gradients are enabled."""
-    refuse_grad(x, dt, A, Bmat, Cmat, initial_state)
-    if _on_kernel(impl, x):
+    if ``return_state``, the final state (B,H,hd,N) fp32.  A call whose
+    inputs require a gradient (with gradients enabled) goes through
+    ``SSDScan``: on a CUDA tensor the forward and backward kernels."""
+    on_kernel = _on_kernel(impl, x)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in
+                                       (x, dt, A, Bmat, Cmat, initial_state)):
+        y, final = SSDScan.apply(x, dt, A, Bmat, Cmat, initial_state, on_kernel)
+        return (y, final) if return_state else y
+    if on_kernel:
         return ssd_scan(x, dt, A, Bmat, Cmat, initial_state=initial_state,
                         return_state=return_state)
     return ssd_scan_plain(x, dt, A, Bmat, Cmat, initial_state=initial_state,

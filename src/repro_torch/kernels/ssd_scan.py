@@ -1,22 +1,30 @@
-"""Mamba2 SSD chunked scan: the wrapper of the hand-written CUDA kernel and,
-beside it, the plain PyTorch version of the same arithmetic.
+"""Mamba2 SSD chunked scan, forward and backward: the wrappers of the
+hand-written CUDA kernels and, beside each, the plain PyTorch version of the
+same arithmetic.
 
-Counterpart of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel).  The
-kernel's source is ``csrc/ssd_scan.cu``; the note at its top says what it
-replaces, what bounds it on an H100 and what its design does about it.
+Counterpart of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel, which has
+no backward: the JAX package trains through ``ssd_chunked``, which JAX
+differentiates).  The kernels' sources are ``csrc/ssd_scan.cu`` and
+``csrc/ssd_scan_bwd.cu``; the note at the top of each says what it replaces,
+what bounds it on an H100 and what its design does about it.
 
 * ``ssd_scan(x, dt, A, Bmat, Cmat, initial_state=, return_state=)`` launches
-  the kernel.  It takes CUDA tensors only and raises on anything the kernel
-  does not take; it never falls back to the plain version.
-  ``ssd_scan.launches`` counts the launches.
+  the forward kernel; ``ssd_scan_bwd(x, dt, A, Bmat, Cmat, y_grad,
+  initial_state=, final_state_grad=)`` launches the backward kernel and
+  returns ``(dx, ddt, dA, dB, dC, dh0)``.  Both take CUDA tensors only and
+  raise on anything the kernels do not take; they never fall back to the
+  plain versions.  ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count
+  the launches.  ``ssd_scan`` writes a fresh tensor through ``ctypes``, which
+  autograd cannot see through: a caller that needs a gradient goes through
+  ``SSDScan`` (``ops.ssd`` does).
 * ``ssd_scan_plain`` is the chunked scan in tensor ops: a loop over chunks
-  with the carried state, fp32 inside, y cast to x's dtype.  It is the
-  oracle the kernel is held against on the card, and what ``ops.ssd`` takes
-  for a tensor that lies on the CPU.
-* The kernel has no backward yet (ROADMAP.md, K2-bwd with M3b), and writing
-  into a fresh tensor through ``ctypes`` would cut the autograd graph without
-  a word; so ``ssd_scan`` and ``ops.ssd`` raise (``refuse_grad``) when
-  gradients are enabled and an input requires one.
+  with the carried state, fp32 inside, y cast to x's dtype.
+  ``ssd_scan_bwd_plain`` is its gradient as an explicit reverse walk over the
+  chunks in tensor ops (not autograd), fp32 inside.  They are the oracles
+  the kernels are held against on the card, and what ``ops.ssd`` takes for a
+  tensor that lies on the CPU.
+* ``SSDScan`` is the ``torch.autograd.Function`` that joins a forward to its
+  backward, kernel to kernel or plain to plain.
 
 Shapes as in the JAX package: x ``(B, S, H, hd)``, dt ``(B, S, H)`` (softplus
 already applied), A ``(H,)`` (negative), B / C ``(B, S, G, N)`` with G
@@ -106,17 +114,6 @@ def _check(x, dt, A, Bmat, Cmat, initial_state):
                              f"{tuple(initial_state.shape)} {initial_state.dtype}")
 
 
-def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
-    """Raise if autograd would need the scan's gradient: it has none yet."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            "the SSD scan has no backward yet: the SSD backward kernel "
-            "(ROADMAP.md K2-bwd, with the SSM / hybrid training step M3b) is "
-            "still to be ported; run the scan under torch.no_grad() or "
-            "torch.inference_mode()")
-
-
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, *,
              initial_state: Optional[torch.Tensor] = None,
@@ -125,10 +122,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Returns y ``(B, S, H, hd)`` in x's dtype, and the final state
     ``(B, H, hd, N)`` fp32 if ``return_state``.  Launches on the current
-    stream and does not synchronise.  Raises if an input requires a gradient
-    while gradients are enabled (``refuse_grad``).
+    stream and does not synchronise.  The result has no gradient: for one,
+    go through ``SSDScan``.
     """
-    refuse_grad(x, dt, A, Bmat, Cmat, initial_state)
     _check(x, dt, A, Bmat, Cmat, initial_state)
     Bsz, S, H, hd = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]
@@ -169,6 +165,16 @@ def segsum(log_a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -math.inf)
 
 
+def _advance(state, xs, dts, Bh, cs):
+    """The state leaving a chunk, fp32: ``exp(cs_last) * state + sum_q
+    (x_q dt_q exp(cs_last - cs_q)) B_q^T``, from the state entering it, the
+    chunk's x ``(B,Q,H,hd)``, dt ``(B,H,Q)``, B per head ``(B,Q,H,N)`` and
+    ``cs = cumsum(dt*A)`` ``(B,H,Q)``."""
+    w = dts * torch.exp(cs[..., -1:] - cs)                        # (B,H,Q)
+    return state * torch.exp(cs[..., -1])[..., None, None] + \
+        torch.einsum("bhq,bqhd,bqhn->bhdn", w, xs, Bh)
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bmat: torch.Tensor, Cmat: torch.Tensor, *,
                    initial_state: Optional[torch.Tensor] = None,
@@ -206,7 +212,226 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y_inter = torch.einsum("bihn,bhdn->bihd", Ch, state) * \
             torch.exp(cs).transpose(1, 2)[..., None]
         y[:, s0:s0 + Q] = (y_intra + y_inter).to(x.dtype)
-        w = dts * torch.exp(cs[..., -1:] - cs)                    # (B,H,Q)
-        state = state * torch.exp(cs[..., -1])[..., None, None] + \
-            torch.einsum("bhq,bqhd,bqhn->bhdn", w, xs, Bh)
+        state = _advance(state, xs, dts, Bh, cs)
     return (y, state) if return_state else y
+
+
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+
+_bwd_fn = None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's address for the C interface; None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_kernel_fn():
+    """The backward's C entry point, built and bound at first use."""
+    global _bwd_fn
+    if _bwd_fn is None:   # 19 pointers (inputs, outputs, scratch); strides of x, dt, A, B, C, dy
+        fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 +
+                       [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p])
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bmat: torch.Tensor, Cmat: torch.Tensor, y_grad: torch.Tensor, *,
+                 initial_state: Optional[torch.Tensor] = None,
+                 final_state_grad: Optional[torch.Tensor] = None):
+    """The gradient of ``ssd_scan`` (y and the final state) on CUDA tensors:
+    ``(dx, ddt, dA, dB, dC, dh0)`` with dx, dB, dC in x's dtype, ddt, dA and
+    dh0 in fp32 (dh0 None without an initial state).  ``y_grad`` is dy
+    ``(B, S, H, hd)`` in x's dtype, ``final_state_grad`` the cotangent of the
+    final state ``(B, H, hd, N)`` fp32 contiguous, or None for zero.  Takes
+    what ``ssd_scan`` takes; allocates its outputs and the scratch (the
+    states entering each chunk and their gradients, fp32, and per-head
+    partials of dB, dC and dA) with ``torch.empty``.  Launches on the current
+    stream and does not synchronise."""
+    _check(x, dt, A, Bmat, Cmat, initial_state)
+    Bsz, S, H, hd = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    if not y_grad.is_cuda or y_grad.device != x.device or \
+            tuple(y_grad.shape) != tuple(x.shape) or y_grad.dtype != x.dtype or \
+            y_grad.stride(3) != 1:
+        raise ValueError(f"y_grad must be a CUDA {x.dtype} tensor of x's shape "
+                         f"{tuple(x.shape)} with a contiguous last dimension, got "
+                         f"{tuple(y_grad.shape)} {y_grad.dtype} on {y_grad.device}")
+    if final_state_grad is not None and (
+            final_state_grad.device != x.device or
+            tuple(final_state_grad.shape) != (Bsz, H, hd, N) or
+            final_state_grad.dtype != torch.float32 or
+            not final_state_grad.is_contiguous()):
+        raise ValueError(f"final_state_grad must be a contiguous float32 "
+                         f"{(Bsz, H, hd, N)} tensor on {x.device}, got "
+                         f"{tuple(final_state_grad.shape)} {final_state_grad.dtype}")
+    nc = -(-S // CHUNK)
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((Bsz, S, H, hd), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dh0 = (torch.empty((Bsz, H, hd, N), dtype=f32, device=dev)
+           if initial_state is not None else None)
+    states = torch.empty((2, Bsz, H, nc, hd, N), dtype=f32, device=dev)
+    partial_bc = torch.empty((2, Bsz, S, H, N), dtype=f32, device=dev)
+    partial_a = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+                 Cmat.data_ptr(), _ptr(initial_state), y_grad.data_ptr(),
+                 _ptr(final_state_grad),
+                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                 dC.data_ptr(), _ptr(dh0),
+                 states[0].data_ptr(), states[1].data_ptr(), partial_bc[0].data_ptr(),
+                 partial_bc[1].data_ptr(), partial_a.data_ptr(),
+                 Bsz, S, H, G, hd, N,
+                 *x.stride()[:3], *dt.stride(), A.stride(0),
+                 *Bmat.stride()[:3], *Cmat.stride()[:3], *y_grad.stride()[:3],
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd failed to launch (code {err}) for x "
+                           f"{tuple(x.shape)} B {tuple(Bmat.shape)} {x.dtype}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bmat: torch.Tensor, Cmat: torch.Tensor, y_grad: torch.Tensor, *,
+                       initial_state: Optional[torch.Tensor] = None,
+                       final_state_grad: Optional[torch.Tensor] = None,
+                       chunk: int = CHUNK):
+    """The gradient of ``ssd_scan_plain`` as the kernel computes it, on any
+    device: a forward walk for the state ``h_c`` entering each chunk, then a
+    reverse walk carrying ``dh``, the gradient of the state leaving the
+    chunk (``final_state_grad``, or zero, at the end).  Per chunk, per head,
+    in fp32, with ``cs = cumsum(dt*A)``, ``L[i, j] = exp(cs_i - cs_j)`` for
+    j <= i (else 0), ``w_j = dt_j exp(cs_last - cs_j)``:
+
+    * ``dx_j = sum_i M_ij dy_i + w_j dh B_j`` with ``M = (C.B^T) L dt_j``;
+    * ``dB_j = sum_i (dy_i.x_j) L_ij dt_j C_i + w_j dh^T x_j``;
+    * ``dC_i = sum_j (dy_i.x_j) L_ij dt_j B_j + exp(cs_i) h_c^T dy_i``;
+    * ``ddt_j`` = the direct terms ``sum_i (dy_i.x_j)(C_i.B_j) L_ij`` and
+      ``exp(cs_last - cs_j) x_j^T dh B_j``, plus A times the reverse cumsum
+      of ``dcs`` (the gradient through ``cs``); ``dA = sum dt * that
+      reverse cumsum``;
+    * ``dh <- exp(cs_last) dh + sum_i exp(cs_i) dy_i C_i^T``; after the
+      first chunk it is dh0.
+
+    dB and dC are summed over the heads of a group.  Returns ``(dx, ddt,
+    dA, dB, dC, dh0)``: dx, dB, dC in x's dtype, the rest fp32, dh0 None
+    without an initial state.
+    """
+    Bsz, S, H, hd = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    rep = H // G
+    f32 = torch.float32
+    dev = x.device
+    Af = A.to(f32)
+    starts = list(range(0, S, chunk))
+    # forward walk: the state entering each chunk, as ssd_scan_plain carries it
+    state = (torch.zeros((Bsz, H, hd, N), dtype=f32, device=dev)
+             if initial_state is None else initial_state.to(f32))
+    entering = []
+    for s0 in starts:
+        entering.append(state)
+        dts = dt[:, s0:s0 + chunk].to(f32).transpose(1, 2)             # (B,H,Q)
+        state = _advance(state, x[:, s0:s0 + chunk].to(f32), dts,
+                         Bmat[:, s0:s0 + chunk].to(f32).repeat_interleave(rep, dim=2),
+                         torch.cumsum(dts * Af[None, :, None], dim=-1))
+    # reverse walk
+    dh = (torch.zeros((Bsz, H, hd, N), dtype=f32, device=dev)
+          if final_state_grad is None else final_state_grad.to(f32))
+    dx = torch.empty((Bsz, S, H, hd), dtype=f32, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dBh = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dCh = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dA = torch.zeros((H,), dtype=f32, device=dev)
+    for s0, hc in zip(reversed(starts), reversed(entering)):
+        sl = slice(s0, s0 + chunk)
+        xs, dys = x[:, sl].to(f32), y_grad[:, sl].to(f32)              # (B,Q,H,hd)
+        dts = dt[:, sl].to(f32).transpose(1, 2)                        # (B,H,Q)
+        Bh = Bmat[:, sl].to(f32).repeat_interleave(rep, dim=2)         # (B,Q,H,N)
+        Ch = Cmat[:, sl].to(f32).repeat_interleave(rep, dim=2)
+        a = dts * Af[None, :, None]
+        cs = torch.cumsum(a, dim=-1)
+        cl = cs[..., -1:]                                              # (B,H,1)
+        L = torch.exp(segsum(a))                                       # (B,H,Q,Q)
+        CB = torch.einsum("bihn,bjhn->bhij", Ch, Bh)
+        DX = torch.einsum("bihd,bjhd->bhij", dys, xs)
+        dtj = dts[:, :, None, :]
+        M = CB * L * dtj
+        Gd = DX * L * dtj
+        Gm = CB * DX * L
+        P = Gm * dtj
+        w = dts * torch.exp(cl - cs)                                   # (B,H,Q)
+        ecs = torch.exp(cs)
+        wq = w.transpose(1, 2)[..., None]                              # (B,Q,H,1)
+        BdH = torch.einsum("bjhn,bhdn->bjhd", Bh, dh)                  # dh B_j
+        Ux = (xs * BdH).sum(-1).transpose(1, 2)                        # (B,H,Q)
+        dx[:, sl] = torch.einsum("bhij,bihd->bjhd", M, dys) + wq * BdH
+        dBh[:, sl] = torch.einsum("bhij,bihn->bjhn", Gd, Ch) + \
+            wq * torch.einsum("bjhd,bhdn->bjhn", xs, dh)
+        dC_inter = ecs.transpose(1, 2)[..., None] * torch.einsum("bihd,bhdn->bihn", dys, hc)
+        dCh[:, sl] = torch.einsum("bhij,bjhn->bihn", Gd, Bh) + dC_inter
+        U = w * Ux
+        dcs = P.sum(-1) - P.sum(-2) + (dC_inter * Ch).sum(-1).transpose(1, 2) - U
+        dcs[..., -1] += torch.exp(cl[..., 0]) * (dh * hc).sum((-2, -1)) + U.sum(-1)
+        da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+        ddt[:, sl] = (Gm.sum(-2) + torch.exp(cl - cs) * Ux +
+                      Af[None, :, None] * da).transpose(1, 2)
+        dA += (dts * da).sum((0, 2))
+        dh = dh * torch.exp(cl)[..., None] + \
+            torch.einsum("bhi,bihd,bihn->bhdn", ecs, dys, Ch)
+    dB = dBh.view(Bsz, S, G, rep, N).sum(3)
+    dC = dCh.view(Bsz, S, G, rep, N).sum(3)
+    return (dx.to(x.dtype), ddt, dA, dB.to(Bmat.dtype), dC.to(Cmat.dtype),
+            dh if initial_state is not None else None)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its gradient: ``(y, final_state)`` of ``(x, dt, A,
+    Bmat, Cmat, initial_state)``.  ``kernel`` chooses the CUDA kernels or the
+    plain versions, for both directions.  The forward saves its inputs (x, B
+    and C as they came: in the model, views of one conv output, whose
+    gradients autograd routes back through the views); the backward
+    recomputes the chunk states from them.  A cotangent that is None (the
+    final state unused, as in training) counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, initial_state, kernel: bool):
+        fwd = ssd_scan if kernel else ssd_scan_plain
+        y, final = fwd(x, dt, A, Bmat, Cmat, initial_state=initial_state,
+                       return_state=True)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, initial_state)
+        ctx.kernel = kernel
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bmat, Cmat, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if ctx.kernel:
+            # incoming gradients may be expanded or strided: the kernel wants
+            # dy's rows and the final state's cotangent contiguous
+            if dy.stride(3) != 1:
+                dy = dy.contiguous()
+            if dfinal is not None:
+                dfinal = dfinal.contiguous()
+        bwd = ssd_scan_bwd if ctx.kernel else ssd_scan_bwd_plain
+        dx, ddt, dA, dB, dC, dh0 = bwd(x, dt, A, Bmat, Cmat, dy, initial_state=h0,
+                                       final_state_grad=dfinal)
+        return dx, ddt, dA, dB, dC, dh0, None

@@ -5,9 +5,10 @@ Counterpart of ``repro.models.ssm``.  Per head h with state size N:
     h_t = exp(dt_t * A_h) * h_{t-1} + dt_t * x_t B_t^T        (hd x N state)
     y_t = h_t C_t  (+ D_h * x_t)
 
-Prefill runs the chunked SSD algorithm through ``kernels.ops.ssd``: on the
-card the hand-written kernel, on the CPU its plain version
-(``kernels.ssd_scan.ssd_scan_plain``).  The chunked arithmetic exists once in
+Prefill and training run the chunked SSD algorithm through
+``kernels.ops.ssd``: on the card the hand-written kernel, on the CPU its plain
+version (``kernels.ssd_scan.ssd_scan_plain``); under autograd the backward
+kernel or its plain version (``SSDScan``).  The chunked arithmetic exists once in
 the port: ``ssd_chunked`` below is that plain version under its JAX name
 (with the JAX default chunk of 128); the results do not depend on the chunk.
 Decode (``S == 1`` with a state) keeps the O(1) recurrence in plain PyTorch,

@@ -6,8 +6,8 @@ layers on a leading ``layers`` axis and runs them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dictionary per layer and the stack is
 a Python loop.  The other families (moe, vlm, audio) raise
 ``NotImplementedError`` until their slice is ported.  ``loss_fn`` trains the
-dense family; the ssm and hybrid families raise there until the SSD scan has
-a backward (ROADMAP.md M3b / K2-bwd).
+three families; on a CUDA tensor its gradient goes through the flash-attention
+and SSD-scan backward kernels.
 
 Hybrid (zamba2) structure, as in the JAX package: ``num_layers`` Mamba2
 blocks; after every ``attn_every`` of them, one *shared* attention block
@@ -16,7 +16,7 @@ blocks; after every ``attn_every`` of them, one *shared* attention block
 
 Entry points:
   * ``init``              — dictionary of parameters from a seed.
-  * ``loss_fn``           — causal LM loss of a batch (dense family).
+  * ``loss_fn``           — causal LM loss of a batch.
   * ``init_decode_state`` — an empty decode state for a cache length.
   * ``prefill``           — runs the prompt, builds the decode state.
   * ``decode_step``       — one token for every sequence in the batch.
@@ -154,21 +154,32 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     "tokens"})`` as fp32 scalars; ``total`` is what the gradient is taken of,
     the metrics are detached from the graph.
     On a CUDA tensor every self-attention goes through the flash-attention
-    forward and backward kernels (``kernels.ops.attention``)."""
+    forward and backward kernels (``kernels.ops.attention``), every Mamba2
+    scan through the SSD-scan forward and backward kernels
+    (``kernels.ops.ssd``).  The ssm and hybrid families run the Mamba2 stack
+    in ``_ssm_stack``'s block order without a decode state (the hybrid's
+    shared block after every ``attn_every`` layers), each block under
+    ``_maybe_remat``, as the JAX package's ``_scan_blocks(mode="train")``."""
     _require_ported(cfg)
-    if _is_ssm(cfg):
-        raise NotImplementedError(
-            f"loss_fn: training the {cfg.family} family ({cfg.name}) needs the "
-            "SSD scan's backward, not ported yet (ROADMAP.md M3b with K2-bwd)")
     pcfg = pcfg or ParallelConfig()
     x, positions = _embed_inputs(params, cfg, batch)
 
-    def run(h, bp):
+    def attn(h, bp):
         return apply_attn_block(bp, cfg, pcfg, h, positions=positions,
                                 mode="train")[0]
-    run = _maybe_remat(run, pcfg)
-    for bp in params["blocks"]:
-        x = run(x, bp)
+    attn = _maybe_remat(attn, pcfg)
+    if _is_ssm(cfg):
+        def mamba(h, bp):
+            return h + mamba2_forward(bp["ssm"], rms_norm(h, bp["ln"], cfg.norm_eps),
+                                      cfg)
+        mamba = _maybe_remat(mamba, pcfg)
+        for l, bp in enumerate(params["blocks"]):
+            x = mamba(x, bp)
+            if _shared_after(cfg, l) is not None:
+                x = attn(x, params["shared_attn"])
+    else:
+        for bp in params["blocks"]:
+            x = attn(x, bp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     loss, count = softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)

@@ -8,7 +8,8 @@ module arrive with the multi-rank slice (ROADMAP.md M9).
 ``make_train_step(cfg, pcfg, ocfg)`` returns ``step(state, batch) ->
 (state, metrics)``: the loss of the batch, its gradient by ``backward``
 through the model (on the card every self-attention's through the
-flash-attention backward kernel), then AdamW.  The parameters and the
+flash-attention backward kernel, every Mamba2 scan's through the SSD-scan
+backward kernel), then AdamW.  The parameters and the
 optimizer state are updated in place (``train.optim``), so the returned
 ``TrainState`` holds the tensors of the one passed in.  Metrics, as in the
 JAX step: ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``, ``lr`` (0-d

@@ -3,7 +3,8 @@
 autograd through the port's ``dense_attention`` and against ``jax.grad`` of
 the JAX package's ``chunked_attention`` (``src/repro/models/attention.py:109``),
 which is how the JAX model trains; and the autograd wiring of
-``ops.attention`` and ``ops.ssd`` (fault F1 of ROADMAP.md).
+``ops.attention`` and ``ops.ssd`` (fault F1 of ROADMAP.md).  The SSD scan's
+own backward is held to JAX in ``tests/test_torch_ssd_bwd.py``.
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against autograd through ``flash_attention_plain`` there.
@@ -24,6 +25,7 @@ from repro.models import attention as jatt
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_plain
 from repro_torch.models.attention import dense_attention
 
 FP32_TOL = dict(atol=2e-5, rtol=2e-4)
@@ -130,7 +132,7 @@ def test_plain_forward_lse_is_the_row_logsumexp():
 
 
 # --------------------------------------------------------------------------
-# autograd wiring (fault F1): attention differentiates, the SSD scan refuses
+# autograd wiring (fault F1): attention and the SSD scan differentiate
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("impl", ["auto", "plain"])
@@ -186,8 +188,31 @@ def _ssd_inputs(requires_grad):
 
 @pytest.mark.parametrize("impl", ["auto", "plain", "kernel"])
 def test_ops_ssd_refuses_to_run_under_grad(impl):
-    with pytest.raises(NotImplementedError, match="K2-bwd"):
-        ops.ssd(*_ssd_inputs(True), impl=impl)
+    """The name is historical (kept so that the test's ID stays): the test
+    pinned the scan's refusal under grad, and is turned now that it has a
+    backward.  On a CPU tensor ``auto`` and ``plain`` go through
+    ``SSDScan`` (plain forward, ``ssd_scan_bwd_plain``) and give the
+    gradients of autograd through ``ssd_scan_plain`` (fp32, FP32_TOL), with
+    no kernel launched; ``kernel`` raises, naming CUDA, as the attention's
+    kernel route does."""
+    args = _ssd_inputs(True)
+    leaves = [args[0], args[1].requires_grad_(), args[2].requires_grad_(),
+              args[3].requires_grad_(), args[4].requires_grad_()]
+    if impl == "kernel":
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.ssd(*leaves, impl=impl)
+        return
+    ssd_scan.launches = ssd_scan_bwd.launches = 0
+    y = ops.ssd(*leaves, impl=impl)
+    assert y.grad_fn is not None and "SSDScan" in type(y.grad_fn).__name__
+    dy = torch.from_numpy(np.random.default_rng(8).standard_normal(tuple(y.shape), np.float32))
+    got = torch.autograd.grad(y, leaves, dy)
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(ssd_scan_plain(*ref), ref, dy)
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **FP32_TOL)
+    assert ssd_scan.launches == ssd_scan_bwd.launches == 0
 
 
 def test_ops_ssd_runs_without_grad():

@@ -176,7 +176,7 @@ def test_kernel_wrapper_rejects_window_before_anything_else():
 
 def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     assert build.sources() == ["flash_attention", "flash_attention_bwd", "quant8",
-                               "reduce_tree", "ssd_scan"]
+                               "reduce_tree", "ssd_scan", "ssd_scan_bwd"]
     assert (build.CSRC / "flash_attention.cu").is_file()
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
     text = (build.CSRC / "flash_attention.cu").read_text()
@@ -199,6 +199,12 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd
     assert "src/repro/kernels/ssd_scan.py" in ssd
     assert "mma.sync" in ssd            # the bf16 path's products on the tensor cores
+    ssd_bwd = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    assert 'extern "C" int ssd_scan_bwd' in ssd_bwd
+    # the gradient of the Pallas kernel's function, as the JAX model trains it
+    assert "src/repro/kernels/ssd_scan.py" in ssd_bwd and "src/repro/models/ssm.py:100" in ssd_bwd
+    assert "atomicAdd" not in ssd_bwd   # deterministic: no atomics
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd_bwd
     q8 = (build.CSRC / "quant8.cu").read_text()
     for entry in ('extern "C" int quantize_fwd', 'extern "C" int dequantize_fwd'):
         assert entry in q8
@@ -237,7 +243,7 @@ def test_build_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch):
 def test_both_flash_sources_include_the_shared_header():
     for name in ("flash_attention", "flash_attention_bwd"):
         assert build._included(build.CSRC / f"{name}.cu") == [build.CSRC / "hopper.cuh"]
-    for name in ("quant8", "reduce_tree", "ssd_scan"):
+    for name in ("quant8", "reduce_tree", "ssd_scan", "ssd_scan_bwd"):
         assert build._included(build.CSRC / f"{name}.cu") == []
 
 

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Where the bf16 flash-attention (forward and backward) and SSD kernels spend
+"""Where the bf16 flash-attention and SSD kernels (forward and backward) spend
 their time, by ablation.
 
     python3 tools/kernel_ablations.py
 
-Builds copies of ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``
-and ``csrc/ssd_scan.cu`` with one part of the work taken out (the results are
-wrong on purpose), one nvcc each, all at once, into ``build/ablations/``
-(each copy beside its own copy of ``csrc/hopper.cuh``, which a variant may
-change too); binds each in place of the wrapper's library and times it at
-``chip_smoke.py``'s main shapes (llama3.2-1b's prefill attention, its training
-shape's attention backward, mamba2-1.3b's SSD scan), the unchanged source
-first, in two alternating rounds.  Prints one JSON line per variant: median
-ms of each round (CUDA events, as ``chip_smoke.cuda_ms``).  Needs one NVIDIA
-GPU.
+Builds copies of ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu`` with one part of the work
+taken out (the results are wrong on purpose), one nvcc each, all at once,
+into ``build/ablations/`` (each copy beside its own copy of
+``csrc/hopper.cuh``, which a variant may change too); binds each in place of
+the wrapper's library and times it at ``chip_smoke.py``'s main shapes
+(llama3.2-1b's prefill attention, its training shape's attention backward,
+mamba2-1.3b's SSD scan at its serving shape and its backward at its training
+shape), the unchanged source first, in two alternating rounds.  Prints one
+JSON line per variant: median ms of each round (CUDA events, as
+``chip_smoke.cuda_ms``).  Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -65,6 +66,13 @@ ABLATIONS = {
             if ln.strip().startswith("mma16816("))],
         # the decay factors of M left out (no 2^x per element of M)
         "no_M_exp2": [("m[nt][e] * ex2(ci - csw[j]) * dts[j]", "m[nt][e] * (ci - csw[j]) * dts[j]")],
+    },
+    "ssd_scan_bwd": {
+        # the chains launch without its forward row (the states entering each
+        # chunk are left unwritten): what taking them from the forward would save
+        "no_state_chain": [("const bool rev = blockIdx.y == 1;", "const bool rev = true;"),
+                           ("ssd_bwd_chains<T, HD, N><<<dim3(p.B * p.H, 2)",
+                            "ssd_bwd_chains<T, HD, N><<<dim3(p.B * p.H, 1)")],
     },
 }
 
@@ -141,13 +149,19 @@ def main() -> int:
     cfg = get_config("mamba2-1.3b")
     args = cs.make_ssd(21, 8, 2048, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
                        cfg.ssm_groups, torch.bfloat16, dev, served=True, fused=True)
+    bargs = cs.make_ssd(22, t["B"], t["S"], cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                        cfg.ssm_groups, torch.bfloat16, dev, served=True, fused=True)
+    bdy, _ = cs.ssd_cotangents(23, t["B"], t["S"], cfg.ssm_heads, cfg.ssm_headdim,
+                               cfg.ssm_state, torch.bfloat16, dev)
     # name: (module, C entry, wrapper's bound-function attribute, its getter, call)
     calls = {"flash_attention": (fa, "flash_attention_fwd", "_fn", "_kernel_fn",
                                  lambda: fa.flash_attention(q, k, v)),
              "flash_attention_bwd": (fa, "flash_attention_bwd", "_bwd_fn", "_bwd_kernel_fn",
                                      lambda: fa.flash_attention_bwd(tq, tk, tv, tout, tdo, tlse)),
              "ssd_scan": (ssd, "ssd_scan_fwd", "_fn", "_kernel_fn",
-                          lambda: ssd.ssd_scan(*args[:5], return_state=True))}
+                          lambda: ssd.ssd_scan(*args[:5], return_state=True)),
+             "ssd_scan_bwd": (ssd, "ssd_scan_bwd", "_bwd_fn", "_bwd_kernel_fn",
+                              lambda: ssd.ssd_scan_bwd(*bargs[:5], bdy))}
     sources = {(name, tag): text for name in ABLATIONS for tag, text in variants(name).items()}
     libs = build_all(sources)
     times = {key: [] for key in libs}

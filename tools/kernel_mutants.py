@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Mutation check of the flash-attention (forward and backward) and SSD
-kernels on a GPU: six planted faults, three of them in the backward.
+"""Mutation check of the flash-attention and SSD-scan kernels (forward and
+backward) on a GPU: ten planted faults, seven of them in the backwards.
 
-    python3 tools/kernel_mutants.py
+    python3 tools/kernel_mutants.py [name ...]
 
-Copies the tree into a temporary directory once per mutant, plants one
-deliberate fault in a CUDA source there, and runs
+Copies the tree (and the kernels already built) into a temporary directory
+once per mutant, plants one deliberate fault in a CUDA source there, and runs
 ``python3 chip_smoke.py --phases kernels`` in the copy.  Each mutant must make
 it exit non-zero; the script prints the exit code and the assertion that
-stopped it, and exits non-zero itself if any mutant passed.  The checkout is
-never modified.
+stopped it, and exits non-zero itself if any mutant passed.  Names given on
+the command line run those mutants only.  The checkout is never modified.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FLASH = "src/repro_torch/csrc/flash_attention.cu"
 SSD = "src/repro_torch/csrc/ssd_scan.cu"
 FLASH_BWD = "src/repro_torch/csrc/flash_attention_bwd.cu"
+SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 
 # name: (source, text, replacement)
 MUTANTS = {
@@ -54,6 +55,30 @@ MUTANTS = {
     "flash bwd dK/dV reads the wrong ring stage": (
         FLASH_BWD, "          issue_step(first, sRing + s * 2 * C::RING_TILE);",
         "          issue_step(first, sRing + ((s + 1) % STAGES) * 2 * C::RING_TILE);"),
+    # the reverse chain leaves the gradient of the state as it is at chunk 1,
+    # so chunk 0 sees the gradient that leaves chunk 1, not chunk 0
+    "ssd bwd skips the reverse dh carry at chunk 1": (
+        SSD_BWD,
+        "          for (int e = 0; e < 4; ++e) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);",
+        "          for (int e = 0; e < 4; ++e)\n"
+        "            if (!(rev && c == 1)) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);"),
+    # dB of a group takes its first head only (dC keeps the whole sum)
+    "ssd bwd dB sums one head of the group": (
+        SSD_BWD, "  for (int r = 0; r < rep; ++r) s += src[(long long)r * N];",
+        "  for (int r = 0; r < (is_c ? rep : 1); ++r) s += src[(long long)r * N];"),
+    # two bf16 roundings inside the arithmetic, in bf16 calls only, so that
+    # only the bf16 limits can catch them: M of a chunk, and the carried
+    # states of both chains (the forward state and dh)
+    "ssd bwd rounds M to bf16": (
+        SSD_BWD, "        Ms[i * QP + j] = m;\n",
+        "        Ms[i * QP + j] = sizeof(T) == 2 ? __bfloat162float(__float2bfloat16(m)) : m;\n"),
+    "ssd bwd rounds the carried states to bf16": (
+        SSD_BWD,
+        "          for (int e = 0; e < 4; ++e) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);",
+        "          for (int e = 0; e < 4; ++e) {\n"
+        "            st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);\n"
+        "            if (sizeof(T) == 2) st[k][a][e] = __bfloat162float(__float2bfloat16(st[k][a][e]));\n"
+        "          }"),
 }
 
 
@@ -62,6 +87,10 @@ def run(name: str, source: str, text: str, new: str) -> int:
         copy = Path(tmp) / "tree"
         shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
             "build", "artifacts", ".git", "__pycache__"))
+        # the libraries already built: only the mutated source is built again
+        # (the build's hash covers each source's text)
+        if (ROOT / "build" / "repro_torch").is_dir():
+            shutil.copytree(ROOT / "build" / "repro_torch", copy / "build" / "repro_torch")
         path = copy / source
         src = path.read_text()
         if src.count(text) != 1:
@@ -79,7 +108,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    passed = [name for name, spec in MUTANTS.items() if run(name, *spec) == 0]
+    names = sys.argv[1:] or list(MUTANTS)
+    unknown = [n for n in names if n not in MUTANTS]
+    if unknown:
+        print(f"kernel_mutants: no mutant {unknown}; there are {list(MUTANTS)}", file=sys.stderr)
+        return 2
+    passed = [name for name in names if run(name, *MUTANTS[name]) == 0]
     if passed:
         print(f"mutants not caught: {passed}", file=sys.stderr)
         return 1
