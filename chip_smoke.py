@@ -87,6 +87,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -111,7 +112,7 @@ from repro_torch.kernels.quant8 import (                      # noqa: E402
 from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
 from repro_torch.kernels.ssd_scan import (                    # noqa: E402
-    ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
+    bwd_heads_per_block, bwd_scratch, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
@@ -189,17 +190,21 @@ SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
 SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
 # The SSD backward against ssd_scan_bwd_plain on the card, in the style of the
 # BWD_* limits: elementwise within ATOL x the gradient's largest magnitude +
-# RTOL x the element, and a Frobenius limit.  Both compute in fp32 from the same
-# inputs, sums in another order (about 1e-5 of the norm apart in fp32); in bf16
-# dx, dB and dC are rounded once to bf16 on both sides, so an element differs
-# by at most one ulp, at most 2^-7 of itself (inside RTOL 1e-2), and the few
-# elements that round apart give some 6e-5 of the norm.  The bf16 Frobenius
-# limits sit 5x above that and below what one bf16 rounding inside the
-# arithmetic gives: M rounded to bf16 moves dx by 2.4e-3-2.8e-3 of its norm,
-# the carried states rounded move dx, dB, dC or dA by up to 3.2e-4-7.1e-4
-# (the plain version so altered, on the sweep's bf16 cases).  ddt and dA are
-# long sums whose terms cancel, held by Frobenius only; dh0 is fp32 on both
-# sides, held to the fp32 limits.
+# RTOL x the element, and a Frobenius limit.  In fp32 both compute in fp32 from
+# the same inputs, sums in another order (about 1e-5 of the norm apart).  Every
+# bf16 case (the sweep's and both training shapes) runs the tensor-core kernel,
+# whose operands that are not exact bf16 inputs are split into bf16 hi + lo
+# halves (about 16 of fp32's 24 bits); dx, dB and dC are rounded once to bf16
+# on both sides, so an element differs by at most one ulp, at most 2^-7 of
+# itself (inside RTOL 1e-2), and the elements that round apart give 1.0e-4 to
+# 1.6e-4 of the norm (5.9e-5 with the earlier fp32 FMA kernels).  The bf16
+# Frobenius limits sit 2-3x above that and below what one bf16 rounding inside
+# the arithmetic gives: M rounded to bf16 moves dx by 2.4e-3-2.8e-3 of its
+# norm, the chunk kernel's dh operand rounded by 7e-4-1e-3
+# (tests/test_torch_ssd_bwd_precision.py), the carried states rounded move dx,
+# dB, dC or dA by up to 3.2e-4-7.1e-4 (the plain version so altered, on the
+# sweep's bf16 cases).  ddt and dA are long sums whose terms cancel, held by
+# Frobenius only; dh0 is fp32 on both sides, held to the fp32 limits.
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 SSD_BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 SSD_BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
@@ -822,14 +827,15 @@ def merge_readings(into, readings):
 
 
 def ssd_bwd_bound(args, dy, got):
-    """(bound ms, bound_by, flops, bytes, bytes of the chunk states): every
-    input (x, dt, A, B, C, h0, dy) read once and every gradient written once,
-    against the products: the causal halves of C.B^T and dy.x^T and of the
-    three chunk-by-chunk products of dx, dB and dC, and five (hd x N)
-    products a chunk (dh.B, x^T.dh, dy.h_c, the state and the gradient
-    chains).  The chunk states, (B, nc, H, hd, N) fp32, are scratch of this
-    kernel's design, not bytes the function must move: they are returned
-    apart and not counted in the bound."""
+    """(bound ms, bound_by, flops, bytes, scratch bytes): every input (x, dt,
+    A, B, C, h0, dy) read once and every gradient written once, against the
+    products: the causal halves of C.B^T and dy.x^T and of the three
+    chunk-by-chunk products of dx, dB and dC, and five (hd x N) products a
+    chunk (dh.B, x^T.dh, dy.h_c, the state and the gradient chains).  The
+    scratch (``bwd_scratch``: the chunk states and their gradients, the
+    partial dB, dC and dA) belongs to the kernel's design, not to the bytes
+    the function must move: it is returned apart and not counted in the
+    bound."""
     x, dt, A, Bm, Cm, h0 = args
     Bsz, S, H, hd = x.shape
     N = Bm.shape[3]
@@ -842,8 +848,10 @@ def ssd_bwd_bound(args, dy, got):
     n_bytes = nbytes(*(t for t in (x, dt, A, Bm, Cm, h0, dy, *got) if t is not None))
     t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    scratch = sum(math.prod(shape) * dtype.itemsize
+                  for shape, dtype in bwd_scratch(Bsz, S, H, hd, N, Bm.shape[2], x.dtype).values())
     return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops,
-            n_bytes, Bsz * nc * H * hd * N * 4)
+            n_bytes, scratch)
 
 
 def kernels_ssd_bwd(dev):
@@ -854,7 +862,8 @@ def kernels_ssd_bwd(dev):
     output; then mamba2's and zamba2's training shapes (the model's decays,
     slices of one conv output, no final-state cotangent as in training; two
     calls bit-equal), timed beside the plain backward and autograd through
-    ssd_scan_plain."""
+    ssd_scan_plain, with the scratch a call allocates and the heads a chunk
+    block of the bf16 kernel takes (k)."""
     n_cases = 0
     worst = {torch.float32: {}, torch.bfloat16: {}}
     for (B, S, H, hd, N, G) in SSD_SWEEP:
@@ -912,7 +921,7 @@ def kernels_ssd_bwd(dev):
         del auto
         autograd_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
                               warmup=1, reps=3)
-        bound_ms, bound_by, flops, n_bytes, state_bytes = ssd_bwd_bound(args, dy, got)
+        bound_ms, bound_by, flops, n_bytes, scratch_bytes = ssd_bwd_bound(args, dy, got)
         shapes[arch] = {
             "shape": {**shape, "dtype": "torch.bfloat16",
                       "inputs": "x, B, C slices of one conv output; no final-state cotangent"},
@@ -926,7 +935,8 @@ def kernels_ssd_bwd(dev):
             "ms": kernel_ms, "plain_ms": plain_ms, "autograd_through_plain_ms": autograd_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "mbytes": n_bytes / 1e6, "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
-            "chunk_states_mbytes_not_in_bound": state_bytes / 1e6,
+            "scratch_mbytes_not_in_bound": scratch_bytes / 1e6,
+            "heads_per_block": bwd_heads_per_block(shape["H"], shape["G"]),
         }
         del y, leaves, got, args, dy
         torch.cuda.empty_cache()
@@ -942,7 +952,8 @@ def kernels_ssd_bwd(dev):
         **{k: main[k] for k in ("shape", "max_abs_err", "max_abs_err_is", "frobenius_rel_err",
                                 "tolerance", "two_calls_bit_equal", "ms", "plain_ms",
                                 "autograd_through_plain_ms", "bound_ms", "bound_by",
-                                "achieved_tflops")},
+                                "achieved_tflops", "scratch_mbytes_not_in_bound",
+                                "heads_per_block")},
         "library_ms": None,            # no single PyTorch call computes this function
         "zamba2_shape": shapes[SSD_SERVED[1]],
     }

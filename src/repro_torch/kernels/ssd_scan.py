@@ -234,10 +234,36 @@ def _bwd_kernel_fn():
     if _bwd_fn is None:   # 19 pointers (inputs, outputs, scratch); strides of x, dt, A, B, C, dy
         fn = build.load("ssd_scan_bwd").ssd_scan_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 +
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 +
                        [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p])
         _bwd_fn = fn
     return _bwd_fn
+
+
+def bwd_heads_per_block(H: int, G: int) -> int:
+    """k: how many heads of one group a block of the bf16 backward takes (the
+    largest divisor of H / G up to 8); it sums their dB and dC itself."""
+    rep = H // G
+    return max(k for k in range(1, 9) if rep % k == 0)
+
+
+def bwd_scratch(Bsz: int, S: int, H: int, hd: int, N: int, G: int, dtype: torch.dtype):
+    """The backward's scratch as ``{name: (shape, dtype)}``: the states
+    entering each chunk and their gradients, fp32 ``(2, B, H, nc, hd, N)``,
+    in bf16 calls hi and lo bf16 planes ``(2, B, H, nc, 2, hd, N)`` (the same
+    bytes); the partial dB and dC, fp32, of each head ``(2, B, S, H, N)``, in
+    bf16 calls of each block of k heads ``(2, B, S, G, H / (G k), N)``; and
+    the partial dA ``(B, nc, H)``."""
+    nc = -(-S // CHUNK)
+    f32 = torch.float32
+    if dtype == torch.bfloat16:
+        k = bwd_heads_per_block(H, G)
+        return {"states": ((2, Bsz, H, nc, 2, hd, N), torch.bfloat16),
+                "partial_bc": ((2, Bsz, S, G, H // (G * k), N), f32),
+                "partial_a": ((Bsz, nc, H), f32)}
+    return {"states": ((2, Bsz, H, nc, hd, N), f32),
+            "partial_bc": ((2, Bsz, S, H, N), f32),
+            "partial_a": ((Bsz, nc, H), f32)}
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -249,10 +275,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dh0 in fp32 (dh0 None without an initial state).  ``y_grad`` is dy
     ``(B, S, H, hd)`` in x's dtype, ``final_state_grad`` the cotangent of the
     final state ``(B, H, hd, N)`` fp32 contiguous, or None for zero.  Takes
-    what ``ssd_scan`` takes; allocates its outputs and the scratch (the
-    states entering each chunk and their gradients, fp32, and per-head
-    partials of dB, dC and dA) with ``torch.empty``.  Launches on the current
-    stream and does not synchronise."""
+    what ``ssd_scan`` takes; allocates its outputs and its scratch
+    (``bwd_scratch``) with ``torch.empty``.  Launches on the current stream
+    and does not synchronise."""
     _check(x, dt, A, Bmat, Cmat, initial_state)
     Bsz, S, H, hd = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]
@@ -270,7 +295,6 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"final_state_grad must be a contiguous float32 "
                          f"{(Bsz, H, hd, N)} tensor on {x.device}, got "
                          f"{tuple(final_state_grad.shape)} {final_state_grad.dtype}")
-    nc = -(-S // CHUNK)
     dev, f32 = x.device, torch.float32
     dx = torch.empty((Bsz, S, H, hd), dtype=x.dtype, device=dev)
     ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
@@ -279,9 +303,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
     dh0 = (torch.empty((Bsz, H, hd, N), dtype=f32, device=dev)
            if initial_state is not None else None)
-    states = torch.empty((2, Bsz, H, nc, hd, N), dtype=f32, device=dev)
-    partial_bc = torch.empty((2, Bsz, S, H, N), dtype=f32, device=dev)
-    partial_a = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
+    states, partial_bc, partial_a = (
+        torch.empty(shape, dtype=dtype, device=dev)
+        for shape, dtype in bwd_scratch(Bsz, S, H, hd, N, G, x.dtype).values())
     fn = _bwd_kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -292,7 +316,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  dC.data_ptr(), _ptr(dh0),
                  states[0].data_ptr(), states[1].data_ptr(), partial_bc[0].data_ptr(),
                  partial_bc[1].data_ptr(), partial_a.data_ptr(),
-                 Bsz, S, H, G, hd, N,
+                 Bsz, S, H, G, hd, N, bwd_heads_per_block(H, G),
                  *x.stride()[:3], *dt.stride(), A.stride(0),
                  *Bmat.stride()[:3], *Cmat.stride()[:3], *y_grad.stride()[:3],
                  int(x.dtype == torch.bfloat16), stream)

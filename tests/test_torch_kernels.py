@@ -205,6 +205,9 @@ def test_build_module_names_its_sources_and_needs_no_compiler_to_import():
     assert "src/repro/kernels/ssd_scan.py" in ssd_bwd and "src/repro/models/ssm.py:100" in ssd_bwd
     assert "atomicAdd" not in ssd_bwd   # deterministic: no atomics
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in ssd_bwd
+    # the bf16 backward's products on the tensor cores (mma.sync, in the shared header)
+    mma = (build.CSRC / "mma_sync.cuh").read_text()
+    assert "mma16816(" in ssd_bwd and "mma.sync" in mma
     q8 = (build.CSRC / "quant8.cu").read_text()
     for entry in ('extern "C" int quantize_fwd', 'extern "C" int dequantize_fwd'):
         assert entry in q8
@@ -243,7 +246,10 @@ def test_build_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch):
 def test_both_flash_sources_include_the_shared_header():
     for name in ("flash_attention", "flash_attention_bwd"):
         assert build._included(build.CSRC / f"{name}.cu") == [build.CSRC / "hopper.cuh"]
-    for name in ("quant8", "reduce_tree", "ssd_scan", "ssd_scan_bwd"):
+    # the bf16 SSD kernels, forward and backward, share their mma.sync helpers
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        assert build._included(build.CSRC / f"{name}.cu") == [build.CSRC / "mma_sync.cuh"]
+    for name in ("quant8", "reduce_tree"):
         assert build._included(build.CSRC / f"{name}.cu") == []
 
 

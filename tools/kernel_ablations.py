@@ -7,8 +7,8 @@ their time, by ablation.
 Builds copies of ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
 ``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu`` with one part of the work
 taken out (the results are wrong on purpose), one nvcc each, all at once,
-into ``build/ablations/`` (each copy beside its own copy of
-``csrc/hopper.cuh``, which a variant may change too); binds each in place of
+into ``build/ablations/`` (each copy beside its own copies of the headers of
+``csrc/``, which a variant may change too); binds each in place of
 the wrapper's library and times it at ``chip_smoke.py``'s main shapes
 (llama3.2-1b's prefill attention, its training shape's attention backward,
 mamba2-1.3b's SSD scan at its serving shape and its backward at its training
@@ -38,6 +38,27 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 FLASH_SOFTMAX = "  float ml[4], mh[4];\n"
+# the bf16 SSD chains' write of a chunk's carry (hi and lo planes staged in
+# shared memory, 16-byte stores contiguous across the block), and the first
+# version's stores straight from the fragments
+SSD_BWD_COPY_OUT = """      for (int i = tid; i < 2 * HD * CPR; i += 256) {
+        const int lo = i / (HD * CPR), r = (i / CPR) % HD, cc = i % CPR;
+        *reinterpret_cast<uint4*>(o + lo * HD * N + r * N + cc * 8) =
+            *reinterpret_cast<const uint4*>((lo ? stl : sth) + r * LDN + cc * 8);
+      }
+"""
+SSD_BWD_FRAGMENT_STORES = """      if (owns)
+        for (int k = 0; k < TPW; ++k) {
+          const int col = 8 * (nt0 + k) + 2 * t4;
+          uint32_t hi, lo;
+          split2(st[k][0], st[k][1], hi, lo);
+          *reinterpret_cast<uint32_t*>(o + sr_lo * N + col) = hi;
+          *reinterpret_cast<uint32_t*>(o + HD * N + sr_lo * N + col) = lo;
+          split2(st[k][2], st[k][3], hi, lo);
+          *reinterpret_cast<uint32_t*>(o + sr_hi * N + col) = hi;
+          *reinterpret_cast<uint32_t*>(o + HD * N + sr_hi * N + col) = lo;
+        }
+"""
 ABLATIONS = {
     "flash_attention": {
         # P = S rounded to bf16: no max, exp, sum or rescale, the products and loads stay
@@ -68,48 +89,52 @@ ABLATIONS = {
         "no_M_exp2": [("m[nt][e] * ex2(ci - csw[j]) * dts[j]", "m[nt][e] * (ci - csw[j]) * dts[j]")],
     },
     "ssd_scan_bwd": {
-        # the chains launch without its forward row (the states entering each
-        # chunk are left unwritten): what taking them from the forward would save
-        "no_state_chain": [("const bool rev = blockIdx.y == 1;", "const bool rev = true;"),
-                           ("ssd_bwd_chains<T, HD, N><<<dim3(p.B * p.H, 2)",
-                            "ssd_bwd_chains<T, HD, N><<<dim3(p.B * p.H, 1)")],
+        # the bf16 chains launch without their forward row (the states entering
+        # each chunk are left unwritten): what taking them from the forward would save
+        "no_state_chain": [("const bool reverse = blockIdx.y == 1;", "const bool reverse = true;"),
+                           ("ssd_bwd_chains_tc<HD, N><<<dim3(p.B * p.H, 2)",
+                            "ssd_bwd_chains_tc<HD, N><<<dim3(p.B * p.H, 1)")],
+        # every tensor-core product of the chunk kernel removed: loads, exps,
+        # splits, sums, stores and barriers stay
+        "no_chunk_products": [("  mma16816(acc, a, b0, b1);\n", "")],
+        # the chains write no states out: what the write of 537 MB costs them
+        "no_state_write": [(SSD_BWD_COPY_OUT, "")],
+        # the states written straight from the warps' fragments (16-byte pieces
+        # of eight rows a store), as the first version of the chains did
+        "fragment_stores": [(SSD_BWD_COPY_OUT, SSD_BWD_FRAGMENT_STORES)],
     },
 }
 
 
-HEADER = "hopper.cuh"
-
-
 def variants(name):
-    """{tag: (source text, header text)}: each substitution applies to the
-    source if it holds the text, else to the shared header."""
-    src = (build.CSRC / f"{name}.cu").read_text()
-    hdr = (build.CSRC / HEADER).read_text()
-    out = {"unchanged": (src, hdr)}
+    """{tag: {file name: text}}: the source and every header of ``csrc/``;
+    each substitution applies to the source if it holds the text, else to
+    the one header that does."""
+    files = {f"{name}.cu": (build.CSRC / f"{name}.cu").read_text()}
+    files.update({h.name: h.read_text() for h in sorted(build.CSRC.glob("*.cuh"))})
+    out = {"unchanged": files}
     for tag, subs in ABLATIONS[name].items():
-        text, head = src, hdr
+        texts = dict(files)
         for a, b in subs:
-            if text.count(a):
-                text = text.replace(a, b)
-            elif head.count(a):
-                head = head.replace(a, b)
-            else:
+            holder = next((f for f, t in texts.items() if t.count(a)), None)
+            if holder is None:
                 raise SystemExit(f"{name} {tag}: the text to remove is not in the source")
-        out[tag] = (text, head)
+            texts[holder] = texts[holder].replace(a, b)
+        out[tag] = texts
     return out
 
 
 def build_all(sources):
-    """{(name, tag): (source, header)} -> {(name, tag): CDLL}, one nvcc each, in
-    parallel, each copy in its own directory with its header."""
+    """{(name, tag): {file name: text}} -> {(name, tag): CDLL}, one nvcc each,
+    in parallel, each copy in its own directory with its headers."""
     root = build.build_dir().parent / "ablations"
     nvcc, procs = build.find_nvcc(), {}
-    for (name, tag), (text, head) in sources.items():
+    for (name, tag), texts in sources.items():
         d = root / f"{name}_{tag}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / HEADER).write_text(head)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
         cu = d / f"{name}.cu"
-        cu.write_text(text)
         procs[name, tag] = subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation check of the flash-attention and SSD-scan kernels (forward and
-backward) on a GPU: ten planted faults, seven of them in the backwards.
+backward) on a GPU: eleven planted faults, eight of them in the backwards.
 
     python3 tools/kernel_mutants.py [name ...]
 
@@ -26,7 +26,7 @@ SSD = "src/repro_torch/csrc/ssd_scan.cu"
 FLASH_BWD = "src/repro_torch/csrc/flash_attention_bwd.cu"
 SSD_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 
-# name: (source, text, replacement)
+# name: (source, text, replacement) or (source, [(text, replacement), ...])
 MUTANTS = {
     # kv tile 10 of 128 keys (keys 1280..1407) leaves every row's sum
     "flash skips kv tile 10": (
@@ -56,33 +56,43 @@ MUTANTS = {
         FLASH_BWD, "          issue_step(first, sRing + s * 2 * C::RING_TILE);",
         "          issue_step(first, sRing + ((s + 1) % STAGES) * 2 * C::RING_TILE);"),
     # the reverse chain leaves the gradient of the state as it is at chunk 1,
-    # so chunk 0 sees the gradient that leaves chunk 1, not chunk 0
+    # so chunk 0 sees the gradient that leaves chunk 1, not chunk 0 (bf16)
     "ssd bwd skips the reverse dh carry at chunk 1": (
-        SSD_BWD,
-        "          for (int e = 0; e < 4; ++e) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);",
-        "          for (int e = 0; e < 4; ++e)\n"
-        "            if (!(rev && c == 1)) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);"),
-    # dB of a group takes its first head only (dC keeps the whole sum)
-    "ssd bwd dB sums one head of the group": (
-        SSD_BWD, "  for (int r = 0; r < rep; ++r) s += src[(long long)r * N];",
-        "  for (int r = 0; r < (is_c ? rep : 1); ++r) s += src[(long long)r * N];"),
-    # two bf16 roundings inside the arithmetic, in bf16 calls only, so that
-    # only the bf16 limits can catch them: M of a chunk, and the carried
-    # states of both chains (the forward state and dh)
-    "ssd bwd rounds M to bf16": (
-        SSD_BWD, "        Ms[i * QP + j] = m;\n",
-        "        Ms[i * QP + j] = sizeof(T) == 2 ? __bfloat162float(__float2bfloat16(m)) : m;\n"),
+        SSD_BWD, "    if (owns) {\n      const float decay = expf(last);",
+        "    if (owns && !(reverse && c == 1)) {\n      const float decay = expf(last);"),
+    # dB of a group takes its first partial only: one head in fp32 calls, one
+    # block of k heads in bf16 calls (dC keeps the whole sum)
+    "ssd bwd dB sums one head block": (
+        SSD_BWD, "  for (int r = 0; r < nkb; ++r) s += src[(long long)r * N];",
+        "  for (int r = 0; r < (is_c ? nkb : 1); ++r) s += src[(long long)r * N];"),
+    # a block's dB and dC leave out its last head (four places: the products
+    # with Gd^T and Gd, and the state terms)
+    "ssd bwd sums k-1 heads inside the block": (
+        SSD_BWD, [
+            ("      if (kk < rt || !has_n) continue;",
+             "      if (kk < rt || !has_n || hh + 1 == p.kheads) continue;"),
+            ("      if (kk > rt || !has_n) continue;",
+             "      if (kk > rt || !has_n || hh + 1 == p.kheads) continue;"),
+            ("    if (has_n) {\n      float tb[NW][4];",
+             "    if (has_n && hh + 1 < p.kheads) {\n      float tb[NW][4];"),
+            ("          dCs[t][0] += v0;", "          if (hh + 1 < p.kheads) dCs[t][0] += v0;")]),
+    # two bf16 roundings inside the arithmetic, so that only the bf16 limits
+    # can catch them: M^T of the chunk without its lo half (M rounded to bf16
+    # once), and the carried states of both chains rounded to bf16
+    "ssd bwd drops the lo half of M": (
+        SSD_BWD, "mma_tiles<DW, true, true, false>(dxa, ah, al, ys, ys, LDX, 16 * kk, d0);",
+        "mma_tiles<DW, true, false, false>(dxa, ah, al, ys, ys, LDX, 16 * kk, d0);"),
     "ssd bwd rounds the carried states to bf16": (
         SSD_BWD,
-        "          for (int e = 0; e < 4; ++e) st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);",
-        "          for (int e = 0; e < 4; ++e) {\n"
-        "            st[k][a][e] = fmaf(st[k][a][e], decay, acc[a][e]);\n"
-        "            if (sizeof(T) == 2) st[k][a][e] = __bfloat162float(__float2bfloat16(st[k][a][e]));\n"
-        "          }"),
+        "          mma16816(st[k], al, bb[0], bb[1]);\n        }\n      }\n",
+        "          mma16816(st[k], al, bb[0], bb[1]);\n        }\n      }\n"
+        "      for (int k = 0; k < TPW; ++k)\n"
+        "        for (int e = 0; e < 4; ++e) st[k][e] = __bfloat162float(__float2bfloat16(st[k][e]));\n"),
 }
 
 
-def run(name: str, source: str, text: str, new: str) -> int:
+def run(name: str, source: str, text, new=None) -> int:
+    subs = text if new is None else [(text, new)]
     with tempfile.TemporaryDirectory() as tmp:
         copy = Path(tmp) / "tree"
         shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
@@ -93,9 +103,11 @@ def run(name: str, source: str, text: str, new: str) -> int:
             shutil.copytree(ROOT / "build" / "repro_torch", copy / "build" / "repro_torch")
         path = copy / source
         src = path.read_text()
-        if src.count(text) != 1:
-            raise SystemExit(f"{name}: the text to mutate is not in {source} exactly once")
-        path.write_text(src.replace(text, new))
+        for a, b in subs:
+            if src.count(a) != 1:
+                raise SystemExit(f"{name}: the text to mutate is not in {source} exactly once")
+            src = src.replace(a, b)
+        path.write_text(src)
         r = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "kernels"],
                            cwd=copy, capture_output=True, text=True)
     why = [ln for ln in r.stderr.splitlines() if "Error" in ln][-1:]
