@@ -5,10 +5,11 @@
     python3 chip_smoke.py --phases kernels     # bring-up: build and check only
 
 Drives the port's main paths (``repro_torch``: serving llama3.2-1b, serving
-mamba2-1.3b, FRED's gradient synchronisation of llama3.2-1b's gradients over a
+mamba2-1.3b, serving the MoE family (mixtral-8x7b with its sliding window,
+arctic-480b), FRED's gradient synchronisation of llama3.2-1b's gradients over a
 pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback modes, and
-training llama3.2-1b and mamba2-1.3b through ``Trainer.run()``) through the
-entry points a user calls, builds every CUDA kernel from the
+training llama3.2-1b, mamba2-1.3b and mixtral-8x7b through ``Trainer.run()``)
+through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
 through its kernels.  Each phase prints one JSON line; any failure exits
@@ -27,7 +28,13 @@ Phases:
            peaked and near-uniform softmax, two calls bit-equal) with timings,
            the plain backward and autograd through
            scaled_dot_product_attention beside it, and the same work at hd 128
-           (B 2), timed;
+           (B 2), timed; both with a sliding window: ragged shapes at hd 64 /
+           80 / 128, fp32 and bf16, windows 1, 63, 64, 65, 127, 128, 129 and
+           one longer than the sequence, then mixtral-8x7b's attention (B 1,
+           S 8192, 32 / 8 heads of hd 128, window 4096, bf16) forward and
+           backward, timed, the bounds counting only the pairs inside the
+           window, the library yardstick scaled_dot_product_attention with
+           the band as a boolean mask;
            ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
@@ -47,10 +54,20 @@ Phases:
   parity   on the card (kernels) against the CPU (plain versions), fp32 at
            full width: llama3.2-1b at 2 layers, mamba2-1.3b at 2 layers and
            zamba2-2.7b at 12 layers (two applications of the shared block);
-           prefill logits and 4 decode steps, SSM states and conv lags; the
+           prefill logits and 4 decode steps, SSM states and conv lags;
+           mixtral-8x7b at 1 layer: the expert choices first (a token may
+           choose other experts on the two devices only at a near-tie, gap <
+           ROUTE_TIE_EPS; the flips are counted), then the FFN outputs, the
+           logits and the KV cache where the routing agrees; the
            compressed gradient sync of the reduced llama3.2-1b tree
   serve    llama3.2-1b, then mamba2-1.3b, at full width and depth, bf16: 8
-           requests through ``Engine.run_batch``, twice each
+           requests through ``Engine.run_batch``, twice each; then
+           mixtral-8x7b at full width and 16 of 32 layers, the same, and a
+           batch of 2 requests of 6144-token prompts (past the window: the
+           windowed kernel on the served path, decode wrapping the rolling
+           cache); then arctic-480b at full width and 2 of 35 layers, the
+           same 8 requests twice; one flash launch a layer per batch
+           (asserted)
   sync     llama3.2-1b's full gradient tree (146 leaves, bf16, 8 replicas
            drawn on the card) through ``build_sync`` in each mode, three times
            each: the mean against an fp32 sum, error buffers, launch counts,
@@ -68,11 +85,16 @@ Phases:
            launches per step (asserted: 32 forward, 16 backward); then
            mamba2-1.3b the same way, 3 steps (its final checkpoint is
            written, its step checked, and removed; asserted: 96 SSD
-           forward, 48 backward)
+           forward, 48 backward); then mixtral-8x7b at full width and 2 of
+           32 layers the same way, 3 steps (MFU on the active parameters,
+           the router's aux loss in every step; asserted: 4 flash forward,
+           2 backward a step; at S 2048 its window of 4096 cuts nothing)
   profile  (only when named) device time by kernel over one prefill and four
-           decode steps of each served model, over one sync of each mode,
-           and over one train step of llama3.2-1b and of mamba2-1.3b, from
-           torch.profiler
+           decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
+           layers), over one sync of each mode, and over one train step of
+           llama3.2-1b, mamba2-1.3b and mixtral-8x7b (2 layers), from
+           torch.profiler; for mixtral also the device time inside its MoE
+           FFN, dispatch and combine (profiler ranges)
 
 Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
@@ -113,6 +135,7 @@ from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # no
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
 from repro_torch.kernels.ssd_scan import (                    # noqa: E402
     bwd_heads_per_block, bwd_scratch, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
+from repro_torch.models import moe                           # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
@@ -380,7 +403,8 @@ def phase_build():
     # and any wgmma serialisation ptxas reports (info C75xx "Potential
     # Performance Loss", printed as info, not as a warning)
     out["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
+                           if "registers" in ln or "spill" in ln or "Performance Loss" in ln
+                           or "Function properties for" in ln]
                     for name, log in build.ptxas_log.items()}
     emit(out)
 
@@ -500,21 +524,22 @@ TRAIN_SHAPE = dict(B=4, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16, causa
 TRAIN_SHAPE_HD128 = dict(TRAIN_SHAPE, B=2, hd=128)
 
 
-def attention_grads_oracle(q, k, v, do, causal):
+def attention_grads_oracle(q, k, v, do, causal, window=0):
     """(dq, dk, dv) by autograd through flash_attention_plain, in fp32."""
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
-        out = flash_attention_plain(*leaves, causal=causal)
+        out = flash_attention_plain(*leaves, causal=causal, window=window)
         return torch.autograd.grad(out, leaves, do.float())
 
 
-def hold_grads(name, got, want, dtype, plain):
-    """Each of dq, dk, dv against the oracle ``want``, the row measure also
-    against ``plain`` (see BWD_ATOL); returns the worst (max abs err over the
-    gradient's largest magnitude, Frobenius relative error, row measure, the
-    plain version's row measure)."""
+def hold_grads(name, got, want, dtype, plain, names=("dq", "dk", "dv")):
+    """Each of dq, dk, dv (or the gradients ``names`` names) against the
+    oracle ``want``, the row measure also against ``plain`` (see BWD_ATOL);
+    returns the worst (max abs err over the gradient's largest magnitude,
+    Frobenius relative error, row measure, the plain version's row
+    measure)."""
     worst = [0.0] * 4
-    for g_name, a, b, c in zip(("dq", "dk", "dv"), got, want, plain):
+    for g_name, a, b, c in zip(names, got, want, plain):
         if a.dtype != dtype:
             raise AssertionError(f"{name} {g_name}: dtype {a.dtype}, expected {dtype}")
         b = b.float()
@@ -532,28 +557,41 @@ def hold_grads(name, got, want, dtype, plain):
     return worst
 
 
+def window_pairs(S, window):
+    """(query, key) pairs a causal windowed attention computes over S
+    positions: query i sees min(i + 1, window) keys."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
 def bwd_bounds(m, *tensors):
     """(bound ms, bound_by, bound ms of the kernels' seven products): five
     products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5 times the forward's
-    work, causal halving each, against every input read once (q, k, v, o, dO,
-    lse) and dq, dk, dv written once; the kernels recompute Q.K^T and dO.V^T
-    for dQ, seven products."""
-    one = 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / (2 if m["causal"] else 1)
+    work, causal halving each (with a window: only the pairs inside it),
+    against every input read once (q, k, v, o, dO, lse) and dq, dk, dv
+    written once; the kernels recompute Q.K^T and dO.V^T for dQ, seven
+    products."""
+    if m.get("window"):
+        one = 2 * m["B"] * m["Hq"] * window_pairs(m["S"], m["window"]) * m["hd"]
+    else:
+        one = 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / (2 if m["causal"] else 1)
     t_bytes = nbytes(*tensors) / PEAK_BYTES_PER_S * 1e3
     t5, t7 = (n * one / PEAK_FLOPS[m["dtype"]] * 1e3 for n in (5, 7))
     return max(t5, t_bytes), ("operations" if t5 >= t_bytes else "bytes"), max(t7, t_bytes), 5 * one
 
 
-def sdpa_backward_ms(m, q, k, v, do, got):
+def sdpa_backward_ms(m, q, k, v, do, got, attn_mask=None):
     """Yardstick only: autograd through one library call computing the same
-    forward (K/V repeated over the group, as the forward's yardstick does),
-    its dv checked against the kernel's, then timed."""
+    forward (K/V repeated over the group, as the forward's yardstick does;
+    causal, or the boolean ``attn_mask``), its dv checked against the
+    kernel's, then timed."""
     rep = m["Hq"] // m["Hkv"]
     leaves = [t.detach().permute(0, 2, 1, 3).requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             leaves[0], leaves[1].repeat_interleave(rep, dim=1),
-            leaves[2].repeat_interleave(rep, dim=1), is_causal=True)
+            leaves[2].repeat_interleave(rep, dim=1), attn_mask=attn_mask,
+            is_causal=attn_mask is None)
     do_h = do.permute(0, 2, 1, 3)
     lib = torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True)
     check_close("library backward vs kernel dv", lib[2].permute(0, 2, 1, 3), got[2],
@@ -682,6 +720,171 @@ def kernels_flash_bwd(dev):
     del q, k, v, out, do, lse, got
     torch.cuda.empty_cache()
     return entry
+
+
+# The sliding window (mixtral's): causal, ragged shapes at each head dim
+# against the kernels' tiles (forward 128 x 128 bf16, 16 x 32 fp32; backward
+# 128 / 64 bf16 hd 64 / 128, 64 x 64 hd 80, 32 x 32 fp32), windows at and
+# around the tile edges, and one longer than the sequence (no key is cut).  A
+# window of 63 leaves the last rows of a 128-row q tile nothing to see in the
+# tile their walk starts at: those rows run on -1e30 scores until their own
+# keys come (csrc/flash_attention.cu, the note at the top).
+WINDOW_SWEEP = [(1, 333, 4, 2, 64), (1, 257, 4, 4, 80), (2, 300, 4, 2, 128)]
+WINDOWS = (1, 63, 64, 65, 127, 128, 129, None)      # None: S + 7
+# mixtral-8x7b's attention at its window's length: one sequence of 8192
+# tokens, 32 / 8 heads of hd 128, window 4096
+MIXTRAL_ATTN = dict(B=1, S=8192, Hq=32, Hkv=8, hd=128, dtype=torch.bfloat16, causal=True,
+                    window=4096)
+
+
+def band_mask(S, window, dev):
+    """(S, S) boolean mask of the causal window: key j seen by query i if
+    i - window < j <= i (the library yardstick's attn_mask)."""
+    i = torch.arange(S, device=dev)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def kernels_flash_window(dev):
+    """The forward and backward kernels with a sliding window against their
+    plain versions: the window sweep (fp32 and bf16; the backward against
+    autograd through the plain forward, as kernels_flash_bwd), then
+    mixtral's attention shape (peaked and near-uniform softmax, the backward
+    twice bit-equal), timed, with the plain versions and the library call
+    (scaled_dot_product_attention with the band as a boolean mask) beside
+    them.  The bounds count only the pairs inside the window."""
+    worst_f = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_b = {torch.float32: [0.0] * 4, torch.bfloat16: [0.0] * 4}
+    n_cases = 0
+    for (B, S, Hq, Hkv, hd) in WINDOW_SWEEP:
+        for w in WINDOWS:
+            w = w or S + 7
+            for dtype in (torch.float32, torch.bfloat16):
+                name = f"window {w} {(B, S, Hq, Hkv, hd)} {dtype}"
+                q, k, v = make_qkv(43, B, S, S, Hq, Hkv, hd, dtype, dev)
+                do = make_qkv(44, B, S, S, Hq, Hq, hd, dtype, dev)[2]
+                out, lse = flash_attention(q, k, v, window=w, return_lse=True)
+                got = flash_attention_bwd(q, k, v, out, do, lse, window=w)
+                torch.cuda.synchronize()
+                want = flash_attention_plain(q, k, v, window=w)
+                worst_f[dtype] = max(worst_f[dtype], check_close(
+                    f"flash_attention {name}", out, want, **tol(dtype)))
+                plain = flash_attention_bwd_plain(q, k, v, out, do, lse, window=w)
+                want = attention_grads_oracle(q, k, v, do, True, w)
+                if w == 1:
+                    # a row sees its own key alone: P = 1 and dS = 0, so dq and
+                    # dk vanish in exact arithmetic and only their rounding
+                    # residue is left; each is held to BWD_ATOL x the largest dv
+                    bound = BWD_ATOL[dtype] * float(want[2].abs().max())
+                    for g_name, a in (("dq", got[0]), ("dk", got[1])):
+                        if not float(a.float().abs().max()) <= bound:
+                            raise AssertionError(
+                                f"flash_attention_bwd {name} {g_name}: max abs "
+                                f"{float(a.float().abs().max()):.3e}, limit {bound:.3e} "
+                                f"(zero in exact arithmetic)")
+                    r = hold_grads(f"flash_attention_bwd {name}", got[2:], want[2:], dtype,
+                                   plain[2:], names=("dv",))
+                else:
+                    r = hold_grads(f"flash_attention_bwd {name}", got, want, dtype, plain)
+                worst_b[dtype] = [max(a, b) for a, b in zip(worst_b[dtype], r)]
+                n_cases += 1
+
+    m = MIXTRAL_ATTN
+    W = m["window"]
+    shape = (m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["hd"])
+    pairs = window_pairs(m["S"], W)
+    # peaked softmax (scores of std 4), as the main shape's check
+    q, k, v = make_qkv(45, *shape, m["dtype"], dev, qk_scale=2.0)
+    peaked = hold("flash_attention mixtral shape, peaked softmax",
+                  flash_attention(q, k, v, window=W), flash_attention_plain(q, k, v, window=W),
+                  **tol(m["dtype"]), row_limit=MAIN_ROW_REL_TOL)
+    # near-uniform softmax, timed
+    q, k, v = make_qkv(46, *shape, m["dtype"], dev)
+    out, lse = flash_attention(q, k, v, window=W, return_lse=True)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, window=W)
+    fwd_err, fwd_row = hold("flash_attention mixtral shape", out, want, **MAIN_TOL,
+                            row_limit=MAIN_ROW_REL_TOL)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, window=W), warmup=3, reps=15)
+    fwd_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, window=W), warmup=1, reps=3)
+    band = band_mask(m["S"], W, dev)
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    rep = m["Hq"] // m["Hkv"]
+    kr, vr = kh.repeat_interleave(rep, dim=1), vh.repeat_interleave(rep, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    check_close("library call (band mask) vs plain",
+                sdpa(qh, kr, vr, attn_mask=band).permute(0, 2, 1, 3), want, **MAIN_TOL)
+    fwd_lib_ms = cuda_ms(lambda: sdpa(qh, kr, vr, attn_mask=band), warmup=3, reps=15)
+    del kr, vr, want
+    flops = 4 * m["B"] * m["Hq"] * pairs * m["hd"]
+    t_ops = flops / PEAK_FLOPS[m["dtype"]] * 1e3
+    t_bytes = nbytes(q, k, v, out) / PEAK_BYTES_PER_S * 1e3
+
+    do = make_qkv(47, m["B"], m["S"], m["S"], m["Hq"], m["Hq"], m["hd"], m["dtype"], dev)[2]
+    got = flash_attention_bwd(q, k, v, out, do, lse, window=W)
+    again = flash_attention_bwd(q, k, v, out, do, lse, window=W)
+    torch.cuda.synchronize()
+    for g_name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention_bwd mixtral shape {g_name}: two calls "
+                                 f"differ in {int((a != b).sum())} elements")
+    del again
+    # the oracle: the plain forward and backward in fp32 on the same values
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    of, lsef = flash_attention_plain(qf, kf, vf, window=W, return_lse=True)
+    want = flash_attention_bwd_plain(qf, kf, vf, of, dof, lsef, window=W)
+    del qf, kf, vf, dof, of, lsef
+    plain_g = flash_attention_bwd_plain(q, k, v, out, do, lse, window=W)
+    bwd = hold_grads("flash_attention_bwd mixtral shape", got, want, m["dtype"], plain_g)
+    del plain_g, want
+    bwd_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, window=W),
+                     warmup=3, reps=15)
+    bwd_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, window=W),
+                           warmup=1, reps=3)
+    bwd_lib_ms = sdpa_backward_ms(m, q, k, v, do, got, attn_mask=band)
+    b_ms, b_by, b7_ms, b_flops = bwd_bounds(m, q, k, v, out, do, lse, *got)
+    shape_s = {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m.items()}
+    common = {"route": "cuda", "replaces": "src/repro/kernels/flash_attention.py:102",
+              "shape": shape_s, "launches": None, "pairs_in_window": pairs}
+    fwd_entry = {
+        "name": "flash_attention_fwd_window", **common,
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "max_abs_err": fwd_err, "tolerance": MAIN_TOL,
+        "max_row_err_over_row_rms": fwd_row, "row_err_over_row_rms_limit": MAIN_ROW_REL_TOL,
+        "peaked_softmax": {"max_abs_err": peaked[0], "tolerance": tol(m["dtype"]),
+                           "max_row_err_over_row_rms": peaked[1]},
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": fwd_lib_ms,
+        "library_call": "scaled_dot_product_attention with the band as a boolean attn_mask",
+        "tflops": flops / (fwd_ms * 1e-3) / 1e12,
+    }
+    bwd_entry = {
+        "name": "flash_attention_bwd_window", **common,
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "max_abs_err": bwd[0], "max_abs_err_is": "over the gradient's largest magnitude",
+        "tolerance": {"atol_times_max": BWD_ATOL[m["dtype"]], "rtol": BWD_RTOL[m["dtype"]],
+                      "frobenius": BWD_FRO_TOL[m["dtype"]], "row": BWD_ROW_TOL[m["dtype"]]},
+        "oracle": "flash_attention_plain and flash_attention_bwd_plain in fp32",
+        "frobenius_rel_err": bwd[1], "max_row_err_over_row_rms": bwd[2],
+        "plain_max_row_err_over_row_rms": bwd[3], "two_calls_bit_equal": True,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_7_products_ms": b7_ms, "library_ms": bwd_lib_ms,
+        "launches_are": "the train phase's, mixtral at B 4 x S 2048, where the window of 4096 "
+                        "cuts nothing; the window's cuts run in this entry's check at S 8192",
+        "library_call": "torch.autograd.grad through scaled_dot_product_attention with the "
+                        "band as a boolean attn_mask",
+        "tflops": b_flops / (bwd_ms * 1e-3) / 1e12,
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention window", "cases": n_cases + 2,
+          "windows": [w or "S + 7" for w in WINDOWS],
+          "sweep_fwd_max_abs_err": {str(k_): v_ for k_, v_ in worst_f.items()},
+          "sweep_bwd_worst": {str(k_): dict(zip(("max_abs_err_over_max", "frobenius_rel_err",
+                                                 "row_measure", "plain_row_measure"), v_))
+                              for k_, v_ in worst_b.items()},
+          "mixtral_shape": [fwd_entry, bwd_entry]})
+    del q, k, v, out, lse, do, got, band
+    torch.cuda.empty_cache()
+    return [fwd_entry, bwd_entry]
 
 
 def kernels_ssd(dev):
@@ -1153,8 +1356,9 @@ def phase_kernels(dev):
     """Every kernel against its plain version, both on the card."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    return [kernels_flash(dev), kernels_flash_bwd(dev), kernels_ssd(dev),
-            kernels_ssd_bwd(dev), kernels_tree(dev, gen), *kernels_quant(dev, gen)]
+    return [kernels_flash(dev), kernels_flash_bwd(dev), *kernels_flash_window(dev),
+            kernels_ssd(dev), kernels_ssd_bwd(dev), kernels_tree(dev, gen),
+            *kernels_quant(dev, gen)]
 
 
 WRAPPERS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
@@ -1188,7 +1392,7 @@ def expected_launches(cfg):
     block application, the SSD scan on every Mamba2 layer (decode runs
     neither: it reads the KV cache and keeps the O(1) SSM recurrence)."""
     none = {name: 0 for name in WRAPPERS}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {**none, "flash_attention": cfg.num_layers}
     shared = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
     return {**none, "flash_attention": shared, "ssd_scan": cfg.num_layers}
@@ -1252,7 +1456,149 @@ def phase_parity(dev):
               "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
               "prefill_launches": used, "max_abs_err": max(errs),
               "logit_abs_max": float(lc.abs().max()), "state_max_abs_err": state_errs})
+    parity_moe(dev)
     sync_parity(dev)
+
+
+# mixtral-8x7b in the parity phase: (layers, prompt, cache length), fp32, as
+# llama's; and the largest gap between the k-th and the (k+1)-th router
+# probability (on the CPU) at which the two devices may choose different
+# experts for a token: fp32 sums in another order move a probability by some
+# 1e-7, so a flip at a larger gap is a fault
+MOE_PARITY = ("mixtral-8x7b", 1, 640, 1024)
+ROUTE_TIE_EPS = 1e-5
+
+
+@contextlib.contextmanager
+def patched(module, value=None, **attrs):
+    """While active, ``module``'s attributes named in ``attrs`` are replaced
+    (the package calls the MoE functions through their module, so one
+    replacement reaches every caller); restored on exit.  Yields ``value``."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, new in attrs.items():
+        setattr(module, name, new)
+    try:
+        yield value
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def route_log():
+    """While active, records in the list it yields, for every MoE dispatch,
+    the experts each token chose (sorted, so the order of a near-tied pair
+    does not count), its kept choices (slot >= 0), the gap between its k-th
+    and (k+1)-th probability, and the FFN's output; everything moved to the
+    CPU."""
+    calls = []
+    route0, dispatch0, ffn0 = moe._route, moe._dispatch_indices, moe.moe_ffn
+
+    def route(x, router_w, n_experts, top_k):
+        out = route0(x, router_w, n_experts, top_k)
+        probs = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values[..., :top_k + 1]
+        calls.append({"experts": torch.sort(out[0], dim=-1).values.cpu(),
+                      "gap": (top[..., top_k - 1] - top[..., top_k]).cpu()})
+        return out
+
+    def dispatch(expert_idx, n_experts, capacity):
+        slot = dispatch0(expert_idx, n_experts, capacity)
+        calls[-1]["kept"] = (slot >= 0).sum(dim=-1).cpu()
+        return slot
+
+    def ffn(params, x, cfg):
+        out, aux = ffn0(params, x, cfg)
+        calls[-1]["out"] = out.detach().float().cpu()
+        return out, aux
+    return patched(moe, calls, _route=route, _dispatch_indices=dispatch, moe_ffn=ffn)
+
+
+def compare_routes(card, cpu, atol, rtol):
+    """Per dispatch: tokens whose experts differ between the devices must be
+    near-ties on the CPU (gap < ROUTE_TIE_EPS); the FFN outputs are compared
+    on the tokens whose experts and kept choices agree.  Returns (routed
+    tokens, flipped tokens, largest gap of a flip, tokens compared, max abs
+    err of the outputs, {call: rows (groups) whose last token agrees})."""
+    routed = flipped = compared = 0
+    worst_gap, worst_err, agree_last = 0.0, 0.0, []
+    if len(card) != len(cpu):
+        raise AssertionError(f"parity moe: {len(card)} dispatches on the card, {len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        same = (a["experts"] == b["experts"]).all(dim=-1)          # (G, T)
+        routed += same.numel()
+        flips = ~same
+        if flips.any():
+            gaps = b["gap"][flips]
+            worst_gap = max(worst_gap, float(gaps.max()))
+            if float(gaps.max()) >= ROUTE_TIE_EPS:
+                raise AssertionError(f"parity moe dispatch {i}: {int(flips.sum())} tokens chose "
+                                     f"other experts at a probability gap up to "
+                                     f"{float(gaps.max()):.3e} (limit {ROUTE_TIE_EPS})")
+            flipped += int(flips.sum())
+        ok = same & (a["kept"] == b["kept"])
+        G, T_ = ok.shape
+        out_a, out_b = a["out"].reshape(G, T_, -1), b["out"].reshape(G, T_, -1)
+        if ok.any():
+            worst_err = max(worst_err, check_close(f"parity moe dispatch {i} FFN output",
+                                                   out_a[ok], out_b[ok], atol, rtol))
+        compared += int(ok.sum())
+        agree_last.append(ok[:, -1])
+    return routed, flipped, worst_gap, compared, worst_err, agree_last
+
+
+def parity_moe(dev):
+    """mixtral-8x7b at full width, 1 layer, fp32: prefill and 4 decode steps
+    on the card (kernels) against the CPU (plain versions), the expert
+    choices first (a flip only at a near-tie), then the FFN outputs, the
+    logits and the KV cache where the routing agrees."""
+    arch, layers, S, cache = MOE_PARITY
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    B, steps = 2, 4
+    atol, rtol = 2e-3, 2e-3
+    params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
+    logs, errs, rows_compared, used = [], [], 0, None
+    with torch.inference_mode():
+        for where, p in ((dev, params), (torch.device("cpu"), params_cpu)):
+            with route_log() as calls:
+                _zero_launches()
+                lg, st = tfm.prefill(p, {"tokens": toks[:, :S].to(where)}, cfg, None, cache)
+                if used is None:
+                    used = _launches()
+                out = [lg.cpu()]
+                for t in range(S, S + steps):
+                    lg, st = tfm.decode_step(p, toks[:, t:t + 1].to(where), st, cfg, None)
+                    out.append(lg.cpu())
+            logs.append((calls, out, st.kv.k.cpu()))
+    if used != expected_launches(cfg):
+        raise AssertionError(f"parity {arch}: prefill launched {used}, expected "
+                             f"{expected_launches(cfg)}")
+    (card_calls, card_out, card_k), (cpu_calls, cpu_out, cpu_k) = logs
+    routed, flipped, gap, compared, ffn_err, agree = compare_routes(card_calls, cpu_calls,
+                                                                    atol, rtol)
+    # with one layer a row's logits follow its last token's routing; the
+    # dispatches are the prefill's (one group a row) then one a decode step
+    for step, (a, b) in enumerate(zip(card_out, cpu_out)):
+        rows = agree[step * layers + layers - 1]
+        if rows.any():
+            errs.append(check_close(f"parity {arch} logits, step {step}", a[rows], b[rows],
+                                    atol, rtol))
+        rows_compared += int(rows.sum())
+    if rows_compared < B * (steps + 1) // 2:
+        raise AssertionError(f"parity {arch}: logits of {rows_compared} rows comparable")
+    kv_err = check_close(f"parity {arch} kv.k after decode", card_k, cpu_k, atol, rtol)
+    emit({"phase": "parity", "config": f"{arch} full width, {layers} layer, fp32",
+          "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
+          "prefill_launches": used, "max_abs_err": max(errs),
+          "logit_rows_compared": rows_compared, "logit_rows": B * (steps + 1),
+          "tokens_routed": routed, "tokens_flipped": flipped,
+          "largest_gap_of_a_flip": gap, "route_tie_eps": ROUTE_TIE_EPS,
+          "ffn_tokens_compared": compared, "ffn_max_abs_err": ffn_err,
+          "logit_abs_max": float(cpu_out[0].abs().max()), "state_max_abs_err": {"kv.k": kv_err}})
+    del params, params_cpu
+    torch.cuda.empty_cache()
 
 
 def _shape_tree(params):
@@ -1313,8 +1659,28 @@ def sync_parity(dev):
           "elements_not_bit_equal": n_diff})
 
 
-def phase_serve(dev, arch, new_tokens=32):
+# the serve phase's MoE cells: (arch, layers, prompt length of the long batch
+# or 0).  mixtral at 16 of its 32 layers (about 47 GB of bf16 weights), then
+# two requests past its window of 4096 (the windowed kernel cuts keys on the
+# served path, decode wraps the rolling cache); arctic at 2 of 35 layers (an
+# expert layer holds 13.4e9 parameters, 26.8 GB in bf16)
+SERVE_MOE = [("mixtral-8x7b", 16, 6144), ("arctic-480b", 2, 0)]
+
+
+def _cut(arch, layers=None):
+    """``arch``'s configuration at full width, cut to ``layers`` layers if
+    given."""
     cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def phase_serve(dev, arch, new_tokens=32, layers=None, long_prompt=0):
+    """``arch`` (at ``layers`` layers if given) in bf16: 8 requests through
+    ``Engine.run_batch`` twice (the launches of each batch asserted, greedy
+    and sampled tokens equal between the runs), then, with ``long_prompt``,
+    a batch of 2 greedy requests of that prompt length.  Returns the
+    launches of the second 8-request batch, or of the long batch if any."""
+    cfg = _cut(arch, layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = tfm.init(gen, cfg, dtype=torch.bfloat16, device=dev)
@@ -1363,15 +1729,48 @@ def phase_serve(dev, arch, new_tokens=32):
         raise AssertionError(f"serve {arch}: greedy tokens differ between two runs")
     if runs[0]["outputs"] != runs[1]["outputs"]:
         raise AssertionError(f"serve {arch}: sampled tokens differ under the same seed")
-    emit({"phase": "serve", "config": cfg.name, "layers": cfg.num_layers,
-          "dtype": "bfloat16", "parameters": n_params, "requests": 8,
-          "prompt_lengths": [int(n) for n in lens], "new_tokens": new_tokens,
-          "cache_len": 4096,
-          "first_run": {k: v for k, v in runs[0].items() if k != "outputs"},
-          "second_run": {k: v for k, v in runs[1].items() if k != "outputs"}})
+    report = {"phase": "serve", "config": cfg.name, "layers": cfg.num_layers,
+              "published_layers": get_config(arch).num_layers,
+              "dtype": "bfloat16", "parameters": n_params, "requests": 8,
+              "prompt_lengths": [int(n) for n in lens], "new_tokens": new_tokens,
+              "cache_len": 4096, "sliding_window": cfg.sliding_window,
+              "first_run": {k: v for k, v in runs[0].items() if k != "outputs"},
+              "second_run": {k: v for k, v in runs[1].items() if k != "outputs"}}
+    used = runs[1]["launches"]
+    if long_prompt:
+        # two prompts past the window: the prefill's kernel launches visit only
+        # the key tiles inside each q tile's window, and decode writes the
+        # rolling cache at index % window
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        long = [Request(uid=10 + i, prompt=rng.integers(0, cfg.vocab_size, long_prompt).tolist(),
+                        max_new_tokens=new_tokens) for i in range(2)]
+        done = eng.run_batch(long, seed=0)
+        used = _launches()
+        if used != expected_launches(cfg):
+            raise AssertionError(f"serve {arch}: the long batch launched {used}, expected "
+                                 f"{expected_launches(cfg)}")
+        for r in done:
+            if len(r.output) != new_tokens or \
+                    not all(0 <= t < cfg.vocab_size for t in r.output):
+                raise AssertionError(f"serve {arch}: long request {r.uid} gave {r.output}")
+        if eng.nonfinite_logit_rows:
+            raise AssertionError(f"serve {arch}: {eng.nonfinite_logit_rows} non-finite logit "
+                                 f"rows in the long batch")
+        steps = eng.decode_step_s
+        report["long_batch"] = {
+            "requests": 2, "prompt": long_prompt, "new_tokens": new_tokens,
+            "rolling_cache_slots": min(4096, cfg.sliding_window or 4096),
+            "launches": used, "prefill_ms": eng.prefill_s * 1e3,
+            "decode_step_ms_p50": statistics.median(steps[1:]) * 1e3,
+            "decode_step_ms_max": max(steps[1:]) * 1e3,
+            "batch_latency_s": done[0].latency_s,
+            "tokens_per_s": sum(len(r.output) for r in done) / done[0].latency_s,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(report)
     del eng, params
     torch.cuda.empty_cache()
-    return runs[1]["launches"]
+    return used
 
 
 def phase_sync(dev, profile=False):
@@ -1487,6 +1886,15 @@ TRAIN_ARCH = "llama3.2-1b"
 TRAIN_STEPS = 4            # then one more after the resume
 SSM_TRAIN_ARCH = "mamba2-1.3b"
 SSM_TRAIN_STEPS = 3
+# mixtral-8x7b at full width, 2 of its 32 layers (1.45e9 parameters a layer,
+# about 23 GB a layer with its fp32 master and moments), 3 steps at B 4 x S
+# 2048, where the window of 4096 cuts nothing: the windowed backward's cuts
+# are held in the kernels phase at S 8192 (B 1 x S 8192, the same tokens a
+# step, ran out of the card's memory in AdamW's update); arctic is not trained
+# on one card (one expert layer's optimizer state alone is ~214 GB)
+MOE_TRAIN_ARCH = "mixtral-8x7b"
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
 # card (kernels) against CPU (plain versions) at full width, fp32, as (arch,
 # layers, B, S): the same function, products summed in another order on the
 # two devices; zamba2 at 12 layers applies its shared block twice
@@ -1502,7 +1910,7 @@ def expected_train_launches(cfg, pcfg):
     and its backward once; likewise each Mamba2 layer's SSD scan."""
     remat = 1 if pcfg.remat == "none" else 2
     out = {name: 0 for name in WRAPPERS}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         attn = cfg.num_layers
     else:
         attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
@@ -1514,15 +1922,21 @@ def expected_train_launches(cfg, pcfg):
 def train_flops_per_step(cfg, B, S):
     """Model FLOPs of one step, recompute not counted: 6 x the parameters
     that enter products (each attention block application's, each Mamba2
-    layer's in_proj and out_proj, the head) x tokens, plus the attention
-    products (forward 2 x 2 x B x S^2 x Hq x hd / 2 causal, three times that
-    with the backward) and three times each Mamba2 layer's SSD scan products
-    (ssd_bound's count: the causal halves of the chunk-by-chunk products,
-    C.state^T and the state update)."""
+    layer's in_proj and out_proj, the head; of a MoE block the router, the
+    top-k experts a token runs through and arctic's dense residual: the
+    active parameters, not the capacity's padding) x tokens, plus the
+    attention products (forward 2 x 2 x B x S^2 x Hq x hd / 2 causal, with a
+    window only the pairs inside it, three times that with the backward) and
+    three times each Mamba2 layer's SSD scan products (ssd_bound's count: the
+    causal halves of the chunk-by-chunk products, C.state^T and the state
+    update)."""
     d, hq, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     attn_block = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * f
+    if cfg.n_experts:
+        attn_block = d * hq * hd * 2 + d * hkv * hd * 2 + d * cfg.n_experts + \
+            cfg.top_k * 3 * d * f + 3 * d * cfg.moe_dense_ff
     scan = 0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         n_attn, matmul_params = cfg.num_layers, cfg.num_layers * attn_block
     else:
         n_attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
@@ -1535,7 +1949,8 @@ def train_flops_per_step(cfg, B, S):
             scan += q * (q + 1) * (N + P) + 4 * q * P * N
         scan *= 3 * cfg.num_layers * B * H
     matmul_params += d * cfg.padded_vocab
-    attn = 3 * n_attn * 2 * 2 * B * S * S * hq * hd / 2
+    pairs = window_pairs(S, cfg.sliding_window) if cfg.sliding_window else S * S / 2
+    attn = 3 * n_attn * 2 * 2 * B * pairs * hq * hd
     return 6 * matmul_params * B * S + attn + scan
 
 
@@ -1640,13 +2055,14 @@ def train_parity(dev, arch, layers, B, S):
                           "atol_times_max": GRAD_ATOL, "rtol": GRAD_RTOL}}
 
 
-def _trainer_run(dev, card, arch, steps, ckpt_dir):
-    """``arch`` at full width and depth through ``Trainer.run()``: bf16
-    params, fp32 master and moments, block remat, TRAIN_SHAPE's batch of
-    SyntheticLM, ``steps`` steps, then the run's final checkpoint in
-    ``ckpt_dir``.  Checks the launches of every step, the history and the
-    checkpoint's step.  Returns (state, trainer, report, the run's launches)."""
-    cfg = get_config(arch)
+def _trainer_run(dev, card, arch, steps, ckpt_dir, layers=None):
+    """``arch`` at full width and depth (or ``layers`` layers) through
+    ``Trainer.run()``: bf16 params, fp32 master and moments, block remat,
+    TRAIN_SHAPE's batch of SyntheticLM, ``steps`` steps, then the run's final
+    checkpoint in ``ckpt_dir``.  Checks the launches of every step, the
+    history and the checkpoint's step.  Returns (state, trainer, report, the
+    run's launches)."""
+    cfg = _cut(arch, layers)
     B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
     shape = ShapeConfig("train_4x2048", "train", S, B)
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
@@ -1685,13 +2101,19 @@ def _trainer_run(dev, card, arch, steps, ckpt_dir):
     step_s = statistics.median(h["seconds"] for h in hist[1:])
     flops = train_flops_per_step(cfg, B, S)
     ssm = (f", {cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, N {cfg.ssm_state}"
-           if cfg.family != "dense" else "")
+           if cfg.family in ("ssm", "hybrid") else "")
+    if cfg.n_experts:
+        ssm = (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top {cfg.top_k}, window "
+               f"{cfg.sliding_window}")
+    depth = "depth" if cfg.num_layers == get_config(arch).num_layers else \
+        f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
     report = {
-        "config": f"{cfg.name} full width and depth ({cfg.num_layers} layers, d {cfg.d_model}"
+        "config": f"{cfg.name} full width and {depth} ({cfg.num_layers} layers, d {cfg.d_model}"
                   f"{ssm}, vocab {cfg.vocab_size}), bf16 params, fp32 master and moments, "
                   f"block remat",
         "parameters": n_params, "batch": B, "seq": S, "tokens_per_step": B * S,
         "steps": steps, "losses": [h["loss"] for h in hist],
+        "aux_losses": [h["aux_loss"] for h in hist],
         "grad_norms": [h["grad_norm"] for h in hist],
         "step_seconds": [h["seconds"] for h in hist],
         "step_s_median_after_first": step_s,
@@ -1756,16 +2178,50 @@ def phase_train(dev, card):
         state, tr, report["ssm_run"], ssm_launches = _trainer_run(
             dev, card, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, os.path.join(ckpt_root, SSM_TRAIN_ARCH))
         del state, tr
+        shutil.rmtree(os.path.join(ckpt_root, SSM_TRAIN_ARCH), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        state, tr, report["moe_run"], moe_launches = _trainer_run(
+            dev, card, MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, os.path.join(ckpt_root, MOE_TRAIN_ARCH),
+            layers=MOE_TRAIN_LAYERS)
+        if not all(h["aux_loss"] > 0 for h in tr.history):
+            raise AssertionError(f"train {MOE_TRAIN_ARCH}: aux losses {tr.history}")
+        del state, tr
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     torch.cuda.empty_cache()
     emit(report)
     return {"flash_attention_bwd": launches["flash_attention_bwd"],
-            "ssd_scan_bwd": ssm_launches["ssd_scan_bwd"]}
+            "ssd_scan_bwd": ssm_launches["ssd_scan_bwd"],
+            "flash_attention_bwd_window": moe_launches["flash_attention_bwd"]}
+
+
+MOE_RANGES = ("moe_ffn", "moe_dispatch", "moe_combine")
+
+
+def moe_ranges():
+    """While active, the MoE FFN and its dispatch (routing, bucket slots, the
+    scatter into the buckets) and combine (the gather back) run inside
+    torch.profiler ranges named after MOE_RANGES, so that the device time of
+    their kernels can be told apart from the attention block's."""
+    from torch.profiler import record_function
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    return patched(moe, moe_ffn=ranged("moe_ffn", moe.moe_ffn),
+                   _group_dispatch=ranged("moe_dispatch", moe._group_dispatch),
+                   _group_combine=ranged("moe_combine", moe._group_combine))
 
 
 def _device_time_by_kernel(fn):
-    """Run ``fn`` under torch.profiler; (wall ms, {kernel name: device ms})."""
+    """Run ``fn`` under torch.profiler; (wall ms, {kernel name: device ms},
+    {MoE range: device ms of the kernels that start inside it}).  The
+    profiler puts each range on the device's timeline too (a span from its
+    first kernel to its last); those spans are not kernels: they are left out
+    of the kernel times and used only to attribute kernels to ranges."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1774,18 +2230,27 @@ def _device_time_by_kernel(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, spans, kernels = {}, {}, []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return wall_ms, by_name
+        if e.device_type != DeviceType.CUDA:
+            continue
+        tr = e.time_range
+        if e.name in MOE_RANGES:
+            spans.setdefault(e.name, []).append((tr.start, tr.end))
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + tr.elapsed_us() / 1e3
+        kernels.append((tr.start, tr.elapsed_us()))
+    ranges = {name: sum(d for t, d in kernels if any(a <= t < b for a, b in sp)) / 1e3
+              for name, sp in spans.items()}
+    return wall_ms, by_name, ranges
 
 
-def _summarise(wall_ms, by_name):
+def _summarise(wall_ms, by_name, ranges=None):
     groups = {"flash_attention kernel": 0.0, "flash_attention backward kernels": 0.0,
               "ssd_scan kernel": 0.0, "ssd_scan backward kernels": 0.0,
               "tree_reduce kernel": 0.0, "quantize / dequantize kernels": 0.0,
               "matrix products (library)": 0.0, "copies": 0.0,
+              "sort, scatter, gather, index (library)": 0.0,
               "elementwise and other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
@@ -1805,6 +2270,8 @@ def _summarise(wall_ms, by_name):
             groups["matrix products (library)"] += ms
         elif "memcpy" in low or "memset" in low:
             groups["copies"] += ms
+        elif any(w in low for w in ("sort", "scatter", "gather", "index")):
+            groups["sort, scatter, gather, index (library)"] += ms
         else:
             groups["elementwise and other"] += ms
     busy = sum(by_name.values())
@@ -1818,17 +2285,27 @@ def _summarise(wall_ms, by_name):
                       r"(<[^>]*>)?", name)
         if m:
             own[m.group(0)] = own.get(m.group(0), 0.0) + ms
+    out = {}
+    if ranges:
+        # the forward's MoE FFN (with block remat, its recompute too; the
+        # backward's kernels run outside these ranges and sit in the groups)
+        ffn = ranges.get("moe_ffn", 0.0)
+        dsp, cmb = ranges.get("moe_dispatch", 0.0), ranges.get("moe_combine", 0.0)
+        out["moe_forward_ms"] = {"ffn": ffn, "dispatch": dsp, "combine": cmb,
+                                 "expert_products_and_rest": ffn - dsp - cmb}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+            **out,
             "groups_ms": groups,
             "hand_written_kernels_ms": own,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def phase_profile(dev, arch):
+def phase_profile(dev, arch, layers=None):
     """Optional (``--phases profile``): where one prefill and four decode
-    steps of a served model spend their device time."""
-    cfg = get_config(arch)
+    steps of a served model (at ``layers`` layers if given) spend their
+    device time."""
+    cfg = _cut(arch, layers)
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).to(dev)
@@ -1837,25 +2314,26 @@ def phase_profile(dev, arch):
         _, st = tfm.prefill(params, {"tokens": toks}, cfg, None, 4096)   # warm-up
         for _ in range(2):
             _, st = tfm.decode_step(params, nxt, st, cfg, None)
-        pre = _summarise(*_device_time_by_kernel(
-            lambda: tfm.prefill(params, {"tokens": toks}, cfg, None, 4096)))
         state = [st]
 
         def four_steps():
             for _ in range(4):
                 _, state[0] = tfm.decode_step(params, nxt, state[0], cfg, None)
-        dec = _summarise(*_device_time_by_kernel(four_steps))
-    emit({"phase": "profile", "config": cfg.name, "batch": 8, "prompt": 2048,
-          "prefill": pre, "decode_4_steps": dec})
+        with moe_ranges():
+            pre = _summarise(*_device_time_by_kernel(
+                lambda: tfm.prefill(params, {"tokens": toks}, cfg, None, 4096)))
+            dec = _summarise(*_device_time_by_kernel(four_steps))
+    emit({"phase": "profile", "config": cfg.name, "layers": cfg.num_layers, "batch": 8,
+          "prompt": 2048, "prefill": pre, "decode_4_steps": dec})
     del params, st, state
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(dev, arch):
+def phase_profile_train(dev, arch, layers=None):
     """Optional (``--phases profile``): where one train step of ``arch`` at
     the train phase's configuration spends its device time (two steps first,
     unprofiled, to warm up)."""
-    cfg = get_config(arch)
+    cfg = _cut(arch, layers)
     B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
     tr = Trainer(cfg, ShapeConfig("train_4x2048", "train", S, B),
                  ParallelConfig(remat="block", param_dtype="bfloat16"), OptimConfig(),
@@ -1869,9 +2347,10 @@ def phase_profile_train(dev, arch):
     def one_step():
         box[0], metrics = tr.step_fn(box[0], batch)
         float(metrics["loss"])
-    summary = _summarise(*_device_time_by_kernel(one_step))
+    with moe_ranges():
+        summary = _summarise(*_device_time_by_kernel(one_step))
     emit({"phase": "profile", "config": f"{cfg.name} train step, B {B} x S {S}, block remat",
-          "train_step": summary})
+          "layers": cfg.num_layers, "train_step": summary})
     del state, box, tr
     torch.cuda.empty_cache()
 
@@ -1933,6 +2412,10 @@ def main() -> int:
         with phase_limit("serve", seconds):
             launches["flash_attention_fwd"] = phase_serve(dev, "llama3.2-1b")["flash_attention"]
             launches["ssd_scan_fwd"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
+            for arch, layers, long_prompt in SERVE_MOE:
+                used = phase_serve(dev, arch, layers=layers, long_prompt=long_prompt)
+                if long_prompt:
+                    launches["flash_attention_fwd_window"] = used["flash_attention"]
     if "sync" in phases:
         with phase_limit("sync", seconds):
             used = phase_sync(dev, profile="profile" in phases)
@@ -1945,8 +2428,10 @@ def main() -> int:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
                 phase_profile(dev, arch)
+            phase_profile(dev, SERVE_MOE[0][0], layers=SERVE_MOE[0][1])
             for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
                 phase_profile_train(dev, arch)
+            phase_profile_train(dev, MOE_TRAIN_ARCH, layers=MOE_TRAIN_LAYERS)
     emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds}})
 
     full = set(PHASES) <= set(phases)

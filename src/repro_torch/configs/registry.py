@@ -26,9 +26,10 @@ ARCH_IDS = (
     "mamba2-1.3b",
 )
 
-# the dense decoder family, the attention-free SSM stack and the hybrid
+# the dense decoder family, the attention-free SSM stack, the hybrid and the
+# mixture-of-experts family
 PORTED_ARCH_IDS = ("llama3.2-1b", "chatglm3-6b", "qwen3-32b", "qwen1.5-4b",
-                   "mamba2-1.3b", "zamba2-2.7b")
+                   "mamba2-1.3b", "zamba2-2.7b", "arctic-480b", "mixtral-8x7b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in PORTED_ARCH_IDS}
 

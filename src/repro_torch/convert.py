@@ -5,9 +5,12 @@
 dictionaries of **numpy** arrays, block parameters stacked on a leading
 ``layers`` axis, and returns the port's parameter dictionary: the same names,
 ``blocks`` unstacked into one dictionary per layer.  Dense blocks are
-``{ln1, attn, ln2, ffn}``, Mamba2 blocks (ssm, hybrid) ``{ln, ssm}``; the
-hybrid's ``shared_attn`` is one unstacked attention block and is converted
-as it is.  Both packages then
+``{ln1, attn, ln2, ffn}``, MoE blocks the same with ``ffn`` holding
+``{router, w_gate, w_up, w_down}`` (experts on the leading axis) and, for
+arctic, a third level ``ffn.dense.{w_gate, w_up, w_down}``; Mamba2 blocks
+(ssm, hybrid) are ``{ln, ssm}``; the hybrid's ``shared_attn`` is one unstacked
+attention block and is converted as it is.  Every level is walked the same
+way, however deep.  Both packages then
 compute the same function, which is what the parity tests rest on.
 
 Takes numpy only and imports no JAX: the caller converts
@@ -63,7 +66,7 @@ def _leaves(tree):
 def from_jax_params(values: Dict[str, Any], cfg: ModelConfig,
                     device="cuda", dtype=torch.float32) -> Dict[str, Any]:
     """JAX value tree (numpy leaves) → repro_torch parameters."""
-    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     dev = resolve_device(device)
@@ -104,7 +107,7 @@ def _stack(trees):
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """repro_torch parameters → JAX value tree (numpy leaves, ``blocks``
     stacked on a leading ``layers`` axis; bf16 tensors as float32 arrays)."""
-    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet")
     out = {k: _to_numpy_tree(v) for k, v in params.items() if k != "blocks"}

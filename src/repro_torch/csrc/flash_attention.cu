@@ -5,7 +5,18 @@
 // computes the same function: scores q.k^T * scale, mask `k_pos < Sk` and, if
 // causal, `k_pos <= q_pos`, applied as the finite value -1e30 (never -inf, so
 // no row computes inf - inf), running max / denominator / accumulator in fp32,
-// finalise acc / max(l, 1e-30), output in q's dtype.
+// finalise acc / max(l, 1e-30), output in q's dtype.  It also takes the
+// model's sliding window (mixtral), which the Pallas kernel does not: with
+// `window` > 0 (causal only; the wrapper checks) a key is seen if also
+// `k_pos > q_pos - window`, the mask of `_block_mask` in
+// src/repro/models/attention.py:83-92.  A q tile then visits only the kv
+// tiles from the one holding its first row's first key (q_first - window + 1)
+// to the diagonal, and masks the edge tiles.  A row whose first visited tile
+// lies wholly outside its window sees only -1e30 there and its running max
+// stays -1e30.  The fp32 kernel then takes p = exp(0) = 1 on those masked
+// entries, the bf16 kernel p = 0 (see softmax_tile); either is wiped out
+// exactly when the tile holding the row's own key (there is always one, the
+// diagonal) sets a real max, whose correction exp((-1e30 - m) * c) is 0.
 //
 // What differs from the TPU kernel, and why.  There the grid is
 // (batch*heads, q blocks, kv blocks) and the kv axis runs in order on one core,
@@ -92,9 +103,10 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
+  int window;  // > 0: key > q - window as well (causal only), 0: no window
 };
 
-// Number of kv tiles a q tile has to visit.
+// One past the last kv tile a q tile has to visit.
 __device__ __forceinline__ int kv_tiles(const Params& p, int q_last, int bn) {
   int n = (p.Sk + bn - 1) / bn;
   if (p.causal) {
@@ -104,12 +116,37 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q_last, int bn) {
   return n;
 }
 
+// The window is a template parameter W of every kernel (W = p.window > 0,
+// chosen in `launch`), so that the build without one is the code of the
+// kernels before the window came: no window test, no extra tile bound, no
+// offset select left in the causal path.
+
+// The first kv tile a q tile starting at row q_first has to visit: with a
+// window the tile holding key q_first - window + 1, else 0.  Never past the
+// last tile `end` - 1, so that a tile is always visited (the wrapper refuses
+// the shapes, Sq > Sk with a window, where a row could see no key at all).
+template <bool W>
+__device__ __forceinline__ int kv_first(const Params& p, int q_first, int bn, int end) {
+  if constexpr (!W) {
+    return 0;
+  } else {
+    const int k = q_first - p.window + 1;
+    const int t = k > 0 ? k / bn : 0;
+    return t < end - 1 ? t : end - 1;
+  }
+}
+
+template <bool W>
+__device__ __forceinline__ bool key_allowed(const Params& p, int kpos, int qpos) {
+  return kpos < p.Sk && (!p.causal || kpos <= qpos) && (!W || kpos > qpos - p.window);
+}
+
 
 // ---------------------------------------------------------------------------
 // fp32: plain FMA
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
   constexpr int WARPS = 4, R = 4, BM = WARPS * R, BN = 32;
   constexpr int LD = HD + 4;            // row stride in floats: 16-byte rows, distinct banks
@@ -151,7 +188,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
   const int q_last = min(q0 + BM, p.Sq) - 1;
   const int n_tiles = kv_tiles(p, q_last, BN);
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = kv_first<W>(p, q0, BN, n_tiles); t < n_tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();  // the previous tile is consumed (and Qs is written, first time)
     for (int c = tid; c < BN * CH; c += 128) {
@@ -189,8 +226,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int qpos = q0 + warp * R + r;
-      const bool ok = kpos < p.Sk && (!p.causal || kpos <= qpos);
-      const float sv = ok ? s[r] * p.scale : kMasked;
+      const float sv = key_allowed<W>(p, kpos, qpos) ? s[r] * p.scale : kMasked;
       float mx = sv;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -325,16 +361,21 @@ __device__ __forceinline__ void issue_pv(float (&o)[NCH][32], const uint32_t (&p
       wgmma_m64n64k16_rs(o[c], pa[kk], sw128_desc(v + c * kBN * 128 + kk * 2048, 1024, 1024));
 }
 
-// Scores of keys past Sk, and above the diagonal if causal, become -1e30;
-// only the diagonal tile and the ragged tail have any.
+// Scores of keys past Sk, above the diagonal if causal, and at or before
+// row - window with a window, become -1e30; only the diagonal tile, the
+// window's first tiles and the ragged tail have any.  A warp's 16 rows run
+// from warp_row0.
+template <bool W>
 __device__ __forceinline__ void mask_tile(float (&sc)[64], int k0, int row_lo, int row_hi,
                                           int warp_row0, int t4, const Params& p) {
-  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;
+  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0) ||
+        (W && k0 <= warp_row0 + 15 - p.window)))
+    return;
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
     const int row = (i & 2) ? row_hi : row_lo;
-    if (col >= p.Sk || (p.causal && col > row)) sc[i] = kMasked;
+    if (!key_allowed<W>(p, col, row)) sc[i] = kMasked;
   }
 }
 
@@ -343,6 +384,7 @@ __device__ __forceinline__ void mask_tile(float (&sc)[64], int k0, int row_lo, i
 // fragments, updates the running max and denominators, and returns in corr_*
 // the factors for the old accumulator rows.  Partial maxima and sums are
 // taken four ways to shorten the dependency chains.
+template <bool W>
 __device__ __forceinline__ void softmax_tile(const float (&sc)[64], uint32_t (&pa)[8][4],
                                              Rows& r, float& corr_lo, float& corr_hi,
                                              float c2) {
@@ -369,7 +411,14 @@ __device__ __forceinline__ void softmax_tile(const float (&sc)[64], uint32_t (&p
   corr_hi = ex2((r.m_hi - mn_hi) * c2);
   r.m_lo = mn_lo;
   r.m_hi = mn_hi;
-  const float bl = -mn_lo * c2, bh = -mn_hi * c2;
+  // With a window, a row that has seen only masked scores so far keeps
+  // m = -1e30.  Its offset is then 0, so that p = 2^(-1e30 c2) = 0 on those
+  // entries: with -m c2 the fma of the exact product -1e30 c2 and the
+  // rounded offset leaves up to half an ulp of 1e30 c2 (~1e22), and 2^ of
+  // that is inf when its sign is +.  Without one, every row's first tile
+  // holds key 0, which it sees.
+  const float bl = W && mn_lo == kMasked ? 0.f : -mn_lo * c2;
+  const float bh = W && mn_hi == kMasked ? 0.f : -mn_hi * c2;
   float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) {
@@ -394,7 +443,7 @@ __device__ __forceinline__ Item item_of(const Params& p, int i, int n_qt) {
   return {rem / p.Hq, rem % p.Hq, (n_qt - 1 - i / bh) * kBM};
 }
 
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -445,7 +494,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
           tma_load_4d(sQ + c * C::Q_CHUNK, &tq, &bar_q, c * 64, w.h, w.q0, w.b);
-        for (int t = 0; t < n_tiles; ++t, ++it) {
+        for (int t = kv_first<W>(p, w.q0, kBN, n_tiles); t < n_tiles; ++t, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&bar_free[s], ((it / STAGES) - 1) & 1);
           uint8_t* dk = sK + s * C::KV_BYTES;
@@ -474,7 +523,10 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 
     for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++k) {
       const Item w = item_of(p, i, n_qt);
-      const int n_tiles = kv_tiles(p, min(w.q0 + kBM, p.Sq) - 1, kBN);
+      // tiles t0 .. t0 + n_tiles - 1 of the item, counted from 0 below
+      const int t_end = kv_tiles(p, min(w.q0 + kBM, p.Sq) - 1, kBN);
+      const int t0 = kv_first<W>(p, w.q0, kBN, t_end);
+      const int n_tiles = t_end - t0;
       const int warp_row0 = w.q0 + wg * 64 + w4 * 16;
       const int row_lo = warp_row0 + g, row_hi = row_lo + 8;
 #pragma unroll
@@ -503,8 +555,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
       wgmma_wait<0>();
       reg_fence(sc);
       if (n_tiles == 1) release_q();
-      mask_tile(sc, 0, row_lo, row_hi, warp_row0, t4, p);
-      softmax_tile(sc, pa, r, corr_lo, corr_hi, c2);
+      mask_tile<W>(sc, t0 * kBN, row_lo, row_hi, warp_row0, t4, p);
+      softmax_tile<W>(sc, pa, r, corr_lo, corr_hi, c2);
 
       // One kv tile t >= 1.  P of tile t-1 is read from `pin` while P of tile
       // t is written to `pout`: the two alternate, so no register is redefined
@@ -527,8 +579,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         wgmma_wait<1>();               // S of tile t is in
         reg_fence(sc);
         if (t == n_tiles - 1) release_q();
-        mask_tile(sc, t * kBN, row_lo, row_hi, warp_row0, t4, p);
-        softmax_tile(sc, pout, r, corr_lo, corr_hi, c2);
+        mask_tile<W>(sc, (t0 + t) * kBN, row_lo, row_hi, warp_row0, t4, p);
+        softmax_tile<W>(sc, pout, r, corr_lo, corr_hi, c2);
         wgmma_wait<0>();               // P.V of tile t-1 is done: stage sp is free
 #pragma unroll
         for (int c = 0; c < NCH; ++c) reg_fence(o[c]);
@@ -622,7 +674,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   }
 }
 
-template <int HD>
+template <int HD, bool W>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, p.q, HD, p.Hq, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, kBM) ||
@@ -632,7 +684,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int smem = Cfg<HD>::SMEM;
   static bool attr_set = false;  // the attribute sticks to the function
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<HD, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
@@ -647,16 +699,21 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   const long long items = (long long)((p.Sq + kBM - 1) / kBM) * p.B * p.Hq;
   if (items > 2147483647LL) return -2;
   const int grid = (int)(items < n_sm ? items : n_sm);
-  flash_fwd_bf16<HD><<<grid, kThreadsBf16, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_bf16<HD, W><<<grid, kThreadsBf16, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, bool W>
+int launch(const Params& p, int is_bf16, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<HD, W>(p, stream);
+  dim3 grid((p.Sq + 15) / 16, p.Hq, p.B);
+  flash_fwd_f32<HD, W><<<grid, 128, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(const Params& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<HD>(p, stream);
-  dim3 grid((p.Sq + 15) / 16, p.Hq, p.B);
-  flash_fwd_f32<HD><<<grid, 128, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.window ? launch<HD, true>(p, is_bf16, stream) : launch<HD, false>(p, is_bf16, stream);
 }
 
 }  // namespace
@@ -664,18 +721,20 @@ int launch(const Params& p, int is_bf16, cudaStream_t stream) {
 // Returns 0, a cudaError_t from the launch, -1 / -2 for a shape this file does
 // not take, or -3 if cuTensorMapEncodeTiled refuses a TMA descriptor (bf16).
 // `lse`, if not nullptr, receives each row's log-sum-exp (fp32, (B, Hq, Sq)
-// contiguous) for the backward (csrc/flash_attention_bwd.cu).
+// contiguous) for the backward (csrc/flash_attention_bwd.cu).  `window` > 0
+// limits each query to the keys q - window < k <= q (with `causal` only).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int hd,
                                    long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                                    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss, long long o_sh, float scale,
-                                   int causal, int is_bf16, void* stream) {
+                                   int causal, int window, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -2;
   if (Hq > 65535 || B > 65535) return -2;
-  Params p{q,    k,    v,    o,    lse,  B,    Sq,   Sk,   Hq,    Hkv,  q_sb, q_ss,
-           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
+  if (window < 0 || (window > 0 && !causal)) return -2;
+  Params p{q,    k,    v,    o,    lse,  B,    Sq,   Sk,   Hq,    Hkv,  q_sb,  q_ss,   q_sh,
+           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 64: return launch<64>(p, is_bf16, s);

@@ -12,7 +12,9 @@
 //   D  = rowsum(dO * O)                      (fp32, one pass, kept in a buffer)
 //   P  = exp(q.k^T * scale - lse)            recomputed tile by tile, with the
 //                                            forward's masks (k_pos < Sk; if
-//                                            causal, k_pos <= q_pos) as P = 0
+//                                            causal, k_pos <= q_pos; with a
+//                                            window, k_pos > q_pos - window)
+//                                            as P = 0
 //   dV = P^T dO
 //   dS = P * (dO V^T - D)
 //   dQ = dS K * scale,   dK = dS^T Q * scale
@@ -29,7 +31,12 @@
 //     up to the diagonal and keeps dQ in registers.
 // Both recompute S and dP = dO V^T: seven products where five would do with
 // dQ summed by atomics (the bound at llama3.2-1b's training shape is 0.243 ms
-// for the seven, 0.174 ms for the five).
+// for the seven, 0.174 ms for the five).  With a sliding window (mixtral's;
+// causal only) both walks are cut at both ends: a key tile's queries run from
+// its first key to its last key + window - 1, a q tile's keys from its first
+// row - window + 1 to the diagonal; the tiles at the window's edge are masked
+// like the diagonal ones, and a tile none of a warpgroup's rows can see goes
+// through the products with P = 0, as above the diagonal.
 //
 // What bounds it on this card.  At llama3.2-1b's training shape (B 4, S 2048,
 // 32 query heads, 8 KV heads, hd 64, bf16, causal) the seven products are
@@ -129,6 +136,7 @@ struct BwdParams {
   int causal;
   int Sqp;             // Sq rounded up to 128
   float* lse2;         // (B, Hq, Sqp): lse * log2(e), 0 past Sq; after delta in the scratch
+  int window;          // > 0: key > q - window as well (causal only), 0: no window
 };
 
 // Offset of row 0 of (batch b, head h) in delta and lse2.
@@ -136,8 +144,41 @@ __device__ __forceinline__ long long row_base(const BwdParams& p, int b, int h) 
   return ((long long)b * p.Hq + h) * p.Sqp;
 }
 
+// The window is a template parameter W of every kernel (W = p.window > 0,
+// chosen in `launch`), so that the build without one is the code of the
+// kernels before the window came: no window test and no extra tile bound in
+// the causal path.
+template <bool W>
 __device__ __forceinline__ bool visible(const BwdParams& p, int q, int key) {
-  return q < p.Sq && key < p.Sk && (!p.causal || key <= q);
+  return q < p.Sq && key < p.Sk && (!p.causal || key <= q) && (!W || key > q - p.window);
+}
+
+// One past the last q tile (of `rows` rows) whose queries can see a key of
+// [k0, k0 + n): with a window the last such query is k0 + n - 1 + window - 1.
+template <bool W>
+__device__ __forceinline__ int q_tiles_end(const BwdParams& p, int k0, int n, int rows) {
+  const int n_qt = (p.Sq + rows - 1) / rows;
+  if constexpr (!W) {
+    return n_qt;
+  } else {
+    const long long e = ((long long)k0 + n - 1 + p.window - 1) / rows + 1;
+    return e < n_qt ? (int)e : n_qt;
+  }
+}
+
+// The first key tile (of `rows` keys) a query of [q0, ...) can see: with a
+// window the tile holding key q0 - window + 1, else 0.  Never past `end` - 1,
+// so that a q tile always walks one tile (the wrapper refuses the shapes,
+// Sq > Sk with a window, where a row could see no key at all).
+template <bool W>
+__device__ __forceinline__ int k_tiles_first(const BwdParams& p, int q0, int rows, int end) {
+  if constexpr (!W) {
+    return 0;
+  } else {
+    const int k = q0 - p.window + 1;
+    const int t = k > 0 ? k / rows : 0;
+    return t < end - 1 ? t : end - 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -347,7 +388,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long stride
 // transposed tiles S^T = K.Q^T and dP^T = V.dO^T, so that P^T and dS^T come
 // out with the keys as rows, which is the A operand of dV += P^T.dO and
 // dK += dS^T.Q.
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(const BwdParams p) {
   using C = Bf16Cfg<HD>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -375,7 +416,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(const BwdParams p) {
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
 
   const int key_lo = k0 + warp * 16 + g;
-  const int n_qt = (p.Sq + kRows - 1) / kRows;
+  const int n_qt = q_tiles_end<W>(p, k0, kRows, kRows);  // later q tiles: past the window
   const int qt0 = p.causal ? k0 / kRows : 0;  // earlier q tiles see none of these keys
 
   for (int h = hk * group; h < (hk + 1) * group; ++h) {
@@ -403,7 +444,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(const BwdParams p) {
         for (int i = 0; i < 4; ++i) {
           const int qc = j * 8 + 2 * t + (i & 1);
           const int key = key_lo + ((i & 2) ? 8 : 0);
-          const float pv = visible(p, q0 + qc, key) ? exp2f(fmaf(s[j][i], c2, -sL[qc])) : 0.f;
+          const float pv = visible<W>(p, q0 + qc, key) ? exp2f(fmaf(s[j][i], c2, -sL[qc])) : 0.f;
           s[j][i] = pv;                            // P^T
           dp[j][i] = pv * (dp[j][i] - sD[qc]);     // dS^T
         }
@@ -418,7 +459,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(const BwdParams p) {
 }
 
 // dQ of 64 query rows of one head.  Warp w owns rows q0 + 16w .. + 15.
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(128) flash_bwd_dq_mma(const BwdParams p) {
   using C = Bf16Cfg<HD>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -453,7 +494,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(const BwdParams p) {
     const int upto = (min(q0 + kRows, p.Sq) - 1) / kRows + 1;  // tile holding key == last row
     n_kt = upto < n_kt ? upto : n_kt;
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = k_tiles_first<W>(p, q0, kRows, n_kt); kt < n_kt; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();  // the previous tile is consumed (and Q, dO are in, the first time)
     load_tile<HD>(sK, (const __nv_bfloat16*)p.k + b * p.k_sb + k0 * p.k_ss + hk * p.k_sh, p.k_ss,
@@ -471,7 +512,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(const BwdParams p) {
       for (int i = 0; i < 4; ++i) {
         const int key = k0 + j * 8 + 2 * t + (i & 1);
         const bool hi = i & 2;
-        const float pv = visible(p, hi ? row_hi : row_lo, key)
+        const float pv = visible<W>(p, hi ? row_hi : row_lo, key)
                              ? exp2f(fmaf(s[j][i], c2, -(hi ? l_hi : l_lo)))
                              : 0.f;
         dp[j][i] = pv * (dp[j][i] - (hi ? d_hi : d_lo));  // dS
@@ -610,7 +651,7 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 // col0 + nt * 8 + 2 t4 (+ 1) (lse * log2(e): l_col[nt * 8 + 2 t4 (+ 1)]).  The
 // kernel's rows are query rows (dQ) or keys (dK/dV, where lse goes by column):
 // KEYS_ARE_ROWS picks the lse and the mask's orientation.
-template <bool KEYS_ARE_ROWS, bool MASK>
+template <bool KEYS_ARE_ROWS, bool MASK, bool W>
 __device__ __forceinline__ void probs(float (&x)[32], const BwdParams& p, float c2,
                                       const float* l_col, const float (&l_row)[2], int row_lo,
                                       int col0, int t4) {
@@ -624,7 +665,7 @@ __device__ __forceinline__ void probs(float (&x)[32], const BwdParams& p, float 
       float pr = prob(x[4 * nt + e], c2, l);
       if (MASK) {
         const int row = row_lo + ((e & 2) ? 8 : 0), col = col0 + nt * 8 + 2 * t4 + (e & 1);
-        if (KEYS_ARE_ROWS ? !visible(p, col, row) : !visible(p, row, col)) pr = 0.f;
+        if (KEYS_ARE_ROWS ? !visible<W>(p, col, row) : !visible<W>(p, row, col)) pr = 0.f;
       }
       x[4 * nt + e] = pr;
     }
@@ -661,10 +702,12 @@ __device__ __forceinline__ void fragments(const float (&x)[32], const float (&dp
 }
 
 // dK/dV work item: (batch, KV head, 128-key tile), long (early) key tiles
-// first; it walks query heads h0 .. h1 - 1 and q tiles qt0 .. n_qt - 1.
+// first; it walks query heads h0 .. h1 - 1 and q tiles qt0 .. n_qt - 1 (n_qt:
+// one past the last q tile that sees one of its keys).
 struct KvItem {
   int b, hk, k0, h0, h1, qt0, n_qt;
 };
+template <bool W>
 __device__ __forceinline__ KvItem kv_item(const BwdParams& p, int i) {
   const int bh = p.B * p.Hkv, rem = i % bh, group = p.Hq / p.Hkv;
   KvItem w;
@@ -673,12 +716,12 @@ __device__ __forceinline__ KvItem kv_item(const BwdParams& p, int i) {
   w.k0 = (i / bh) * kResRows;
   w.h0 = w.hk * group;
   w.h1 = w.h0 + group;
-  w.n_qt = (p.Sq + kRingRows - 1) / kRingRows;
+  w.n_qt = q_tiles_end<W>(p, w.k0, kResRows, kRingRows);
   w.qt0 = p.causal ? w.k0 / kRingRows : 0;  // earlier q tiles see none of these keys
   return w;
 }
 
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(kThreadsWg, 1)
     flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -718,7 +761,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       for (int r = 0;; ++r, ++k) {
         const int i = nth_item(r, n_items);
         if (i < 0) break;
-        const KvItem w = kv_item(p, i);
+        const KvItem w = kv_item<W>(p, i);
         const int slot = k % C::SLOTS;
         if (k >= C::SLOTS) mbar_wait(&bar_res_free[slot], ((k / C::SLOTS) - 1) & 1);
         uint8_t* dst = sRes + slot * 2 * C::RES_TILE;
@@ -762,7 +805,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
     for (int r = 0;; ++r, ++k) {
       const int i = nth_item(r, n_items);
       if (i < 0) break;
-      const KvItem w = kv_item(p, i);
+      const KvItem w = kv_item<W>(p, i);
       const int slot = k % C::SLOTS;
       const int wk0 = w.k0 + wg * 64;                 // this warpgroup's first key
       const int key_lo = wk0 + w4 * 16 + g;
@@ -819,13 +862,15 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       // P^T in place of S^T in x (0 for a tile no key of this warpgroup sees)
       auto make_probs = [&](int s, int q0) {
         reg_fence(x);
-        if (wk0 >= p.Sk || (p.causal && q0 + kRingRows - 1 < wk0)) {
+        if (wk0 >= p.Sk || (p.causal && q0 + kRingRows - 1 < wk0) ||
+            (W && q0 - (wk0 + 63) >= p.window)) {
 #pragma unroll
           for (int j = 0; j < 32; ++j) x[j] = 0.f;
-        } else if (q0 + kRingRows > p.Sq || wk0 + 64 > p.Sk || (p.causal && q0 < wk0 + 63)) {
-          probs<true, true>(x, p, c2, sL[s], none, key_lo, q0, t4);
+        } else if (q0 + kRingRows > p.Sq || wk0 + 64 > p.Sk || (p.causal && q0 < wk0 + 63) ||
+                   (W && q0 + kRingRows - 1 - wk0 >= p.window)) {
+          probs<true, true, W>(x, p, c2, sL[s], none, key_lo, q0, t4);
         } else {
-          probs<true, false>(x, p, c2, sL[s], none, key_lo, q0, t4);
+          probs<true, false, W>(x, p, c2, sL[s], none, key_lo, q0, t4);
         }
       };
       if constexpr (!C::DEFER) {
@@ -875,7 +920,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       stage_rows<HD>(sK, dk, p.scale, w4, g, t4);
       stage_rows<HD>(sV, dv, 1.f, w4, g, t4);
       wg_sync(wg);
-      const KvItem e = kv_item(p, i);                 // w's fields, not kept live till here
+      const KvItem e = kv_item<W>(p, i);                 // w's fields, not kept live till here
       store_staged<HD>((__nv_bfloat16*)p.dk + e.b * p.dk_sb + e.hk * p.dk_sh, p.dk_ss, sK, wk0,
                        p.Sk);
       store_staged<HD>((__nv_bfloat16*)p.dv + e.b * p.dv_sb + e.hk * p.dv_sh, p.dv_ss, sV, wk0,
@@ -886,10 +931,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 }
 
 // dQ work item: (batch, query head, 128-row q tile), long (late) q tiles
-// first; it walks key tiles 0 .. n_kt - 1.
+// first; it walks key tiles kt0 .. n_kt - 1.
 struct QItem {
-  int b, h, q0, n_kt;
+  int b, h, q0, kt0, n_kt;
 };
+template <bool W>
 __device__ __forceinline__ QItem q_item(const BwdParams& p, int i) {
   const int bh = p.B * p.Hq, rem = i % bh;
   const int n_qt = (p.Sq + kResRows - 1) / kResRows;
@@ -902,10 +948,11 @@ __device__ __forceinline__ QItem q_item(const BwdParams& p, int i) {
     const int upto = (min(w.q0 + kResRows, p.Sq) - 1) / kRingRows + 1;  // tile of key == last row
     w.n_kt = upto < w.n_kt ? upto : w.n_kt;
   }
+  w.kt0 = k_tiles_first<W>(p, w.q0, kRingRows, w.n_kt);
   return w;
 }
 
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(kThreadsWg, 1)
     flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -945,7 +992,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       for (int r = 0;; ++r, ++k) {
         const int i = nth_item(r, n_items);
         if (i < 0) break;
-        const QItem w = q_item(p, i);
+        const QItem w = q_item<W>(p, i);
         const int hk = w.h / group, slot = k % C::SLOTS;
         if (k >= C::SLOTS) mbar_wait(&bar_res_free[slot], ((k / C::SLOTS) - 1) & 1);
         uint8_t* dst = sRes + slot * 2 * C::RES_TILE;
@@ -956,7 +1003,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
           tma_load_4d(dst + C::RES_TILE + c * C::RES_CHUNK, &tdo, &bar_res[slot], c * 64, w.h,
                       w.q0, w.b);
         }
-        for (int kt = 0; kt < w.n_kt; ++kt, ++it) {
+        for (int kt = w.kt0; kt < w.n_kt; ++kt, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&bar_free[s], ((it / STAGES) - 1) & 1);
           uint8_t* d2 = sRing + s * 2 * C::RING_TILE;
@@ -984,7 +1031,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
     for (int r = 0;; ++r, ++k) {
       const int i = nth_item(r, n_items);
       if (i < 0) break;
-      const QItem w = q_item(p, i);
+      const QItem w = q_item<W>(p, i);
       const int slot = k % C::SLOTS;
       const int r0 = w.q0 + wg * 64;                  // this warpgroup's first row
       const int row_lo = r0 + w4 * 16 + g;
@@ -1026,13 +1073,15 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       // P in place of S in x (0 for a tile no row of this warpgroup sees)
       auto make_probs = [&](int k0) {
         reg_fence(x);
-        if (r0 >= p.Sq || (p.causal && k0 > r0 + 63)) {
+        if (r0 >= p.Sq || (p.causal && k0 > r0 + 63) ||
+            (W && r0 - (k0 + kRingRows - 1) >= p.window)) {
 #pragma unroll
           for (int j = 0; j < 32; ++j) x[j] = 0.f;
-        } else if (r0 + 64 > p.Sq || k0 + kRingRows > p.Sk || (p.causal && k0 + 63 > r0)) {
-          probs<false, true>(x, p, c2, nullptr, l_row, row_lo, k0, t4);
+        } else if (r0 + 64 > p.Sq || k0 + kRingRows > p.Sk || (p.causal && k0 + 63 > r0) ||
+                   (W && r0 + 63 - k0 >= p.window)) {
+          probs<false, true, W>(x, p, c2, nullptr, l_row, row_lo, k0, t4);
         } else {
-          probs<false, false>(x, p, c2, nullptr, l_row, row_lo, k0, t4);
+          probs<false, false, W>(x, p, c2, nullptr, l_row, row_lo, k0, t4);
         }
       };
       if constexpr (C::DEFER) {
@@ -1056,11 +1105,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
           pend = s;
           ++it;
         };
-        step(std::true_type{}, 0);
-        for (int kt = 1; kt < w.n_kt; ++kt) step(std::false_type{}, kt);
+        step(std::true_type{}, w.kt0);
+        for (int kt = w.kt0 + 1; kt < w.n_kt; ++kt) step(std::false_type{}, kt);
         issue_pending();                                   // the last step's product
       } else {
-        for (int kt = 0; kt < w.n_kt; ++kt, ++it) {
+        for (int kt = w.kt0; kt < w.n_kt; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&bar_full[s], (it / STAGES) & 1);
           issue_step(std::false_type{}, sRing + s * 2 * C::RING_TILE);
@@ -1136,7 +1185,7 @@ __device__ __forceinline__ void dots8(float (&x)[8], float (&y)[8], const float*
 
 // dK and dV of 32 keys; thread (r = tid / 4, c = tid % 4) computes the scores
 // of key r against queries c, c + 4, ..., then owns dK / dV[r][c + 4i].
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(const BwdParams p) {
   using C = F32Cfg<HD>;
   constexpr int NI = HD / 4;
@@ -1158,7 +1207,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(const BwdParams p) {
   float dk[NI], dv[NI];
 #pragma unroll
   for (int i = 0; i < NI; ++i) dk[i] = dv[i] = 0.f;
-  const int n_qt = (p.Sq + kRowsF - 1) / kRowsF;
+  const int n_qt = q_tiles_end<W>(p, k0, kRowsF, kRowsF);
   const int qt0 = p.causal ? k0 / kRowsF : 0;
 
   for (int h = hk * group; h < (hk + 1) * group; ++h) {
@@ -1180,7 +1229,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(const BwdParams p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int qc = c + 4 * i;
-        const float pv = visible(p, q0 + qc, k0 + r) ? expf(s[i] * p.scale - sL[qc]) : 0.f;
+        const float pv = visible<W>(p, q0 + qc, k0 + r) ? expf(s[i] * p.scale - sL[qc]) : 0.f;
         sP[r][qc] = pv;
         sS[r][qc] = pv * (dp[i] - sD[qc]);
       }
@@ -1208,7 +1257,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_f32(const BwdParams p) {
 
 // dQ of 32 query rows of one head; thread (r = tid / 4, c = tid % 4) computes
 // the scores of row r against keys c, c + 4, ..., then owns dQ[r][c + 4i].
-template <int HD>
+template <int HD, bool W>
 __global__ void __launch_bounds__(128) flash_bwd_dq_f32(const BwdParams p) {
   using C = F32Cfg<HD>;
   constexpr int NI = HD / 4;
@@ -1239,7 +1288,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(const BwdParams p) {
     const int upto = (min(q0 + kRowsF, p.Sq) - 1) / kRowsF + 1;
     n_kt = upto < n_kt ? upto : n_kt;
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = k_tiles_first<W>(p, q0, kRowsF, n_kt); kt < n_kt; ++kt) {
     const int k0 = kt * kRowsF;
     __syncthreads();
     load_tile_f32<HD>(sK, (const float*)p.k + b * p.k_sb + k0 * p.k_ss + hk * p.k_sh, p.k_ss,
@@ -1252,7 +1301,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(const BwdParams p) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int kc = c + 4 * i;
-      const float pv = visible(p, row, k0 + kc) ? expf(s[i] * p.scale - lse) : 0.f;
+      const float pv = visible<W>(p, row, k0 + kc) ? expf(s[i] * p.scale - lse) : 0.f;
       sS[r][kc] = pv * (dp[i] - dd);
     }
     __syncthreads();
@@ -1292,7 +1341,7 @@ int launch_delta(const BwdParams& p, cudaStream_t stream) {
 // The D pass and the two warp-specialised kernels, one persistent block an SM
 // each; the tensor maps are encoded first, so the three launches follow each
 // other on the card without a gap.
-template <int HD>
+template <int HD, bool W>
 int launch_wg(const BwdParams& p, cudaStream_t stream) {
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
   if (!make_map(&q64, p.q, HD, p.Hq, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, kRingRows) ||
@@ -1308,8 +1357,8 @@ int launch_wg(const BwdParams& p, cudaStream_t stream) {
   cudaError_t e;
   static bool attr_set = false;
   if (!attr_set) {
-    if ((e = allow_smem(flash_bwd_dkdv_wg<HD>, smem)) != cudaSuccess) return (int)e;
-    if ((e = allow_smem(flash_bwd_dq_wg<HD>, smem)) != cudaSuccess) return (int)e;
+    if ((e = allow_smem(flash_bwd_dkdv_wg<HD, W>, smem)) != cudaSuccess) return (int)e;
+    if ((e = allow_smem(flash_bwd_dq_wg<HD, W>, smem)) != cudaSuccess) return (int)e;
     attr_set = true;
   }
   static int n_sm = 0;
@@ -1323,42 +1372,47 @@ int launch_wg(const BwdParams& p, cudaStream_t stream) {
   const long long q_items = (long long)((p.Sq + kResRows - 1) / kResRows) * p.B * p.Hq;
   if (q_items > 2147483647LL) return -2;
   if (int err = launch_delta<__nv_bfloat16, HD>(p, stream)) return err;
-  flash_bwd_dkdv_wg<HD><<<(int)(kv_items < n_sm ? kv_items : n_sm), kThreadsWg, smem, stream>>>(
+  flash_bwd_dkdv_wg<HD, W><<<(int)(kv_items < n_sm ? kv_items : n_sm), kThreadsWg, smem, stream>>>(
       q64, do64, k128, v128, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  flash_bwd_dq_wg<HD><<<(int)(q_items < n_sm ? q_items : n_sm), kThreadsWg, smem, stream>>>(
+  flash_bwd_dq_wg<HD, W><<<(int)(q_items < n_sm ? q_items : n_sm), kThreadsWg, smem, stream>>>(
       q128, do128, k64, v64, p);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool W>
 int launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
   cudaError_t e;
   if (is_bf16) {
     if constexpr (HD % 64 == 0) {
-      return launch_wg<HD>(p, stream);
+      return launch_wg<HD, W>(p, stream);
     } else {  // hd 80: the mma.sync kernels
       if (int err = launch_delta<__nv_bfloat16, HD>(p, stream)) return err;
       constexpr int smem = Bf16Cfg<HD>::SMEM;
-      if ((e = allow_smem(flash_bwd_dkdv_mma<HD>, smem)) != cudaSuccess) return (int)e;
-      if ((e = allow_smem(flash_bwd_dq_mma<HD>, smem)) != cudaSuccess) return (int)e;
-      flash_bwd_dkdv_mma<HD>
+      if ((e = allow_smem(flash_bwd_dkdv_mma<HD, W>, smem)) != cudaSuccess) return (int)e;
+      if ((e = allow_smem(flash_bwd_dq_mma<HD, W>, smem)) != cudaSuccess) return (int)e;
+      flash_bwd_dkdv_mma<HD, W>
           <<<dim3((p.Sk + kRows - 1) / kRows, p.Hkv, p.B), 128, smem, stream>>>(p);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      flash_bwd_dq_mma<HD>
+      flash_bwd_dq_mma<HD, W>
           <<<dim3((p.Sq + kRows - 1) / kRows, p.Hq, p.B), 128, smem, stream>>>(p);
       return (int)cudaGetLastError();
     }
   }
   if (int err = launch_delta<float, HD>(p, stream)) return err;
   constexpr int smem = F32Cfg<HD>::SMEM;
-  if ((e = allow_smem(flash_bwd_dkdv_f32<HD>, smem)) != cudaSuccess) return (int)e;
-  if ((e = allow_smem(flash_bwd_dq_f32<HD>, smem)) != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_f32<HD>
+  if ((e = allow_smem(flash_bwd_dkdv_f32<HD, W>, smem)) != cudaSuccess) return (int)e;
+  if ((e = allow_smem(flash_bwd_dq_f32<HD, W>, smem)) != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_f32<HD, W>
       <<<dim3((p.Sk + kRowsF - 1) / kRowsF, p.Hkv, p.B), 128, smem, stream>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  flash_bwd_dq_f32<HD><<<dim3((p.Sq + kRowsF - 1) / kRowsF, p.Hq, p.B), 128, smem, stream>>>(p);
+  flash_bwd_dq_f32<HD, W><<<dim3((p.Sq + kRowsF - 1) / kRowsF, p.Hq, p.B), 128, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
+  return p.window ? launch<HD, true>(p, is_bf16, stream) : launch<HD, false>(p, is_bf16, stream);
 }
 
 }  // namespace
@@ -1367,7 +1421,8 @@ int launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
 // not take, or -3 if cuTensorMapEncodeTiled refuses a TMA descriptor (bf16,
 // hd 64 / 128).  `delta` is fp32 scratch of 2 x B x Hq x Sqp floats, Sqp = Sq
 // rounded up to 128: D, then lse * log2(e), each (B, Hq, Sqp), written by the
-// D pass, zero past Sq.
+// D pass, zero past Sq.  `window` > 0 limits each query to the keys
+// q - window < k <= q (with `causal` only), as in the forward.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
@@ -1376,15 +1431,17 @@ extern "C" int flash_attention_bwd(
     long long o_sb, long long o_ss, long long o_sh, long long do_sb, long long do_ss,
     long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh, long long dk_sb,
     long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, int causal, int is_bf16, void* stream) {
+    float scale, int causal, int window, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -2;
   if (Hq > 65535 || B > 65535) return -2;
+  if (window < 0 || (window > 0 && !causal)) return -2;
   BwdParams p{q,     k,     v,     o,     dout,  lse,   delta, dq,    dk,    dv,    B,
               Sq,    Sk,    Hq,    Hkv,   q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,  v_sb,
               v_ss,  v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh,
               dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal};
   p.Sqp = (Sq + 127) / 128 * 128;
   p.lse2 = delta + (long long)B * Hq * p.Sqp;
+  p.window = window;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 64: return launch<64>(p, is_bf16, s);

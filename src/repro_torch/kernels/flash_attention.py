@@ -8,7 +8,7 @@ differentiates).  The kernels' sources are ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``; the note at the top of each says what it
 replaces, what bounds it on an H100 and what its design does about it.
 
-* ``flash_attention(q, k, v, causal=, scale=)`` launches the forward kernel,
+* ``flash_attention(q, k, v, causal=, scale=, window=)`` launches the forward kernel,
   and with ``return_lse=True`` also has it write each row's log-sum-exp for
   the backward.  ``flash_attention_bwd(q, k, v, o, do, lse, ...)`` launches
   the backward kernel and returns ``(dq, dk, dv)``.  Both take CUDA tensors
@@ -28,6 +28,15 @@ replaces, what bounds it on an H100 and what its design does about it.
 Layout ``(B, S, H, hd)`` as in the JAX package.  Unlike the Pallas kernel,
 which wants equal head counts (``ops.attention`` repeats K/V first), both
 functions here read KV head ``h // (Hq // Hkv)`` for query head ``h``.
+
+A sliding window (``window > 0``, mixtral's): the query at position i sees the
+keys j with i - window < j <= i, the JAX package's ``_block_mask``
+(``src/repro/models/attention.py:83-92``).  Every function here skips the key
+tiles that lie wholly before a query tile's window and masks the edge tiles.
+The Pallas kernel has no window; the plain versions take one with any
+``causal`` (the model's oracle permits it), the kernels only with
+``causal=True``: no model path of the reference passes a window without the
+causal mask, as none passes ``q_offset`` or ``kv_len``.
 """
 
 from __future__ import annotations
@@ -49,10 +58,11 @@ _bwd_fn = None    # flash_attention_bwd, bound at first use
 
 
 def _bind(fn, n_ptr: int, n_strides: int):
-    fn.restype = ctypes.c_int
+    fn.restype = ctypes.c_int     # ... scale, causal, window, is_bf16, stream
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 +
                    [ctypes.c_longlong] * n_strides +
-                   [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
     return fn
 
 
@@ -89,11 +99,18 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
                          f"(strides {t.stride()}, offset {t.storage_offset()})")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
-    if window:
-        raise NotImplementedError(
-            "the flash-attention kernel has no sliding window (neither has "
-            "the Pallas kernel it replaces); window must be 0")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int):
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and not causal:
+        raise ValueError(
+            "the flash-attention kernels take a sliding window only with "
+            "causal=True: no model path passes a window without the causal "
+            "mask (flash_attention_plain takes one)")
+    if window and q.dim() == k.dim() == 4 and q.shape[1] > k.shape[1]:
+        raise ValueError(f"a sliding window needs Sq <= Sk (a query past the last "
+                         f"key could see none), got Sq {q.shape[1]}, Sk {k.shape[1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention launches a CUDA kernel: {name} "
@@ -123,10 +140,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd), CUDA, fp32 or bf16.
 
     Returns (B, Sq, Hq, hd) in q.dtype and, with ``return_lse``, also each
-    row's log-sum-exp of the scaled scores, fp32 (B, Hq, Sq).  Launches on
+    row's log-sum-exp of the scaled scores, fp32 (B, Hq, Sq).  ``window > 0``
+    (with ``causal``): query i sees keys i - window < j <= i.  Launches on
     the current stream and does not synchronise.
     """
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -141,7 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  B, Sq, Sk, Hq, Hkv, hd,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3],
-                 float(scale), int(bool(causal)),
+                 float(scale), int(bool(causal)), int(window),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         why = " (cuTensorMapEncodeTiled refused a TMA descriptor)" if err == -3 else ""
@@ -156,14 +174,15 @@ flash_attention.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
-                        causal: bool = True, scale: Optional[float] = None):
+                        causal: bool = True, scale: Optional[float] = None,
+                        window: int = 0):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
     cotangent ``do`` of its output ``o``, from the forward's log-sum-exp
     ``lse`` (fp32 (B, Hq, Sq)).  CUDA tensors; dk and dv are summed over the
     query heads of each KV group.  Launches on the current stream (three
     kernels: the row sums D, dK/dV, dQ) and does not synchronise.
     """
-    _check(q, k, v, 0)
+    _check(q, k, v, causal, window)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):
@@ -191,7 +210,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
                  B, Sq, Sk, Hq, Hkv, hd,
                  *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
-                 float(scale), int(bool(causal)),
+                 float(scale), int(bool(causal)), int(window),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         why = " (cuTensorMapEncodeTiled refused a TMA descriptor)" if err == -3 else ""
@@ -204,18 +223,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0
 
 
+def _kv_blocks(q0: int, nq: int, Sk: int, block_k: int, causal: bool,
+               window: int) -> range:
+    """Starts of the kv blocks a q block [q0, q0 + nq) visits: up to the
+    diagonal if causal, from the block holding the first row's first key
+    (q0 - window + 1) if windowed.  A block left out would add exactly 0."""
+    k_end = min(Sk, q0 + nq) if causal else Sk
+    k_start = max(0, q0 - window + 1) // block_k * block_k if window else 0
+    return range(k_start, k_end, block_k)
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int):
+    """(nq, nk) mask of allowed (query, key) pairs, or None: every pair."""
+    ok = None
+    if causal:
+        ok = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        w = k_pos[None, :] > q_pos[:, None] - window
+        ok = w if ok is None else ok & w
+    return ok
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, scale: Optional[float] = None,
                           block_q: int = 128, block_k: int = 128,
-                          return_lse: bool = False):
+                          return_lse: bool = False, window: int = 0):
     """The kernel's arithmetic in tensor ops, on any device.
 
     Blocks of ``block_q`` x ``block_k``; per kv block: scores in fp32, mask
     as ``where(mask, s, -1e30)``, running max ``m``, denominator ``l`` and
     accumulator in fp32, ``p`` cast to v's dtype for the second product;
     finalise ``acc / max(l, 1e-30)``.  With a causal mask the kv loop stops at
-    the diagonal, as the kernel's does.  With ``return_lse`` also returns
-    ``m + log l`` per row, fp32 (B, Hq, Sq).
+    the diagonal, as the kernel's does; with a window it starts at the block
+    holding the block's first row's first key.  With ``return_lse`` also
+    returns ``m + log l`` per row, fp32 (B, Hq, Sq).
     """
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -236,14 +277,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Hq, nq, hd), dtype=torch.float32,
                           device=q.device)
-        k_end = min(Sk, q0 + nq) if causal else Sk
-        for k0 in range(0, k_end, block_k):
+        for k0 in _kv_blocks(q0, nq, Sk, block_k, causal, window):
             kb = kh[:, :, k0:k0 + block_k]
             vb = vh[:, :, k0:k0 + block_k]
             s = matmul_f32(qb, kb.transpose(-1, -2)) * scale
-            if causal:
-                k_pos = k0 + torch.arange(kb.shape[2], device=q.device)
-                s = torch.where(k_pos[None, :] <= q_pos[:, None], s, neg)
+            ok = _mask(q_pos, k0 + torch.arange(kb.shape[2], device=q.device),
+                       causal, window)
+            if ok is not None:
+                s = torch.where(ok, s, neg)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -260,11 +301,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                               *, causal: bool = True, scale: Optional[float] = None,
-                              block_q: int = 128, block_k: int = 128):
+                              block_q: int = 128, block_k: int = 128,
+                              window: int = 0):
     """The backward kernel's arithmetic in tensor ops, on any device.
 
     ``D = rowsum(do * o)`` in fp32; per (q block, kv block), up to the
-    diagonal if causal: ``P = exp(s - lse)`` recomputed from fp32 scores and
+    diagonal if causal and from the window's first block if windowed:
+    ``P = exp(s - lse)`` recomputed from fp32 scores and
     set to 0 where masked, ``dv += P^T do`` and ``dS = P * (do v^T - D)``,
     ``dq += dS k``, ``dk += dS^T q``, with P and dS rounded to the input dtype
     for those products and every sum in fp32; dq and dk are scaled at the
@@ -288,14 +331,14 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = q0 + torch.arange(nq, device=q.device)
         lse_b = lse[:, :, q0:q0 + nq, None]
         d_b = delta[:, :, q0:q0 + nq, None]
-        k_end = min(Sk, q0 + nq) if causal else Sk
-        for k0 in range(0, k_end, block_k):
+        for k0 in _kv_blocks(q0, nq, Sk, block_k, causal, window):
             kb, vb = kh[:, :, k0:k0 + block_k], vh[:, :, k0:k0 + block_k]
             s = matmul_f32(qb, kb.transpose(-1, -2)) * scale
             p = torch.exp(s - lse_b)
-            if causal:
-                k_pos = k0 + torch.arange(kb.shape[2], device=q.device)
-                p = torch.where(k_pos[None, :] <= q_pos[:, None], p, 0.0)
+            ok = _mask(q_pos, k0 + torch.arange(kb.shape[2], device=q.device),
+                       causal, window)
+            if ok is not None:
+                p = torch.where(ok, p, 0.0)
             dv[:, :, k0:k0 + block_k] += matmul_f32(p.to(dt).transpose(-1, -2), dob)
             ds = (p * (matmul_f32(dob, vb.transpose(-1, -2)) - d_b)).to(dt)
             dq[:, :, q0:q0 + nq] += matmul_f32(ds, kb)
@@ -313,11 +356,13 @@ class FlashAttention(torch.autograd.Function):
     chooses the CUDA kernels or the plain versions, for both directions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: Optional[float], kernel: bool):
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float], kernel: bool,
+                window: int = 0):
         fwd = flash_attention if kernel else flash_attention_plain
-        out, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True)
+        out, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True,
+                       window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+        ctx.causal, ctx.scale, ctx.kernel, ctx.window = causal, scale, kernel, window
         return out
 
     @staticmethod
@@ -325,5 +370,6 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd if ctx.kernel else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, do, lse, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = bwd(q, k, v, out, do, lse, causal=ctx.causal, scale=ctx.scale,
+                         window=ctx.window)
+        return dq, dk, dv, None, None, None, None

@@ -9,9 +9,11 @@ that gives way to it.  ``impl="plain"`` and ``impl="kernel"`` force one
 (``"kernel"`` on a CPU tensor raises).  Model code reaches the kernels through
 this module only.
 
-Neither the attention kernel nor its plain version has a sliding window (nor
-has the Pallas kernel they replace), so ``window != 0`` raises on every device
-until a windowed family is ported.
+A sliding window (``window > 0``, mixtral's) goes to the kernel or the plain
+version like any other call: on a CUDA tensor the kernels skip the key tiles
+outside a query tile's window and mask the edge tiles (they take a window only
+with ``causal=True``, and raise otherwise), on the CPU the plain versions do
+the same.  The Pallas kernel the port replaces has no window.
 
 Gradients: an ``attention`` call whose inputs require a gradient (with
 gradients enabled) goes through ``FlashAttention``, which pairs the forward
@@ -54,18 +56,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: int = 0) -> torch.Tensor:
     """Self-attention over a full sequence.  q: (B,Sq,Hq,hd); k/v:
     (B,Sk,Hkv,hd) with Hkv dividing Hq (grouped-query attention is read in
-    place, K/V are not repeated in memory).  Returns (B,Sq,Hq,hd)."""
+    place, K/V are not repeated in memory).  ``window > 0``: query i sees
+    keys i - window < j <= i.  Returns (B,Sq,Hq,hd)."""
     on_kernel = _on_kernel(impl, q)
-    if window:
-        raise NotImplementedError(
-            "ops.attention has no sliding window: window must be 0, got "
-            f"{window} (no ported configuration has one)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, None, on_kernel)
+        return FlashAttention.apply(q, k, v, causal, None, on_kernel, window)
     if on_kernel:
-        return flash_attention(q, k, v, causal=causal)
-    return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, window=window)
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -17,16 +17,16 @@ Two deliberate differences from the JAX file:
 * On the ``train`` / ``prefill`` branch the JAX package calls
   ``dense_attention`` for S <= 512 and ``chunked_attention`` above; the port
   calls ``kernels.ops.attention``, so on the card every self-attention
-  prefill goes through the hand-written kernel.
-  ``ops.attention`` has no sliding window, so a ``train`` / ``prefill``
-  pass of a sliding-window layer raises on every device; the rolling cache
-  (``_build_cache``, ``_write_cache``, the ``decode`` branch) is ported.
+  prefill goes through the hand-written kernel, a sliding-window layer's
+  too (``window=cfg.sliding_window``).
 * ``_write_cache`` writes **in place** (JAX arrays are immutable, so
   ``dynamic_update_slice`` returns a new buffer); the returned tensor is the
   buffer that was passed in.
 
-Mixture-of-experts blocks and cross-attention are not ported yet and raise
-``NotImplementedError`` (ROADMAP.md, queue 1, "Remaining families").
+A block's FFN is the SwiGLU MLP or, for ``ffn="moe"``, the mixture of experts
+(``models.moe``), whose router aux loss ``apply_attn_block`` returns.
+Cross-attention is not ported yet and raises ``NotImplementedError``
+(ROADMAP.md, queue 1, M7c).
 """
 
 from __future__ import annotations
@@ -38,11 +38,12 @@ import torch
 from ..kernels import ops
 from .attention import apply_rope, decode_attention
 from .modules import dense_init, ones_init, rms_norm, swiglu, zeros_init
+from . import moe
 
 Params = Dict[str, object]
 
 _NOT_PORTED = ("{what} is not ported to repro_torch yet "
-               "(ROADMAP.md, queue 1, 'Remaining families')")
+               "(ROADMAP.md, queue 1, M7c)")
 
 
 class KVCache(NamedTuple):
@@ -202,14 +203,12 @@ def init_attn_block(gen: torch.Generator, cfg, dtype=torch.float32,
                     ffn: str = "mlp") -> Params:
     if with_cross:
         raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
-    if ffn != "mlp":
-        raise NotImplementedError(_NOT_PORTED.format(what="the MoE FFN"))
     kw = dict(dtype=dtype, device=device)
     return {
         "ln1": ones_init((cfg.d_model,), **kw),
         "attn": init_attention(gen, cfg, **kw),
         "ln2": ones_init((cfg.d_model,), **kw),
-        "ffn": init_mlp(gen, cfg, **kw),
+        "ffn": (moe.init_moe if ffn == "moe" else init_mlp)(gen, cfg, **kw),
     }
 
 
@@ -217,15 +216,20 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
                      cache: Optional[KVCache] = None,
                      cache_index: Optional[int] = None,
                      cache_len: Optional[int] = None, causal=True):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, new_cross_cache, aux_loss), the JAX package's
+    4-tuple: the cross cache is always None here (cross-attention raises),
+    aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP block)."""
     if "cross" in p:
         raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
-    if cfg.n_experts:
-        raise NotImplementedError(_NOT_PORTED.format(what="the MoE FFN"))
     h, new_cache = apply_attention(
         p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
         positions=positions, mode=mode, cache=cache, cache_index=cache_index,
         cache_len=cache_len, causal=causal, window=cfg.sliding_window)
     x = x + h
-    x = x + apply_mlp(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, new_cache
+    y = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts and "router" in p["ffn"]:
+        ff, aux = moe.moe_ffn(p["ffn"], y, cfg)
+    else:
+        ff = apply_mlp(p["ffn"], y)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, new_cache, None, aux

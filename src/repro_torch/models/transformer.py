@@ -1,13 +1,16 @@
 """Decoder-only LM: the dense family (llama / qwen / chatglm), the
-attention-free SSM stack (mamba2) and the hybrid (zamba2).
+mixture-of-experts family (mixtral / arctic), the attention-free SSM stack
+(mamba2) and the hybrid (zamba2).
 
 Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers on a leading ``layers`` axis and runs them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dictionary per layer and the stack is
-a Python loop.  The other families (moe, vlm, audio) raise
+a Python loop.  The other families (vlm, audio) raise
 ``NotImplementedError`` until their slice is ported.  ``loss_fn`` trains the
-three families; on a CUDA tensor its gradient goes through the flash-attention
-and SSD-scan backward kernels.
+four families; on a CUDA tensor its gradient goes through the flash-attention
+and SSD-scan backward kernels.  A MoE block is an attention block whose FFN is
+``models.moe.moe_ffn``; its router aux loss is summed over the layers into
+``loss_fn``'s ``aux_loss``.
 
 Hybrid (zamba2) structure, as in the JAX package: ``num_layers`` Mamba2
 blocks; after every ``attn_every`` of them, one *shared* attention block
@@ -43,12 +46,12 @@ from .modules import (dense_init, embed_init, ones_init, resolve_device,
                       rms_norm, softmax_cross_entropy)
 from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_forward
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class DecodeState(NamedTuple):
     """Everything carried between decode steps."""
-    kv: Any            # dense: KVCache of (L, B, S_cache, Hkv, hd) tensors
+    kv: Any            # dense / moe: KVCache of (L, B, S_cache, Hkv, hd) tensors
     ssm: Any           # ssm / hybrid: SSMState of (L, ...) stacked tensors
     shared_kv: Any     # hybrid: KVCache of (groups, B, S_cache, Hkv, hd)
     cross_kv: Any      # enc-dec static cross caches (not ported yet: None)
@@ -56,7 +59,7 @@ class DecodeState(NamedTuple):
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported to "
             f"repro_torch yet: only {', '.join(PORTED_FAMILIES)} are "
@@ -109,7 +112,8 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
         if cfg.family == "hybrid":
             params["shared_attn"] = init_attn_block(gen, cfg, **kw)
     else:
-        params["blocks"] = [init_attn_block(gen, cfg, **kw)
+        ffn = "moe" if cfg.n_experts else "mlp"
+        params["blocks"] = [init_attn_block(gen, cfg, ffn=ffn, **kw)
                             for _ in range(max(cfg.num_layers, 1))]
     return params
 
@@ -159,15 +163,18 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     (``kernels.ops.ssd``).  The ssm and hybrid families run the Mamba2 stack
     in ``_ssm_stack``'s block order without a decode state (the hybrid's
     shared block after every ``attn_every`` layers), each block under
-    ``_maybe_remat``, as the JAX package's ``_scan_blocks(mode="train")``."""
+    ``_maybe_remat``, as the JAX package's ``_scan_blocks(mode="train")``.
+    The MoE blocks' router aux losses are summed over the layers and enter
+    ``total = loss + cfg.router_aux_weight * aux``."""
     _require_ported(cfg)
     pcfg = pcfg or ParallelConfig()
     x, positions = _embed_inputs(params, cfg, batch)
 
     def attn(h, bp):
-        return apply_attn_block(bp, cfg, pcfg, h, positions=positions,
-                                mode="train")[0]
+        out = apply_attn_block(bp, cfg, pcfg, h, positions=positions, mode="train")
+        return out[0], out[3]
     attn = _maybe_remat(attn, pcfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _is_ssm(cfg):
         def mamba(h, bp):
             return h + mamba2_forward(bp["ssm"], rms_norm(h, bp["ln"], cfg.norm_eps),
@@ -176,16 +183,17 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
         for l, bp in enumerate(params["blocks"]):
             x = mamba(x, bp)
             if _shared_after(cfg, l) is not None:
-                x = attn(x, params["shared_attn"])
+                x, a = attn(x, params["shared_attn"])
+                aux = aux + a
     else:
         for bp in params["blocks"]:
-            x = attn(x, bp)
+            x, a = attn(x, bp)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     loss, count = softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)   # MoE only (M7)
     total = loss + cfg.router_aux_weight * aux
-    return total, {"loss": loss.detach(), "aux_loss": aux, "tokens": count}
+    return total, {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": count}
 
 
 # --------------------------------------------------------------------------
@@ -247,12 +255,12 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
         if g is None:
             continue
         if mode == "decode":
-            x, _ = apply_attn_block(
+            x = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
                 mode="decode", cache=KVCache(shared.k[g], shared.v[g]),
-                cache_index=cache_index)
+                cache_index=cache_index)[0]
         else:
-            x, kvg = apply_attn_block(
+            x, kvg, _, _ = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
                 mode="prefill", cache_len=cache_len)
             shared.k[g].copy_(kvg.k)
@@ -272,8 +280,8 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
                        state.shared_kv, mode="prefill", cache_len=cache_len)
     else:
         for l, bp in enumerate(params["blocks"]):
-            x, kvl = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
-                                      mode="prefill", cache_len=cache_len)
+            x, kvl, _, _ = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
+                                            mode="prefill", cache_len=cache_len)
             state.kv.k[l].copy_(kvl.k)
             state.kv.v[l].copy_(kvl.v)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -296,10 +304,10 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                        state.shared_kv, mode="decode", cache_index=state.index)
     else:
         for l, bp in enumerate(params["blocks"]):
-            x, _ = apply_attn_block(
+            x = apply_attn_block(
                 bp, cfg, pcfg, x, positions=positions, mode="decode",
                 cache=KVCache(state.kv.k[l], state.kv.v[l]),
-                cache_index=state.index)
+                cache_index=state.index)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits[:, 0], state._replace(index=state.index + 1)

@@ -30,6 +30,7 @@ from repro.parallel import compress as j_compress
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.quant8 import (dequantize, dequantize_plain, quantize,
                                         quantize_plain)
@@ -141,11 +142,26 @@ def test_plain_impl_and_explicit_scale():
 
 @pytest.mark.parametrize("impl", ["auto", "plain", "kernel"])
 def test_ops_attention_window_raises_on_every_route(impl):
-    """No sliding window in the kernel or its plain version: no route takes
-    one quietly, on any device."""
-    q, k, v = to_torch(make_qkv(1, 50, 50, 2, 2, 64), torch.float32)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.attention(q, k, v, causal=True, window=9, impl=impl)
+    """The name is historical (kept so that the test's ID stays): every route
+    once refused a window.  Now the plain route (and "auto" on the CPU) gives
+    ``dense_attention(window=)`` and JAX's ``dense_attention`` on the same
+    inputs; the kernel route on a CPU tensor raises the CUDA error of
+    ``test_ops_attention_kernel_on_cpu_raises`` and launches nothing."""
+    arrs = make_qkv(1, 50, 50, 2, 2, 64)
+    q, k, v = to_torch(arrs, torch.float32)
+    if impl == "kernel":
+        before = flash_attention.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.attention(q, k, v, causal=True, window=9, impl=impl)
+        assert flash_attention.launches == before
+        return
+    out = ops.attention(q, k, v, causal=True, window=9, impl=impl)
+    np.testing.assert_allclose(as_np(out), as_np(dense_attention(q, k, v, causal=True,
+                                                                 window=9)),
+                               **tol("float32"))
+    np.testing.assert_allclose(as_np(out), as_np(j_dense(*to_jax(arrs, jnp.float32),
+                                                         causal=True, window=9)),
+                               **tol("float32"))
 
 
 def test_ops_attention_kernel_on_cpu_raises():
@@ -169,9 +185,28 @@ def test_auto_on_cpu_takes_plain_and_counts_no_launch():
 
 
 def test_kernel_wrapper_rejects_window_before_anything_else():
+    """The name is historical (kept so that the test's ID stays): the wrapper
+    once refused every window.  It now takes a window with ``causal=True`` and
+    rejects, before anything else, one without the causal mask (no model path
+    passes that), a negative one, and a windowed call with more queries than
+    keys; a windowed call on CPU tensors is refused like any other."""
     q, k, v = to_torch(make_qkv(1, 16, 16, 2, 2, 64), torch.float32)
-    with pytest.raises(NotImplementedError, match="window"):
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="window must be >= 0"):
+        flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v, window=4)
+    out, lse = flash_attention_plain(q, k, v, window=4, return_lse=True)
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention_bwd(q, k, v, out, out, lse, causal=False, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, out, out, lse, window=4)
+    q2 = to_torch(make_qkv(1, 24, 16, 2, 2, 64), torch.float32)[0]
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention(q2, k, v, window=4)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
 
 
 def test_build_module_names_its_sources_and_needs_no_compiler_to_import():

@@ -278,7 +278,7 @@ def converted(arch, seed=0):
     return jcfg, cfg, jv, tp
 
 
-@pytest.mark.parametrize("arch", DENSE + ["mamba2-1.3b"])
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-1.3b", "arctic-480b", "mixtral-8x7b"])
 def test_five_train_steps_match_jax(arch):
     """Adam's eps is 1e-6 here, not the default 1e-8.  Adam divides by
     sqrt(v), so a gradient component that is zero in exact arithmetic moves

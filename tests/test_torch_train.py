@@ -3,8 +3,9 @@ pipeline copy, the cross-entropy, ``loss_fn`` and its gradients, and the
 ``Trainer`` loop (resume, signal, final checkpoint).  Five whole train steps
 against JAX are in ``tests/test_torch_optim.py``.
 
-The dense, ssm (mamba2) and hybrid (zamba2) families.  Same numpy inputs and
-converted weights on both sides, fp32.  Tolerances:
+The dense, MoE (arctic, mixtral: the router aux loss in the total), ssm
+(mamba2) and hybrid (zamba2) families.  Same numpy inputs and converted
+weights on both sides, fp32.  Tolerances:
 the loss to rtol 1e-5; each gradient leaf to relative 1e-4 (``rel_close``:
 every element within 1e-4 of the leaf's largest magnitude, and the leaf's
 Frobenius error within 1e-4 of its norm).  The two packages compute the same
@@ -40,6 +41,7 @@ from repro_torch.train import data
 from repro_torch.train.train_loop import Trainer, TrainerConfig
 
 DENSE = ["llama3.2-1b", "qwen3-32b", "qwen1.5-4b", "chatglm3-6b"]
+MOE = ["arctic-480b", "mixtral-8x7b"]
 JPCFG = JParallelConfig(remat="none")
 PCFG = ParallelConfig(remat="none")
 
@@ -180,7 +182,7 @@ def port_loss_and_grads(tp, cfg, batch, pcfg=PCFG):
     return total, metrics, modules.tree_unflatten(spec, [p.grad for p in live])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_loss_fn_and_grads_match_jax(arch):
     check_loss_and_grads_against_jax(arch)
 
@@ -195,7 +197,12 @@ def check_loss_and_grads_against_jax(arch):
     np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
     assert float(metrics["tokens"]) == float(jmetrics["tokens"]) == 2 * 16 - 3
-    assert float(metrics["aux_loss"]) == float(jmetrics["aux_loss"]) == 0.0
+    if cfg.n_experts:     # the router aux loss, summed over the layers, in the total
+        assert float(jmetrics["aux_loss"]) > 0
+        np.testing.assert_allclose(float(metrics["aux_loss"]), float(jmetrics["aux_loss"]),
+                                   rtol=1e-5)
+    else:
+        assert float(metrics["aux_loss"]) == float(jmetrics["aux_loss"]) == 0.0
     want = dict(leaves_with_paths(jax.tree.map(np.asarray, jgrads)))
     got = dict(leaves_with_paths(to_jax_params(grads, cfg)))
     assert got.keys() == want.keys()
@@ -206,8 +213,9 @@ def check_loss_and_grads_against_jax(arch):
 # (remat, arch): the dense family, and mamba2 (whose backward recomputes the
 # SSD scan's chunk states)
 @pytest.mark.parametrize("remat,arch", [("block", "qwen3-32b"), ("full", "qwen3-32b"),
-                                        ("block", "mamba2-1.3b")],
-                         ids=["block", "full", "mamba2-1.3b-block"])
+                                        ("block", "mamba2-1.3b"),
+                                        ("block", "mixtral-8x7b")],
+                         ids=["block", "full", "mamba2-1.3b-block", "mixtral-8x7b-block"])
 def test_remat_gives_the_same_loss_and_gradients(remat, arch):
     _, cfg, _, tp = converted(arch)
     batch = make_batch(cfg, seed=3)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the flash-attention and SSD-scan kernels (forward and
-backward) on a GPU: eleven planted faults, eight of them in the backwards.
+backward) on a GPU: thirteen planted faults, nine of them in the backwards,
+two in the sliding window.
 
     python3 tools/kernel_mutants.py [name ...]
 
@@ -31,10 +32,14 @@ MUTANTS = {
     # kv tile 10 of 128 keys (keys 1280..1407) leaves every row's sum
     "flash skips kv tile 10": (
         FLASH,
-        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;",
+        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0) ||",
         "  if (k0 == 10 * kBN) {\n    for (int i = 0; i < 64; ++i) sc[i] = kMasked;\n"
         "    return;\n  }\n"
-        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0))) return;"),
+        "  if (!((k0 + kBN > p.Sk) || (p.causal && k0 + kBN - 1 > warp_row0) ||"),
+    # the window one key too wide: the key at q - window is seen as well
+    "flash window one key too wide": (
+        FLASH, "(!W || kpos > qpos - p.window);",
+        "(!W || kpos >= qpos - p.window);"),
     "ssd skips chunk 20's state update": (
         SSD, "    if (owns) {\n      const float decay",
         "    if (owns && c != 20) {\n      const float decay"),
@@ -46,8 +51,13 @@ MUTANTS = {
         FLASH_BWD, "  w.h1 = w.h0 + group;\n", "  w.h1 = w.h0 + 1;\n"),
     # dQ leaves out key tile 5 (keys 320..383) of every row that sees it
     "flash bwd dQ skips key tile 5": (
-        FLASH_BWD, "        if (r0 >= p.Sq || (p.causal && k0 > r0 + 63)) {",
-        "        if (k0 == 5 * kRingRows || r0 >= p.Sq || (p.causal && k0 > r0 + 63)) {"),
+        FLASH_BWD, "        if (r0 >= p.Sq || (p.causal && k0 > r0 + 63) ||",
+        "        if (k0 == 5 * kRingRows || r0 >= p.Sq || (p.causal && k0 > r0 + 63) ||"),
+    # the dK/dV walk stops one q tile short of the window's end: the last
+    # queries that see a key tile's last keys leave their share out of dK, dV
+    "flash bwd window walk one q tile short": (
+        FLASH_BWD, "  const long long e = ((long long)k0 + n - 1 + p.window - 1) / rows + 1;",
+        "  const long long e = ((long long)k0 + n - 1 + p.window - 1) / rows;"),
     # a fault of the pipeline: at hd 64 the dK/dV consumers read Q and dO for
     # S^T and dP^T from the ring stage after the one their full barrier guards
     # (the barriers are kept, so the call returns; the tile is another step's,
