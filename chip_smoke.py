@@ -6,9 +6,12 @@
 
 Drives the port's main paths (``repro_torch``: serving llama3.2-1b, serving
 mamba2-1.3b, serving the MoE family (mixtral-8x7b with its sliding window,
-arctic-480b), FRED's gradient synchronisation of llama3.2-1b's gradients over a
-pod 2 x data 4 mesh in its flat, hierarchical and int8 error-feedback modes, and
-training llama3.2-1b, mamba2-1.3b and mixtral-8x7b through ``Trainer.run()``)
+arctic-480b), serving llava-next-34b (an image-patch prefix) and whisper-medium
+(encoder, cross-attention, cross caches), FRED's gradient synchronisation of
+llama3.2-1b's gradients over a pod 2 x data 4 mesh in its flat, hierarchical
+and int8 error-feedback modes, training llama3.2-1b, mamba2-1.3b and
+mixtral-8x7b through ``Trainer.run()``, and llava and whisper through
+``make_train_step``)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -34,7 +37,13 @@ Phases:
            S 8192, 32 / 8 heads of hd 128, window 4096, bf16) forward and
            backward, timed, the bounds counting only the pairs inside the
            window, the library yardstick scaled_dot_product_attention with
-           the band as a boolean mask;
+           the band as a boolean mask; whisper's shapes, non-causal (the
+           sweep: Sq 37 / Sk 1500, Sq 1500 / Sk 37, 1500 / 1500 at 16 / 16
+           heads of hd 64, and 56 / 8 heads of hd 128; timed: its
+           cross-attention B 8, Sq 448, Sk 1500 and its encoder B 8, S 1500,
+           forward and backward) and llava's training shape (B 4, S 2048, 56
+           / 8 heads of hd 128, causal), each beside its bound, its plain
+           version and scaled_dot_product_attention (or autograd through it);
            ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
@@ -58,8 +67,11 @@ Phases:
            mixtral-8x7b at 1 layer: the expert choices first (a token may
            choose other experts on the two devices only at a near-tie, gap <
            ROUTE_TIE_EPS; the flips are counted), then the FFN outputs, the
-           logits and the KV cache where the routing agrees; the
-           compressed gradient sync of the reduced llama3.2-1b tree
+           logits and the KV cache where the routing agrees; llava-next-34b
+           at 1 layer (1024 patches + 64 tokens) and whisper-medium at 2
+           encoder and 2 decoder layers (1500 frames, 64 tokens): logits, the
+           KV and cross caches, 4 decode steps; the compressed gradient sync
+           of the reduced llama3.2-1b tree
   serve    llama3.2-1b, then mamba2-1.3b, at full width and depth, bf16: 8
            requests through ``Engine.run_batch``, twice each; then
            mixtral-8x7b at full width and 16 of 32 layers, the same, and a
@@ -67,6 +79,12 @@ Phases:
            windowed kernel on the served path, decode wrapping the rolling
            cache); then arctic-480b at full width and 2 of 35 layers, the
            same 8 requests twice; one flash launch a layer per batch
+           (asserted); then, through tfm.prefill and tfm.decode_step (the
+           Engine takes text prompts only, as the JAX one), llava-next-34b
+           at full width and 30 of 60 layers (8 x (1024 patches + 1024
+           tokens), cache 4096) and whisper-medium at full width and depth
+           (8 x 224 tokens against 1500 frames, cache 448), 32 greedy tokens,
+           twice each, equal tokens; 30 and 72 flash launches a batch
            (asserted)
   sync     llama3.2-1b's full gradient tree (146 leaves, bf16, 8 replicas
            drawn on the card) through ``build_sync`` in each mode, three times
@@ -88,13 +106,22 @@ Phases:
            forward, 48 backward); then mixtral-8x7b at full width and 2 of
            32 layers the same way, 3 steps (MFU on the active parameters,
            the router's aux loss in every step; asserted: 4 flash forward,
-           2 backward a step; at S 2048 its window of 4096 cuts nothing)
+           2 backward a step; at S 2048 its window of 4096 cuts nothing);
+           then through ``make_train_step``, 3 steps on one batch:
+           llava-next-34b at full width and 2 of 60 layers (B 4 x (1024
+           patches + 1024 tokens)) and whisper-medium at full width and depth
+           (B 8, 1500 frames, 448 tokens); asserted: llava 4 flash forward
+           and 2 backward a step, whisper 144 and 72; the card-against-CPU
+           gradients above include llava at 1 layer (192 patches + 256
+           tokens, mm_proj's gradient) and whisper at 2 + 2 layers (the
+           encoder's gradients)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
            llama3.2-1b, mamba2-1.3b and mixtral-8x7b (2 layers), from
            torch.profiler; for mixtral also the device time inside its MoE
-           FFN, dispatch and combine (profiler ranges)
+           FFN, dispatch and combine (profiler ranges); then llava's prefill
+           (30 layers) and four decode steps, and whisper's train step
 
 Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
@@ -108,6 +135,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -142,11 +170,13 @@ from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
 from repro_torch.models.modules import (                      # noqa: E402
     tree_flatten, tree_map, tree_unflatten)
 from repro_torch.parallel import compress                    # noqa: E402
+from repro_torch.parallel.steps import (                     # noqa: E402
+    TrainState, _enc_fn, make_train_step)
 from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import checkpoint as ckpt             # noqa: E402
-from repro_torch.train.optim import OptimConfig              # noqa: E402
+from repro_torch.train.optim import OptimConfig, init_adam   # noqa: E402
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
@@ -173,7 +203,14 @@ SWEEP = [(1, 64, 64, 1, 1, 64), (2, 128, 128, 4, 4, 64),
          (2, 640, 640, 32, 8, 64),      # what the parity phase's prefill launches
          # ragged against the bf16 kernel's 128-row q tiles and 128-key kv tiles,
          # at each head dim (hd 80: a zero-filled second TMA box; hd 128: two boxes)
-         (1, 1000, 1000, 8, 2, 64), (1, 333, 333, 4, 4, 80), (1, 257, 257, 4, 2, 128)]
+         (1, 1000, 1000, 8, 2, 64), (1, 333, 333, 4, 4, 80), (1, 257, 257, 4, 2, 128),
+         # whisper: Sk 1500 = 11 x 128 + 92 ragged against the key tiles, Sq far
+         # below and far above it (cross-attention, and the backward's lse / D
+         # rows padded to Sq rounded up to 128), its encoder's Sq = Sk = 1500,
+         # 16 / 16 heads (a group of one) at hd 64
+         (1, 37, 1500, 16, 16, 64), (1, 1500, 37, 16, 16, 64), (1, 1500, 1500, 16, 16, 64),
+         # llava / arctic: 56 / 8 heads, a group of 7 query heads per KV head, hd 128
+         (1, 200, 330, 56, 8, 128)]
 
 
 def tol(dtype):
@@ -564,6 +601,17 @@ def window_pairs(S, window):
     return w * (w + 1) // 2 + (S - w) * w
 
 
+def attn_pairs(m):
+    """(query, key) pairs the attention of shape ``m`` computes: with a
+    window the pairs inside it, causal half of S x S, else Sq x Sk (``Sq`` /
+    ``Sk``, or both ``S``)."""
+    if m.get("window"):
+        return window_pairs(m["S"], m["window"])
+    if m["causal"]:
+        return m["S"] * m["S"] / 2
+    return m.get("Sq", m.get("S")) * m.get("Sk", m.get("S"))
+
+
 def bwd_bounds(m, *tensors):
     """(bound ms, bound_by, bound ms of the kernels' seven products): five
     products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5 times the forward's
@@ -571,10 +619,7 @@ def bwd_bounds(m, *tensors):
     against every input read once (q, k, v, o, dO, lse) and dq, dk, dv
     written once; the kernels recompute Q.K^T and dO.V^T for dQ, seven
     products."""
-    if m.get("window"):
-        one = 2 * m["B"] * m["Hq"] * window_pairs(m["S"], m["window"]) * m["hd"]
-    else:
-        one = 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / (2 if m["causal"] else 1)
+    one = 2 * m["B"] * m["Hq"] * attn_pairs(m) * m["hd"]
     t_bytes = nbytes(*tensors) / PEAK_BYTES_PER_S * 1e3
     t5, t7 = (n * one / PEAK_FLOPS[m["dtype"]] * 1e3 for n in (5, 7))
     return max(t5, t_bytes), ("operations" if t5 >= t_bytes else "bytes"), max(t7, t_bytes), 5 * one
@@ -583,15 +628,15 @@ def bwd_bounds(m, *tensors):
 def sdpa_backward_ms(m, q, k, v, do, got, attn_mask=None):
     """Yardstick only: autograd through one library call computing the same
     forward (K/V repeated over the group, as the forward's yardstick does;
-    causal, or the boolean ``attn_mask``), its dv checked against the
-    kernel's, then timed."""
+    causal or not as ``m`` says, or the boolean ``attn_mask``), its dv
+    checked against the kernel's, then timed."""
     rep = m["Hq"] // m["Hkv"]
     leaves = [t.detach().permute(0, 2, 1, 3).requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             leaves[0], leaves[1].repeat_interleave(rep, dim=1),
             leaves[2].repeat_interleave(rep, dim=1), attn_mask=attn_mask,
-            is_causal=attn_mask is None)
+            is_causal=m["causal"] and attn_mask is None)
     do_h = do.permute(0, 2, 1, 3)
     lib = torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True)
     check_close("library backward vs kernel dv", lib[2].permute(0, 2, 1, 3), got[2],
@@ -722,6 +767,130 @@ def kernels_flash_bwd(dev):
     return entry
 
 
+# whisper-medium's attention shapes, bf16, non-causal: its encoder (8
+# sequences of 1500 frames, 16 / 16 heads of hd 64) and its cross-attention
+# (448 decoder tokens, its training length, against the 1500 encoder
+# outputs); and llava-next-34b's training shape (B 4 x S 2048, 56 / 8 heads
+# of hd 128, causal: a group of 7 query heads per KV head)
+WHISPER_ENC_ATTN = dict(B=8, S=1500, Hq=16, Hkv=16, hd=64, dtype=torch.bfloat16, causal=False)
+WHISPER_CROSS_ATTN = dict(B=8, Sq=448, Sk=1500, Hq=16, Hkv=16, hd=64, dtype=torch.bfloat16,
+                          causal=False)
+LLAVA_TRAIN_ATTN = dict(B=4, S=2048, Hq=56, Hkv=8, hd=128, dtype=torch.bfloat16, causal=True)
+
+
+def attention_case(label, m, seed, dev):
+    """Forward and backward kernels at shape ``m`` (with its window, if it
+    has one): each against its plain version (the forward with a peaked and
+    a near-uniform softmax; the backward against the plain forward and
+    backward in fp32 on the same values, and twice bit-equal), timed, beside
+    the plain version and the library call (scaled_dot_product_attention,
+    and autograd through it; with a window the band as a boolean mask, which
+    it cannot skip).  Returns the forward's and the backward's readings."""
+    B, Hq, Hkv, hd, dt, causal = (m[k_] for k_ in ("B", "Hq", "Hkv", "hd", "dtype", "causal"))
+    Sq, Sk = m.get("Sq", m.get("S")), m.get("Sk", m.get("S"))
+    kw = dict(causal=causal, window=m.get("window", 0))
+    q, k, v = make_qkv(seed, B, Sq, Sk, Hq, Hkv, hd, dt, dev, qk_scale=2.0)
+    peaked = hold(f"flash_attention {label}, peaked softmax", flash_attention(q, k, v, **kw),
+                  flash_attention_plain(q, k, v, **kw), **tol(dt), row_limit=MAIN_ROW_REL_TOL)
+    q, k, v = make_qkv(seed + 1, B, Sq, Sk, Hq, Hkv, hd, dt, dev)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, **kw)
+    f_err, f_row = hold(f"flash_attention {label}", out, want, **MAIN_TOL,
+                        row_limit=MAIN_ROW_REL_TOL)
+    f_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), warmup=3, reps=15)
+    f_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), warmup=1, reps=3)
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    kr, vr = kh.repeat_interleave(Hq // Hkv, dim=1), vh.repeat_interleave(Hq // Hkv, dim=1)
+    band = band_mask(Sq, kw["window"], dev) if kw["window"] else None
+    lib_kw = dict(attn_mask=band) if kw["window"] else dict(is_causal=causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    check_close(f"library call vs plain, {label}",
+                sdpa(qh, kr, vr, **lib_kw).permute(0, 2, 1, 3), want, **MAIN_TOL)
+    f_lib_ms = cuda_ms(lambda: sdpa(qh, kr, vr, **lib_kw), warmup=3, reps=15)
+    del kr, vr, want
+    lib_name = ("with the band as a boolean attn_mask" if kw["window"] else
+                "(causal)" if causal else "(no mask)")
+    flops = 4 * B * Hq * attn_pairs(m) * hd
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    t_bytes = nbytes(q, k, v, out) / PEAK_BYTES_PER_S * 1e3
+    shape = {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m.items()}
+    fwd = {"shape": shape, "max_abs_err": f_err, "tolerance": MAIN_TOL,
+           "max_row_err_over_row_rms": f_row, "row_err_over_row_rms_limit": MAIN_ROW_REL_TOL,
+           "peaked_softmax": {"max_abs_err": peaked[0], "tolerance": tol(dt),
+                              "max_row_err_over_row_rms": peaked[1]},
+           "ms": f_ms, "plain_ms": f_plain_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9, "library_ms": f_lib_ms,
+           "library_call": f"scaled_dot_product_attention {lib_name}",
+           "tflops": flops / (f_ms * 1e-3) / 1e12}
+
+    do = make_qkv(seed + 2, B, Sq, Sq, Hq, Hq, hd, dt, dev)[2]
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    for g_name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention_bwd {label} {g_name}: two calls differ in "
+                                 f"{int((a != b).sum())} elements")
+    del again
+    # the oracle: the plain forward and backward in fp32 on the same values
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    of, lsef = flash_attention_plain(qf, kf, vf, return_lse=True, **kw)
+    want = flash_attention_bwd_plain(qf, kf, vf, of, dof, lsef, **kw)
+    del qf, kf, vf, dof, of, lsef
+    plain_g = flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    b_err = hold_grads(f"flash_attention_bwd {label}", got, want, dt, plain_g)
+    del plain_g, want
+    b_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw), warmup=3, reps=15)
+    b_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, **kw),
+                         warmup=1, reps=3)
+    b_lib_ms = sdpa_backward_ms(m, q, k, v, do, got, attn_mask=band)
+    b_bound, b_by, b7, b_flops = bwd_bounds(m, q, k, v, out, do, lse, *got)
+    bwd = {"shape": shape,
+           **dict(zip(("max_abs_err", "frobenius_rel_err", "max_row_err_over_row_rms",
+                       "plain_max_row_err_over_row_rms"), b_err)),
+           "max_abs_err_is": "over the gradient's largest magnitude",
+           "tolerance": {"atol_times_max": BWD_ATOL[dt], "rtol": BWD_RTOL[dt],
+                         "frobenius": BWD_FRO_TOL[dt], "row": BWD_ROW_TOL[dt]},
+           "oracle": "flash_attention_plain and flash_attention_bwd_plain in fp32",
+           "two_calls_bit_equal": True, "ms": b_ms, "plain_ms": b_plain_ms,
+           "bound_ms": b_bound, "bound_by": b_by, "bound_7_products_ms": b7,
+           "gflop_5_products": b_flops / 1e9, "library_ms": b_lib_ms,
+           "library_call": f"torch.autograd.grad through scaled_dot_product_attention {lib_name}",
+           "tflops": b_flops / (b_ms * 1e-3) / 1e12}
+    del q, k, v, out, lse, do, got, band
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def kernels_flash_cross(dev, fwd_main, bwd_main):
+    """The flash kernels at the shapes no other model path gives them:
+    whisper's cross-attention (non-causal, Sq 448 != Sk 1500) and encoder
+    (non-causal, S 1500 ragged against the tiles), two new entries, and
+    llava's training shape (a group of 7 at hd 128), added to the main
+    entries ``fwd_main`` / ``bwd_main``."""
+    cross_f, cross_b = attention_case("whisper cross shape", WHISPER_CROSS_ATTN, 51, dev)
+    enc_f, enc_b = attention_case("whisper encoder shape", WHISPER_ENC_ATTN, 54, dev)
+    llava_f, llava_b = attention_case("llava training shape", LLAVA_TRAIN_ATTN, 57, dev)
+    fwd_main["llava_training_shape"] = llava_f
+    bwd_main["llava_training_shape"] = llava_b
+    common = {"route": "cuda", "replaces": "src/repro/kernels/flash_attention.py:102",
+              "launches": None,
+              "launches_are": "whisper-medium's (24 encoder, 24 self- and 24 "
+                              "cross-attention launches a prefill or a step's forward)"}
+    fwd = {"name": "flash_attention_fwd_cross", **common,
+           "source": "src/repro_torch/csrc/flash_attention.cu", **cross_f,
+           "encoder_shape": enc_f}
+    bwd = {"name": "flash_attention_bwd_cross", **common,
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu", **cross_b,
+           "encoder_shape": enc_b}
+    emit({"phase": "kernels", "kernel": "flash_attention cross / encoder / llava",
+          "cross": [cross_f, cross_b], "encoder": [enc_f, enc_b],
+          "llava_training_shape": [llava_f, llava_b]})
+    return [fwd, bwd]
+
+
 # The sliding window (mixtral's): causal, ragged shapes at each head dim
 # against the kernels' tiles (forward 128 x 128 bf16, 16 x 32 fp32; backward
 # 128 / 64 bf16 hd 64 / 128, 64 x 64 hd 80, 32 x 32 fp32), windows at and
@@ -789,92 +958,16 @@ def kernels_flash_window(dev):
                 n_cases += 1
 
     m = MIXTRAL_ATTN
-    W = m["window"]
-    shape = (m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["hd"])
-    pairs = window_pairs(m["S"], W)
-    # peaked softmax (scores of std 4), as the main shape's check
-    q, k, v = make_qkv(45, *shape, m["dtype"], dev, qk_scale=2.0)
-    peaked = hold("flash_attention mixtral shape, peaked softmax",
-                  flash_attention(q, k, v, window=W), flash_attention_plain(q, k, v, window=W),
-                  **tol(m["dtype"]), row_limit=MAIN_ROW_REL_TOL)
-    # near-uniform softmax, timed
-    q, k, v = make_qkv(46, *shape, m["dtype"], dev)
-    out, lse = flash_attention(q, k, v, window=W, return_lse=True)
-    torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, window=W)
-    fwd_err, fwd_row = hold("flash_attention mixtral shape", out, want, **MAIN_TOL,
-                            row_limit=MAIN_ROW_REL_TOL)
-    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, window=W), warmup=3, reps=15)
-    fwd_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, window=W), warmup=1, reps=3)
-    band = band_mask(m["S"], W, dev)
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    rep = m["Hq"] // m["Hkv"]
-    kr, vr = kh.repeat_interleave(rep, dim=1), vh.repeat_interleave(rep, dim=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    check_close("library call (band mask) vs plain",
-                sdpa(qh, kr, vr, attn_mask=band).permute(0, 2, 1, 3), want, **MAIN_TOL)
-    fwd_lib_ms = cuda_ms(lambda: sdpa(qh, kr, vr, attn_mask=band), warmup=3, reps=15)
-    del kr, vr, want
-    flops = 4 * m["B"] * m["Hq"] * pairs * m["hd"]
-    t_ops = flops / PEAK_FLOPS[m["dtype"]] * 1e3
-    t_bytes = nbytes(q, k, v, out) / PEAK_BYTES_PER_S * 1e3
-
-    do = make_qkv(47, m["B"], m["S"], m["S"], m["Hq"], m["Hq"], m["hd"], m["dtype"], dev)[2]
-    got = flash_attention_bwd(q, k, v, out, do, lse, window=W)
-    again = flash_attention_bwd(q, k, v, out, do, lse, window=W)
-    torch.cuda.synchronize()
-    for g_name, a, b in zip(("dq", "dk", "dv"), got, again):
-        if not torch.equal(a, b):
-            raise AssertionError(f"flash_attention_bwd mixtral shape {g_name}: two calls "
-                                 f"differ in {int((a != b).sum())} elements")
-    del again
-    # the oracle: the plain forward and backward in fp32 on the same values
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    of, lsef = flash_attention_plain(qf, kf, vf, window=W, return_lse=True)
-    want = flash_attention_bwd_plain(qf, kf, vf, of, dof, lsef, window=W)
-    del qf, kf, vf, dof, of, lsef
-    plain_g = flash_attention_bwd_plain(q, k, v, out, do, lse, window=W)
-    bwd = hold_grads("flash_attention_bwd mixtral shape", got, want, m["dtype"], plain_g)
-    del plain_g, want
-    bwd_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, window=W),
-                     warmup=3, reps=15)
-    bwd_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, window=W),
-                           warmup=1, reps=3)
-    bwd_lib_ms = sdpa_backward_ms(m, q, k, v, do, got, attn_mask=band)
-    b_ms, b_by, b7_ms, b_flops = bwd_bounds(m, q, k, v, out, do, lse, *got)
-    shape_s = {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m.items()}
+    fwd, bwd = attention_case("mixtral shape", m, 45, dev)
     common = {"route": "cuda", "replaces": "src/repro/kernels/flash_attention.py:102",
-              "shape": shape_s, "launches": None, "pairs_in_window": pairs}
-    fwd_entry = {
-        "name": "flash_attention_fwd_window", **common,
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "max_abs_err": fwd_err, "tolerance": MAIN_TOL,
-        "max_row_err_over_row_rms": fwd_row, "row_err_over_row_rms_limit": MAIN_ROW_REL_TOL,
-        "peaked_softmax": {"max_abs_err": peaked[0], "tolerance": tol(m["dtype"]),
-                           "max_row_err_over_row_rms": peaked[1]},
-        "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": fwd_lib_ms,
-        "library_call": "scaled_dot_product_attention with the band as a boolean attn_mask",
-        "tflops": flops / (fwd_ms * 1e-3) / 1e12,
-    }
-    bwd_entry = {
-        "name": "flash_attention_bwd_window", **common,
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "max_abs_err": bwd[0], "max_abs_err_is": "over the gradient's largest magnitude",
-        "tolerance": {"atol_times_max": BWD_ATOL[m["dtype"]], "rtol": BWD_RTOL[m["dtype"]],
-                      "frobenius": BWD_FRO_TOL[m["dtype"]], "row": BWD_ROW_TOL[m["dtype"]]},
-        "oracle": "flash_attention_plain and flash_attention_bwd_plain in fp32",
-        "frobenius_rel_err": bwd[1], "max_row_err_over_row_rms": bwd[2],
-        "plain_max_row_err_over_row_rms": bwd[3], "two_calls_bit_equal": True,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "bound_7_products_ms": b7_ms, "library_ms": bwd_lib_ms,
-        "launches_are": "the train phase's, mixtral at B 4 x S 2048, where the window of 4096 "
-                        "cuts nothing; the window's cuts run in this entry's check at S 8192",
-        "library_call": "torch.autograd.grad through scaled_dot_product_attention with the "
-                        "band as a boolean attn_mask",
-        "tflops": b_flops / (bwd_ms * 1e-3) / 1e12,
-    }
+              "launches": None, "pairs_in_window": window_pairs(m["S"], m["window"])}
+    fwd_entry = {"name": "flash_attention_fwd_window", **common,
+                 "source": "src/repro_torch/csrc/flash_attention.cu", **fwd}
+    bwd_entry = {"name": "flash_attention_bwd_window", **common,
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu", **bwd,
+                 "launches_are": "the train phase's, mixtral at B 4 x S 2048, where the window "
+                                 "of 4096 cuts nothing; the window's cuts run in this entry's "
+                                 "check at S 8192"}
     emit({"phase": "kernels", "kernel": "flash_attention window", "cases": n_cases + 2,
           "windows": [w or "S + 7" for w in WINDOWS],
           "sweep_fwd_max_abs_err": {str(k_): v_ for k_, v_ in worst_f.items()},
@@ -882,8 +975,6 @@ def kernels_flash_window(dev):
                                                  "row_measure", "plain_row_measure"), v_))
                               for k_, v_ in worst_b.items()},
           "mixtral_shape": [fwd_entry, bwd_entry]})
-    del q, k, v, out, lse, do, got, band
-    torch.cuda.empty_cache()
     return [fwd_entry, bwd_entry]
 
 
@@ -1356,7 +1447,8 @@ def phase_kernels(dev):
     """Every kernel against its plain version, both on the card."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    return [kernels_flash(dev), kernels_flash_bwd(dev), *kernels_flash_window(dev),
+    fwd, bwd = kernels_flash(dev), kernels_flash_bwd(dev)
+    return [fwd, bwd, *kernels_flash_cross(dev, fwd, bwd), *kernels_flash_window(dev),
             kernels_ssd(dev), kernels_ssd_bwd(dev), kernels_tree(dev, gen),
             *kernels_quant(dev, gen)]
 
@@ -1387,15 +1479,29 @@ def _leaves(tree):
         yield tree
 
 
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def attention_launches(cfg):
+    """Flash-attention launches of one forward over a prompt: each attention
+    block application once; whisper's each encoder layer, and each decoder
+    layer twice (self- and cross-attention)."""
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.num_layers
+    if cfg.family in ATTN_FAMILIES:
+        return cfg.num_layers
+    return cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+
 def expected_launches(cfg):
     """Kernel launches of one prefill: flash attention on every attention
-    block application, the SSD scan on every Mamba2 layer (decode runs
-    neither: it reads the KV cache and keeps the O(1) SSM recurrence)."""
+    block application (``attention_launches``), the SSD scan on every Mamba2
+    layer (decode runs neither: it reads the KV caches and keeps the O(1) SSM
+    recurrence)."""
     none = {name: 0 for name in WRAPPERS}
-    if cfg.family in ("dense", "moe"):
-        return {**none, "flash_attention": cfg.num_layers}
-    shared = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    return {**none, "flash_attention": shared, "ssd_scan": cfg.num_layers}
+    if cfg.family in ATTN_FAMILIES:
+        return {**none, "flash_attention": attention_launches(cfg)}
+    return {**none, "flash_attention": attention_launches(cfg), "ssd_scan": cfg.num_layers}
 
 
 def expected_sync_launches(mode, n_leaves):
@@ -1412,27 +1518,55 @@ def expected_sync_launches(mode, n_leaves):
     return {name: per_leaf[mode].get(name, 0) * n_leaves for name in WRAPPERS}
 
 
-# (arch, layers, prompt length, cache length) of the parity phase
-PARITY = [("llama3.2-1b", 2, 640, 1024), ("mamba2-1.3b", 2, 300, 512),
-          ("zamba2-2.7b", 12, 300, 512)]
+def model_inputs(cfg, B, seed, patches=None):
+    """The batch entries besides the tokens: llava's patch embeddings (B,
+    ``patches`` or n_patches, d), whisper's encoder frames (B, enc_seq, d),
+    0.02 N(0, 1) as the reference's tests draw them, fp32 numpy; nothing for
+    the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"patch_embeds": (rng.standard_normal(
+            (B, patches or cfg.n_patches, cfg.d_model), np.float32) * 0.02)}
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((B, cfg.enc_seq, cfg.d_model), np.float32) * 0.02}
+    return {}
+
+
+def on(extras, where, dtype):
+    """``model_inputs``' arrays as tensors on ``where`` in ``dtype``."""
+    return {k: torch.from_numpy(a).to(device=where, dtype=dtype) for k, a in extras.items()}
+
+
+# (arch, layers, batch, prompt length, cache length) of the parity phase:
+# llava's prompt follows its 1024 patches, whisper's (2 encoder and 2
+# decoder layers) runs against 1500 encoder frames
+PARITY = [("llama3.2-1b", 2, 2, 640, 1024), ("mamba2-1.3b", 2, 2, 300, 512),
+          ("zamba2-2.7b", 12, 2, 300, 512), ("llava-next-34b", 1, 1, 64, 2048),
+          ("whisper-medium", 2, 2, 64, 128)]
 
 
 def phase_parity(dev):
     """Card (kernel path) against CPU (plain path) on the same weights."""
-    for arch, layers, S, cache in PARITY:
-        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        B, steps = 2, 4
+    for arch, layers, B, S, cache in PARITY:
+        cfg = _cut(arch, layers)
+        steps = 4
         atol, rtol = 2e-3, 2e-3   # fp32 sums in another order on the two devices
         params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
         params_cpu = tree_map(lambda t: t.cpu(), params)
         rng = np.random.default_rng(1)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
+        extras = model_inputs(cfg, B, 2)
+        enc_fn = _enc_fn(cfg, ParallelConfig())
         errs = []
         with torch.inference_mode():
             _zero_launches()
-            lg, st = tfm.prefill(params, {"tokens": toks[:, :S].to(dev)}, cfg, None, cache)
+            lg, st = tfm.prefill(params, {"tokens": toks[:, :S].to(dev),
+                                          **on(extras, dev, torch.float32)},
+                                 cfg, None, cache, enc_fn=enc_fn)
             used = _launches()
-            lc, sc = tfm.prefill(params_cpu, {"tokens": toks[:, :S]}, cfg, None, cache)
+            lc, sc = tfm.prefill(params_cpu, {"tokens": toks[:, :S],
+                                              **on(extras, "cpu", torch.float32)},
+                                 cfg, None, cache, enc_fn=enc_fn)
             if used != expected_launches(cfg):
                 raise AssertionError(f"parity {arch}: prefill launched {used}, expected "
                                      f"{expected_launches(cfg)}")
@@ -1444,8 +1578,14 @@ def phase_parity(dev):
                 lc, sc = tfm.decode_step(params_cpu, toks[:, t:t + 1], sc, cfg, None)
                 errs.append(check_close(f"parity {arch} decode step {t - S}", lg.cpu(), lc,
                                         atol, rtol))
+            if st.index != sc.index or st.index != S + steps + \
+                    extras.get("patch_embeds", np.empty((0, 0))).shape[1]:
+                raise AssertionError(f"parity {arch}: index {st.index}, {sc.index}")
             state_errs = {}
-            pairs = {"kv.k": (st.kv, sc.kv, "k"), "shared_kv.k": (st.shared_kv, sc.shared_kv, "k"),
+            pairs = {"kv.k": (st.kv, sc.kv, "k"), "kv.v": (st.kv, sc.kv, "v"),
+                     "shared_kv.k": (st.shared_kv, sc.shared_kv, "k"),
+                     "cross_kv.k": (st.cross_kv, sc.cross_kv, "k"),
+                     "cross_kv.v": (st.cross_kv, sc.cross_kv, "v"),
                      "ssm.h": (st.ssm, sc.ssm, "h"), "ssm.conv": (st.ssm, sc.ssm, "conv")}
             for name, (a, b, field) in pairs.items():
                 if a is not None:
@@ -1453,7 +1593,8 @@ def phase_parity(dev):
                                                    getattr(a, field).cpu(), getattr(b, field),
                                                    atol, rtol)
         emit({"phase": "parity", "config": f"{arch} full width, {layers} layers, fp32",
-              "batch": B, "prompt": S, "decode_steps": steps, "atol": atol, "rtol": rtol,
+              "batch": B, "prompt": S, **{k: a.shape[1] for k, a in extras.items()},
+              "decode_steps": steps, "atol": atol, "rtol": rtol,
               "prefill_launches": used, "max_abs_err": max(errs),
               "logit_abs_max": float(lc.abs().max()), "state_max_abs_err": state_errs})
     parity_moe(dev)
@@ -1669,9 +1810,12 @@ SERVE_MOE = [("mixtral-8x7b", 16, 6144), ("arctic-480b", 2, 0)]
 
 def _cut(arch, layers=None):
     """``arch``'s configuration at full width, cut to ``layers`` layers if
-    given."""
+    given (an encoder/decoder's encoder too)."""
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+    if not layers:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               n_enc_layers=layers if cfg.n_enc_layers else 0)
 
 
 def phase_serve(dev, arch, new_tokens=32, layers=None, long_prompt=0):
@@ -1771,6 +1915,90 @@ def phase_serve(dev, arch, new_tokens=32, layers=None, long_prompt=0):
     del eng, params
     torch.cuda.empty_cache()
     return used
+
+
+# the serve phase's encoder / patch cells, through tfm.prefill and
+# tfm.decode_step (the Engine, as the JAX one, takes text prompts only), as
+# (arch, layers or None, text prompt length, cache length): llava at full
+# width and 30 of its 60 layers (17.7e9 parameters, 35 GB of bf16; 60 layers,
+# 68.8 GB, leave no room for the prefill of 8 x 2048 positions and its cache),
+# its 1024 patches before each prompt; whisper at full width and depth
+# (1.01e9 parameters), 1500 encoder frames, 224-token prompts and a cache of
+# 448, its decoder's context (hf:openai/whisper-medium max_target_positions)
+SERVE_PREFIX = [("llava-next-34b", 30, 1024, 4096), ("whisper-medium", None, 224, 448)]
+
+
+def serve_prefix(dev, arch, layers, prompt, cache_len, new_tokens=32, batch=8):
+    """``arch`` (at ``layers`` layers if given) in bf16: ``batch`` greedy
+    sequences of ``prompt`` tokens after llava's patches or against
+    whisper's frames, prefill then ``new_tokens`` - 1 decode steps, twice;
+    the launches of each run (every one in the prefill) asserted, the tokens
+    equal between the runs.  Returns the second run's launches."""
+    cfg = _cut(arch, layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = tfm.init(gen, cfg, dtype=torch.bfloat16, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
+    extras = model_inputs(cfg, batch, 1)
+    batch_in = {"tokens": toks, **on(extras, dev, torch.bfloat16)}
+    enc_fn = _enc_fn(cfg, ParallelConfig())
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()                      # counts of this path only
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, st = tfm.prefill(params, batch_in, cfg, None, cache_len, enc_fn=enc_fn)
+            nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            out = [nxt]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            steps, finite = [], bool(torch.isfinite(logits).all())
+            for _ in range(new_tokens - 1):
+                ts = time.perf_counter()
+                logits, st = tfm.decode_step(params, nxt, st, cfg, None)
+                nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+                out.append(nxt)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - ts)
+                finite = finite and bool(torch.isfinite(logits).all())
+            total_s = time.perf_counter() - t0
+        launches = _launches()
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"serve {arch}: one batch launched {launches}, expected "
+                                 f"{expected_launches(cfg)}")
+        if not finite:
+            raise AssertionError(f"serve {arch}: non-finite logits")
+        want_index = prompt + new_tokens - 1 + (cfg.n_patches if cfg.family == "vlm" else 0)
+        if st.index != want_index:
+            raise AssertionError(f"serve {arch}: decode state index {st.index}, "
+                                 f"expected {want_index}")
+        runs.append({"tokens": torch.cat(out, dim=1).cpu(), "launches": launches,
+                     "prefill_ms": prefill_s * 1e3,
+                     "decode_first_step_ms": steps[0] * 1e3,
+                     "decode_step_ms_p50": statistics.median(steps[1:]) * 1e3,
+                     "decode_step_ms_max": max(steps[1:]) * 1e3,
+                     "batch_latency_s": total_s,
+                     "tokens_per_s": batch * new_tokens / total_s,
+                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        del st, logits
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        raise AssertionError(f"serve {arch}: greedy tokens differ between two runs")
+    emit({"phase": "serve", "config": cfg.name, "layers": cfg.num_layers,
+          "published_layers": get_config(arch).num_layers,
+          "encoder_layers": cfg.n_enc_layers or None, "dtype": "bfloat16",
+          "parameters": n_params, "requests": batch, "prompt": prompt,
+          **{k: a.shape[1] for k, a in extras.items()}, "new_tokens": new_tokens,
+          "cache_len": cache_len, "entry_points": "tfm.prefill, tfm.decode_step (greedy)",
+          "first_run": {k: v for k, v in runs[0].items() if k != "tokens"},
+          "second_run": {k: v for k, v in runs[1].items() if k != "tokens"},
+          "greedy_tokens_equal": True})
+    del params, batch_in
+    torch.cuda.empty_cache()
+    return runs[1]["launches"]
 
 
 def phase_sync(dev, profile=False):
@@ -1897,46 +2125,54 @@ MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 3
 # card (kernels) against CPU (plain versions) at full width, fp32, as (arch,
 # layers, B, S): the same function, products summed in another order on the
-# two devices; zamba2 at 12 layers applies its shared block twice
+# two devices; zamba2 at 12 layers applies its shared block twice; llava's
+# 256 text tokens follow TRAIN_PARITY_PATCHES patches (its 1024 would make
+# the CPU's side of one layer 4x longer), whisper's run against 1500 frames
 TRAIN_PARITY = [("llama3.2-1b", 2, 2, 256), ("mamba2-1.3b", 2, 2, 256),
-                ("zamba2-2.7b", 12, 2, 256)]
+                ("zamba2-2.7b", 12, 2, 256), ("llava-next-34b", 1, 1, 256),
+                ("whisper-medium", 2, 2, 256)]
+TRAIN_PARITY_PATCHES = 192
 GRAD_FRO_TOL = 1e-4        # ||card - cpu|| / ||cpu|| per gradient leaf
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3   # elementwise: atol x the leaf's largest magnitude
 
 
 def expected_train_launches(cfg, pcfg):
-    """Kernel launches of one train step: each attention block application's
-    flash forward once, again when block remat recomputes it in the backward,
-    and its backward once; likewise each Mamba2 layer's SSD scan."""
+    """Kernel launches of one train step: each attention's flash forward
+    (``attention_launches``) once, again when block remat recomputes it in
+    the backward, and its backward once; likewise each Mamba2 layer's SSD
+    scan."""
     remat = 1 if pcfg.remat == "none" else 2
     out = {name: 0 for name in WRAPPERS}
-    if cfg.family in ("dense", "moe"):
-        attn = cfg.num_layers
-    else:
-        attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    attn = attention_launches(cfg)
+    if cfg.family not in ATTN_FAMILIES:
         out.update(ssd_scan=cfg.num_layers * remat, ssd_scan_bwd=cfg.num_layers)
     out.update(flash_attention=attn * remat, flash_attention_bwd=attn)
     return out
 
 
-def train_flops_per_step(cfg, B, S):
+def train_flops_per_step(cfg, B, S, P=0):
     """Model FLOPs of one step, recompute not counted: 6 x the parameters
     that enter products (each attention block application's, each Mamba2
     layer's in_proj and out_proj, the head; of a MoE block the router, the
     top-k experts a token runs through and arctic's dense residual: the
-    active parameters, not the capacity's padding) x tokens, plus the
-    attention products (forward 2 x 2 x B x S^2 x Hq x hd / 2 causal, with a
-    window only the pairs inside it, three times that with the backward) and
-    three times each Mamba2 layer's SSD scan products (ssd_bound's count: the
-    causal halves of the chunk-by-chunk products, C.state^T and the state
-    update)."""
+    active parameters, not the capacity's padding) x the S positions of the
+    decoder (llava's P patch positions among them), plus the attention
+    products (forward 2 x 2 x B x S^2 x Hq x hd / 2 causal, with a window only
+    the pairs inside it, three times that with the backward) and three times
+    each Mamba2 layer's SSD scan products (ssd_bound's count: the causal
+    halves of the chunk-by-chunk products, C.state^T and the state update).
+    llava: and mm_proj over the P patches.  whisper: and the encoder's
+    blocks over its enc_seq frames (attention not causal), and each decoder
+    block's cross-attention (q and o over the S positions, k and v over the
+    frames, S x enc_seq pairs)."""
     d, hq, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    attn_block = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * f
+    attn_proj = d * hq * hd * 2 + d * hkv * hd * 2
+    attn_block = attn_proj + 3 * d * f
     if cfg.n_experts:
-        attn_block = d * hq * hd * 2 + d * hkv * hd * 2 + d * cfg.n_experts + \
+        attn_block = attn_proj + d * cfg.n_experts + \
             cfg.top_k * 3 * d * f + 3 * d * cfg.moe_dense_ff
     scan = 0
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         n_attn, matmul_params = cfg.num_layers, cfg.num_layers * attn_block
     else:
         n_attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
@@ -1951,7 +2187,13 @@ def train_flops_per_step(cfg, B, S):
     matmul_params += d * cfg.padded_vocab
     pairs = window_pairs(S, cfg.sliding_window) if cfg.sliding_window else S * S / 2
     attn = 3 * n_attn * 2 * 2 * B * pairs * hq * hd
-    return 6 * matmul_params * B * S + attn + scan
+    extra = 6 * d * d * B * P if cfg.family == "vlm" else 0
+    if cfg.family == "audio":
+        E, Le, L = cfg.enc_seq, cfg.n_enc_layers, cfg.num_layers
+        extra = 6 * Le * attn_block * B * E + 3 * Le * 2 * 2 * B * E * E * hq * hd + \
+            6 * L * (d * hq * hd * 2 * B * S + d * hkv * hd * 2 * B * E) + \
+            3 * L * 2 * 2 * B * S * E * hq * hd
+    return 6 * matmul_params * B * S + attn + scan + extra
 
 
 def train_f1(dev):
@@ -2008,20 +2250,23 @@ def train_parity(dev, arch, layers, B, S):
     """``arch`` at full width, ``layers`` layers, fp32: loss and every
     gradient on the card (kernels) against the CPU (plain versions), same
     weights and batch, block remat on both."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = _cut(arch, layers)
     pcfg = ParallelConfig(remat="block")
     params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
     batch["labels"][:, :7] = -1                      # masked labels count too
+    extras = model_inputs(cfg, B, 3, patches=TRAIN_PARITY_PATCHES)
     results = []
     for where in (dev, torch.device("cpu")):
         leaves, spec = tree_flatten(params)
         live = [p.detach().to(where).requires_grad_() for p in leaves]
         _zero_launches()
         total, metrics = tfm.loss_fn(tree_unflatten(spec, live),
-                                     {k: t.to(where) for k, t in batch.items()}, cfg, pcfg)
+                                     {**{k: t.to(where) for k, t in batch.items()},
+                                      **on(extras, where, torch.float32)}, cfg, pcfg,
+                                     enc_fn=_enc_fn(cfg, pcfg))
         total.backward()
         results.append((float(total.detach()), [p.grad.cpu() for p in live], _launches(),
                         float(metrics["tokens"])))
@@ -2047,7 +2292,8 @@ def train_parity(dev, arch, layers, B, S):
         worst_fro = max(worst_fro, fro)
     del params
     return {"config": f"{arch} full width, {cfg.num_layers} layers, fp32, block remat",
-            "batch": B, "seq": S, "masked_labels": B * 7, "launches": used,
+            "batch": B, "seq": S, **{k: a.shape[1] for k, a in extras.items()},
+            "masked_labels": B * 7, "launches": used,
             "loss_card": loss_c, "loss_cpu": loss_h, "loss_rel_err": loss_rel,
             "gradient_leaves": len(g_c), "grad_max_frobenius_rel_err": worst_fro,
             "grad_max_abs_err_over_max": worst_el,
@@ -2083,6 +2329,7 @@ def _trainer_run(dev, card, arch, steps, ckpt_dir, layers=None):
     tr.step_fn = counted_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
     _zero_launches()                              # counts of this path only
     t0 = time.perf_counter()
     state = tr.run(state)                         # ``steps`` steps, then a checkpoint
@@ -2122,11 +2369,105 @@ def _trainer_run(dev, card, arch, steps, ckpt_dir, layers=None):
         "mfu": flops / step_s / TrainerConfig().peak_flops_per_device,
         "mfu_peak_flops": TrainerConfig().peak_flops_per_device,
         "max_memory_allocated_bytes": peak,
+        "memory_allocated_at_start_bytes": allocated_at_start,
         "launches_per_step": per_step[-1], "launches": launches,
         "run_s_with_final_checkpoint": run_s,
         "checkpoint_save_s": run_s - sum(h["seconds"] for h in hist), "card": card,
     }
     return state, tr, report, launches
+
+
+# the train phase's patch / encoder cells, through make_train_step (the
+# Trainer's SyntheticLM, as the JAX one, carries no patches or frames), as
+# (arch, layers or None, batch, text tokens), 3 steps, bf16 params, fp32 master
+# and moments, block remat: llava at full width and 2 of 60 layers (2.08e9
+# parameters), 1024 patches + 1024 tokens (S 2048 split as the JAX
+# input_specs splits it); whisper at full width and depth, 1500 frames and
+# 448 tokens, its decoder's context
+TRAIN_PREFIX = [("llava-next-34b", 2, 4, 1024), ("whisper-medium", None, 8, 448)]
+TRAIN_PREFIX_STEPS = 3
+
+
+def prefix_train_setup(dev, arch, layers, B, S):
+    """(cfg, state, step, batch) of a TRAIN_PREFIX cell: the batch in numpy
+    (tokens and labels int32, the patches or frames fp32, which the step's
+    ``batch_to_device`` casts to the parameters' bf16), drawn from a seed."""
+    cfg = _cut(arch, layers)
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
+    ocfg = OptimConfig()
+    params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    state = TrainState(params, init_adam(params, ocfg))
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **model_inputs(cfg, B, 5)}
+    return cfg, pcfg, state, make_train_step(cfg, pcfg, ocfg), batch
+
+
+def train_prefix(dev, card, arch, layers, B, S, steps=TRAIN_PREFIX_STEPS):
+    """``steps`` train steps of a TRAIN_PREFIX cell on one batch: finite
+    losses, the launches of every step asserted, step time, tokens/s, MFU,
+    peak memory.  Returns the report and the run's launches."""
+    cfg, pcfg, state, step, batch = prefix_train_setup(dev, arch, layers, B, S)
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    P = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    want = expected_train_launches(cfg, pcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    _zero_launches()                              # counts of this path only
+    hist = []
+    for i in range(steps):
+        before = _launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])             # waits for the step
+        seconds = time.perf_counter() - t0
+        after = _launches()
+        used = {k: after[k] - before[k] for k in after}
+        if used != want:
+            raise AssertionError(f"train {arch}: step {i + 1} launched {used}, expected {want}")
+        hist.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                     "tokens": float(metrics["tokens"]), "seconds": seconds})
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"train {arch}: history {hist}")
+    if hist[-1]["loss"] > hist[0]["loss"] * 1.05:
+        raise AssertionError(f"train {arch}: the loss rose {[h['loss'] for h in hist]}")
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    flops = train_flops_per_step(cfg, B, P + S, P)
+    depth = "depth" if cfg.num_layers == get_config(arch).num_layers else \
+        f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+    report = {
+        "config": f"{cfg.name} full width and {depth} (d {cfg.d_model}, {cfg.n_heads} / "
+                  f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}), bf16 "
+                  f"params, fp32 master and moments, block remat, make_train_step",
+        "parameters": n_params, "batch": B, "text_tokens": S, "patches": P,
+        "frames": cfg.enc_seq if cfg.family == "audio" else 0,
+        "encoder_layers": cfg.n_enc_layers or None,
+        "decoder_positions_per_step": B * (P + S), "steps": steps,
+        "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+        "label_tokens": hist[0]["tokens"], "step_seconds": [h["seconds"] for h in hist],
+        "step_s_median_after_first": step_s,
+        "tokens_per_s": B * (P + S) / step_s,
+        "model_tflop_per_step": flops / 1e12,
+        "mfu": flops / step_s / TrainerConfig().peak_flops_per_device,
+        "mfu_peak_flops": TrainerConfig().peak_flops_per_device,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start_bytes": allocated_at_start,
+        "launches_per_step": want, "launches": _launches(), "card": card}
+    launches = report["launches"]
+    del state, step, batch
+    release()
+    return report, launches
+
+
+def release():
+    """Free what the last case left on the card: collect the reference
+    cycles that can hold its tensors (the first ``torch.utils.checkpoint``
+    call of a process keeps its caller's frames, and with them the parameters
+    and gradients of that loss, until the collector runs), then return the
+    cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train(dev, card):
@@ -2138,7 +2479,7 @@ def phase_train(dev, card):
     report["parity"] = []
     for case in TRAIN_PARITY:
         report["parity"].append(train_parity(dev, *case))
-        torch.cuda.empty_cache()
+        release()
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
@@ -2153,7 +2494,7 @@ def phase_train(dev, card):
         configs = (tr.cfg, tr.shape, tr.pcfg, tr.ocfg,
                    dataclasses.replace(tr.tcfg, steps=TRAIN_STEPS + 1))
         del state, tr
-        torch.cuda.empty_cache()
+        release()
 
         # resume: a new trainer finds the checkpoint and takes one more step
         tr2 = Trainer(*configs, device=dev)
@@ -2173,13 +2514,13 @@ def phase_train(dev, card):
         report["run"].update(resume_s=resume_s, step_after_resume=tr2.history[-1])
         del state, tr2
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-        torch.cuda.empty_cache()
+        release()
 
         state, tr, report["ssm_run"], ssm_launches = _trainer_run(
             dev, card, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, os.path.join(ckpt_root, SSM_TRAIN_ARCH))
         del state, tr
         shutil.rmtree(os.path.join(ckpt_root, SSM_TRAIN_ARCH), ignore_errors=True)
-        torch.cuda.empty_cache()
+        release()
 
         state, tr, report["moe_run"], moe_launches = _trainer_run(
             dev, card, MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, os.path.join(ckpt_root, MOE_TRAIN_ARCH),
@@ -2189,11 +2530,15 @@ def phase_train(dev, card):
         del state, tr
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    torch.cuda.empty_cache()
+    release()
+    for arch, layers, B, S in TRAIN_PREFIX:
+        report[f"{arch}_run"], prefix_launches = train_prefix(dev, card, arch, layers, B, S)
     emit(report)
     return {"flash_attention_bwd": launches["flash_attention_bwd"],
             "ssd_scan_bwd": ssm_launches["ssd_scan_bwd"],
-            "flash_attention_bwd_window": moe_launches["flash_attention_bwd"]}
+            "flash_attention_bwd_window": moe_launches["flash_attention_bwd"],
+            # the last TRAIN_PREFIX cell: whisper's
+            "flash_attention_bwd_cross": prefix_launches["flash_attention_bwd"]}
 
 
 MOE_RANGES = ("moe_ffn", "moe_dispatch", "moe_combine")
@@ -2301,17 +2646,20 @@ def _summarise(wall_ms, by_name, ranges=None):
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def phase_profile(dev, arch, layers=None):
+def phase_profile(dev, arch, layers=None, prompt=2048):
     """Optional (``--phases profile``): where one prefill and four decode
-    steps of a served model (at ``layers`` layers if given) spend their
-    device time."""
+    steps of a served model (at ``layers`` layers if given; llava's prompts
+    after its patches) spend their device time."""
     cfg = _cut(arch, layers)
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, prompt))).to(dev)
+    extras = model_inputs(cfg, 8, 1)
+    batch = {"tokens": toks, **on(extras, dev, torch.bfloat16)}
+    enc_fn = _enc_fn(cfg, ParallelConfig())
     nxt = toks[:, :1]
     with torch.inference_mode():
-        _, st = tfm.prefill(params, {"tokens": toks}, cfg, None, 4096)   # warm-up
+        _, st = tfm.prefill(params, batch, cfg, None, 4096, enc_fn=enc_fn)   # warm-up
         for _ in range(2):
             _, st = tfm.decode_step(params, nxt, st, cfg, None)
         state = [st]
@@ -2321,11 +2669,12 @@ def phase_profile(dev, arch, layers=None):
                 _, state[0] = tfm.decode_step(params, nxt, state[0], cfg, None)
         with moe_ranges():
             pre = _summarise(*_device_time_by_kernel(
-                lambda: tfm.prefill(params, {"tokens": toks}, cfg, None, 4096)))
+                lambda: tfm.prefill(params, batch, cfg, None, 4096, enc_fn=enc_fn)))
             dec = _summarise(*_device_time_by_kernel(four_steps))
     emit({"phase": "profile", "config": cfg.name, "layers": cfg.num_layers, "batch": 8,
-          "prompt": 2048, "prefill": pre, "decode_4_steps": dec})
-    del params, st, state
+          "prompt": prompt, **{k: a.shape[1] for k, a in extras.items()},
+          "prefill": pre, "decode_4_steps": dec})
+    del params, st, state, batch
     torch.cuda.empty_cache()
 
 
@@ -2352,6 +2701,26 @@ def phase_profile_train(dev, arch, layers=None):
     emit({"phase": "profile", "config": f"{cfg.name} train step, B {B} x S {S}, block remat",
           "layers": cfg.num_layers, "train_step": summary})
     del state, box, tr
+    torch.cuda.empty_cache()
+
+
+def phase_profile_prefix_train(dev, arch, layers, B, S):
+    """Optional (``--phases profile``): where one train step of a
+    TRAIN_PREFIX cell spends its device time (two steps first, unprofiled)."""
+    cfg, _, state, step, batch = prefix_train_setup(dev, arch, layers, B, S)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    box = [state]
+
+    def one_step():
+        box[0], metrics = step(box[0], batch)
+        float(metrics["loss"])
+    summary = _summarise(*_device_time_by_kernel(one_step))
+    emit({"phase": "profile", "config": f"{cfg.name} train step, B {B} x {S} tokens, block "
+                                        f"remat, make_train_step",
+          "layers": cfg.num_layers, "encoder_layers": cfg.n_enc_layers or None,
+          "train_step": summary})
+    del state, box, step, batch
     torch.cuda.empty_cache()
 
 
@@ -2416,6 +2785,9 @@ def main() -> int:
                 used = phase_serve(dev, arch, layers=layers, long_prompt=long_prompt)
                 if long_prompt:
                     launches["flash_attention_fwd_window"] = used["flash_attention"]
+            for cell in SERVE_PREFIX:
+                # the last cell, whisper's: encoder, self- and cross-attention
+                launches["flash_attention_fwd_cross"] = serve_prefix(dev, *cell)["flash_attention"]
     if "sync" in phases:
         with phase_limit("sync", seconds):
             used = phase_sync(dev, profile="profile" in phases)
@@ -2432,6 +2804,9 @@ def main() -> int:
             for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
                 phase_profile_train(dev, arch)
             phase_profile_train(dev, MOE_TRAIN_ARCH, layers=MOE_TRAIN_LAYERS)
+            phase_profile(dev, SERVE_PREFIX[0][0], layers=SERVE_PREFIX[0][1],
+                          prompt=SERVE_PREFIX[0][2])
+            phase_profile_prefix_train(dev, *TRAIN_PREFIX[1])
     emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds}})
 
     full = set(PHASES) <= set(phases)

@@ -9,8 +9,11 @@ dictionaries of **numpy** arrays, block parameters stacked on a leading
 ``{router, w_gate, w_up, w_down}`` (experts on the leading axis) and, for
 arctic, a third level ``ffn.dense.{w_gate, w_up, w_down}``; Mamba2 blocks
 (ssm, hybrid) are ``{ln, ssm}``; the hybrid's ``shared_attn`` is one unstacked
-attention block and is converted as it is.  Every level is walked the same
-way, however deep.  Both packages then
+attention block and is converted as it is, as is the vlm's ``mm_proj``.
+Audio (whisper) blocks carry ``ln_x`` and ``cross`` besides, and its
+``encoder`` holds ``blocks`` stacked ``n_enc_layers`` deep (unstacked the same
+way) and ``final_norm``.  A group the family does not have is refused as
+unexpected.  Every level is walked the same way, however deep.  Both packages then
 compute the same function, which is what the parity tests rest on.
 
 Takes numpy only and imports no JAX: the caller converts
@@ -31,7 +34,7 @@ import torch
 
 from .models.config import ModelConfig
 from .models.modules import resolve_device
-from .models.transformer import PORTED_FAMILIES
+from .models.transformer import _require_ported
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -63,26 +66,42 @@ def _leaves(tree):
         yield np.asarray(tree)
 
 
+def _unstacked_groups(cfg: ModelConfig):
+    return ("embed", "final_norm", "lm_head") + \
+        {"hybrid": ("shared_attn",), "vlm": ("mm_proj",)}.get(cfg.family, ())
+
+
+def _unstack(blocks, n_layers: int, what: str, device, dtype):
+    leads = {a.shape[0] if a.ndim else 0 for a in _leaves(blocks)}
+    if leads != {n_layers}:
+        raise ValueError(f"{what} are stacked {sorted(leads)} deep, the "
+                         f"configuration has {n_layers} layers")
+    return [_convert(_layer(blocks, l), device, dtype) for l in range(n_layers)]
+
+
 def from_jax_params(values: Dict[str, Any], cfg: ModelConfig,
                     device="cuda", dtype=torch.float32) -> Dict[str, Any]:
     """JAX value tree (numpy leaves) → repro_torch parameters."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
+    _require_ported(cfg)
     dev = resolve_device(device)
-    unstacked = ("embed", "final_norm", "lm_head") + \
-        (("shared_attn",) if cfg.family == "hybrid" else ())
-    extra = set(values) - set(unstacked) - {"blocks"}
+    unstacked = _unstacked_groups(cfg)
+    stacked = {"blocks"} | ({"encoder"} if cfg.family == "audio" else set())
+    extra = set(values) - set(unstacked) - stacked
     if extra:
         raise ValueError(f"unexpected parameter groups {sorted(extra)}")
+    missing = stacked - set(values)
+    if missing:
+        raise ValueError(f"missing parameter groups {sorted(missing)} of the "
+                         f"{cfg.family} family")
     out = {k: _convert(values[k], dev, dtype) for k in unstacked if k in values}
-    n_layers = max(cfg.num_layers, 1)
-    leads = {a.shape[0] if a.ndim else 0 for a in _leaves(values["blocks"])}
-    if leads != {n_layers}:
-        raise ValueError(f"blocks are stacked {sorted(leads)} deep, the "
-                         f"configuration has {n_layers} layers")
-    out["blocks"] = [_convert(_layer(values["blocks"], l), dev, dtype)
-                     for l in range(n_layers)]
+    out["blocks"] = _unstack(values["blocks"], max(cfg.num_layers, 1), "blocks",
+                             dev, dtype)
+    if "encoder" in stacked:
+        enc = values["encoder"]
+        out["encoder"] = {
+            "blocks": _unstack(enc["blocks"], max(cfg.n_enc_layers, 1),
+                               "encoder blocks", dev, dtype),
+            "final_norm": _convert(enc["final_norm"], dev, dtype)}
     return out
 
 
@@ -105,11 +124,15 @@ def _stack(trees):
 
 
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """repro_torch parameters → JAX value tree (numpy leaves, ``blocks``
-    stacked on a leading ``layers`` axis; bf16 tensors as float32 arrays)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
-    out = {k: _to_numpy_tree(v) for k, v in params.items() if k != "blocks"}
+    """repro_torch parameters → JAX value tree (numpy leaves, ``blocks`` and
+    the encoder's blocks stacked on a leading ``layers`` axis; bf16 tensors
+    as float32 arrays)."""
+    _require_ported(cfg)
+    out = {k: _to_numpy_tree(v) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
     out["blocks"] = _stack([_to_numpy_tree(b) for b in params["blocks"]])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": _stack([_to_numpy_tree(b) for b in enc["blocks"]]),
+                          "final_norm": _numpy(enc["final_norm"])}
     return out

@@ -1,10 +1,11 @@
-"""Transformer block layers of the dense decoder family.
+"""Transformer block layers shared by the attention families.
 
 Counterpart of ``repro.models.layers``.  Each ``init_*`` returns a dictionary
 of tensors with the JAX package's parameter names; each ``apply_*`` consumes
 it.  Blocks are polymorphic over execution mode:
 
-  * ``train``   — full-sequence causal forward, no cache.
+  * ``train``   — full-sequence forward (causal, or not for an encoder
+                  block), no cache.
   * ``prefill`` — full-sequence forward that also emits the KV cache laid
                   out into a fixed ``cache_len`` buffer.
   * ``decode``  — single-token forward reading/updating the cache.
@@ -12,21 +13,26 @@ it.  Blocks are polymorphic over execution mode:
 The KV cache of a layer is ``(k, v)`` of shape (B, cache_len, Hkv, hd); a
 sliding-window layer uses a rolling buffer of size ``window``.
 
+Cross-attention (a block with ``with_cross``, whisper's decoder): the queries
+come from the decoder, the keys and values from the encoder's output, without
+RoPE and without a mask.  In ``train`` and ``prefill`` it runs over the whole
+encoder output (``prefill`` lays its K/V into the static cross cache, Sk
+slots); at ``decode`` it reads that cache and writes nothing.
+
 Two deliberate differences from the JAX file:
 
 * On the ``train`` / ``prefill`` branch the JAX package calls
-  ``dense_attention`` for S <= 512 and ``chunked_attention`` above; the port
-  calls ``kernels.ops.attention``, so on the card every self-attention
-  prefill goes through the hand-written kernel, a sliding-window layer's
-  too (``window=cfg.sliding_window``).
+  ``dense_attention`` for S <= 512 and ``chunked_attention`` above (and for
+  cross-attention); the port calls ``kernels.ops.attention``, so on the card
+  every attention over a full sequence goes through the hand-written kernel:
+  self-attention (a sliding-window layer's too, ``window=cfg.sliding_window``),
+  an encoder block's (non-causal) and cross-attention (non-causal, Sq != Sk).
 * ``_write_cache`` writes **in place** (JAX arrays are immutable, so
   ``dynamic_update_slice`` returns a new buffer); the returned tensor is the
   buffer that was passed in.
 
 A block's FFN is the SwiGLU MLP or, for ``ffn="moe"``, the mixture of experts
 (``models.moe``), whose router aux loss ``apply_attn_block`` returns.
-Cross-attention is not ported yet and raises ``NotImplementedError``
-(ROADMAP.md, queue 1, M7c).
 """
 
 from __future__ import annotations
@@ -41,9 +47,6 @@ from .modules import dense_init, ones_init, rms_norm, swiglu, zeros_init
 from . import moe
 
 Params = Dict[str, object]
-
-_NOT_PORTED = ("{what} is not ported to repro_torch yet "
-               "(ROADMAP.md, queue 1, M7c)")
 
 
 class KVCache(NamedTuple):
@@ -78,20 +81,28 @@ def init_attention(gen: torch.Generator, cfg, dtype=torch.float32,
     return p
 
 
-def _project_qkv(p, cfg, x, kv_x, positions, *, use_rope: bool):
+def _project_q(p, cfg, x):
     B, S = x.shape[:2]
-    Sk = kv_x.shape[1]
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
-    k = kv_x @ p["wk"]
-    v = kv_x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, Hq, hd)
-    k = k.reshape(B, Sk, Hkv, hd)
-    v = v.reshape(B, Sk, Hkv, hd)
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     if "q_norm" in p:  # qwen3 qk-norm (per-head RMS)
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_qkv(p, cfg, x, kv_x, positions, *, use_rope: bool):
+    Sk = kv_x.shape[1]
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    q = _project_q(p, cfg, x)
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(kv_x.shape[0], Sk, Hkv, hd)
+    v = v.reshape(kv_x.shape[0], Sk, Hkv, hd)
+    if "k_norm" in p:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if use_rope and cfg.rope != "none":
         kv_positions = positions if kv_x is x else \
@@ -107,15 +118,24 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
                     cache_len: Optional[int] = None, kv_x=None,
                     causal: bool = True, window: int = 0,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Unified self-attention. Returns (out, new_cache).
+    """Unified attention. Returns (out, new_cache).
 
     ``cache_index`` is a host integer (the JAX package traces it): the
-    position the new token is written at.
+    position the new token is written at.  With ``kv_x`` (cross-attention)
+    the keys and values are projected from ``kv_x`` without RoPE; at
+    ``decode`` they are read from ``cache``, the static cross cache, which is
+    returned as it is.
     """
-    if kv_x is not None:
-        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
+    B, S = x.shape[:2]
+    cross = kv_x is not None
+    if mode == "decode" and cross:
+        q = _project_q(p, cfg, x)
+        out = decode_attention(q, cache.k, cache.v, cache.k.shape[1])
+        return out.reshape(B, S, -1) @ p["wo"], cache
+
     new_cache = cache
-    q, k, v = _project_qkv(p, cfg, x, x, positions, use_rope=True)
+    q, k, v = _project_qkv(p, cfg, x, kv_x if cross else x, positions,
+                           use_rope=not cross)
 
     if mode == "decode":
         # write new K/V at cache_index (rolling slot for SWA buffers)
@@ -201,35 +221,50 @@ def apply_mlp(p, x):
 def init_attn_block(gen: torch.Generator, cfg, dtype=torch.float32,
                     device="cuda", with_cross: bool = False,
                     ffn: str = "mlp") -> Params:
-    if with_cross:
-        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
     kw = dict(dtype=dtype, device=device)
-    return {
+    p = {
         "ln1": ones_init((cfg.d_model,), **kw),
         "attn": init_attention(gen, cfg, **kw),
         "ln2": ones_init((cfg.d_model,), **kw),
-        "ffn": (moe.init_moe if ffn == "moe" else init_mlp)(gen, cfg, **kw),
     }
+    if with_cross:
+        p["ln_x"] = ones_init((cfg.d_model,), **kw)
+        p["cross"] = init_attention(gen, cfg, **kw)
+    p["ffn"] = (moe.init_moe if ffn == "moe" else init_mlp)(gen, cfg, **kw)
+    return p
 
 
 def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
                      cache: Optional[KVCache] = None,
                      cache_index: Optional[int] = None,
-                     cache_len: Optional[int] = None, causal=True):
+                     cache_len: Optional[int] = None,
+                     cross_cache: Optional[KVCache] = None, enc_out=None,
+                     causal=True):
     """Returns (x, new_cache, new_cross_cache, aux_loss), the JAX package's
-    4-tuple: the cross cache is always None here (cross-attention raises),
-    aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP block)."""
-    if "cross" in p:
-        raise NotImplementedError(_NOT_PORTED.format(what="cross-attention"))
+    4-tuple.  A block with cross-attention reads ``enc_out`` (train, prefill;
+    prefill returns the new cross cache) or ``cross_cache`` (decode; returned
+    as it is); aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP
+    block)."""
     h, new_cache = apply_attention(
         p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
         positions=positions, mode=mode, cache=cache, cache_index=cache_index,
         cache_len=cache_len, causal=causal, window=cfg.sliding_window)
     x = x + h
+    new_cross = cross_cache
+    if "cross" in p:
+        xq = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            hx, _ = apply_attention(p["cross"], cfg, pcfg, xq, positions=positions,
+                                    mode="decode", cache=cross_cache, kv_x=x)
+        else:
+            hx, new_cross = apply_attention(
+                p["cross"], cfg, pcfg, xq, positions=positions, mode=mode,
+                cache_len=enc_out.shape[1], kv_x=enc_out, causal=False)
+        x = x + hx
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts and "router" in p["ffn"]:
         ff, aux = moe.moe_ffn(p["ffn"], y, cfg)
     else:
         ff = apply_mlp(p["ffn"], y)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ff, new_cache, None, aux
+    return x + ff, new_cache, new_cross, aux

@@ -1,16 +1,27 @@
-"""Decoder-only LM: the dense family (llama / qwen / chatglm), the
+"""The LM of every family: the dense family (llama / qwen / chatglm), the
 mixture-of-experts family (mixtral / arctic), the attention-free SSM stack
-(mamba2) and the hybrid (zamba2).
+(mamba2), the hybrid (zamba2), the VLM (llava) and the audio encoder/decoder
+(whisper).
 
 Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers on a leading ``layers`` axis and runs them with ``lax.scan``; here
 ``params["blocks"]`` is a list with one dictionary per layer and the stack is
-a Python loop.  The other families (vlm, audio) raise
-``NotImplementedError`` until their slice is ported.  ``loss_fn`` trains the
-four families; on a CUDA tensor its gradient goes through the flash-attention
-and SSD-scan backward kernels.  A MoE block is an attention block whose FFN is
-``models.moe.moe_ffn``; its router aux loss is summed over the layers into
-``loss_fn``'s ``aux_loss``.
+a Python loop.  ``loss_fn`` trains every family; on a CUDA tensor its
+gradient goes through the flash-attention and SSD-scan backward kernels.  A
+MoE block is an attention block whose FFN is ``models.moe.moe_ffn``; its
+router aux loss is summed over the layers into ``loss_fn``'s ``aux_loss``.
+
+VLM (llava): ``params["mm_proj"]`` (d, d) projects the batch's precomputed
+``patch_embeds`` (B, P, d) into a prefix of the token embeddings; positions
+run over P + S, the labels of the patch positions are masked, and a prefill's
+``index`` counts the patches.  Without ``patch_embeds`` the model is a text LM.
+
+Audio (whisper): ``params["encoder"]`` (``models.whisper``) encodes the
+batch's ``frames`` (B, enc_seq, d) through ``enc_fn(params, batch)``, which
+``loss_fn`` and ``prefill`` take as the JAX functions do
+(``parallel.steps._enc_fn`` makes it); every decoder block cross-attends to
+the encoder's output, and the decode state keeps each layer's static cross
+cache in ``cross_kv``.  Without ``enc_fn`` they raise a ``ValueError``.
 
 Hybrid (zamba2) structure, as in the JAX package: ``num_layers`` Mamba2
 blocks; after every ``attn_every`` of them, one *shared* attention block
@@ -45,8 +56,9 @@ from .layers import KVCache, apply_attn_block, init_attn_block
 from .modules import (dense_init, embed_init, ones_init, resolve_device,
                       rms_norm, softmax_cross_entropy)
 from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_forward
+from .whisper import init_encoder
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class DecodeState(NamedTuple):
@@ -54,16 +66,15 @@ class DecodeState(NamedTuple):
     kv: Any            # dense / moe: KVCache of (L, B, S_cache, Hkv, hd) tensors
     ssm: Any           # ssm / hybrid: SSMState of (L, ...) stacked tensors
     shared_kv: Any     # hybrid: KVCache of (groups, B, S_cache, Hkv, hd)
-    cross_kv: Any      # enc-dec static cross caches (not ported yet: None)
+    cross_kv: Any      # audio: KVCache of (L, B, enc_seq, Hkv, hd), static
     index: int         # next write position / number of tokens seen (host int)
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet: only {', '.join(PORTED_FAMILIES)} are "
-            "(ROADMAP.md, queue 1)")
+            f"unknown model family {cfg.family!r} ({cfg.name}); the port "
+            f"runs {', '.join(PORTED_FAMILIES)}")
     if cfg.family == "hybrid" and (cfg.attn_every < 1 or
                                    cfg.num_layers % cfg.attn_every):
         raise ValueError(f"hybrid: num_layers {cfg.num_layers} must be a "
@@ -113,8 +124,13 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
             params["shared_attn"] = init_attn_block(gen, cfg, **kw)
     else:
         ffn = "moe" if cfg.n_experts else "mlp"
-        params["blocks"] = [init_attn_block(gen, cfg, ffn=ffn, **kw)
+        params["blocks"] = [init_attn_block(gen, cfg, ffn=ffn,
+                                            with_cross=cfg.family == "audio", **kw)
                             for _ in range(max(cfg.num_layers, 1))]
+    if cfg.family == "vlm":
+        params["mm_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), **kw)
+    if cfg.family == "audio":
+        params["encoder"] = init_encoder(gen, cfg, **kw)
     return params
 
 
@@ -123,13 +139,27 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
 # --------------------------------------------------------------------------
 
 def _embed_inputs(params, cfg, batch):
-    """Token embedding.  Returns (x, positions)."""
+    """Token (+ patch) embedding.  Returns (x, positions)."""
     tokens = batch["tokens"]
     x = params["embed"][tokens]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype) @ params["mm_proj"]
+        x = torch.cat([pe, x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     return x, positions
+
+
+def _encode(params, batch, cfg, enc_fn):
+    """The encoder's output (audio), or None."""
+    if cfg.family != "audio":
+        return None
+    if enc_fn is None:
+        raise ValueError(f"{cfg.name} is an encoder/decoder: pass enc_fn, which "
+                         f"encodes batch['frames'] (parallel.steps._enc_fn); "
+                         f"without the encoder there is nothing to cross-attend to")
+    return enc_fn(params, batch)
 
 
 def _head(params, cfg):
@@ -152,9 +182,11 @@ def _maybe_remat(fn, pcfg: ParallelConfig):
 # training loss
 # --------------------------------------------------------------------------
 
-def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None):
+def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
+            enc_fn=None):
     """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
-    tensors (-1 = masked).  Returns ``(total, {"loss", "aux_loss",
+    tensors (-1 = masked), plus ``patch_embeds`` (vlm) or ``frames`` (audio,
+    encoded by ``enc_fn``).  Returns ``(total, {"loss", "aux_loss",
     "tokens"})`` as fp32 scalars; ``total`` is what the gradient is taken of,
     the metrics are detached from the graph.
     On a CUDA tensor every self-attention goes through the flash-attention
@@ -169,9 +201,11 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     _require_ported(cfg)
     pcfg = pcfg or ParallelConfig()
     x, positions = _embed_inputs(params, cfg, batch)
+    enc_out = _encode(params, batch, cfg, enc_fn)
 
-    def attn(h, bp):
-        out = apply_attn_block(bp, cfg, pcfg, h, positions=positions, mode="train")
+    def attn(h, bp, enc_out=None):
+        out = apply_attn_block(bp, cfg, pcfg, h, positions=positions, mode="train",
+                               enc_out=enc_out)
         return out[0], out[3]
     attn = _maybe_remat(attn, pcfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -187,11 +221,16 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
                 aux = aux + a
     else:
         for bp in params["blocks"]:
-            x, a = attn(x, bp)
+            x, a = attn(x, bp, enc_out)
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
-    loss, count = softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        # image positions don't predict tokens
+        P = batch["patch_embeds"].shape[1]
+        labels = torch.cat([labels.new_full((labels.shape[0], P), -1), labels], dim=1)
+    loss, count = softmax_cross_entropy(logits, labels, cfg.vocab_size)
     total = loss + cfg.router_aux_weight * aux
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": count}
 
@@ -225,7 +264,7 @@ def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
     in one stacked buffer, as the JAX package's scan stacks them (SSM states
     in fp32, the rest in ``dtype``)."""
     L = cfg.num_layers
-    kv = ssm = shared = None
+    kv = ssm = shared = cross = None
     if _is_ssm(cfg):
         one = init_ssm_state(cfg, batch, dtype, device=device)
         ssm = SSMState(*(t.new_zeros((L, *t.shape)) for t in one))
@@ -234,7 +273,9 @@ def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
                                  dtype, device)
     else:
         kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device)
-    return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=None,
+        if cfg.family == "audio":
+            cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device)
+    return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=cross,
                        index=0)
 
 
@@ -269,10 +310,14 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
-            cache_len: int) -> Tuple[torch.Tensor, DecodeState]:
-    """Run the prompt; return (last-token logits (B, V), DecodeState)."""
+            cache_len: int, enc_fn=None) -> Tuple[torch.Tensor, DecodeState]:
+    """Run the prompt (after the patches, for a vlm batch with
+    ``patch_embeds``; against the encoded ``frames`` for audio, through
+    ``enc_fn``); return (last-token logits (B, V), DecodeState).  The state's
+    ``index`` counts the patches too."""
     _require_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
+    enc_out = _encode(params, batch, cfg, enc_fn)
     B, S = x.shape[:2]
     state = _state_buffers(cfg, B, cache_len, x.dtype, x.device)._replace(index=S)
     if _is_ssm(cfg):
@@ -280,10 +325,14 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
                        state.shared_kv, mode="prefill", cache_len=cache_len)
     else:
         for l, bp in enumerate(params["blocks"]):
-            x, kvl, _, _ = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
-                                            mode="prefill", cache_len=cache_len)
+            x, kvl, xkvl, _ = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
+                                               mode="prefill", cache_len=cache_len,
+                                               enc_out=enc_out)
             state.kv.k[l].copy_(kvl.k)
             state.kv.v[l].copy_(kvl.v)
+            if xkvl is not None:
+                state.cross_kv.k[l].copy_(xkvl.k)
+                state.cross_kv.v[l].copy_(xkvl.v)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits[:, 0], state
@@ -304,10 +353,12 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                        state.shared_kv, mode="decode", cache_index=state.index)
     else:
         for l, bp in enumerate(params["blocks"]):
+            cross = (KVCache(state.cross_kv.k[l], state.cross_kv.v[l])
+                     if state.cross_kv is not None else None)
             x = apply_attn_block(
                 bp, cfg, pcfg, x, positions=positions, mode="decode",
                 cache=KVCache(state.kv.k[l], state.kv.v[l]),
-                cache_index=state.index)[0]
+                cache_index=state.index, cross_cache=cross)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits[:, 0], state._replace(index=state.index + 1)

@@ -13,7 +13,10 @@ backward kernel), then AdamW.  The parameters and the
 optimizer state are updated in place (``train.optim``), so the returned
 ``TrainState`` holds the tensors of the one passed in.  Metrics, as in the
 JAX step: ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``, ``lr`` (0-d
-tensors; reading one waits for the step).
+tensors; reading one waits for the step).  A vlm batch carries
+``patch_embeds`` (B, n_patches, d) and its ``tokens`` / ``labels`` the text
+after them; an audio batch carries ``frames`` (B, enc_seq, d), which the step
+encodes through ``_enc_fn``, as the JAX ``make_train_setup`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as tfm
+from ..models import whisper
 from ..models.config import ModelConfig, ParallelConfig
 from ..models.modules import tree_flatten, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, adam_update
@@ -34,12 +38,27 @@ class TrainState(NamedTuple):
     opt: AdamState
 
 
-def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays or tensors (token ids, labels) as int64 tensors
-    on ``device``."""
+INTEGER_INPUTS = ("tokens", "labels")
+
+
+def batch_to_device(batch: Dict[str, Any], device, dtype: torch.dtype
+                    ) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as tensors on ``device``: the token
+    ids and labels as int64, the embeddings (``patch_embeds``, ``frames``) in
+    ``dtype``, the parameters' dtype, as the JAX ``input_specs`` gives them the
+    compute dtype."""
     return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
-                else v).to(device=device, dtype=torch.int64)
+                else v).to(device=device,
+                           dtype=torch.int64 if k in INTEGER_INPUTS else dtype)
             for k, v in batch.items()}
+
+
+def _enc_fn(cfg: ModelConfig, pcfg: ParallelConfig):
+    """The encoder of an audio model as ``loss_fn`` / ``prefill`` take it, or
+    None for the other families."""
+    if cfg.family != "audio":
+        return None
+    return lambda p, b: whisper.encode(p, b, cfg, pcfg)
 
 
 def make_train_step(cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
@@ -48,13 +67,15 @@ def make_train_step(cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     pcfg = pcfg or ParallelConfig()
     ocfg = ocfg or OptimConfig()
+    enc_fn = _enc_fn(cfg, pcfg)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         leaves, spec = tree_flatten(state.params)
         # the same storage, as leaves of a fresh autograd graph
         live = [p.detach().requires_grad_() for p in leaves]
-        batch = batch_to_device(batch, leaves[0].device)
-        total, metrics = tfm.loss_fn(tree_unflatten(spec, live), batch, cfg, pcfg)
+        batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
+        total, metrics = tfm.loss_fn(tree_unflatten(spec, live), batch, cfg, pcfg,
+                                     enc_fn=enc_fn)
         total.backward()
         grads = [p.grad for p in live]
         del live, total

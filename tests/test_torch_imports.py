@@ -49,7 +49,8 @@ def test_the_walk_sees_the_whole_port():
             "ssd_scan.py", "mamba2_1_3b.py", "zamba2_2_7b.py", "quant8.py",
             "reduce_tree.py", "compress.py", "collectives.py", "mesh.py",
             "optim.py", "steps.py", "data.py", "checkpoint.py", "train_loop.py",
-            "moe.py", "mixtral_8x7b.py", "arctic_480b.py"} <= names
+            "moe.py", "mixtral_8x7b.py", "arctic_480b.py", "whisper.py",
+            "llava_next_34b.py", "whisper_medium.py"} <= names
     assert len(MODULES) >= 20
 
 

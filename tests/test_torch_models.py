@@ -24,6 +24,7 @@ from repro.models import attention as jatt
 from repro.models import layers as jlayers
 from repro.models import modules as jmod
 from repro.models import transformer as jtfm
+from repro.models import whisper as jwhisper
 from repro.models.config import ParallelConfig as JParallelConfig
 
 from repro_torch.configs.registry import (ARCH_IDS, PORTED_ARCH_IDS,
@@ -33,6 +34,7 @@ from repro_torch.models import attention as att
 from repro_torch.models import layers, modules, moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig, ParallelConfig
+from repro_torch.parallel.steps import _enc_fn
 
 FN_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-3)
@@ -77,32 +79,45 @@ def test_config_copy_equals_jax_config(arch):
 
 
 def test_registry_says_what_is_not_ported():
-    """The families still to come (vlm: llava, audio: whisper) raise; the
-    MoE family (arctic, mixtral) is ported."""
-    assert set(all_configs()) == set(PORTED_ARCH_IDS)
-    assert set(ARCH_IDS) - set(PORTED_ARCH_IDS) == {"llava-next-34b", "whisper-medium"}
-    assert {"arctic-480b", "mixtral-8x7b"} <= set(PORTED_ARCH_IDS)
-    for arch in set(ARCH_IDS) - set(PORTED_ARCH_IDS):
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """The name is historical (kept so that the test's ID stays): every id
+    of the JAX package is ported now, llava-next-34b (vlm) and
+    whisper-medium (audio) last; an unknown id still raises."""
+    assert set(all_configs()) == set(PORTED_ARCH_IDS) == set(ARCH_IDS)
+    assert len(PORTED_ARCH_IDS) == len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
 
 def test_other_families_raise_not_implemented():
-    """The name is historical (kept so that the test's ID stays): the vlm
-    family and cross-attention still raise, the MoE family now initialises
-    (an expert FFN in every block) and runs a forward."""
+    """The name is historical (kept so that the test's ID stays): the test
+    pinned the refusal of the families still to come.  Now the MoE family
+    initialises (an expert FFN in every block) and runs a forward, the vlm
+    family initialises its patch projection and runs one over a patch
+    prefix, a block with cross-attention initialises and runs, and an
+    unknown family still raises."""
     moe = dataclasses.replace(get_config("llama3.2-1b").reduced(),
                               family="moe", n_experts=4, top_k=2)
-    vlm = dataclasses.replace(get_config("llama3.2-1b").reduced(), family="vlm")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfm.init(0, vlm, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfm.init_decode_state(vlm, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        layers.init_attn_block(torch.Generator(), moe, device="cpu",
-                               with_cross=True)
+    vlm = dataclasses.replace(get_config("llama3.2-1b").reduced(), family="vlm",
+                              n_patches=3)
+    pv = tfm.init(0, vlm, device="cpu")
+    assert tuple(pv["mm_proj"].shape) == (vlm.d_model, vlm.d_model)
+    lg, st = tfm.prefill(pv, {"tokens": torch.arange(5)[None],
+                              "patch_embeds": torch.randn(1, 3, vlm.d_model) * 0.02},
+                         vlm, None, 16)
+    assert st.index == 8 and bool(torch.isfinite(lg).all())
+    assert tfm.init_decode_state(vlm, 1, 8, device="cpu").cross_kv is None
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        tfm.init(0, dataclasses.replace(vlm, family="diffusion"), device="cpu")
+    blk = layers.init_attn_block(torch.Generator(), moe, device="cpu", with_cross=True)
+    assert {"ln_x", "cross"} <= set(blk)
+    x = torch.randn(1, 4, moe.d_model)
+    y, _, new_cross, _ = layers.apply_attn_block(
+        blk, moe, None, x, positions=torch.arange(4)[None], mode="prefill", cache_len=8,
+        enc_out=torch.randn(1, 7, moe.d_model))
+    assert tuple(new_cross.k.shape) == (1, 7, moe.n_kv_heads, moe.head_dim)
+    assert bool(torch.isfinite(y).all())
     p = tfm.init(0, moe, device="cpu")
     assert set(p["blocks"][0]["ffn"]) == {"router", "w_gate", "w_up", "w_down"}
     assert tuple(p["blocks"][0]["ffn"]["w_gate"].shape) == (4, moe.d_model, moe.d_ff)
@@ -186,6 +201,17 @@ def test_init_has_the_reference_parameter_names_and_shapes():
         if cfg.family == "hybrid":         # one unstacked shared block
             assert {k: tuple(w.shape) for k, w in p["shared_attn"]["attn"].items()} == \
                 {k: w.shape for k, w in jv["shared_attn"]["attn"].items()}
+        if cfg.family == "vlm":
+            assert tuple(p["mm_proj"].shape) == jv["mm_proj"].shape
+        if cfg.family == "audio":          # the encoder: its own stack and norm
+            enc_j = {jax.tree_util.keystr(k): v.shape[1:] for k, v in
+                     jax.tree_util.tree_flatten_with_path(jv["encoder"]["blocks"])[0]}
+            flat_t.clear()
+            walk(p["encoder"]["blocks"][0], "")
+            assert flat_t == enc_j
+            assert len(p["encoder"]["blocks"]) == cfg.n_enc_layers
+            assert tuple(p["encoder"]["final_norm"].shape) == \
+                jv["encoder"]["final_norm"].shape
 
 
 # --------------------------------------------------------------------------
@@ -361,14 +387,31 @@ def converted(arch, seed=0, **overrides):
     return jcfg, cfg, jv, tp
 
 
+def frames_for(cfg, B, seed=7):
+    """whisper's encoder frames as ``tests/test_models.py`` draws them (0.02
+    N(0, 1)), as a batch entry for both packages, and each package's
+    ``enc_fn``; nothing for the other families."""
+    if cfg.family != "audio":
+        return {}, {}, None, None
+    fr = rnd((B, cfg.enc_seq, cfg.d_model), seed, 0.02)
+    jcfg = j_get_config(cfg.name).reduced()
+    return ({"frames": J(fr)}, {"frames": T(fr)},
+            lambda p, b: jwhisper.encode(p, b, jcfg, JPCFG), _enc_fn(cfg, ParallelConfig()))
+
+
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_prefill_and_decode_logits_match_jax(arch):
+    """Text prompts (llava without patches is a text LM, in both packages);
+    whisper's prompts run against encoded frames, its cross caches held
+    too."""
     jcfg, cfg, jv, tp = converted(arch)
     B, S0, steps, cache = 2, 16, 4, 32
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S0 + steps))
-    jl, js = jtfm.prefill(jv, {"tokens": J(toks[:, :S0])}, jcfg, JPCFG, cache)
-    tl, ts = tfm.prefill(tp, {"tokens": T(toks[:, :S0])}, cfg, ParallelConfig(),
-                         cache)
+    jfr, tfr, jenc, tenc = frames_for(cfg, B)
+    jl, js = jtfm.prefill(jv, {"tokens": J(toks[:, :S0]), **jfr}, jcfg, JPCFG, cache,
+                          enc_fn=jenc)
+    tl, ts = tfm.prefill(tp, {"tokens": T(toks[:, :S0]), **tfr}, cfg, ParallelConfig(),
+                         cache, enc_fn=tenc)
     assert tuple(tl.shape) == (B, cfg.padded_vocab) and ts.index == S0
     np.testing.assert_allclose(as_np(tl), as_np(jl), **MODEL_TOL)
     assert_state_close(ts, js)
@@ -382,8 +425,10 @@ def test_prefill_and_decode_logits_match_jax(arch):
 
 def assert_state_close(ts, js):
     """Every buffer of the decode state that the family has: the KV cache,
-    the SSM states and conv lags, the hybrid's shared-block caches."""
-    for name, fields in (("kv", "kv"), ("ssm", "h conv"), ("shared_kv", "kv")):
+    the SSM states and conv lags, the hybrid's shared-block caches, the
+    audio decoder's cross caches."""
+    for name, fields in (("kv", "kv"), ("ssm", "h conv"), ("shared_kv", "kv"),
+                         ("cross_kv", "kv")):
         t, j = getattr(ts, name), getattr(js, name)
         assert (t is None) == (j is None), name
         if t is not None:
@@ -430,6 +475,7 @@ def test_decode_equals_prefill_inside_the_port(arch, monkeypatch):
     _, cfg, _, tp = converted(arch, seed=3)
     B, S, S0, cache = 2, 20, 16, 32
     toks = T(np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)))
+    _, fr, _, enc = frames_for(cfg, B)      # whisper: the same frames throughout
     drops = count_drops(monkeypatch)
     if cfg.n_experts:
         tfm.prefill(tp, {"tokens": toks}, cfg, None, cache)
@@ -437,13 +483,15 @@ def test_decode_equals_prefill_inside_the_port(arch, monkeypatch):
         dropped_at_default = list(drops)
         cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
         drops.clear()
-    logits, state = tfm.prefill(tp, {"tokens": toks[:, :S0]}, cfg, None, cache)
+    logits, state = tfm.prefill(tp, {"tokens": toks[:, :S0], **fr}, cfg, None, cache,
+                                enc_fn=enc)
     outs = [logits]
     for t in range(S0, S):
         lg, state = tfm.decode_step(tp, toks[:, t:t + 1], state, cfg, None)
         outs.append(lg)
     for t, lg in zip(range(S0, S + 1), outs):
-        ref, _ = tfm.prefill(tp, {"tokens": toks[:, :t]}, cfg, None, cache)
+        ref, _ = tfm.prefill(tp, {"tokens": toks[:, :t], **fr}, cfg, None, cache,
+                             enc_fn=enc)
         np.testing.assert_allclose(as_np(lg), as_np(ref), atol=2e-3, rtol=2e-2)
     assert sum(drops) == 0, drops
     if cfg.n_experts:
@@ -512,13 +560,16 @@ def test_untied_head_is_used_when_embeddings_are_not_tied():
 
 
 def test_from_jax_params_rejects_what_it_cannot_convert():
+    """``mm_proj`` stays unexpected on a dense configuration.  The audio
+    case once pinned the converter's refusal of the family; now the family
+    converts, and a tree without its encoder is refused as such."""
     _, cfg, jv, _ = converted("llama3.2-1b")
     vals = jax.tree.map(np.asarray, jv)
     with pytest.raises(ValueError, match="stacked"):
         from_jax_params(vals, dataclasses.replace(cfg, num_layers=3), device="cpu")
     with pytest.raises(ValueError, match="unexpected"):
         from_jax_params({**vals, "mm_proj": np.zeros((2, 2))}, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="encoder"):
         from_jax_params(vals, dataclasses.replace(cfg, family="audio"), device="cpu")
     bf = from_jax_params(vals, cfg, device="cpu", dtype=torch.bfloat16)
     assert bf["blocks"][1]["attn"]["wq"].dtype == torch.bfloat16

@@ -42,7 +42,13 @@ def engines(arch="llama3.2-1b", seed=0, max_batch=4, cache_len=64):
 PROMPTS = [[1, 2, 3, 4, 5, 6, 7], [9, 8], [11, 12, 13, 14], [200]]
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+# every ported id that the JAX engine serves: it runs text prompts only, so
+# llava is served as a text LM and whisper, which needs its encoder's frames,
+# not at all (test_engine_refuses_whisper_without_its_encoder)
+ENGINE_ARCH_IDS = [a for a in PORTED_ARCH_IDS if a != "whisper-medium"]
+
+
+@pytest.mark.parametrize("arch", ENGINE_ARCH_IDS)
 def test_greedy_tokens_equal_jax_engine_with_left_padding(arch):
     je, te, cfg = engines(arch)
     jdone = je.run_batch([JRequest(uid=i, prompt=p, max_new_tokens=6)
@@ -56,6 +62,17 @@ def test_greedy_tokens_equal_jax_engine_with_left_padding(arch):
         assert r.latency_s > 0
     assert len(te.decode_step_s) == len(je.decode_step_s) == 5
     assert te.prefill_s > 0 and te.nonfinite_logit_rows == 0
+
+
+def test_engine_refuses_whisper_without_its_encoder():
+    """The engine carries no frames (nor does the JAX one), so an
+    encoder/decoder cannot be served through it: the prefill says that the
+    encoder is missing before any decode step."""
+    cfg = get_config("whisper-medium").reduced()
+    te = Engine(tfm.init(0, cfg, device="cpu"), cfg,
+                ecfg=EngineConfig(max_batch=2, cache_len=32), device="cpu")
+    with pytest.raises(ValueError, match="enc_fn"):
+        te.run_batch([Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)])
 
 
 def test_left_padding_is_attended_to_like_the_reference():
