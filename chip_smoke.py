@@ -11,7 +11,9 @@ arctic-480b), serving llava-next-34b (an image-patch prefix) and whisper-medium
 llama3.2-1b's gradients over a pod 2 x data 4 mesh in its flat, hierarchical
 and int8 error-feedback modes, training llama3.2-1b, mamba2-1.3b and
 mixtral-8x7b through ``Trainer.run()``, and llava and whisper through
-``make_train_step``)
+``make_train_step``, and the multi-rank layer with every rank stacked on the
+card: mixtral's and arctic's MoE layers with their experts over data 4, and
+llama3.2-1b as a 4-stage GPipe pipeline)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -115,6 +117,18 @@ Phases:
            gradients above include llava at 1 layer (192 patches + 256
            tokens, mm_proj's gradient) and whisper at 2 + 2 layers (the
            encoder's gradients)
+  parallel every rank of a StackedMesh on the card: mixtral-8x7b's MoE layer
+           at full width with its experts over data 4 (moe_ep_ffn_fn on the
+           placed experts and batch, B 4 x S 2048, bf16) against
+           moe_ffn(n_groups=4): outputs, aux and the gradients of x and of
+           every weight through the inverse exchanges; arctic-480b's layer
+           (128 experts, 32 a rank, its dense residual) forward; llama3.2-1b
+           at full width and depth as 4 GPipe stages of 4 blocks
+           (pipeline_fn, 8 microbatches of 1 x 2048, block remat inside a
+           stage, the embedding and the head with its loss outside) against
+           sequential_reference of the same stage function: output, loss and
+           every parameter's gradient, 256 flash forward and 128 backward
+           launches each (asserted); each timed in turns, with its peak memory
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -127,7 +141,8 @@ Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
 gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
-path); the last line is ``{"ok": true, "device": {...}}``.
+path; the flash kernels also their launches in the pipeline); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -167,11 +182,15 @@ from repro_torch.models import moe                           # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
+from repro_torch.models.layers import apply_attn_block      # noqa: E402
 from repro_torch.models.modules import (                      # noqa: E402
-    tree_flatten, tree_map, tree_unflatten)
+    rms_norm, softmax_cross_entropy, tree_flatten, tree_map, tree_unflatten)
 from repro_torch.parallel import compress                    # noqa: E402
+from repro_torch.parallel.pipeline import (                  # noqa: E402
+    pipeline_fn, sequential_reference, stack_stages)
+from repro_torch.parallel.sharding import Ruleset, shard_leaf  # noqa: E402
 from repro_torch.parallel.steps import (                     # noqa: E402
-    TrainState, _enc_fn, make_train_step)
+    TrainState, _enc_fn, make_train_step, moe_ep_ffn_fn)
 from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
@@ -183,13 +202,13 @@ from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train")
+PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel")
 # Wall-clock limit of each phase in seconds, several times its time on an H100
 # (the `phase_seconds` line).  A phase past its limit (a kernel that never
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
-                 "sync": 300, "train": 600, "profile": 300}
+                 "sync": 300, "train": 600, "parallel": 240, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -2541,6 +2560,217 @@ def phase_train(dev, card):
             "flash_attention_bwd_cross": prefix_launches["flash_attention_bwd"]}
 
 
+# the parallel phase: every rank of a StackedMesh on the one card.  Expert
+# parallelism over data 4 at full width, one MoE layer, B 4 x S 2048 bf16, as
+# (arch, with gradients): mixtral (2 experts a rank) forward and backward,
+# arctic (32 experts a rank, ~27 GB of experts, its dense residual) forward;
+# then llama3.2-1b's 16 blocks as 4 GPipe stages of 4, 8 microbatches of 1 x
+# 2048, block remat inside a stage, the embedding and the head with its loss
+# outside the pipeline
+PARALLEL_EP = [("mixtral-8x7b", True), ("arctic-480b", False)]
+PARALLEL_EP_RANKS = 4
+PARALLEL_BATCH = (4, 2048)
+PIPE_ARCH, PIPE_STAGES, PIPE_MICROBATCHES, PIPE_SEQ = "llama3.2-1b", 4, 8, 2048
+
+
+def compare(name, got, want):
+    """Bit-equality of two runs of one function by two routes, or, where the
+    sums ran in another order, ``tol`` of the dtype; returns the readings."""
+    got, want = got.detach(), want.detach()
+    if torch.equal(got, want):
+        return {"bit_equal": True, "max_abs_err": 0.0, "fro_rel": 0.0}
+    err = check_close(name, got, want, **tol(want.dtype))
+    fro = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+    return {"bit_equal": False, "max_abs_err": err, "fro_rel": fro}
+
+
+def in_turns(a, b):
+    """Two routes timed in turns, a b b a: the first call of a process pays
+    for what it sets up, and the order shows it."""
+    return (a, b, b, a)
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def parallel_ep(dev, card, arch, grads):
+    """One MoE layer of ``arch`` at full width through ``moe_ep_ffn_fn`` (the
+    experts and the batch placed over data by ``shard_leaf``) against
+    ``moe_ffn(n_groups=ranks)`` on the same weights and tokens; with
+    ``grads``, the gradients of ``sum(out * ct) + aux`` with respect to x and
+    every weight too.  Twice each way, timed in turns (``in_turns``)."""
+    cfg = get_config(arch)
+    n, (B, S), d = PARALLEL_EP_RANKS, PARALLEL_BATCH, cfg.d_model
+    mesh = make_mesh((n,), ("data",), device=dev)
+    rs = Ruleset(mesh, cfg, ParallelConfig(moe_ep_axis="data"))
+    ffn = moe_ep_ffn_fn(rs, cfg)
+    expert_spec, batch_spec = rs.spec(("expert", "embed", "mlp")), (rs.batch_axes(B),)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = moe.init_moe(gen, cfg, dtype=torch.bfloat16, device=dev)
+    leaves, spec = tree_flatten(params)
+    x = randn(gen, (B, S, d), torch.bfloat16, dev)
+    ct = randn(gen, (B, S, d), torch.bfloat16, dev)
+
+    def ep(p, xx):
+        placed = {**p, **{k: shard_leaf(p[k], expert_spec, mesh)
+                          for k in ("w_gate", "w_up", "w_down")}}
+        out, aux = ffn(placed, shard_leaf(xx, batch_spec, mesh))
+        return out.reshape(B, S, d), aux
+
+    def ref(p, xx):
+        return moe.moe_ffn(p, xx, cfg, n_groups=n)
+
+    def run(fn):
+        if not grads:
+            with torch.no_grad():
+                return fn(params, x) + ([],)
+        live = [t.detach().requires_grad_() for t in leaves]
+        xx = x.detach().requires_grad_()
+        out, aux = fn(tree_unflatten(spec, live), xx)
+        got = torch.autograd.grad((out.float() * ct).sum() + aux, [xx] + live)
+        return out.detach(), aux.detach(), list(got)
+
+    seconds = {"ep": [], "moe_ffn_n_groups": []}
+    results = {}
+    for name, fn in in_turns(("ep", ep), ("moe_ffn_n_groups", ref)):
+        results[name], sec = timed(lambda: run(fn))
+        seconds[name].append(sec)
+    (out, aux, g), (out_r, aux_r, g_r) = results["ep"], results["moe_ffn_n_groups"]
+    if not torch.isfinite(out.float()).all() or out.shape != (B, S, d):
+        raise AssertionError(f"parallel {arch}: EP output {tuple(out.shape)} not finite")
+    report = {"config": f"{arch} full width, one MoE layer ({cfg.n_experts} experts of d_ff "
+                        f"{cfg.d_ff}, top {cfg.top_k}, dense residual {cfg.moe_dense_ff}), bf16",
+              "mesh": {"data": n}, "experts_per_rank": cfg.n_experts // n,
+              "batch": B, "seq": S, "tokens_per_rank": B * S // n,
+              "capacity": moe.capacity_of(B * S // n, cfg),
+              "expert_parameters": sum(params[k].numel() for k in ("w_gate", "w_up", "w_down")),
+              "out": compare(f"parallel {arch} EP output", out, out_r),
+              "aux": [float(aux), float(aux_r)]}
+    if float(aux) != float(aux_r):
+        check_close(f"parallel {arch} aux", aux, aux_r, atol=1e-6, rtol=1e-5)
+    if grads:
+        names = ["x"] + ["/".join(map(str, p)) for p in _paths(params)]
+        report["grads"] = {nm: compare(f"parallel {arch} gradient {nm}", a, b)
+                           for nm, a, b in zip(names, g, g_r)}
+    report.update({"forward_backward" if grads else "forward": True,
+                   "seconds": seconds,
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "card": card})
+    return report
+
+
+def _paths(tree, path=()):
+    """The path of every leaf in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    else:
+        yield path
+
+
+def parallel_pipeline(dev, card):
+    """llama3.2-1b at full width and depth, its blocks as PIPE_STAGES GPipe
+    stages (``pipeline_fn`` on a StackedMesh over pipe) against
+    ``sequential_reference`` of the same stage function: the pipeline's
+    output, the loss of the head over it, and every parameter's gradient
+    (embedding, final norm, every block), each through the flash forward and
+    backward kernels (launches asserted).  Twice each way, timed in turns
+    (``in_turns``).  Returns the pipeline's launches."""
+    cfg = get_config(PIPE_ARCH)
+    S_st, M, L = PIPE_STAGES, PIPE_MICROBATCHES, PIPE_SEQ
+    per = cfg.num_layers // S_st
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    params["stages"] = stack_stages(params.pop("blocks"), S_st)
+    leaves, spec = tree_flatten(params)
+    mesh = make_mesh((S_st,), ("pipe",), device=dev)
+    positions = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    block = tfm._maybe_remat(
+        lambda h, bp: apply_attn_block(bp, cfg, pcfg, h, positions=positions)[0], pcfg)
+
+    def stage(p, h):
+        for bp in p:
+            h = block(h, bp)
+        return h
+    pipe = pipeline_fn(stage, S_st, M, mesh)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (M, 1, L + 1))).to(dev)
+    routes = {
+        "pipeline": lambda tree, x: pipe(
+            tree_map(lambda t: shard_leaf(t, ("pipe",), mesh), tree["stages"]), x),
+        "sequential": lambda tree, x: sequential_reference(stage, tree["stages"], x, S_st)}
+
+    def run(route):
+        live = [t.detach().requires_grad_() for t in leaves]
+        tree = tree_unflatten(spec, live)
+        x_mb = tree["embed"][toks[..., :-1]]                   # (M, 1, L, d)
+        h = routes[route](tree, x_mb)
+        logits = rms_norm(h.reshape(M, L, -1), tree["final_norm"], cfg.norm_eps) @ \
+            tree["embed"].T
+        loss, _ = softmax_cross_entropy(logits, toks[..., 1:].reshape(M, L), cfg.vocab_size)
+        grads = torch.autograd.grad(loss, live)
+        return h.detach(), loss.detach(), list(grads)
+
+    want = {"flash_attention": 2 * cfg.num_layers * M, "flash_attention_bwd": cfg.num_layers * M}
+    seconds, results, launches = {r: [] for r in routes}, {}, {}
+    for route in in_turns("pipeline", "sequential"):
+        _zero_launches()                          # counts of this path only
+        results[route], sec = timed(lambda: run(route))
+        seconds[route].append(sec)
+        launches[route] = _launches()
+        used = {k: launches[route][k] for k in want}
+        if used != want:
+            raise AssertionError(f"parallel pipeline {route}: launched {used}, expected "
+                                 f"{want} (forward and remat recompute, backward)")
+    (h, loss, g), (h_s, loss_s, g_s) = results["pipeline"], results["sequential"]
+    if not torch.isfinite(loss) or h.shape != (M, 1, L, cfg.d_model):
+        raise AssertionError(f"parallel pipeline: output {tuple(h.shape)}, loss {float(loss)}")
+    names = ["/".join(map(str, p)) for p in _paths(params)]
+    report = {
+        "config": f"{PIPE_ARCH} full width and depth ({cfg.num_layers} blocks as {S_st} stages "
+                  f"of {per}), bf16 params, block remat inside a stage, the embedding and the "
+                  f"tied head with its loss outside the pipeline",
+        "mesh": {"pipe": S_st}, "microbatches": M, "microbatch": [1, L],
+        "ticks": M + S_st - 1, "parameters": sum(t.numel() for t in leaves),
+        "out": compare("parallel pipeline output", h, h_s),
+        "loss": [float(loss), float(loss_s)],
+        "loss_cmp": compare("parallel pipeline loss", loss, loss_s),
+        "grads": {nm: compare(f"parallel pipeline gradient {nm}", a, b)
+                  for nm, a, b in zip(names, g, g_s)},
+        "launches": {r: {k: launches[r][k] for k in want} for r in routes},
+        "seconds": seconds,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    report["grads_bit_equal"] = sum(v["bit_equal"] for v in report["grads"].values())
+    report["grads_worst_fro_rel"] = max(v["fro_rel"] for v in report["grads"].values())
+    return report, launches["pipeline"]
+
+
+def phase_parallel(dev, card):
+    """Expert parallelism (mixtral with gradients, arctic forward) and the
+    GPipe pipeline of llama3.2-1b, each against its single-route oracle on
+    the card.  Returns the pipeline's launches."""
+    report = {"phase": "parallel"}
+    for arch, grads in PARALLEL_EP:
+        report[f"ep_{arch}"] = parallel_ep(dev, card, arch, grads)
+        release()
+    report["pipeline"], launches = parallel_pipeline(dev, card)
+    release()
+    emit(report)
+    return launches
+
+
 MOE_RANGES = ("moe_ffn", "moe_dispatch", "moe_combine")
 
 
@@ -2796,6 +3026,12 @@ def main() -> int:
     if "train" in phases:
         with phase_limit("train", seconds):
             launches.update(phase_train(dev, card))
+    pipeline_launches = {}
+    if "parallel" in phases:
+        with phase_limit("parallel", seconds):
+            used = phase_parallel(dev, card)
+        pipeline_launches = {"flash_attention_fwd": used["flash_attention"],
+                             "flash_attention_bwd": used["flash_attention_bwd"]}
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
@@ -2812,6 +3048,8 @@ def main() -> int:
     full = set(PHASES) <= set(phases)
     for entry in entries:
         entry["launches"] = launches.get(entry["name"])
+        if entry["name"] in pipeline_launches:
+            entry["pipeline_launches"] = pipeline_launches[entry["name"]]
         entry["card"] = card
         if full and not entry["launches"]:
             raise AssertionError(f"{entry['name']}: no launch on its main path")

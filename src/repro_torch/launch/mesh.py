@@ -21,16 +21,40 @@ it and of size 1 where they are equal (replicated), so broadcasting keeps
 replicated values once.  On both, the group index of a rank over a set of axes
 is row-major over those axes in mesh order.
 
+Besides the sync's steps, both meshes shift a value one way along an axis
+(``permute``, the JAX ``ppermute``: a roll of the axis's leading dimension on
+the stacked transport, ``batch_isend_irecv`` over the axis's group on the
+distributed one), and name the coordinate of each row they hold
+(``row_coords``).  The model-parallel layers (``models.moe.moe_ffn_ep``,
+``parallel.pipeline``) need gradients through the transport, so three
+functions wrap it for autograd.  They take the *rows* form: a tensor whose
+leading dimension is ``mesh.rows(axes)`` (every rank's block on the stacked
+transport, this rank's alone on the distributed one), which is what
+``parallel.sharding.shard_leaf`` gives:
+
+* ``all_to_all(mesh, x, axes)``  — x (R, G, ...), block j for the rank of
+  group index j → (R, G, ...), block j what that rank sent; its own inverse,
+  so its backward is itself;
+* ``ppermute(mesh, x, axis, shift)`` — each rank's x to the rank ``shift``
+  further along ``axis`` (cyclic); its backward is the shift back;
+* ``pmean(mesh, x, axes)`` — the mean of x over the group, built on
+  ``all_to_all``.
+
+On the distributed transport every rank holds its own loss, and a gradient
+is that of the sum of the ranks' losses.  Every rank must run each of these
+backwards, in the same order (the same program does), or the collectives
+pair the wrong messages (their shapes match, so the gradients come out wrong
+without a word) or wait for ever.
+
 ``fred_device_order`` is the port's own copy of the JAX function (NumPy
-only).  ``make_production_mesh`` and the rest of the sharding layer come with
-a later slice.
+only).  ``make_production_mesh`` comes with ROADMAP.md M9b.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +179,24 @@ class StackedMesh(_Mesh):
             x = x.unsqueeze(p)
         return x
 
+    def permute(self, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
+        """Cyclic shift along ``axis``: the rank at coordinate i receives what
+        the rank at i - ``shift`` holds.  x: the local form (one leading
+        dimension per mesh axis, then any shape).  A roll of the axis's
+        leading dimension."""
+        self._sorted((axis,))                 # an unknown axis raises
+        pos = self.axis_names.index(axis)
+        x = x.expand(*(self.shape[axis] if i == pos else s
+                       for i, s in enumerate(x.shape[:len(self.axis_names)])),
+                     *x.shape[len(self.axis_names):])
+        return torch.roll(x, shift, dims=pos)
+
+    def row_coords(self, axis: str) -> List[int]:
+        """The coordinate along ``axis`` of each row of a tensor in the rows
+        form over ``(axis,)``."""
+        self._sorted((axis,))
+        return list(range(self.shape[axis]))
+
 
 class DistMesh(_Mesh):
     """One replica per ``torch.distributed`` rank; rank r has the mesh
@@ -173,6 +215,7 @@ class DistMesh(_Mesh):
         self.coords = dict(zip(self.axis_names, np.unravel_index(self.rank, grid.shape)))
         # every rank creates every group, in one order (new_group is collective)
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self._group_ranks: Dict[Tuple[str, ...], List[int]] = {}
         for k in range(1, len(self.axis_names) + 1):
             for axes_ in itertools.combinations(self.axis_names, k):
                 keep = [self.axis_names.index(a) for a in axes_]
@@ -181,6 +224,7 @@ class DistMesh(_Mesh):
                     group = dist.new_group([int(r) for r in ranks])
                     if self.rank in ranks:
                         self._groups[axes_] = group
+                        self._group_ranks[axes_] = [int(r) for r in ranks]
 
     def rows(self, axes: Sequence[str]) -> int:
         """Leading replica dimension of this rank's block of a stacked leaf."""
@@ -224,6 +268,106 @@ class DistMesh(_Mesh):
         out = torch.empty(G * x.numel(), dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=self._groups[axes])
         return out.view((G,) + tuple(x.shape))
+
+    def permute(self, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
+        """Cyclic shift along ``axis``: this rank sends x to the rank
+        ``shift`` further along the axis and receives from the one ``shift``
+        before it (``batch_isend_irecv`` over the axis's group)."""
+        axes = self._sorted((axis,))
+        n, c = self.shape[axis], int(self.coords[axis])
+        if shift % n == 0:
+            return x.clone()
+        ranks = self._group_ranks[axes]
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[(c + shift) % n],
+                          self._groups[axes]),
+               dist.P2POp(dist.irecv, out, ranks[(c - shift) % n], self._groups[axes])]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def row_coords(self, axis: str) -> List[int]:
+        self._sorted((axis,))
+        return [int(self.coords[axis])]
+
+
+class _AllToAll(torch.autograd.Function):
+    """``mesh.exchange`` in the rows form.  An exchange swaps the sending
+    rank with the block index, so applying it twice is the identity: the
+    backward is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _exchange_rows(mesh, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange_rows(ctx.mesh, g, ctx.axes), None, None
+
+
+def _exchange_rows(mesh, x: torch.Tensor, axes) -> torch.Tensor:
+    got = mesh.exchange(mesh.local(x, axes), axes)
+    return mesh.stacked(got.reshape(*got.shape[:-2], -1), axes).reshape(x.shape)
+
+
+class _Permute(torch.autograd.Function):
+    """``mesh.permute`` in the rows form; the backward shifts back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _permute_rows(mesh, x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute_rows(ctx.mesh, g, ctx.axis, -ctx.shift), None, None, None
+
+
+def _permute_rows(mesh, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
+    if isinstance(mesh, DistMesh):
+        return mesh.permute(x, axis, shift)
+    lead = tuple(mesh.shape[a] if a == axis else 1 for a in mesh.axis_names)
+    out = mesh.permute(x.reshape(*lead, *x.shape[1:]), axis, shift)
+    return out.reshape(x.shape)
+
+
+def _check_rows(mesh, x: torch.Tensor, axes: Sequence[str], what: str) -> None:
+    if x.dim() < 1 or x.shape[0] != mesh.rows(axes):
+        raise ValueError(f"{what}: need the rows form, a leading dimension of "
+                         f"{mesh.rows(axes)} over {tuple(axes)}, got {tuple(x.shape)}")
+
+
+def all_to_all(mesh, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Differentiable all-to-all over ``axes``.  x: (R, G, ...) in the rows
+    form, block j (``x[:, j]``) for the rank of group index j; returns (R, G,
+    ...), block j what the rank of group index j sent this one."""
+    axes = tuple(axes)
+    _check_rows(mesh, x, axes, "all_to_all")
+    if x.dim() < 2 or x.shape[1] != mesh.size(axes):
+        raise ValueError(f"all_to_all over {axes}: need {mesh.size(axes)} blocks in "
+                         f"dimension 1, got {tuple(x.shape)}")
+    return _AllToAll.apply(x, mesh, axes)
+
+
+def ppermute(mesh, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
+    """Differentiable cyclic shift along ``axis``: the rank at coordinate i
+    gets what the rank at i - ``shift`` holds.  x: (R, ...) in the rows form
+    over ``(axis,)``."""
+    _check_rows(mesh, x, (axis,), "ppermute")
+    return _Permute.apply(x, mesh, axis, int(shift))
+
+
+def pmean(mesh, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Differentiable mean over the ranks of ``axes``.  x: (R, ...) in the
+    rows form; returns x.shape[1:], the same on every rank: every rank's
+    value sent to every other (``all_to_all``), then the mean of what
+    arrived, in group order."""
+    axes = tuple(axes)
+    _check_rows(mesh, x, axes, "pmean")
+    G = mesh.size(axes)
+    got = all_to_all(mesh, x.unsqueeze(1).expand(x.shape[0], G, *x.shape[1:]), axes)
+    return got.mean(dim=1)[0]
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,

@@ -5,7 +5,9 @@ of ``torch.Tensor`` with the JAX package's names (``embed``, ``final_norm``,
 ``blocks.{ln1, attn.{wq, wk, wv, wo, bq, bk, bv, q_norm, k_norm}, ln2,
 ffn.{w_gate, w_up, w_down}}``), so a value tree of one package converts to
 the other leaf by leaf (``repro_torch.convert``).  The ``Box`` / ``AxisNames``
-sharding metadata of the JAX package arrives with the sharding slice.
+sharding metadata of the JAX package waits for ROADMAP.md M9b, which places
+every parameter; ``parallel.sharding``'s rule table takes the logical axis
+names as tuples meanwhile.
 
 Initialisers draw from an explicit ``torch.Generator`` that lives on the
 target device; they never touch the global generator.

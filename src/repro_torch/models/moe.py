@@ -7,11 +7,11 @@ order, and tokens are scattered into / gathered from dense (E, C, d) buffers,
 one set per group of tokens.  Choices past an expert's capacity C are dropped:
 they add nothing to the token's output.
 
-The JAX package ``vmap``-s route → dispatch → combine over G groups (G = B,
-one sequence a group, by default); here G = B always, and every step is
-batched over the leading G axis directly.  Other groupings (the JAX
-``n_groups=``) arrive with ``moe_ffn_ep``.  The expert products stay library
-products (``torch.einsum`` over ``(G, E, C, d)``), as the JAX package computes them
+The JAX package ``vmap``-s route → dispatch → combine over G groups of
+T_g = B·S/G tokens (G = B, one sequence a group, by default; ``n_groups=``
+chooses another G, and the capacity follows T_g); here every step is batched
+over the leading G axis directly.  The expert products stay library products
+(``torch.einsum`` over ``(G, E, C, d)``), as the JAX package computes them
 outside any Pallas kernel.  The router aux loss follows Switch Transformer
 (fraction of tokens x mean probability, summed over experts, times E).
 
@@ -19,18 +19,26 @@ outside any Pallas kernel.  The router aux loss follows Switch Transformer
 ``torch.topk`` promises no order among ties, so ``_route`` takes the top k of
 a stable descending sort instead.
 
-``moe_ffn_ep`` (the expert-parallel all-to-all dispatch over several ranks)
-arrives with the multi-rank slice (ROADMAP.md M9).  The capacity factor is
-``cfg.capacity_factor``; vary it with ``dataclasses.replace``.
+``moe_ffn_ep`` is the expert-parallel FFN, the paper's All-to-All pattern
+(Sec. II-C): the experts shard over a data axis of a ``launch.mesh`` mesh,
+each rank routes its own tokens as one group, an all-to-all gives every rank
+its E/n experts' buckets from all n ranks, the expert products run on the
+local weight shard, and the inverse all-to-all brings the outputs back for
+the combine.  Routing, capacity and combine are ``moe_ffn``'s, so it equals
+``moe_ffn(n_groups=n)``.  Its gradients flow through both exchanges
+(``launch.mesh.all_to_all``).  Placing every parameter by FSDP / ZeRO-1 / TP
+waits for ROADMAP.md M9b.  The capacity factor is ``cfg.capacity_factor``;
+vary it with ``dataclasses.replace``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..launch.mesh import all_to_all, pmean
 from .modules import dense_init, swiglu
 
 
@@ -148,24 +156,90 @@ def capacity_of(tokens_per_group: int, cfg) -> int:
     return -(-c // 4) * 4
 
 
-def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply the MoE FFN, one group of tokens per sequence.  x: (B, S, d) →
-    ((B, S, d), aux fp32 scalar, the mean of the groups' aux losses)."""
+def _experts(params, buckets: torch.Tensor, up: str, down: str) -> torch.Tensor:
+    """The expert SwiGLU over dispatched buckets, ``up`` / ``down`` the
+    einsums of the layout."""
+    g = torch.einsum(up, buckets, params["w_gate"])
+    u = torch.einsum(up, buckets, params["w_up"])
+    return torch.einsum(down, swiglu(g, u), params["w_down"])
+
+
+def _dense_residual(params, x: torch.Tensor) -> torch.Tensor:
+    """Arctic's dense residual FFN on every token of x (..., d)."""
+    dn, d = params["dense"], x.shape[-1]
+    x2d = x.reshape(-1, d)
+    return (swiglu(x2d @ dn["w_gate"], x2d @ dn["w_up"]) @ dn["w_down"]).reshape(x.shape)
+
+
+def moe_ffn(params, x: torch.Tensor, cfg, *, n_groups: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply the MoE FFN over ``n_groups`` groups of B·S/G tokens each (G = B,
+    one sequence a group, by default), the capacity from a group's tokens.
+    x: (B, S, d) → ((B, S, d), aux fp32 scalar, the mean of the groups' aux
+    losses)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    capacity = capacity_of(S, cfg)
+    G = n_groups or B
+    if (B * S) % G:
+        raise ValueError(f"moe_ffn: {B * S} tokens do not split into {G} groups")
+    T_g = B * S // G
+    capacity = capacity_of(T_g, cfg)
     buckets, flat_slot, combine_w, aux = _group_dispatch(
-        x, params["router"], E, k, capacity)
-
-    g = torch.einsum("gecd,edf->gecf", buckets, params["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", buckets, params["w_up"])
-    y = torch.einsum("gecf,efd->gecd", swiglu(g, u), params["w_down"])
-    out = _group_combine(y.reshape(B, E * capacity, d), flat_slot, combine_w,
-                         S, k)
-
+        x.reshape(G, T_g, d), params["router"], E, k, capacity)
+    y = _experts(params, buckets, "gecd,edf->gecf", "gecf,efd->gecd")
+    out = _group_combine(y.reshape(G, E * capacity, d), flat_slot, combine_w,
+                         T_g, k).reshape(B, S, d)
     if cfg.moe_dense_ff:
-        dn = params["dense"]
-        x2d = x.reshape(-1, d)
-        dense = swiglu(x2d @ dn["w_gate"], x2d @ dn["w_up"]) @ dn["w_down"]
-        out = out + dense.reshape(B, S, d)
+        out = out + _dense_residual(params, x)
     return out, aux.mean()
+
+
+def moe_ffn_ep(params, x: torch.Tensor, cfg, *, mesh, ep_axis: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE FFN over the ``ep_axis`` of ``mesh`` (n ranks).
+
+    Takes and returns the rows form of ``launch.mesh`` over ``(ep_axis,)``
+    (what ``parallel.sharding.shard_leaf`` gives; R = n on a ``StackedMesh``,
+    1 on a ``DistMesh``): x (R, B/n, S, d), the ranks' own tokens; the expert
+    weights ``w_gate`` / ``w_up`` / ``w_down`` (R, E/n, ...), the ranks'
+    experts; the router and arctic's ``dense`` whole.  Each rank routes its
+    B/n·S tokens as one group (the capacity from them), builds (E, C, d)
+    buckets, and the all-to-all leaves it (E/n, n·C, d): its experts'
+    buckets from every rank, rank j's in slots j·C ... The expert products
+    run on the local shard; the inverse all-to-all and the combine follow,
+    then the dense residual on the rank's own tokens.  Returns ((R, B/n, S,
+    d), aux), aux the mean of the ranks' aux losses (``pmean``).
+
+    Equals ``moe_ffn(n_groups=n)`` of the whole batch (rank r's tokens are
+    group r).  Raises ``ValueError`` unless n divides both B and E.
+    """
+    if ep_axis not in mesh.shape:
+        raise ValueError(f"moe_ffn_ep: ep_axis {ep_axis!r} is not an axis of {mesh.axis_names}")
+    n, R = mesh.shape[ep_axis], mesh.rows((ep_axis,))
+    E, k = cfg.n_experts, cfg.top_k
+    if E % n or x.dim() != 4 or x.shape[0] != R:
+        raise ValueError(f"moe_ffn_ep: batch and n_experts {E} must both divide over "
+                         f"ep_axis {ep_axis!r} (size {n}); x {tuple(x.shape)} must be "
+                         f"({R}, B/{n}, S, d), the batch placed by shard_leaf")
+    b, S, d = x.shape[1:]
+    for name in ("w_gate", "w_up", "w_down"):
+        if params[name].shape[:2] != (R, E // n):
+            raise ValueError(f"moe_ffn_ep: {name} {tuple(params[name].shape)} is not "
+                             f"({R}, {E // n}, ...): shard the experts over {ep_axis!r}")
+    T = b * S
+    capacity = capacity_of(T, cfg)
+    buckets, flat_slot, combine_w, aux = _group_dispatch(
+        x.reshape(R, T, d), params["router"], E, k, capacity)
+    # dispatch: block j (experts j·E/n ...) to rank j; keep every rank's
+    # slots of the local experts, sender-major
+    got = all_to_all(mesh, buckets.view(R, n, E // n, capacity, d), (ep_axis,))
+    local = got.transpose(1, 2).reshape(R, E // n, n * capacity, d)
+    y = _experts(params, local, "recd,redf->recf", "recf,refd->recd")
+    # combine: the exact inverse exchange
+    back = all_to_all(mesh, y.view(R, E // n, n, capacity, d).transpose(1, 2),
+                      (ep_axis,))
+    out = _group_combine(back.reshape(R, E * capacity, d), flat_slot, combine_w,
+                         T, k).reshape(x.shape)
+    if cfg.moe_dense_ff:
+        out = out + _dense_residual(params, x)
+    return out, pmean(mesh, aux, (ep_axis,))

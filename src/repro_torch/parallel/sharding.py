@@ -1,0 +1,230 @@
+"""Logical-axis → mesh-axis sharding rules.
+
+Counterpart of ``repro.parallel.sharding``: the port's own copy of
+``Ruleset``'s rule table, the one place where the parallelisation policy
+becomes a placement.  Model code names *logical* axes (``embed``, ``heads``,
+``expert``, ...), a mesh has *physical* ones (``pod`` / ``data`` / ``model``);
+``Ruleset.spec(axes)`` translates.  The policy, as in the JAX package:
+
+* TP axes (vocab / heads / kv / mlp / ssm_in / qkv) map to the TP axis
+  (``pcfg.tp_axis``, ``model``); query heads that do not divide the TP degree
+  still shard unless the arch asks for ``attn_sharding='context'``.
+* KV heads count as sharded only when they divide the TP degree.
+* ``embed`` (d_model) shards over the last data axis under
+  ``param_sharding='fsdp'`` (over every data axis when there is no TP axis);
+  under ``zero1`` only the optimizer state does (``opt_spec``); under
+  ``replicated`` neither.
+* MoE ``expert`` shards over the TP axis when it divides the expert count,
+  else the experts stay whole and their ``mlp`` dim takes the TP sharding.
+  With ``pcfg.moe_ep_axis`` set to a data axis whose size divides the
+  expert count, the experts shard over that axis instead (expert
+  parallelism: ``models.moe.moe_ffn_ep``).
+
+A spec is a tuple with one entry per dimension: ``None``, an axis name, or a
+tuple of names, normalised as ``jax.sharding.PartitionSpec`` normalises it
+(a tuple of one name is the name, an empty one ``None``), so that
+``tuple(P(...))`` of the JAX spec equals it.  The ``Ruleset`` reads only the
+mesh's ``shape`` (a mapping from axis name to size): either transport of
+``launch.mesh``, or any object with that mapping.
+
+``shard_leaf(t, spec, mesh)`` places a tensor by a spec: the stacked view of
+every block on a ``StackedMesh``, this rank's block on a ``DistMesh`` (the
+rows form of ``launch.mesh``).  This slice uses it for the expert weights
+(dim 0 over ``ep_axis``) and the batch (``batch_axes``).
+
+Left for ROADMAP.md M9b: the activation and decode-state specs
+(``act_spec``, ``constrain_fn``, ``kv_cache_spec``, ``ssm_state_spec``,
+``decode_state_shardings``) and ``param_shardings``, which need the port's
+own logical-axes tree (the JAX ``Box`` / ``AxisNames``) and the FSDP /
+ZeRO-1 / TP placement of every parameter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterable, Optional, Tuple
+
+import torch
+
+from ..launch.mesh import DistMesh, StackedMesh
+from ..models.config import ModelConfig, ParallelConfig
+
+
+def _axis_size(mesh, name) -> int:
+    if name is None:
+        return 1
+    if isinstance(name, tuple):
+        return math.prod(mesh.shape[n] for n in name)
+    return mesh.shape[name]
+
+
+def _entry(e):
+    """One dimension's entry as ``PartitionSpec`` keeps it."""
+    if isinstance(e, tuple):
+        if not e:
+            return None
+        return e[0] if len(e) == 1 else e
+    return e
+
+
+def _spec(entries: Iterable) -> Tuple:
+    return tuple(_entry(e) for e in entries)
+
+
+@dataclasses.dataclass
+class Ruleset:
+    mesh: Any
+    cfg: ModelConfig
+    pcfg: ParallelConfig
+
+    def __post_init__(self):
+        mesh, cfg, pcfg = self.mesh, self.cfg, self.pcfg
+        tp = pcfg.tp_axis if pcfg.tp_axis in mesh.shape else None
+        dp: Tuple[str, ...] = tuple(a for a in pcfg.dp_axes if a in mesh.shape)
+        if "pod" in mesh.shape and "pod" not in dp:
+            dp = ("pod",) + dp
+        if tp is None and "model" in mesh.shape and \
+                "model" not in dp and pcfg.tp_axis == "":
+            # no TP: the model axis becomes more data parallelism
+            dp = dp + ("model",)
+        tp_size = _axis_size(mesh, tp)
+        self.dp = dp
+        self.tp = tp
+        self.tp_size = tp_size
+        fsdp = pcfg.param_sharding == "fsdp"
+        # without TP, FSDP shards over every data axis
+        fsdp_axis = (dp if tp is None else dp[-1]) if (fsdp and dp) else None
+
+        kv_div = cfg.n_kv_heads > 0 and cfg.n_kv_heads % max(tp_size, 1) == 0
+        heads_ok = cfg.n_heads > 0 and pcfg.attn_sharding != "context"
+        exp_div = cfg.n_experts > 0 and cfg.n_experts % max(tp_size, 1) == 0
+        # EP: experts shard over a *data* axis (all-to-all dispatch), their
+        # hidden dim takes the TP sharding
+        ep_axis = (pcfg.moe_ep_axis if pcfg.moe_ep_axis in mesh.shape and
+                   cfg.n_experts and
+                   cfg.n_experts % mesh.shape.get(pcfg.moe_ep_axis, 1) == 0
+                   else None)
+        self.ep_axis = ep_axis
+        if ep_axis:
+            exp_div = False
+
+        self.kv_head_sharded = kv_div
+        self.expert_sharded = exp_div
+
+        self.rules = {
+            "layers": None,
+            "null": None,
+            "embed": fsdp_axis,
+            "embed_out": None,
+            "vocab": tp if tp is not None else (tuple(dp) if fsdp else None),
+            "qkv": tp,
+            "heads": tp if heads_ok else None,
+            "kv": tp,   # the flattened Hkv·hd dim, always divisible
+            "mlp": None if exp_div else tp,
+            "expert": ep_axis if ep_axis else (tp if exp_div else None),
+            "expert_router": None,
+            "ssm_in": tp,
+            "embed_unsharded": None,
+            "mlp_dense": tp if tp is not None else (dp[-1] if (fsdp and dp) else None),
+            "ssm_head": tp if (cfg.ssm_heads and cfg.ssm_heads % max(tp_size, 1) == 0)
+            else None,
+        }
+        # expert weights never take FSDP on the d_model contraction dim; it
+        # goes on the f dim, with TP when the experts are not TP-sharded
+        # (None without experts)
+        self.expert_mlp_axis = None
+        if cfg.n_experts:
+            if ep_axis:
+                self.expert_mlp_axis = tp                 # (data, None, model)
+            elif exp_div:
+                self.expert_mlp_axis = fsdp_axis          # (model, None, data)
+            else:
+                self.expert_mlp_axis = ((tp, fsdp_axis) if (tp and fsdp_axis)
+                                        else (tp or fsdp_axis))
+
+    # ---- parameters --------------------------------------------------------
+    def spec(self, axes: Iterable[str]) -> Tuple:
+        """The placement of a parameter with logical ``axes``."""
+        names = tuple(axes)
+        if "vocab" in names:
+            # embedding / lm_head: the vocab dim carries the sharding, the
+            # d_model dim (a contraction of the logits) none
+            return _spec(self.rules.get(a) if a == "vocab" else None for a in names)
+        if "expert" in names:
+            # (expert, embed, mlp): FSDP lives on the mlp dim
+            table = dict(self.rules)
+            table["embed"] = None
+            table["mlp"] = self.expert_mlp_axis
+            return _spec(table.get(a) for a in names)
+        return _spec(self.rules.get(a) for a in names)
+
+    def opt_spec(self, axes: Iterable[str]) -> Tuple:
+        """The optimizer state's placement: the parameter's, except that
+        ZeRO-1 shards the 'embed' dim over the last data axis even where the
+        parameter is replicated."""
+        if self.pcfg.param_sharding != "zero1":
+            return self.spec(axes)
+        dp_last = self.dp[-1] if self.dp else None
+        return _spec(dp_last if a == "embed" and self.rules.get(a) is None
+                     else self.rules.get(a) for a in axes)
+
+    # ---- activations ---------------------------------------------------------
+    def batch_axes(self, global_batch: int) -> Optional[Tuple[str, ...]]:
+        """The data axes the batch shards over: as many as divide it,
+        outermost first."""
+        axes = []
+        rem = global_batch
+        for a in self.dp:
+            s = self.mesh.shape[a]
+            if rem % s == 0 and rem >= s:
+                axes.append(a)
+                rem //= s
+        return tuple(axes) or None
+
+
+def _names(e) -> Tuple[str, ...]:
+    if e is None:
+        return ()
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``t`` placed by ``spec`` (one entry per leading dimension; the rest
+    unsharded) in the rows form over the spec's axes, in the order they
+    appear: on a ``StackedMesh`` (R, ...) with every rank's block, R the
+    product of the axes' sizes (a view when only dimension 0 is sharded); on
+    a ``DistMesh`` (1, ...) with this rank's.  A dimension over the axes (a,
+    b) splits a-major, as a ``PartitionSpec`` splits it."""
+    spec = tuple(spec)
+    if len(spec) > t.dim():
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{t.dim()} dimensions")
+    dims = [_names(e) for e in spec]
+    every = [a for names in dims for a in names]
+    if len(set(every)) != len(every):
+        raise ValueError(f"spec {spec} names a mesh axis twice")
+    unknown = set(every) - set(mesh.axis_names)
+    if unknown:
+        raise ValueError(f"axes {sorted(unknown)} are not in the mesh {mesh.axis_names}")
+    parts = [math.prod(mesh.shape[a] for a in names) for names in dims]
+    for i, (names, n) in enumerate(zip(dims, parts)):
+        if t.shape[i] % n:
+            raise ValueError(f"dimension {i} of {tuple(t.shape)} does not divide over "
+                             f"{names} ({n} ranks)")
+    if isinstance(mesh, DistMesh):
+        for i, (names, n) in enumerate(zip(dims, parts)):
+            if names:
+                size = t.shape[i] // n
+                t = t.narrow(i, mesh.replica(names) * size, size)
+        return t.unsqueeze(0)
+    if not isinstance(mesh, StackedMesh):
+        raise TypeError(f"shard_leaf needs a mesh of launch.mesh, got {type(mesh).__name__}")
+    shape, lead = [], []
+    for i, size in enumerate(t.shape):
+        names = dims[i] if i < len(dims) else ()
+        lead += range(len(shape), len(shape) + len(names))
+        shape += [mesh.shape[a] for a in names]
+        shape.append(size // (parts[i] if i < len(dims) else 1))
+    v = t.reshape(shape).movedim(lead, list(range(len(lead))))
+    return v.reshape(math.prod(parts), *(s for i, s in enumerate(shape) if i not in lead))

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.parallel.steps.make_train_setup`` (its ``train_step``:
 ``jax.value_and_grad`` of ``loss_fn``, then ``adam_update``), without the
-mesh: the sharding rules, input specs and the prefill / decode setups of that
-module arrive with the multi-rank slice (ROADMAP.md M9).
+mesh, and of ``moe_ep_ffn_fn``, which binds the expert-parallel FFN to a
+``parallel.sharding.Ruleset``.  The input specs, the parameter and optimizer
+placements and the train / prefill / decode setups over a mesh wait for
+ROADMAP.md M9b.
 
 ``make_train_step(cfg, pcfg, ocfg)`` returns ``step(state, batch) ->
 (state, metrics)``: the loss of the batch, its gradient by ``backward``
@@ -28,9 +30,11 @@ import torch
 
 from ..models import transformer as tfm
 from ..models import whisper
+from ..models.moe import moe_ffn_ep
 from ..models.config import ModelConfig, ParallelConfig
 from ..models.modules import tree_flatten, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, adam_update
+from .sharding import Ruleset
 
 
 class TrainState(NamedTuple):
@@ -84,3 +88,21 @@ def make_train_step(cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
         return TrainState(params, opt), {**metrics, **om}
 
     return train_step
+
+
+def moe_ep_ffn_fn(ruleset: Ruleset, cfg: ModelConfig):
+    """Bind the all-to-all expert dispatch to a cell: ``f(params_ffn, x) ->
+    (out, aux)`` runs ``models.moe.moe_ffn_ep`` on the ruleset's mesh over its
+    EP axis (``pcfg.moe_ep_axis``), x and the expert weights in the rows form
+    over that axis (``parallel.sharding.shard_leaf``).  Raises ``ValueError``
+    when the ruleset has no EP axis: expert parallelism is a decision of the
+    configuration, never a silent fallback."""
+    if not ruleset.ep_axis:
+        raise ValueError(
+            "moe_ep_ffn_fn: the cell's ParallelConfig.moe_ep_axis is unset "
+            "or invalid for this mesh / model; expert parallelism needs a "
+            "data axis whose size divides n_experts")
+
+    def f(params_ffn, x):
+        return moe_ffn_ep(params_ffn, x, cfg, mesh=ruleset.mesh, ep_axis=ruleset.ep_axis)
+    return f

@@ -50,7 +50,8 @@ def test_the_walk_sees_the_whole_port():
             "reduce_tree.py", "compress.py", "collectives.py", "mesh.py",
             "optim.py", "steps.py", "data.py", "checkpoint.py", "train_loop.py",
             "moe.py", "mixtral_8x7b.py", "arctic_480b.py", "whisper.py",
-            "llava_next_34b.py", "whisper_medium.py"} <= names
+            "llava_next_34b.py", "whisper_medium.py", "sharding.py",
+            "pipeline.py"} <= names
     assert len(MODULES) >= 20
 
 
