@@ -13,7 +13,9 @@ and int8 error-feedback modes, training llama3.2-1b, mamba2-1.3b and
 mixtral-8x7b through ``Trainer.run()``, and llava and whisper through
 ``make_train_step``, and the multi-rank layer with every rank stacked on the
 card: mixtral's and arctic's MoE layers with their experts over data 4, and
-llama3.2-1b as a 4-stage GPipe pipeline)
+llama3.2-1b as a 4-stage GPipe pipeline; and llama3.2-1b's data-parallel
+train setup, zero1 over data 4 and replicated over pod 2 x data 2, each
+rank's gradient synchronised through the tree-reduce kernel)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -129,6 +131,19 @@ Phases:
            sequential_reference of the same stage function: output, loss and
            every parameter's gradient, 256 flash forward and 128 backward
            launches each (asserted); each timed in turns, with its peak memory
+  setup    llama3.2-1b at full width and depth (bf16 params, fp32 master and
+           moments, block remat, B 8 x S 2048, labels masked unevenly over
+           the ranks' shards) through make_train_setup with every rank of a
+           StackedMesh on the card: (a) zero1 over data 4, flat sync; (b)
+           replicated over pod 2 x data 2, hierarchical sync; two steps each
+           from one state against the one-device make_train_step on the
+           whole batch: the loss of each step (2e-3 relative), every synced
+           gradient leaf of step 1 (relative Frobenius within tol(bf16)),
+           zero1's AdamW update bit-equal to the replicated one on (a)'s
+           synced gradient, the launches of every step (asserted: 4 x (32 +
+           16) flash, 146 (a) or 292 (b) tree reduces); step seconds, peak
+           memory, the optimizer bytes a rank holds, and the memory the
+           one-device step leaves to the collector once dropped
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -141,7 +156,8 @@ Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
 gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
-path; the flash kernels also their launches in the pipeline); the last line is
+path; the flash kernels also their launches in the pipeline, the flash and
+tree-reduce kernels their launches in the setup); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -188,9 +204,9 @@ from repro_torch.models.modules import (                      # noqa: E402
 from repro_torch.parallel import compress                    # noqa: E402
 from repro_torch.parallel.pipeline import (                  # noqa: E402
     pipeline_fn, sequential_reference, stack_stages)
-from repro_torch.parallel.sharding import Ruleset, shard_leaf  # noqa: E402
+from repro_torch.parallel.sharding import Ruleset, shard_leaf, unshard_leaf  # noqa: E402
 from repro_torch.parallel.steps import (                     # noqa: E402
-    TrainState, _enc_fn, make_train_step, moe_ep_ffn_fn)
+    TrainState, _enc_fn, make_train_setup, make_train_step, moe_ep_ffn_fn, train_grads)
 from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
@@ -202,13 +218,13 @@ from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel")
+PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel", "setup")
 # Wall-clock limit of each phase in seconds, several times its time on an H100
 # (the `phase_seconds` line).  A phase past its limit (a kernel that never
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
-                 "sync": 300, "train": 600, "parallel": 240, "profile": 300}
+                 "sync": 300, "train": 600, "parallel": 240, "setup": 300, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -1354,6 +1370,11 @@ def kernels_tree(dev, gen):
     outer = y.permute(1, 0, 2)[None]
     check_equal("tree_reduce served outer shape", tree_reduce(outer), tree_reduce_plain(outer))
     n_cases += 1
+    # the setup phase's flat reduce-scatter over data 4 (no pod dimension)
+    flat_view = x[0].view(D, D, s).transpose(0, 1)
+    check_equal("tree_reduce setup flat shape", tree_reduce(flat_view),
+                tree_reduce_plain(flat_view))
+    n_cases += 1
     entry = {
         "name": "tree_reduce", "route": "cuda",
         "source": "src/repro_torch/csrc/reduce_tree.cu",
@@ -1366,7 +1387,7 @@ def kernels_tree(dev, gen):
         "gbytes": nbytes(view, got) / 1e9,
     }
     emit({"phase": "kernels", "kernel": "tree_reduce", "cases": n_cases, "main_shape": entry})
-    del x, view, got, y, outer
+    del x, view, got, y, outer, flat_view
     torch.cuda.empty_cache()
     return entry
 
@@ -2771,6 +2792,173 @@ def phase_parallel(dev, card):
     return launches
 
 
+# the setup phase: llama3.2-1b at full width and depth, B 8 x S 2048, bf16
+# params, the default OptimConfig, block remat, through make_train_setup with
+# every rank of a StackedMesh on the card, as (param_sharding, grad_sync, mesh
+# shape, axes): (a) zero1 over data 4, flat; (b) replicated over pod 2 x data
+# 2, hierarchical; each SETUP_STEPS steps from one state, against the
+# one-device make_train_step on the whole batch
+SETUP_ARCH = "llama3.2-1b"
+SETUP_BATCH = (8, 2048)
+SETUP_STEPS = 2
+SETUP_CASES = [("zero1", "flat", (4,), ("data",)),
+               ("replicated", "hierarchical", (2, 2), ("pod", "data"))]
+SETUP_LOSS_RTOL = 2e-3
+# a rank's bf16 gradient and the synced mean are two bf16 roundings of the
+# one-device gradient's terms summed in another order: tol(bf16)
+SETUP_GRAD_FRO = tol(torch.bfloat16)["rtol"]
+
+
+def setup_batches(cfg, B, S):
+    """SETUP_STEPS batches of random tokens, the labels of row r masked with
+    probability r / (2 B), so that the ranks' shards count unequal tokens."""
+    rng = np.random.default_rng(8)
+    out = []
+    for _ in range(SETUP_STEPS):
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+        labels = toks[:, 1:].copy()
+        labels[rng.random((B, S)) < np.arange(B)[:, None] / (2 * B)] = -1
+        out.append({"tokens": toks[:, :-1].copy(), "labels": labels})
+    return out
+
+
+def rank_opt_bytes(opt, zero1):
+    """Bytes of optimizer state (master and moments) one rank holds: under
+    zero1 one row of each leaf's rows form, else every leaf whole."""
+    return sum(nbytes(t) // (t.shape[0] if zero1 else 1)
+               for field in (opt.master, opt.m, opt.v) for t in _leaves(field))
+
+
+def phase_setup(dev, card):
+    """llama3.2-1b at full width and depth through ``make_train_setup`` (the
+    two SETUP_CASES) against the one-device ``make_train_step``: the loss of
+    each step, each synced gradient leaf of step 1 against the one-device
+    gradient, the launches of every step (asserted), and zero1's AdamW update
+    bit-equal to the replicated one on the same synced gradient.  Returns
+    each case's launches over its steps."""
+    cfg = get_config(SETUP_ARCH)
+    B, S = SETUP_BATCH
+    shape = ShapeConfig("train_8x2048", "train", S, B)
+    ocfg = OptimConfig()
+    batches = setup_batches(cfg, B, S)
+    n_leaves = 2 + 9 * cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    report = {"phase": "setup", "config": f"{SETUP_ARCH} full width and depth, bf16 params, "
+                                          f"fp32 master and moments, block remat",
+              "batch": B, "seq": S, "steps": SETUP_STEPS, "card": card}
+
+    # the oracle: the whole batch on one device, in place on its own copy
+    pcfg1 = ParallelConfig(remat="block", param_dtype="bfloat16")
+    state = TrainState(tree_map(lambda t: t.clone(), p0), init_adam(p0, ocfg))
+    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg1))
+    step = make_train_step(cfg, pcfg1, ocfg)
+    oracle = {"loss": [], "grad_norm": [], "step_s": [], "grad_s": grad_s}
+    for batch in batches:
+        (state, m), sec = timed(lambda: step(state, batch))
+        oracle["loss"].append(float(m["loss"]))
+        oracle["grad_norm"].append(float(m["grad_norm"]))
+        oracle["step_s"].append(sec)
+    oracle["opt_bytes"] = rank_opt_bytes(state.opt, False)
+    oracle["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    report["one_device"] = oracle
+    # what a reference cycle would keep of the step once its references go
+    # (ROADMAP.md S1): the memory only the collection frees
+    del state, step, m
+    dropped = torch.cuda.memory_allocated()
+    release()
+    oracle["held_by_cycles_bytes"] = dropped - torch.cuda.memory_allocated()
+
+    launches, kept = {}, {}
+    for n, (sharding, mode, mshape, axes) in enumerate(SETUP_CASES):
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(mshape, axes, device=dev)
+        pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding=sharding,
+                              grad_sync=mode)
+        setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
+        ranks = mesh.size(axes)
+        want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
+        for k, v in expected_sync_launches(mode, n_leaves).items():
+            want[k] += v
+        name = f"{sharding}_{mode}"
+        if n == 1:
+            # zero1's update and the replicated one on case (a)'s synced
+            # gradient, from the same state: bit for bit
+            st = setup.init_state(tree_map(lambda t: t.clone(), p0))
+            st, _ = setup.update_fn(st, kept["grads"])
+            same = [torch.equal(a, b) for a, b in
+                    zip(_leaves(st.params), _leaves(kept["params"]))]
+            same_master = [torch.equal(unshard_leaf(rows, spec, kept["mesh"]), full)
+                           for rows, full, spec in zip(tree_flatten(kept["master"])[0],
+                                                       tree_flatten(st.opt.master)[0],
+                                                       kept["specs"])]
+            report["update_bit_equal"] = {"params": sum(same), "master": sum(same_master),
+                                          "leaves": len(same)}
+            if not all(same) or not all(same_master):
+                raise AssertionError(f"setup: zero1's update differs from the replicated one "
+                                     f"in {len(same) - sum(same)} parameter and "
+                                     f"{len(same_master) - sum(same_master)} master leaves")
+            del st, kept
+            release()
+        state = setup.init_state(tree_map(lambda t: t.clone(), p0))
+        entry = {"param_sharding": sharding, "grad_sync": mode,
+                 "mesh": dict(zip(axes, mshape)), "loss": [], "grad_norm": [], "step_s": [],
+                 "opt_bytes_per_rank": rank_opt_bytes(state.opt, sharding == "zero1")}
+        used = {k: 0 for k in WRAPPERS}
+        for i, batch in enumerate(batches):
+            _zero_launches()                          # counts of this path only
+            t0 = time.perf_counter()
+            if i == 0:                                # the step in its two halves
+                synced, m = setup.grad_fn(state, batch)
+                torch.cuda.synchronize()
+                entry["grad_fn_s"] = time.perf_counter() - t0
+                state, om = setup.update_fn(state, synced)
+                m = {**m, **om}
+            else:
+                state, m = setup.step_fn(state, batch)
+            torch.cuda.synchronize()
+            entry["step_s"].append(time.perf_counter() - t0)
+            got = _launches()
+            if got != want:
+                raise AssertionError(f"setup {name} step {i}: launched {got}, expected {want}")
+            for k in used:
+                used[k] += got[k]
+            loss = float(m["loss"])
+            entry["loss"].append(loss)
+            entry["grad_norm"].append(float(m["grad_norm"]))
+            if not abs(loss - oracle["loss"][i]) <= SETUP_LOSS_RTOL * abs(oracle["loss"][i]):
+                raise AssertionError(f"setup {name} step {i}: loss {loss} against the "
+                                     f"one-device {oracle['loss'][i]}")
+            if i > 0:
+                continue
+            worst = max(float((a.float() - b.float()).norm() / b.float().norm())
+                        for a, b in zip(_leaves(synced), _leaves(want_g)))
+            entry["grad_fro_rel_worst"] = worst
+            if not worst <= SETUP_GRAD_FRO:
+                raise AssertionError(f"setup {name}: a synced gradient leaf is {worst:.3e} "
+                                     f"off the one-device one (limit {SETUP_GRAD_FRO})")
+            if n == 0:
+                kept.update(grads=synced, mesh=mesh,
+                            params=tree_map(lambda t: t.clone(), state.params),
+                            master=tree_map(lambda t: t.clone(), state.opt.master),
+                            specs=[setup.ruleset.opt_spec(a) for a in tree_flatten(
+                                tfm.param_axes(cfg, stacked=False),
+                                is_leaf=lambda x: isinstance(x, tuple))[0]])
+            del synced
+        entry["step_s_median"] = statistics.median(entry["step_s"])
+        entry["launches_per_step"] = want
+        entry["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        report[name] = entry
+        launches[name] = used
+        del state, setup, m
+        release()
+    report["one_device"]["step_s_median"] = statistics.median(oracle["step_s"])
+    emit(report)
+    del p0, want_g
+    release()
+    return launches
+
+
 MOE_RANGES = ("moe_ffn", "moe_dispatch", "moe_combine")
 
 
@@ -3032,6 +3220,14 @@ def main() -> int:
             used = phase_parallel(dev, card)
         pipeline_launches = {"flash_attention_fwd": used["flash_attention"],
                              "flash_attention_bwd": used["flash_attention_bwd"]}
+    setup_launches = {}
+    if "setup" in phases:
+        with phase_limit("setup", seconds):
+            for case, used in phase_setup(dev, card).items():
+                for name, key in (("flash_attention_fwd", "flash_attention"),
+                                  ("flash_attention_bwd", "flash_attention_bwd"),
+                                  ("tree_reduce", "tree_reduce")):
+                    setup_launches.setdefault(name, {})[case] = used[key]
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
@@ -3050,6 +3246,8 @@ def main() -> int:
         entry["launches"] = launches.get(entry["name"])
         if entry["name"] in pipeline_launches:
             entry["pipeline_launches"] = pipeline_launches[entry["name"]]
+        if entry["name"] in setup_launches:
+            entry["setup_launches"] = setup_launches[entry["name"]]
         entry["card"] = card
         if full and not entry["launches"]:
             raise AssertionError(f"{entry['name']}: no launch on its main path")

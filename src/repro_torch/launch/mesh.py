@@ -47,7 +47,11 @@ pair the wrong messages (their shapes match, so the gradients come out wrong
 without a word) or wait for ever.
 
 ``fred_device_order`` is the port's own copy of the JAX function (NumPy
-only).  ``make_production_mesh`` comes with ROADMAP.md M9b.
+only).  ``make_production_mesh`` gives the JAX package's production meshes,
+(16, 16) ``(data, model)`` or (2, 16, 16) ``(pod, data, model)``, as a
+``StackedMesh`` on the meta device: ``parallel.sharding.Ruleset`` and the
+setups' placement metadata read only its axes and sizes, and no tensor is
+placed over its 256 or 512 stacked ranks.
 """
 
 from __future__ import annotations
@@ -368,6 +372,15 @@ def pmean(mesh, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     G = mesh.size(axes)
     got = all_to_all(mesh, x.unsqueeze(1).expand(x.shape[0], G, *x.shape[1:]), axes)
     return got.mean(dim=1)[0]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> StackedMesh:
+    """(16, 16) ``(data, model)`` single-pod or (2, 16, 16) ``(pod, data,
+    model)`` multi-pod mesh, for placement metadata (on the meta device:
+    nothing is allocated there)."""
+    if multi_pod:
+        return StackedMesh((2, 16, 16), ("pod", "data", "model"), "meta")
+    return StackedMesh((16, 16), ("data", "model"), "meta")
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,

@@ -33,6 +33,11 @@ Two deliberate differences from the JAX file:
 
 A block's FFN is the SwiGLU MLP or, for ``ffn="moe"``, the mixture of experts
 (``models.moe``), whose router aux loss ``apply_attn_block`` returns.
+
+Each ``init_*`` has a sibling ``*_axes(cfg, ...)`` that returns the same tree
+with, in place of each tensor, the logical axis names of its dimensions (a
+tuple of names, the JAX package's ``AxisNames``); ``transformer.param_axes``
+assembles them.
 """
 
 from __future__ import annotations
@@ -78,6 +83,17 @@ def init_attention(gen: torch.Generator, cfg, dtype=torch.float32,
     if cfg.qk_norm:
         p["q_norm"] = ones_init((hd,), **kw)
         p["k_norm"] = ones_init((hd,), **kw)
+    return p
+
+
+def attention_axes(cfg) -> Dict[str, Tuple[str, ...]]:
+    """The logical axes of ``init_attention``'s tensors."""
+    p = {"wq": ("embed", "qkv"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+         "wo": ("qkv", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=("qkv",), bk=("kv",), bv=("kv",))
+    if cfg.qk_norm:
+        p.update(q_norm=("null",), k_norm=("null",))
     return p
 
 
@@ -210,6 +226,11 @@ def init_mlp(gen: torch.Generator, cfg, dtype=torch.float32,
     }
 
 
+def mlp_axes(cfg) -> Dict[str, Tuple[str, ...]]:
+    """The logical axes of ``init_mlp``'s tensors."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def apply_mlp(p, x):
     return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
 
@@ -231,6 +252,16 @@ def init_attn_block(gen: torch.Generator, cfg, dtype=torch.float32,
         p["ln_x"] = ones_init((cfg.d_model,), **kw)
         p["cross"] = init_attention(gen, cfg, **kw)
     p["ffn"] = (moe.init_moe if ffn == "moe" else init_mlp)(gen, cfg, **kw)
+    return p
+
+
+def attn_block_axes(cfg, with_cross: bool = False, ffn: str = "mlp") -> Params:
+    """The logical axes of ``init_attn_block``'s tensors."""
+    p: Params = {"ln1": ("embed",), "attn": attention_axes(cfg), "ln2": ("embed",)}
+    if with_cross:
+        p["ln_x"] = ("embed",)
+        p["cross"] = attention_axes(cfg)
+    p["ffn"] = (moe.moe_axes if ffn == "moe" else mlp_axes)(cfg)
     return p
 
 

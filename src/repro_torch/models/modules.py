@@ -4,10 +4,14 @@ Counterpart of ``repro.models.modules``.  Parameters are nested dictionaries
 of ``torch.Tensor`` with the JAX package's names (``embed``, ``final_norm``,
 ``blocks.{ln1, attn.{wq, wk, wv, wo, bq, bk, bv, q_norm, k_norm}, ln2,
 ffn.{w_gate, w_up, w_down}}``), so a value tree of one package converts to
-the other leaf by leaf (``repro_torch.convert``).  The ``Box`` / ``AxisNames``
-sharding metadata of the JAX package waits for ROADMAP.md M9b, which places
-every parameter; ``parallel.sharding``'s rule table takes the logical axis
-names as tuples meanwhile.
+the other leaf by leaf (``repro_torch.convert``).  The JAX package boxes each
+value with its logical axis names (``Box`` / ``AxisNames``, then ``split``);
+here the names live in a tree of their own beside the values, each leaf a
+tuple of names: every ``init_*`` has an ``*_axes`` sibling, and
+``transformer.param_axes(cfg)`` gives the whole tree (what ``split(init(...))
+[1]`` gives in the JAX package), which ``parallel.sharding.Ruleset`` turns into
+placements.  ``stack_axes`` prepends the ``layers`` name to every leaf, as
+``AxisNames.stacked`` does.
 
 Initialisers draw from an explicit ``torch.Generator`` that lives on the
 target device; they never touch the global generator.
@@ -31,49 +35,62 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     return fn(tree)
 
 
+def _flatten_into(t, leaves: List[Any], is_leaf: Callable[[Any], bool]):
+    if t is None:
+        return None
+    if is_leaf(t):
+        leaves.append(t)
+        return "*"
+    if isinstance(t, dict):
+        return (dict, tuple((k, _flatten_into(t[k], leaves, is_leaf)) for k in sorted(t)))
+    if isinstance(t, (list, tuple)):
+        return (type(t), tuple(_flatten_into(x, leaves, is_leaf) for x in t))
+    leaves.append(t)
+    return "*"
+
+
 def tree_flatten(tree, is_leaf: Callable[[Any], bool] = lambda _: False
                  ) -> Tuple[List[Any], Any]:
     """Leaves of a tree of dicts, lists, tuples and named tuples, in the
     order ``jax.tree.flatten`` takes them (dict keys sorted; ``None`` is an
     empty subtree), and a spec that ``tree_unflatten`` rebuilds it from.
-    ``is_leaf`` stops the walk at a node (e.g. a quantised moment)."""
+    ``is_leaf`` stops the walk at a node (e.g. a quantised moment).
+
+    The walks here and in ``tree_unflatten`` are module functions, not
+    closures that call themselves: such a closure is a reference cycle (the
+    function, its cell), and one that holds the leaves keeps every tensor of
+    the tree alive until the garbage collector runs."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves, is_leaf)
 
-    def walk(t):
-        if t is None:
-            return None
-        if is_leaf(t):
-            leaves.append(t)
-            return "*"
-        if isinstance(t, dict):
-            return (dict, tuple((k, walk(t[k])) for k in sorted(t)))
-        if isinstance(t, (list, tuple)):
-            return (type(t), tuple(walk(x) for x in t))
-        leaves.append(t)
-        return "*"
 
-    return leaves, walk(tree)
+def _build(sp, it):
+    if sp is None:
+        return None
+    if sp == "*":
+        return next(it)
+    kind, children = sp
+    if kind is dict:
+        return {k: _build(c, it) for k, c in children}
+    items = [_build(c, it) for c in children]
+    return kind(*items) if hasattr(kind, "_fields") else kind(items)
 
 
 def tree_unflatten(spec, leaves: Sequence[Any]):
     """Inverse of ``tree_flatten``."""
     it = iter(leaves)
-
-    def build(sp):
-        if sp is None:
-            return None
-        if sp == "*":
-            return next(it)
-        kind, children = sp
-        if kind is dict:
-            return {k: build(c) for k, c in children}
-        items = [build(c) for c in children]
-        return kind(*items) if hasattr(kind, "_fields") else kind(items)
-
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has places")
     return out
+
+
+def stack_axes(tree, name: str = "layers"):
+    """A tree of axis-name tuples with ``name`` prepended to every leaf: the
+    axes of a stack of layers on a leading dimension (the JAX layout)."""
+    if isinstance(tree, dict):
+        return {k: stack_axes(v, name) for k, v in tree.items()}
+    return (name,) + tuple(tree)
 
 
 def resolve_device(device) -> torch.device:

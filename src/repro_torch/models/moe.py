@@ -26,8 +26,10 @@ its E/n experts' buckets from all n ranks, the expert products run on the
 local weight shard, and the inverse all-to-all brings the outputs back for
 the combine.  Routing, capacity and combine are ``moe_ffn``'s, so it equals
 ``moe_ffn(n_groups=n)``.  Its gradients flow through both exchanges
-(``launch.mesh.all_to_all``).  Placing every parameter by FSDP / ZeRO-1 / TP
-waits for ROADMAP.md M9b.  The capacity factor is ``cfg.capacity_factor``;
+(``launch.mesh.all_to_all``).  The experts' logical axes are ``moe_axes``
+(``parallel.sharding.Ruleset`` places them); the data-parallel train setup
+does not place the experts over a data axis yet (ROADMAP.md M9b2b).  The
+capacity factor is ``cfg.capacity_factor``;
 vary it with ``dataclasses.replace``.
 """
 
@@ -73,6 +75,21 @@ def init_moe(gen: torch.Generator, cfg, dtype=torch.float32,
             "w_down": dense_init(gen, (fd, d), **kw),
         }
     return params
+
+
+def moe_axes(cfg) -> Dict[str, object]:
+    """The logical axes of ``init_moe``'s tensors; arctic's dense residual has
+    its own names (``embed_unsharded``, ``mlp_dense``): the rule table keeps
+    its contraction dim whole."""
+    p: Dict[str, object] = {"router": ("embed", "expert_router"),
+                            "w_gate": ("expert", "embed", "mlp"),
+                            "w_up": ("expert", "embed", "mlp"),
+                            "w_down": ("expert", "mlp", "embed")}
+    if cfg.moe_dense_ff:
+        p["dense"] = {"w_gate": ("embed_unsharded", "mlp_dense"),
+                      "w_up": ("embed_unsharded", "mlp_dense"),
+                      "w_down": ("mlp_dense", "embed_unsharded")}
+    return p
 
 
 def _route(x: torch.Tensor, router_w: torch.Tensor, n_experts: int, top_k: int

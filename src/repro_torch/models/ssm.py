@@ -65,6 +65,13 @@ def init_mamba2(gen: torch.Generator, cfg, dtype=torch.float32,
     }
 
 
+def mamba2_axes(cfg):
+    """The logical axes of ``init_mamba2``'s tensors."""
+    return {"in_proj": ("embed", "ssm_in"), "conv_w": ("null", "ssm_in"),
+            "conv_b": ("ssm_in",), "a_log": ("ssm_head",), "dt_bias": ("ssm_head",),
+            "d_skip": ("ssm_head",), "norm_g": ("ssm_in",), "out_proj": ("ssm_in", "embed")}
+
+
 def _split_in_proj(zxbcdt: torch.Tensor, cfg):
     di, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     z = zxbcdt[..., :di]

@@ -30,6 +30,7 @@ blocks; after every ``attn_every`` of them, one *shared* attention block
 
 Entry points:
   * ``init``              — dictionary of parameters from a seed.
+  * ``param_axes``        — the logical axis names of every parameter.
   * ``loss_fn``           — causal LM loss of a batch.
   * ``init_decode_state`` — an empty decode state for a cache length.
   * ``prefill``           — runs the prompt, builds the decode state.
@@ -52,11 +53,11 @@ import torch
 import torch.utils.checkpoint
 
 from .config import ModelConfig, ParallelConfig
-from .layers import KVCache, apply_attn_block, init_attn_block
+from .layers import KVCache, apply_attn_block, attn_block_axes, init_attn_block
 from .modules import (dense_init, embed_init, ones_init, resolve_device,
-                      rms_norm, softmax_cross_entropy)
-from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_forward
-from .whisper import init_encoder
+                      rms_norm, softmax_cross_entropy, stack_axes)
+from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_axes, mamba2_forward
+from .whisper import encoder_axes, init_encoder
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -100,10 +101,14 @@ def _shared_after(cfg: ModelConfig, layer: int) -> Optional[int]:
 def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
          device="cuda") -> Dict[str, Any]:
     """Random parameters.  ``seed_or_gen`` is an int seed or a
-    ``torch.Generator`` on ``device``."""
+    ``torch.Generator`` on ``device``.  On ``device="meta"`` the tree holds
+    shapes and dtypes only (the setups' ``param_shapes``, as the JAX package
+    gets them from ``jax.eval_shape``); the seed is not read there."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    if isinstance(seed_or_gen, torch.Generator):
+    if dev.type == "meta":
+        gen = None                          # nothing is drawn on the meta device
+    elif isinstance(seed_or_gen, torch.Generator):
         gen = seed_or_gen
     else:
         gen = torch.Generator(device=dev)
@@ -132,6 +137,35 @@ def init(seed_or_gen, cfg: ModelConfig, dtype=torch.float32,
     if cfg.family == "audio":
         params["encoder"] = init_encoder(gen, cfg, **kw)
     return params
+
+
+def param_axes(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Any]:
+    """The logical axis names of every parameter ``init`` creates, a tuple of
+    names per tensor, in ``init``'s tree.  ``stacked=True`` (the default)
+    gives the JAX layout, what ``split(init(...))[1]`` gives there: ``blocks``
+    (and whisper's ``encoder.blocks``) one dictionary whose leaves lead with
+    ``"layers"``.  ``stacked=False`` gives the port's own layout: ``blocks`` a
+    list with one dictionary per layer, without ``"layers"``."""
+    _require_ported(cfg)
+    axes: Dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if _is_ssm(cfg):
+        def block():
+            return {"ln": ("embed",), "ssm": mamba2_axes(cfg)}
+    else:
+        def block():
+            return attn_block_axes(cfg, with_cross=cfg.family == "audio",
+                                   ffn="moe" if cfg.n_experts else "mlp")
+    n = max(cfg.num_layers, 1)
+    axes["blocks"] = stack_axes(block()) if stacked else [block() for _ in range(n)]
+    if cfg.family == "hybrid":
+        axes["shared_attn"] = attn_block_axes(cfg)
+    if cfg.family == "vlm":
+        axes["mm_proj"] = ("embed", "embed_out")
+    if cfg.family == "audio":
+        axes["encoder"] = encoder_axes(cfg, stacked)
+    return axes
 
 
 # --------------------------------------------------------------------------
@@ -183,7 +217,7 @@ def _maybe_remat(fn, pcfg: ParallelConfig):
 # --------------------------------------------------------------------------
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
-            enc_fn=None):
+            enc_fn=None, loss_weight=None):
     """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
     tensors (-1 = masked), plus ``patch_embeds`` (vlm) or ``frames`` (audio,
     encoded by ``enc_fn``).  Returns ``(total, {"loss", "aux_loss",
@@ -197,7 +231,10 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     shared block after every ``attn_every`` layers), each block under
     ``_maybe_remat``, as the JAX package's ``_scan_blocks(mode="train")``.
     The MoE blocks' router aux losses are summed over the layers and enter
-    ``total = loss + cfg.router_aux_weight * aux``."""
+    ``total = loss + cfg.router_aux_weight * aux``; with ``loss_weight`` (a
+    scalar), ``total = loss * loss_weight + cfg.router_aux_weight * aux``: a
+    data-parallel rank weighs its shard's mean by its share of the labelled
+    tokens (``parallel.steps.make_train_setup``)."""
     _require_ported(cfg)
     pcfg = pcfg or ParallelConfig()
     x, positions = _embed_inputs(params, cfg, batch)
@@ -231,7 +268,8 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
         P = batch["patch_embeds"].shape[1]
         labels = torch.cat([labels.new_full((labels.shape[0], P), -1), labels], dim=1)
     loss, count = softmax_cross_entropy(logits, labels, cfg.vocab_size)
-    total = loss + cfg.router_aux_weight * aux
+    weighted = loss if loss_weight is None else loss * loss_weight
+    total = weighted + cfg.router_aux_weight * aux
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": count}
 
 

@@ -17,8 +17,8 @@ from typing import Any, Dict
 import torch
 
 from .config import ParallelConfig
-from .layers import apply_attn_block, init_attn_block
-from .modules import ones_init, rms_norm
+from .layers import apply_attn_block, attn_block_axes, init_attn_block
+from .modules import ones_init, rms_norm, stack_axes
 
 
 def init_encoder(gen: torch.Generator, cfg, dtype=torch.float32,
@@ -30,6 +30,16 @@ def init_encoder(gen: torch.Generator, cfg, dtype=torch.float32,
     return {"blocks": [init_attn_block(gen, cfg, **kw)
                        for _ in range(max(cfg.n_enc_layers, 1))],
             "final_norm": ones_init((cfg.d_model,), **kw)}
+
+
+def encoder_axes(cfg, stacked: bool = True) -> Dict[str, Any]:
+    """The logical axes of ``init_encoder``'s tensors: ``blocks`` stacked with
+    a leading ``layers`` name (the JAX layout), or with ``stacked=False`` a
+    list of one block's axes per layer (the port's)."""
+    n = max(cfg.n_enc_layers, 1)
+    return {"blocks": (stack_axes(attn_block_axes(cfg)) if stacked
+                       else [attn_block_axes(cfg) for _ in range(n)]),
+            "final_norm": ("embed",)}
 
 
 def encode(params, batch, cfg, pcfg=None) -> torch.Tensor:

@@ -101,27 +101,29 @@ def compressed_all_reduce(x: torch.Tensor, error: torch.Tensor, mesh,
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List[Any]], Any]]:
     """Leaves of a tree of dicts and lists, and the function that rebuilds a
-    tree of the same structure from a list of new leaves."""
+    tree of the same structure from a list of new leaves (module-level walks:
+    a closure that calls itself is a reference cycle, and would keep the
+    leaves alive until the garbage collector runs)."""
     leaves: List[torch.Tensor] = []
+    skeleton = _skeleton(tree, leaves)
+    return leaves, lambda new: _rebuild(new, skeleton)
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        leaves.append(t)
-        return len(leaves) - 1
 
-    skeleton = walk(tree)
+def _skeleton(t, leaves: List[torch.Tensor]):
+    if isinstance(t, dict):
+        return {k: _skeleton(v, leaves) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_skeleton(v, leaves) for v in t]
+    leaves.append(t)
+    return len(leaves) - 1
 
-    def rebuild(new: List[Any], t=skeleton):
-        if isinstance(t, dict):
-            return {k: rebuild(new, v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [rebuild(new, v) for v in t]
-        return new[t]
 
-    return leaves, rebuild
+def _rebuild(new: List[Any], t):
+    if isinstance(t, dict):
+        return {k: _rebuild(new, v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_rebuild(new, v) for v in t]
+    return new[t]
 
 
 def build_sync(mesh, mode: str = "hierarchical", inner_axis: str = "data",

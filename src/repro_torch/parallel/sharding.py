@@ -29,26 +29,35 @@ mesh's ``shape`` (a mapping from axis name to size): either transport of
 
 ``shard_leaf(t, spec, mesh)`` places a tensor by a spec: the stacked view of
 every block on a ``StackedMesh``, this rank's block on a ``DistMesh`` (the
-rows form of ``launch.mesh``).  This slice uses it for the expert weights
-(dim 0 over ``ep_axis``) and the batch (``batch_axes``).
+rows form of ``launch.mesh``); ``unshard_leaf`` puts the rows back together
+(on a ``DistMesh`` by an all-gather over the spec's axes).  The expert weights
+(dim 0 over ``ep_axis``), the batch (``batch_axes``) and ZeRO-1's optimizer
+shards (``opt_spec``) are placed so.
 
-Left for ROADMAP.md M9b: the activation and decode-state specs
-(``act_spec``, ``constrain_fn``, ``kv_cache_spec``, ``ssm_state_spec``,
-``decode_state_shardings``) and ``param_shardings``, which need the port's
-own logical-axes tree (the JAX ``Box`` / ``AxisNames``) and the FSDP /
-ZeRO-1 / TP placement of every parameter.
+The rest of the JAX ``Ruleset`` is here as metadata, leaf for leaf:
+``param_shardings`` (a tree of specs; the port has no ``NamedSharding``),
+``act_spec`` of every activation kind, ``constrain_spec`` (the spec
+``constrain_fn``'s closure asks for after its adjustments to the value's
+shape; on one device the closure itself returns its value), and the decode
+state's ``kv_cache_spec``, ``ssm_state_spec`` and ``decode_state_shardings``
+(the port's ``DecodeState`` structure).  Placing parameters by FSDP or over a
+``model`` axis of more than one rank waits for ROADMAP.md M9b2b.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 from ..launch.mesh import DistMesh, StackedMesh
 from ..models.config import ModelConfig, ParallelConfig
+from ..models.layers import KVCache
+from ..models.modules import tree_map
+from ..models.ssm import SSMState
+from ..models.transformer import DecodeState
 
 
 def _axis_size(mesh, name) -> int:
@@ -169,6 +178,11 @@ class Ruleset:
         return _spec(dp_last if a == "embed" and self.rules.get(a) is None
                      else self.rules.get(a) for a in axes)
 
+    def param_shardings(self, axes_tree):
+        """The spec of every parameter of a tree of axis-name tuples
+        (``models.transformer.param_axes``)."""
+        return tree_map(self.spec, axes_tree)
+
     # ---- activations ---------------------------------------------------------
     def batch_axes(self, global_batch: int) -> Optional[Tuple[str, ...]]:
         """The data axes the batch shards over: as many as divide it,
@@ -181,6 +195,99 @@ class Ruleset:
                 axes.append(a)
                 rem //= s
         return tuple(axes) or None
+
+    def act_spec(self, kind: str, global_batch: int) -> Tuple:
+        """The placement of an activation of ``kind``: ``residual`` (B, S, d;
+        S over TP under ``seq_shard``), ``logits`` (B, S, V), ``tokens`` (B,
+        S), ``q_heads`` / ``kv_heads`` (B, S, H, hd), ``moe_buckets`` (G, E, C,
+        d / f)."""
+        b = self.batch_axes(global_batch)
+        seq = self.tp if (self.pcfg.seq_shard and kind == "residual") else None
+        if kind == "residual":
+            return _spec((b, seq, None))
+        if kind == "logits":
+            return _spec((b, None, self.tp))
+        if kind == "tokens":
+            return _spec((b, None))
+        if kind == "q_heads":
+            # head counts that do not divide TP (56, 20) still shard
+            return _spec((b, None, self.tp if self.rules.get("heads") else None, None))
+        if kind == "kv_heads":
+            # KV heads stay whole unless they divide TP
+            return _spec((b, None, self.tp if self.kv_head_sharded else None, None))
+        if kind == "moe_buckets":
+            # EP: the experts carry the data axis and the groups stay whole;
+            # else groups over data, experts over TP when expert-sharded, the
+            # hidden dim otherwise
+            if self.ep_axis:
+                return _spec((None, self.ep_axis, None, None))
+            e_ax = self.tp if self.expert_sharded else None
+            f_ax = None if self.expert_sharded else self.tp
+            return _spec((b, e_ax, None, f_ax))
+        raise KeyError(kind)
+
+    def constrain_spec(self, shape: Sequence[int], kind: str,
+                       global_batch: int) -> Optional[Tuple]:
+        """The spec ``constrain_fn``'s closure pins a value of ``shape`` to, or
+        None where it leaves the value alone (its rank differs from the
+        kind's).  Adjusted as the JAX closure adjusts it: a bucket d dim that
+        does not divide TP, a residual seq dim that does not, and decode's
+        single query position stay unsharded."""
+        spec = list(self.act_spec(kind, global_batch))
+        if len(shape) != len(spec):
+            return None
+        tp_size = max(self.tp_size, 1)
+        if kind == "moe_buckets" and spec[3] is not None and shape[3] % tp_size:
+            spec[3] = None
+        if kind == "residual" and spec[1] is not None and shape[1] % tp_size:
+            spec[1] = None
+        if kind == "q_heads" and shape[1] == 1:
+            spec[1] = None
+        return tuple(spec)
+
+    def constrain_fn(self, global_batch: int):
+        """``constrain(x, kind="residual") -> x``: on one device there is
+        nothing to pin; the spec it stands for is ``constrain_spec``."""
+        def constrain(x, kind: str = "residual"):
+            self.constrain_spec(tuple(x.shape), kind, global_batch)   # an unknown kind raises
+            return x
+        return constrain
+
+    # ---- decode state --------------------------------------------------------
+    def kv_cache_spec(self, global_batch: int) -> Tuple:
+        """(L, B, S, Hkv, hd).  A batch too small for any data axis spreads
+        the cache's sequence over every mesh axis (flash decoding)."""
+        b = self.batch_axes(global_batch)
+        if b is None:
+            axes = tuple(a for a in (*self.dp, self.tp) if a)
+            return _spec((None, None, axes, None, None))
+        if self.kv_head_sharded:
+            return _spec((None, b, None, self.tp, None))
+        return _spec((None, b, self.tp, None, None))
+
+    def ssm_state_spec(self, global_batch: int) -> Tuple[Tuple, Tuple]:
+        """The SSM state h (L, B, H, hd, N) and conv lag (L, B, K-1, C)."""
+        b = self.batch_axes(global_batch)
+        return (_spec((None, b, self.rules["ssm_head"], None, None)),
+                _spec((None, b, None, self.tp)))
+
+    def decode_state_shardings(self, cfg: ModelConfig, global_batch: int):
+        """The specs of a ``models.transformer.DecodeState``, field for field."""
+        kv = ssm = shared = cross = None
+        if cfg.family in ("ssm", "hybrid"):
+            ssm = SSMState(*self.ssm_state_spec(global_batch))
+            if cfg.family == "hybrid":
+                shared = KVCache(self.kv_cache_spec(global_batch),
+                                 self.kv_cache_spec(global_batch))
+        else:
+            kv = KVCache(self.kv_cache_spec(global_batch), self.kv_cache_spec(global_batch))
+            if cfg.family == "audio":
+                # the cross cache's seq is enc_seq (1500, not TP-divisible):
+                # heads shard when they divide, the seq stays whole
+                xspec = _spec((None, self.batch_axes(global_batch), None,
+                               self.tp if self.kv_head_sharded else None, None))
+                cross = KVCache(xspec, xspec)
+        return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=cross, index=())
 
 
 def _names(e) -> Tuple[str, ...]:
@@ -228,3 +335,35 @@ def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         shape.append(size // (parts[i] if i < len(dims) else 1))
     v = t.reshape(shape).movedim(lead, list(range(len(lead))))
     return v.reshape(math.prod(parts), *(s for i, s in enumerate(shape) if i not in lead))
+
+
+def unshard_leaf(rows: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The inverse of ``shard_leaf``: the whole tensor from its rows form
+    over ``spec``'s axes.  On a ``StackedMesh`` rows holds every block; on a
+    ``DistMesh`` rows is this rank's (1, ...) block, and the others come by an
+    all-gather over the spec's axes (a collective: every rank of the group
+    calls it, in the same order)."""
+    spec = tuple(spec)
+    block = tuple(rows.shape[1:])
+    dims = [_names(e) for e in spec] + [()] * (len(block) - len(spec))
+    every = [a for names in dims for a in names]
+    if isinstance(mesh, DistMesh):
+        if rows.shape[0] != 1:
+            raise ValueError(f"need this rank's block (1, ...), got {tuple(rows.shape)}")
+        if not every:
+            return rows[0]
+        in_mesh = mesh._sorted(every)
+        got = mesh.gather(rows[0], in_mesh)             # (G, ...) in mesh order
+        got = got.reshape(*(mesh.shape[a] for a in in_mesh), *block)
+        rows = got.permute(*(in_mesh.index(a) for a in every),
+                           *range(len(every), len(every) + len(block)))
+    elif not isinstance(mesh, StackedMesh):
+        raise TypeError(f"unshard_leaf needs a mesh of launch.mesh, got {type(mesh).__name__}")
+    rows = rows.reshape(*(mesh.shape[a] for a in every), *block)
+    order, k = [], 0
+    for i, names in enumerate(dims):
+        order += range(k, k + len(names))
+        k += len(names)
+        order.append(len(every) + i)
+    full = [b * math.prod(mesh.shape[a] for a in names) for b, names in zip(block, dims)]
+    return rows.permute(*order).reshape(full)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -132,14 +132,18 @@ def _is_moment(x) -> bool:
 
 
 @torch.no_grad()
-def adam_update(params, grads, state: AdamState, ocfg: OptimConfig
-                ) -> Tuple[Any, AdamState, dict]:
+def adam_update(params, grads, state: AdamState, ocfg: OptimConfig,
+                gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, AdamState, dict]:
     """One AdamW step, in place.  Returns (params, new_state, metrics):
     ``params`` and the state's master and moment buffers are the objects
-    passed in, their values overwritten; ``new_state.step`` is new."""
+    passed in, their values overwritten; ``new_state.step`` is new.  The
+    clip factor comes from ``gnorm``, by default the global norm of
+    ``grads``; a ZeRO-1 rank that updates its shard of the tree passes the
+    norm of the whole gradient."""
     step = state.step + 1
     lr = lr_schedule(step, ocfg)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = (torch.clamp(ocfg.grad_clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
             if ocfg.grad_clip else 1.0)
 
