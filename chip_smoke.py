@@ -13,9 +13,10 @@ and int8 error-feedback modes, training llama3.2-1b, mamba2-1.3b and
 mixtral-8x7b through ``Trainer.run()``, and llava and whisper through
 ``make_train_step``, and the multi-rank layer with every rank stacked on the
 card: mixtral's and arctic's MoE layers with their experts over data 4, and
-llama3.2-1b as a 4-stage GPipe pipeline; and llama3.2-1b's data-parallel
-train setup, zero1 over data 4 and replicated over pod 2 x data 2, each
-rank's gradient synchronised through the tree-reduce kernel)
+llama3.2-1b as a 4-stage GPipe pipeline; and the data-parallel setups:
+llama3.2-1b trained zero1, replicated and fsdp, mamba2-1.3b fsdp, each
+rank's gradient synchronised through the tree-reduce kernel, and llama3.2-1b
+and whisper-medium served fsdp through make_setup)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -141,9 +142,23 @@ Phases:
            gradient leaf of step 1 (relative Frobenius within tol(bf16)),
            zero1's AdamW update bit-equal to the replicated one on (a)'s
            synced gradient, the launches of every step (asserted: 4 x (32 +
-           16) flash, 146 (a) or 292 (b) tree reduces); step seconds, peak
-           memory, the optimizer bytes a rank holds, and the memory the
-           one-device step leaves to the collector once dropped
+           16) flash, 146 (a) or 292 (b) tree reduces); then (c) fsdp over
+           data 4, flat, and (d) fsdp over pod 2 x data 2 x model 1,
+           hierarchical (embed over data alone, the shards summed over pod
+           too), the same way, each block gathered when it runs (gathers
+           counted and asserted: 4 x (2 + 2 x 9 x 16) a step), step 1's
+           synced gradient shards and updated parameters bit-equal to (a)'s
+           and (b)'s; (e) mamba2-1.3b at full width and 12 of 48 layers, fsdp
+           over data 4, one step (4 x (24 + 12) SSD launches asserted); step
+           seconds, peak memory, the parameter and optimizer bytes a rank
+           holds, and the memory the one-device step leaves to the
+           collector once dropped; (f) serving through make_setup, fsdp over
+           data 4: llama3.2-1b at full depth (8 x 2048 tokens, 16 steps; 64
+           flash launches a prefill, asserted) and whisper-medium at full
+           depth (8 x 224 tokens against 1500 frames, 16 steps; 288), the
+           logits bit-equal to the one-device prefill / decode_step on each
+           rank's rows; against the whole batch, greedy tokens equal but at
+           near-ties (counted) and the elements outside tol(bf16) counted
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -205,8 +220,10 @@ from repro_torch.parallel import compress                    # noqa: E402
 from repro_torch.parallel.pipeline import (                  # noqa: E402
     pipeline_fn, sequential_reference, stack_stages)
 from repro_torch.parallel.sharding import Ruleset, shard_leaf, unshard_leaf  # noqa: E402
+from repro_torch.parallel import steps as steps_module       # noqa: E402
 from repro_torch.parallel.steps import (                     # noqa: E402
-    TrainState, _enc_fn, make_train_setup, make_train_step, moe_ep_ffn_fn, train_grads)
+    TrainState, _enc_fn, make_setup, make_train_setup, make_train_step, moe_ep_ffn_fn,
+    train_grads)
 from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
@@ -2796,25 +2813,43 @@ def phase_parallel(dev, card):
 # params, the default OptimConfig, block remat, through make_train_setup with
 # every rank of a StackedMesh on the card, as (param_sharding, grad_sync, mesh
 # shape, axes): (a) zero1 over data 4, flat; (b) replicated over pod 2 x data
-# 2, hierarchical; each SETUP_STEPS steps from one state, against the
-# one-device make_train_step on the whole batch
+# 2, hierarchical; (c) fsdp over data 4, flat; (d) fsdp over pod 2 x data 2 x
+# model 1, hierarchical (embed over data alone: the shards summed over pod
+# too); each SETUP_STEPS steps from one state, against the one-device
+# make_train_step on the whole batch; (c) and (d) also bit for bit against
+# the synced gradient and the update of (a) and (b)
 SETUP_ARCH = "llama3.2-1b"
 SETUP_BATCH = (8, 2048)
 SETUP_STEPS = 2
 SETUP_CASES = [("zero1", "flat", (4,), ("data",)),
-               ("replicated", "hierarchical", (2, 2), ("pod", "data"))]
+               ("replicated", "hierarchical", (2, 2), ("pod", "data")),
+               ("fsdp", "flat", (4,), ("data",)),
+               ("fsdp", "hierarchical", (2, 2, 1), ("pod", "data", "model"))]
+# the case whose synced gradient and update an fsdp case equals bit for bit:
+# the same ranks, the same sync tree
+SETUP_TWIN = {"fsdp_flat": "zero1_flat", "fsdp_hierarchical": "replicated_hierarchical"}
 SETUP_LOSS_RTOL = 2e-3
 # a rank's bf16 gradient and the synced mean are two bf16 roundings of the
 # one-device gradient's terms summed in another order: tol(bf16)
 SETUP_GRAD_FRO = tol(torch.bfloat16)["rtol"]
+# (e) mamba2-1.3b at full width and SETUP_SSM_LAYERS of 48 layers (the cut
+# keeps the phase short), fsdp over data 4, flat, one step against the
+# one-device step: the SSD kernels through gathered Mamba2 blocks
+SETUP_SSM_ARCH, SETUP_SSM_LAYERS = "mamba2-1.3b", 12
+# (f) serving through make_setup, fsdp over data 4 (each rank prefills and
+# steps its 2 of the 8 requests, every block gathered when it runs), against
+# the one-device prefill / decode_step: (arch, prompt, cache length)
+SETUP_SERVE = [("llama3.2-1b", 2048, 2048 + 16), ("whisper-medium", 224, 448)]
+SETUP_SERVE_MESH = ((4,), ("data",))
+SETUP_SERVE_TOKENS = 16
 
 
-def setup_batches(cfg, B, S):
-    """SETUP_STEPS batches of random tokens, the labels of row r masked with
+def setup_batches(cfg, B, S, steps=SETUP_STEPS):
+    """``steps`` batches of random tokens, the labels of row r masked with
     probability r / (2 B), so that the ranks' shards count unequal tokens."""
     rng = np.random.default_rng(8)
     out = []
-    for _ in range(SETUP_STEPS):
+    for _ in range(steps):
         toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
         labels = toks[:, 1:].copy()
         labels[rng.random((B, S)) < np.arange(B)[:, None] / (2 * B)] = -1
@@ -2822,93 +2857,90 @@ def setup_batches(cfg, B, S):
     return out
 
 
-def rank_opt_bytes(opt, zero1):
-    """Bytes of optimizer state (master and moments) one rank holds: under
-    zero1 one row of each leaf's rows form, else every leaf whole."""
-    return sum(nbytes(t) // (t.shape[0] if zero1 else 1)
-               for field in (opt.master, opt.m, opt.v) for t in _leaves(field))
+def rank_bytes(trees, sharded):
+    """Bytes of the tensors of ``trees`` one rank holds: where ``sharded``
+    one row of each leaf's rows form, else every leaf whole."""
+    return sum(nbytes(t) // (t.shape[0] if sharded else 1)
+               for tree in trees for t in _flat(tree))
 
 
-def phase_setup(dev, card):
-    """llama3.2-1b at full width and depth through ``make_train_setup`` (the
-    two SETUP_CASES) against the one-device ``make_train_step``: the loss of
-    each step, each synced gradient leaf of step 1 against the one-device
-    gradient, the launches of every step (asserted), and zero1's AdamW update
-    bit-equal to the replicated one on the same synced gradient.  Returns
-    each case's launches over its steps."""
-    cfg = get_config(SETUP_ARCH)
-    B, S = SETUP_BATCH
-    shape = ShapeConfig("train_8x2048", "train", S, B)
+def _flat(tree):
+    """The tensors of ``tree`` in ``tree_flatten``'s order (the specs' order)."""
+    return [t for t in tree_flatten(tree)[0] if torch.is_tensor(t)]
+
+
+def _flat_specs(setup):
+    return tree_flatten(setup.param_shardings, is_leaf=lambda x: isinstance(x, tuple))[0]
+
+
+def _counting_gathers():
+    """A patch of ``parallel.steps._gather_fn`` whose gathers count the
+    parameter leaves they put together and their bytes; yields the counts."""
+    counts = {"gathers": 0, "gathered_bytes": 0}
+    plain = steps_module._gather_fn
+
+    def counting(mesh, sink=None):
+        gather = plain(mesh, sink)
+
+        def counted(rows, spec):
+            full = gather(rows, spec)
+            counts["gathers"] += 1
+            counts["gathered_bytes"] += nbytes(full)
+            return full
+        return counted
+    return patched(steps_module, counts, _gather_fn=counting)
+
+
+def setup_gathers_per_step(cfg, ranks):
+    """Parameter gathers of one fsdp train step: each rank gathers the
+    leaves outside the blocks once, and each block's leaves twice (the
+    forward and block remat's recompute)."""
+    axes = tfm.param_axes(cfg, stacked=False)
+    is_spec = dict(is_leaf=lambda x: isinstance(x, tuple))
+    block = len(tree_flatten(axes["blocks"][0], **is_spec)[0])
+    outside = len(tree_flatten({k: v for k, v in axes.items() if k != "blocks"},
+                               **is_spec)[0])
+    return ranks * (outside + 2 * block * cfg.num_layers)
+
+
+def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode, mshape,
+                     axes, kept=None, steps=SETUP_STEPS):
+    """One train case of the setup phase: ``steps`` steps through
+    ``make_train_setup`` against the one-device losses (``oracle``), step 1's
+    synced gradient against the one-device gradient ``want_g``; the
+    launches of every step asserted, fsdp's gathers counted (asserted).  With
+    ``kept``: a twin of SETUP_TWIN keeps its step 1 there, and an fsdp case
+    is held bit for bit against its twin's.  Returns (report entry, launches
+    over the steps)."""
+    B, S = batches[0]["tokens"].shape
+    shape = ShapeConfig(f"train_{B}x{S}", "train", S, B)
     ocfg = OptimConfig()
-    batches = setup_batches(cfg, B, S)
-    n_leaves = 2 + 9 * cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
-    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
-    report = {"phase": "setup", "config": f"{SETUP_ARCH} full width and depth, bf16 params, "
-                                          f"fp32 master and moments, block remat",
-              "batch": B, "seq": S, "steps": SETUP_STEPS, "card": card}
-
-    # the oracle: the whole batch on one device, in place on its own copy
-    pcfg1 = ParallelConfig(remat="block", param_dtype="bfloat16")
-    state = TrainState(tree_map(lambda t: t.clone(), p0), init_adam(p0, ocfg))
-    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg1))
-    step = make_train_step(cfg, pcfg1, ocfg)
-    oracle = {"loss": [], "grad_norm": [], "step_s": [], "grad_s": grad_s}
-    for batch in batches:
-        (state, m), sec = timed(lambda: step(state, batch))
-        oracle["loss"].append(float(m["loss"]))
-        oracle["grad_norm"].append(float(m["grad_norm"]))
-        oracle["step_s"].append(sec)
-    oracle["opt_bytes"] = rank_opt_bytes(state.opt, False)
-    oracle["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    report["one_device"] = oracle
-    # what a reference cycle would keep of the step once its references go
-    # (ROADMAP.md S1): the memory only the collection frees
-    del state, step, m
-    dropped = torch.cuda.memory_allocated()
-    release()
-    oracle["held_by_cycles_bytes"] = dropped - torch.cuda.memory_allocated()
-
-    launches, kept = {}, {}
-    for n, (sharding, mode, mshape, axes) in enumerate(SETUP_CASES):
-        torch.cuda.reset_peak_memory_stats()
-        mesh = make_mesh(mshape, axes, device=dev)
-        pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding=sharding,
-                              grad_sync=mode)
-        setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
-        ranks = mesh.size(axes)
-        want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
-        for k, v in expected_sync_launches(mode, n_leaves).items():
-            want[k] += v
-        name = f"{sharding}_{mode}"
-        if n == 1:
-            # zero1's update and the replicated one on case (a)'s synced
-            # gradient, from the same state: bit for bit
-            st = setup.init_state(tree_map(lambda t: t.clone(), p0))
-            st, _ = setup.update_fn(st, kept["grads"])
-            same = [torch.equal(a, b) for a, b in
-                    zip(_leaves(st.params), _leaves(kept["params"]))]
-            same_master = [torch.equal(unshard_leaf(rows, spec, kept["mesh"]), full)
-                           for rows, full, spec in zip(tree_flatten(kept["master"])[0],
-                                                       tree_flatten(st.opt.master)[0],
-                                                       kept["specs"])]
-            report["update_bit_equal"] = {"params": sum(same), "master": sum(same_master),
-                                          "leaves": len(same)}
-            if not all(same) or not all(same_master):
-                raise AssertionError(f"setup: zero1's update differs from the replicated one "
-                                     f"in {len(same) - sum(same)} parameter and "
-                                     f"{len(same_master) - sum(same_master)} master leaves")
-            del st, kept
-            release()
-        state = setup.init_state(tree_map(lambda t: t.clone(), p0))
-        entry = {"param_sharding": sharding, "grad_sync": mode,
-                 "mesh": dict(zip(axes, mshape)), "loss": [], "grad_norm": [], "step_s": [],
-                 "opt_bytes_per_rank": rank_opt_bytes(state.opt, sharding == "zero1")}
-        used = {k: 0 for k in WRAPPERS}
-        for i, batch in enumerate(batches):
-            _zero_launches()                          # counts of this path only
+    mesh = make_mesh(mshape, axes, device=dev)
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding=sharding,
+                          grad_sync=mode)
+    setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
+    ranks = mesh.size(axes)
+    n_leaves = len(tree_flatten(p0)[0])
+    want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
+    for k, v in expected_sync_launches(mode, n_leaves).items():
+        want[k] += v
+    name = f"{sharding}_{mode}"
+    fsdp = sharding == "fsdp"
+    specs = _flat_specs(setup)
+    state = setup.init_state(tree_map(lambda t: t.clone(), p0))
+    entry = {"param_sharding": sharding, "grad_sync": mode, "layers": cfg.num_layers,
+             "mesh": dict(zip(axes, mshape)), "loss": [], "grad_norm": [], "step_s": [],
+             "param_bytes_per_rank": rank_bytes([state.params], fsdp),
+             "opt_bytes_per_rank": rank_bytes([state.opt.master, state.opt.m, state.opt.v],
+                                              sharding != "replicated")}
+    used = {k: 0 for k in WRAPPERS}
+    gathers = []
+    for i, batch in enumerate(batches[:steps]):
+        _zero_launches()                          # counts of this path only
+        with _counting_gathers() as counts:
             t0 = time.perf_counter()
-            if i == 0:                                # the step in its two halves
+            if i == 0:                            # the step in its two halves
                 synced, m = setup.grad_fn(state, batch)
                 torch.cuda.synchronize()
                 entry["grad_fn_s"] = time.perf_counter() - t0
@@ -2918,43 +2950,270 @@ def phase_setup(dev, card):
                 state, m = setup.step_fn(state, batch)
             torch.cuda.synchronize()
             entry["step_s"].append(time.perf_counter() - t0)
-            got = _launches()
-            if got != want:
-                raise AssertionError(f"setup {name} step {i}: launched {got}, expected {want}")
-            for k in used:
-                used[k] += got[k]
-            loss = float(m["loss"])
-            entry["loss"].append(loss)
-            entry["grad_norm"].append(float(m["grad_norm"]))
-            if not abs(loss - oracle["loss"][i]) <= SETUP_LOSS_RTOL * abs(oracle["loss"][i]):
-                raise AssertionError(f"setup {name} step {i}: loss {loss} against the "
-                                     f"one-device {oracle['loss'][i]}")
-            if i > 0:
-                continue
-            worst = max(float((a.float() - b.float()).norm() / b.float().norm())
-                        for a, b in zip(_leaves(synced), _leaves(want_g)))
-            entry["grad_fro_rel_worst"] = worst
-            if not worst <= SETUP_GRAD_FRO:
-                raise AssertionError(f"setup {name}: a synced gradient leaf is {worst:.3e} "
-                                     f"off the one-device one (limit {SETUP_GRAD_FRO})")
-            if n == 0:
-                kept.update(grads=synced, mesh=mesh,
-                            params=tree_map(lambda t: t.clone(), state.params),
-                            master=tree_map(lambda t: t.clone(), state.opt.master),
-                            specs=[setup.ruleset.opt_spec(a) for a in tree_flatten(
-                                tfm.param_axes(cfg, stacked=False),
-                                is_leaf=lambda x: isinstance(x, tuple))[0]])
-            del synced
-        entry["step_s_median"] = statistics.median(entry["step_s"])
-        entry["launches_per_step"] = want
-        entry["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-        report[name] = entry
-        launches[name] = used
-        del state, setup, m
-        release()
-    report["one_device"]["step_s_median"] = statistics.median(oracle["step_s"])
+        gathers.append(dict(counts))
+        got = _launches()
+        if got != want:
+            raise AssertionError(f"setup {cfg.name} {name} step {i}: launched {got}, "
+                                 f"expected {want}")
+        for k in used:
+            used[k] += got[k]
+        if fsdp and counts["gathers"] != setup_gathers_per_step(cfg, ranks):
+            raise AssertionError(f"setup {cfg.name} {name} step {i}: {counts['gathers']} "
+                                 f"gathers, expected {setup_gathers_per_step(cfg, ranks)}")
+        loss = float(m["loss"])
+        entry["loss"].append(loss)
+        entry["grad_norm"].append(float(m["grad_norm"]))
+        if not abs(loss - oracle["loss"][i]) <= SETUP_LOSS_RTOL * abs(oracle["loss"][i]):
+            raise AssertionError(f"setup {cfg.name} {name} step {i}: loss {loss} against "
+                                 f"the one-device {oracle['loss'][i]}")
+        if i > 0:
+            continue
+        whole = ([unshard_leaf(r, s, mesh) for r, s in zip(_flat(synced), specs)]
+                 if fsdp else list(_flat(synced)))
+        worst = max(float((a.float() - b.float()).norm() / b.float().norm())
+                    for a, b in zip(whole, _flat(want_g)))
+        del whole
+        entry["grad_fro_rel_worst"] = worst
+        if not worst <= SETUP_GRAD_FRO:
+            raise AssertionError(f"setup {cfg.name} {name}: a synced gradient leaf is "
+                                 f"{worst:.3e} off the one-device one (limit {SETUP_GRAD_FRO})")
+        if kept is not None and name in SETUP_TWIN.values():
+            kept[name] = {"grads": synced, "mesh": mesh,
+                          "params": tree_map(lambda t: t.clone(), state.params)}
+            if sharding == "zero1":
+                kept[name]["master"] = tree_map(lambda t: t.clone(), state.opt.master)
+                kept[name]["specs"] = tree_flatten(setup.state_shardings.opt.master,
+                                                   is_leaf=lambda x: isinstance(x, tuple))[0]
+        if kept is not None and name in SETUP_TWIN:
+            twin = kept[SETUP_TWIN[name]]
+            same_g = [torch.equal(r, shard_leaf(g, s, mesh))
+                      for r, g, s in zip(_flat(synced), _flat(twin["grads"]), specs)]
+            same_p = [torch.equal(unshard_leaf(r, s, mesh), p)
+                      for r, p, s in zip(_flat(state.params), _flat(twin["params"]), specs)]
+            entry["bit_equal_to"] = {"case": SETUP_TWIN[name], "grad_shards": sum(same_g),
+                                     "params_after_update": sum(same_p), "leaves": len(same_g)}
+            if not all(same_g) or not all(same_p):
+                raise AssertionError(
+                    f"setup {name}: {len(same_g) - sum(same_g)} synced gradient shards and "
+                    f"{len(same_p) - sum(same_p)} updated parameters differ from "
+                    f"{SETUP_TWIN[name]}'s")
+        del synced
+    entry["step_s_median"] = statistics.median(entry["step_s"])
+    entry["launches_per_step"] = want
+    if fsdp:
+        entry["gathers_per_step"] = gathers
+    entry["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    entry["card"] = card
+    del state, setup, m
+    release()
+    return entry, used
+
+
+def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS):
+    """The one-device make_train_step on the whole batch, in place on its own
+    copy: the losses, grad norms and seconds of ``steps`` steps and step 1's
+    gradient (from ``train_grads``)."""
+    ocfg = OptimConfig()
+    torch.cuda.reset_peak_memory_stats()
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
+    state = TrainState(tree_map(lambda t: t.clone(), p0), init_adam(p0, ocfg))
+    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg))
+    step = make_train_step(cfg, pcfg, ocfg)
+    oracle = {"loss": [], "grad_norm": [], "step_s": [], "grad_s": grad_s}
+    for batch in batches[:steps]:
+        (state, m), sec = timed(lambda: step(state, batch))
+        oracle["loss"].append(float(m["loss"]))
+        oracle["grad_norm"].append(float(m["grad_norm"]))
+        oracle["step_s"].append(sec)
+    oracle["step_s_median"] = statistics.median(oracle["step_s"])
+    oracle["param_bytes"] = rank_bytes([state.params], False)
+    oracle["opt_bytes"] = rank_bytes([state.opt.master, state.opt.m, state.opt.v], False)
+    oracle["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    # what a reference cycle would keep of the step once its references go
+    # (ROADMAP.md S1): the memory only the collection frees
+    del state, step, m
+    dropped = torch.cuda.memory_allocated()
+    release()
+    oracle["held_by_cycles_bytes"] = dropped - torch.cuda.memory_allocated()
+    return want_g, oracle
+
+
+def greedy_flips(got, want, limit):
+    """Rows whose greedy token differs between two routes' logits; each must
+    be a near-tie of the reference (its top two within ``limit`` of each
+    other).  Returns the number of flips."""
+    a, b = got.float().argmax(-1), want.float().argmax(-1)
+    flips = (a != b).nonzero().flatten().tolist()
+    top2 = want.float().topk(2, dim=-1).values
+    for r in flips:
+        gap = float(top2[r, 0] - top2[r, 1])
+        if gap > limit:
+            raise AssertionError(f"a greedy token differs at row {r} where the reference's "
+                                 f"top two logits are {gap:.3e} apart (limit {limit})")
+    return len(flips)
+
+
+def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8):
+    """(f): ``arch`` at full width and depth, bf16, served through
+    ``make_setup`` (fsdp over SETUP_SERVE_MESH, every rank stacked on the
+    card): 8 requests of ``prompt`` tokens (whisper's against 1500 frames),
+    then ``new_tokens`` steps fed the greedy tokens of the one-device
+    ``prefill`` / ``decode_step`` on the whole batch.  Held bit for bit
+    against the one-device route run on each rank's rows (the same products:
+    what the setup adds, the placement, the gathers, the rows of the state,
+    must change no bit); against the whole batch, the logits' elements
+    outside tol(bf16) are counted (per-rank products of B 2 round otherwise
+    than B 8 ones) and a greedy token may differ only at a near-tie (counted).
+    The prefill's launches asserted.  Returns (report, the prefill's
+    launches)."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(*SETUP_SERVE_MESH, device=dev)
+    ranks = mesh.size(SETUP_SERVE_MESH[1])
+    params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt))).to(dev)
+    batch = {"tokens": toks, **on(model_inputs(cfg, B, 2), dev, torch.bfloat16)}
+    pcfg = ParallelConfig(param_dtype="bfloat16")          # fsdp, the default
+    pre = make_setup(cfg, ShapeConfig("prefill", "prefill", cache_len, B), mesh, pcfg)
+    dec = make_setup(cfg, ShapeConfig("decode", "decode", cache_len, B), mesh, pcfg)
+    placed = pre.init_state(params)
+    enc_fn = _enc_fn(cfg, ParallelConfig(remat="none"))
+    bf = tol(torch.bfloat16)
+
+    with torch.inference_mode():
+        def one_device(rows, feed=None):
+            """prefill + ``new_tokens`` decode steps of the batch's ``rows``,
+            fed ``feed``'s greedy tokens (its own without)."""
+            logits, st = tfm.prefill(params, {k: v[rows] for k, v in batch.items()}, cfg, None,
+                                     cache_len, enc_fn=enc_fn)
+            out = [logits]
+            for t in range(new_tokens):
+                src = feed[t][rows] if feed is not None else out[t]
+                logits, st = tfm.decode_step(params, src.argmax(-1)[:, None], st, cfg, None)
+                out.append(logits)
+            return out
+        want, t_one = timed(lambda: one_device(slice(None)))
+        b = B // ranks
+        per_rank = [one_device(slice(j * b, (j + 1) * b), want) for j in range(ranks)]
+        want_rows = [torch.cat([r[t] for r in per_rank]) for t in range(new_tokens + 1)]
+        del per_rank
+        _zero_launches()
+        with _counting_gathers() as counts:
+            (got0, state), t_pre = timed(lambda: pre.step_fn(placed, batch))
+        used = _launches()
+        want_l = {k: v * ranks for k, v in expected_launches(cfg).items()}
+        if used != want_l:
+            raise AssertionError(f"setup serve {arch}: the prefill launched {used}, "
+                                 f"expected {want_l}")
+        got = [got0]
+
+        def steps(st):
+            for t in range(new_tokens):
+                logits, st = dec.step_fn(placed, st, want[t].argmax(-1)[:, None])
+                got.append(logits)
+            return st
+        state, t_dec = timed(lambda: steps(state))
+    same = [torch.equal(g, w) for g, w in zip(got, want_rows)]
+    if not all(same):
+        t = same.index(False)
+        err = float((got[t].float() - want_rows[t].float()).abs().max())
+        raise AssertionError(f"setup serve {arch}: the logits of {len(same) - sum(same)} "
+                             f"steps differ from the one-device route on the same rows "
+                             f"(first step {t}, max abs err {err:.3e})")
+    outside, errs, flips = [], [], 0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"setup serve {arch}: non-finite logits")
+        err = (g - w).abs()
+        errs.append(float(err.max()))
+        outside.append(int((err > bf["atol"] + bf["rtol"] * w.abs()).sum()))
+        flips += greedy_flips(g, w, bf["atol"] + bf["rtol"] * float(w.abs().max()))
+    report = {"config": f"{arch} full width and depth, bf16, fsdp over "
+                        f"{dict(zip(*SETUP_SERVE_MESH[::-1]))}",
+              "batch": B, "prompt": prompt, "cache": cache_len, "new_tokens": new_tokens,
+              **({"frames": cfg.enc_seq} if cfg.family == "audio" else {}),
+              "bit_equal_to_one_device_on_the_ranks_rows": sum(same),
+              "whole_batch": {"max_abs_err": errs, "outside_tol_bf16": outside,
+                              "elements_per_step": got[0].numel(), "greedy_flips": flips},
+              "prefill_launches": used, "prefill_gathers": dict(counts),
+              "param_bytes_per_rank": rank_bytes([placed], True),
+              "seconds": {"setup": {"prefill": t_pre, "decode": t_dec},
+                          "one_device": {"prefill_and_decode": t_one}},
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    del params, placed, state, want, want_rows, got, pre, dec
+    release()
+    return report, used
+
+
+def phase_setup(dev, card):
+    """llama3.2-1b at full width and depth through ``make_train_setup`` (the
+    four SETUP_CASES) against the one-device ``make_train_step``: the loss of
+    each step, each synced gradient leaf of step 1 against the one-device
+    gradient, the launches of every step (asserted), zero1's AdamW update
+    bit-equal to the replicated one on the same synced gradient, and the
+    fsdp cases' synced gradient shards and updates bit-equal to their twins'
+    (SETUP_TWIN); then (e) mamba2 under fsdp and (f) the serving setups.
+    Returns each case's launches."""
+    cfg = get_config(SETUP_ARCH)
+    B, S = SETUP_BATCH
+    batches = setup_batches(cfg, B, S)
+    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    report = {"phase": "setup", "config": f"{SETUP_ARCH} full width and depth, bf16 params, "
+                                          f"fp32 master and moments, block remat",
+              "batch": B, "seq": S, "steps": SETUP_STEPS, "card": card}
+    want_g, report["one_device"] = setup_oracle(dev, cfg, p0, batches)
+
+    launches, kept = {}, {}
+    for n, (sharding, mode, mshape, axes) in enumerate(SETUP_CASES):
+        name = f"{sharding}_{mode}"
+        if n == 1:
+            # zero1's update and the replicated one on case (a)'s synced
+            # gradient, from the same state: bit for bit
+            mesh = make_mesh(mshape, axes, device=dev)
+            r = make_train_setup(cfg, ShapeConfig("t", "train", S, B), mesh, ParallelConfig(
+                remat="block", param_dtype="bfloat16", param_sharding=sharding,
+                grad_sync=mode))
+            st = r.init_state(tree_map(lambda t: t.clone(), p0))
+            st, _ = r.update_fn(st, kept["zero1_flat"]["grads"])
+            z = kept["zero1_flat"]
+            same = [torch.equal(a, b) for a, b in zip(_flat(st.params), _flat(z["params"]))]
+            same_master = [torch.equal(unshard_leaf(rows, spec, z["mesh"]), full)
+                           for rows, full, spec in zip(_flat(z["master"]),
+                                                       _flat(st.opt.master), z["specs"])]
+            report["update_bit_equal"] = {"params": sum(same), "master": sum(same_master),
+                                          "leaves": len(same)}
+            if not all(same) or not all(same_master):
+                raise AssertionError(f"setup: zero1's update differs from the replicated one "
+                                     f"in {len(same) - sum(same)} parameter and "
+                                     f"{len(same_master) - sum(same_master)} master leaves")
+            del st, r, z["master"]
+            release()
+        report[name], launches[name] = setup_train_case(
+            dev, card, cfg, p0, batches, want_g, report["one_device"], sharding, mode,
+            mshape, axes, kept)
+    del kept, want_g
+    release()
+    # (e) the SSD kernels through gathered Mamba2 blocks
+    ssm = _cut(SETUP_SSM_ARCH, SETUP_SSM_LAYERS)
+    ssm_batches = setup_batches(ssm, B, S, steps=1)
+    p_ssm = tfm.init(0, ssm, dtype=torch.bfloat16, device=dev)
+    want_ssm, oracle_ssm = setup_oracle(dev, ssm, p_ssm, ssm_batches, steps=1)
+    report["ssm"] = {"config": f"{SETUP_SSM_ARCH} full width, {SETUP_SSM_LAYERS} of "
+                               f"{get_config(SETUP_SSM_ARCH).num_layers} layers",
+                     "one_device": oracle_ssm}
+    report["ssm"]["fsdp_flat"], launches["ssm_fsdp_flat"] = setup_train_case(
+        dev, card, ssm, p_ssm, ssm_batches, want_ssm, oracle_ssm, "fsdp", "flat", (4,),
+        ("data",), steps=1)
+    del p_ssm, want_ssm
+    release()
+    # (f) the serving setups
+    for arch, prompt, cache_len in SETUP_SERVE:
+        report[f"serve_{arch}"], launches[f"serve_{arch}"] = setup_serve(
+            dev, card, arch, prompt, cache_len)
     emit(report)
-    del p0, want_g
+    del p0
     release()
     return launches
 
@@ -3226,8 +3485,10 @@ def main() -> int:
             for case, used in phase_setup(dev, card).items():
                 for name, key in (("flash_attention_fwd", "flash_attention"),
                                   ("flash_attention_bwd", "flash_attention_bwd"),
+                                  ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd"),
                                   ("tree_reduce", "tree_reduce")):
-                    setup_launches.setdefault(name, {})[case] = used[key]
+                    if used[key]:
+                        setup_launches.setdefault(name, {})[case] = used[key]
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):

@@ -39,6 +39,13 @@ Entry points:
 ``init`` and ``init_decode_state`` default to ``device="cuda"`` and raise when
 there is none; the CPU is used only when the caller names it.
 
+``loss_fn``, ``prefill`` and ``decode_step`` take ``layer_constrain=``, as the
+JAX functions do: a function of one block's parameters, applied to each block
+of ``params["blocks"]`` right before the block runs (inside its
+``_maybe_remat`` region, so that a recompute applies it again).  It defaults
+to the identity; ``parallel.steps``'s FSDP setups pass one that gathers the
+block's shards.
+
 The decode state is updated **in place**: ``decode_step`` writes the new K/V,
 SSM states and conv lags into the buffers of the state it was given and
 returns a state that shares them, so the old state must not be used again
@@ -200,6 +207,10 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _identity(bp):
+    return bp
+
+
 def _maybe_remat(fn, pcfg: ParallelConfig):
     """``pcfg.remat`` "block" or "full": ``fn`` under non-reentrant activation
     checkpointing, which keeps its inputs and recomputes the rest in the
@@ -217,7 +228,7 @@ def _maybe_remat(fn, pcfg: ParallelConfig):
 # --------------------------------------------------------------------------
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
-            enc_fn=None, loss_weight=None):
+            enc_fn=None, loss_weight=None, layer_constrain=_identity):
     """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
     tensors (-1 = masked), plus ``patch_embeds`` (vlm) or ``frames`` (audio,
     encoded by ``enc_fn``).  Returns ``(total, {"loss", "aux_loss",
@@ -240,25 +251,27 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     x, positions = _embed_inputs(params, cfg, batch)
     enc_out = _encode(params, batch, cfg, enc_fn)
 
-    def attn(h, bp, enc_out=None):
-        out = apply_attn_block(bp, cfg, pcfg, h, positions=positions, mode="train",
+    def attn(h, bp, enc_out=None, lc=_identity):
+        out = apply_attn_block(lc(bp), cfg, pcfg, h, positions=positions, mode="train",
                                enc_out=enc_out)
         return out[0], out[3]
     attn = _maybe_remat(attn, pcfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _is_ssm(cfg):
         def mamba(h, bp):
+            bp = layer_constrain(bp)
             return h + mamba2_forward(bp["ssm"], rms_norm(h, bp["ln"], cfg.norm_eps),
                                       cfg)
         mamba = _maybe_remat(mamba, pcfg)
         for l, bp in enumerate(params["blocks"]):
             x = mamba(x, bp)
             if _shared_after(cfg, l) is not None:
+                # the shared block lies outside params["blocks"]: not constrained
                 x, a = attn(x, params["shared_attn"])
                 aux = aux + a
     else:
         for bp in params["blocks"]:
-            x, a = attn(x, bp, enc_out)
+            x, a = attn(x, bp, enc_out, layer_constrain)
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
@@ -319,11 +332,13 @@ def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
 
 def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
                shared: Optional[KVCache], *, mode: str, cache_len=None,
-               cache_index=None):
+               cache_index=None, layer_constrain=_identity):
     """The Mamba2 stack (and the hybrid's shared block), writing each
     layer's SSM state, conv lag and shared-block KV slice into the stacked
-    buffers in place.  Returns the residual stream."""
+    buffers in place.  Returns the residual stream.  ``layer_constrain`` is
+    applied to each Mamba2 block, not to the shared block."""
     for l, bp in enumerate(params["blocks"]):
+        bp = layer_constrain(bp)
         st = SSMState(ssm.h[l], ssm.conv[l]) if mode == "decode" else None
         out, new = mamba2_forward(bp["ssm"], rms_norm(x, bp["ln"], cfg.norm_eps),
                                   cfg, state=st, return_state=True)
@@ -348,7 +363,8 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
-            cache_len: int, enc_fn=None) -> Tuple[torch.Tensor, DecodeState]:
+            cache_len: int, enc_fn=None, layer_constrain=_identity
+            ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt (after the patches, for a vlm batch with
     ``patch_embeds``; against the encoded ``frames`` for audio, through
     ``enc_fn``); return (last-token logits (B, V), DecodeState).  The state's
@@ -360,12 +376,13 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
     state = _state_buffers(cfg, B, cache_len, x.dtype, x.device)._replace(index=S)
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
-                       state.shared_kv, mode="prefill", cache_len=cache_len)
+                       state.shared_kv, mode="prefill", cache_len=cache_len,
+                       layer_constrain=layer_constrain)
     else:
         for l, bp in enumerate(params["blocks"]):
-            x, kvl, xkvl, _ = apply_attn_block(bp, cfg, pcfg, x, positions=positions,
-                                               mode="prefill", cache_len=cache_len,
-                                               enc_out=enc_out)
+            x, kvl, xkvl, _ = apply_attn_block(layer_constrain(bp), cfg, pcfg, x,
+                                               positions=positions, mode="prefill",
+                                               cache_len=cache_len, enc_out=enc_out)
             state.kv.k[l].copy_(kvl.k)
             state.kv.v[l].copy_(kvl.v)
             if xkvl is not None:
@@ -377,7 +394,7 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
 
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
-                pcfg: Optional[ParallelConfig]
+                pcfg: Optional[ParallelConfig], layer_constrain=_identity
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B, 1) integer → logits (B, V).  Every row
     sits at position ``state.index``."""
@@ -388,13 +405,14 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                            device=x.device)
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
-                       state.shared_kv, mode="decode", cache_index=state.index)
+                       state.shared_kv, mode="decode", cache_index=state.index,
+                       layer_constrain=layer_constrain)
     else:
         for l, bp in enumerate(params["blocks"]):
             cross = (KVCache(state.cross_kv.k[l], state.cross_kv.v[l])
                      if state.cross_kv is not None else None)
             x = apply_attn_block(
-                bp, cfg, pcfg, x, positions=positions, mode="decode",
+                layer_constrain(bp), cfg, pcfg, x, positions=positions, mode="decode",
                 cache=KVCache(state.kv.k[l], state.kv.v[l]),
                 cache_index=state.index, cross_cache=cross)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

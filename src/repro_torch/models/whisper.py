@@ -42,9 +42,11 @@ def encoder_axes(cfg, stacked: bool = True) -> Dict[str, Any]:
             "final_norm": ("embed",)}
 
 
-def encode(params, batch, cfg, pcfg=None) -> torch.Tensor:
+def encode(params, batch, cfg, pcfg=None, layer_constrain=lambda bp: bp) -> torch.Tensor:
     """frames (B, enc_seq, d_model) → encoder hidden states, each block under
-    ``transformer._maybe_remat``, RoPE positions ``0..enc_seq-1``."""
+    ``transformer._maybe_remat``, RoPE positions ``0..enc_seq-1``.
+    ``layer_constrain`` is applied to each encoder block's parameters inside
+    that region, as ``transformer.loss_fn`` applies it to the decoder's."""
     from .transformer import _maybe_remat    # transformer imports this module
     pcfg = pcfg or ParallelConfig()
     enc = params["encoder"]
@@ -53,8 +55,8 @@ def encode(params, batch, cfg, pcfg=None) -> torch.Tensor:
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
     def run(h, bp):
-        return apply_attn_block(bp, cfg, pcfg, h, positions=positions, mode="train",
-                                causal=False)[0]
+        return apply_attn_block(layer_constrain(bp), cfg, pcfg, h, positions=positions,
+                                mode="train", causal=False)[0]
     run = _maybe_remat(run, pcfg)
     for bp in enc["blocks"]:
         x = run(x, bp)

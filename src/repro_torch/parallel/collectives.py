@@ -12,6 +12,11 @@ once, over three transport steps and the kernels of ``kernels.ops``:
 * all-reduce of a scattered shard = ``mesh.gather`` and ``ops.reduce_shards``;
 * all-gather = ``mesh.gather``.
 
+``build_shard_sync`` is the same reduction for a gradient that stays sharded
+(FSDP): each leaf's sum ends in the rows form of its ``Ruleset.spec``, the
+spec's axes reduce-scattered, the other data axes all-reduced, with the
+per-element sums of ``build_sync``'s trees.
+
 The modes, as in the JAX package:
 
 * ``flat``          — one all-reduce over every replica (reduce-scatter and
@@ -41,7 +46,9 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import ops
+from ..launch.mesh import DistMesh
 from .compress import dequantize, ef_quantize
+from .sharding import _names
 
 MODES = ("flat", "hierarchical", "compressed")
 
@@ -171,6 +178,78 @@ def build_sync(mesh, mode: str = "hierarchical", inner_axis: str = "data",
     def sync(grads):
         g_flat, rebuild = _flatten(grads)
         return rebuild([sync_leaf(g) for g in g_flat])
+    return sync
+
+
+def _reduce_stage(x: torch.Tensor, mesh, whole: List[str], axes: Tuple[str, ...]):
+    """One stage of ``build_shard_sync`` over ``axes`` (mesh order).  x: the
+    local form (``mesh.local``), its flat values laid out as one dimension
+    per axis of ``whole`` (the spec axes still whole, in the spec's order),
+    then the shard.  The stage's axes that are in ``whole`` are
+    reduce-scattered: chunk j of the exchange is the block of the rank of
+    group index j (repeated along the stage's other axes, so that every sum
+    runs over the whole group in group order, as ``flat_all_reduce``'s
+    does); a stage with none of them is an all-reduce on the block.
+    Returns (x, ``whole`` without the scattered axes)."""
+    scat = [a for a in axes if a in whole]
+    if not scat:
+        return ops.reduce_shards(mesh.gather(x, axes)), whole
+    nl = x.dim() - 1
+    y = x.reshape(*x.shape[:nl], *(mesh.shape[a] for a in whole), -1)
+    rest = [nl + i for i, a in enumerate(whole) if a not in scat]
+    y = y.permute(*range(nl), *(nl + whole.index(a) for a in scat), *rest, y.dim() - 1)
+    for j, a in enumerate(axes):
+        if a not in whole:
+            y = y.unsqueeze(nl + j)
+    y = y.expand(*y.shape[:nl], *(mesh.shape[a] for a in axes), *y.shape[nl + len(axes):])
+    got = mesh.exchange(y.reshape(*y.shape[:nl], -1), axes)
+    return ops.reduce_shards(got), [a for a in whole if a not in scat]
+
+
+def build_shard_sync(mesh, mode: str = "hierarchical", inner_axis: str = "data",
+                     outer_axis: Optional[str] = None):
+    """Gradient synchroniser for FSDP: ``sync(g, spec) -> rows``.  g: one
+    leaf's gradients with a leading replica dimension (as ``build_sync``
+    takes them), each replica's whole gradient as every block of ``spec``
+    (``parallel.sharding.all_blocks``): ``(replicas, R, ...)``.  Returns the
+    global mean in the rows form over ``spec`` (every rank's block on a
+    ``StackedMesh``, this rank's on a ``DistMesh``), in the leaf's dtype.
+
+    ``flat`` reduces over every data axis in one stage, ``hierarchical`` the
+    inner axis first, then ``outer_axis``; a stage reduce-scatters the spec's
+    axes among its own and all-reduces the rest (``_reduce_stage``).  Every
+    element's sum is the one ``build_sync`` of the same mode takes (the same
+    tree over the same ranks, the same roundings), so the rows equal the
+    shards of its result bit for bit.  A spec axis that is no data axis must
+    have one rank."""
+    if mode not in ("flat", "hierarchical"):
+        raise ValueError(f"build_shard_sync runs 'flat' and 'hierarchical', got {mode!r}")
+    axes = tuple(a for a in (outer_axis, inner_axis) if a)
+    if mode == "flat":
+        stages = [mesh._sorted(axes)]
+    else:
+        stages = [(a,) for a in (inner_axis, outer_axis) if a]
+    n_total = mesh.size(axes)
+
+    def sync(g: torch.Tensor, spec) -> torch.Tensor:
+        spec_axes = [a for e in spec for a in _names(e)]
+        lone = [a for a in spec_axes if a not in axes and mesh.shape[a] > 1]
+        if lone:
+            raise ValueError(f"spec {tuple(spec)}: axes {lone} of more than one rank "
+                             f"are not data axes of the sync {axes}")
+        shard = g.shape[2:]
+        x, whole = mesh.local(g, axes), list(spec_axes)
+        for stage in stages:
+            x, whole = _reduce_stage(x, mesh, whole, stage)
+        if not isinstance(mesh, DistMesh):
+            # one copy along the mesh axes the spec leaves out (equal there),
+            # then the spec's axes in the spec's order: the rows form
+            x = x[tuple(slice(None) if a in spec_axes else slice(0, 1)
+                        for a in mesh.axis_names)]
+            in_mesh = [a for a in mesh.axis_names if a in spec_axes]
+            x = x.reshape(*(mesh.shape[a] for a in in_mesh), -1)
+            x = x.permute(*(in_mesh.index(a) for a in spec_axes), len(in_mesh))
+        return (x.reshape(-1, *shard) / n_total).to(g.dtype)
     return sync
 
 

@@ -30,9 +30,10 @@ mesh's ``shape`` (a mapping from axis name to size): either transport of
 ``shard_leaf(t, spec, mesh)`` places a tensor by a spec: the stacked view of
 every block on a ``StackedMesh``, this rank's block on a ``DistMesh`` (the
 rows form of ``launch.mesh``); ``unshard_leaf`` puts the rows back together
-(on a ``DistMesh`` by an all-gather over the spec's axes).  The expert weights
-(dim 0 over ``ep_axis``), the batch (``batch_axes``) and ZeRO-1's optimizer
-shards (``opt_spec``) are placed so.
+(on a ``DistMesh`` by an all-gather over the spec's axes); ``all_blocks``
+gives every block on either mesh, with no communication.  The expert weights
+(dim 0 over ``ep_axis``), the batch (``batch_axes``), ZeRO-1's optimizer
+shards (``opt_spec``) and FSDP's parameters (``spec``) are placed so.
 
 The rest of the JAX ``Ruleset`` is here as metadata, leaf for leaf:
 ``param_shardings`` (a tree of specs; the port has no ``NamedSharding``),
@@ -40,8 +41,10 @@ The rest of the JAX ``Ruleset`` is here as metadata, leaf for leaf:
 ``constrain_fn``'s closure asks for after its adjustments to the value's
 shape; on one device the closure itself returns its value), and the decode
 state's ``kv_cache_spec``, ``ssm_state_spec`` and ``decode_state_shardings``
-(the port's ``DecodeState`` structure).  Placing parameters by FSDP or over a
-``model`` axis of more than one rank waits for ROADMAP.md M9b2b.
+(the port's ``DecodeState`` structure).  The setups of ``parallel.steps``
+place parameters by these specs over the data axes; the products of tensor
+parallelism over a ``model`` axis of more than one rank wait for ROADMAP.md
+M9b2b.
 """
 
 from __future__ import annotations
@@ -296,13 +299,9 @@ def _names(e) -> Tuple[str, ...]:
     return (e,) if isinstance(e, str) else tuple(e)
 
 
-def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """``t`` placed by ``spec`` (one entry per leading dimension; the rest
-    unsharded) in the rows form over the spec's axes, in the order they
-    appear: on a ``StackedMesh`` (R, ...) with every rank's block, R the
-    product of the axes' sizes (a view when only dimension 0 is sharded); on
-    a ``DistMesh`` (1, ...) with this rank's.  A dimension over the axes (a,
-    b) splits a-major, as a ``PartitionSpec`` splits it."""
+def _placement(t: torch.Tensor, spec, mesh):
+    """(the axes of each spec entry, the ranks over each), checked against
+    ``t`` and the mesh."""
     spec = tuple(spec)
     if len(spec) > t.dim():
         raise ValueError(f"spec {spec} has more entries than the tensor's "
@@ -319,6 +318,17 @@ def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         if t.shape[i] % n:
             raise ValueError(f"dimension {i} of {tuple(t.shape)} does not divide over "
                              f"{names} ({n} ranks)")
+    return dims, parts
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``t`` placed by ``spec`` (one entry per leading dimension; the rest
+    unsharded) in the rows form over the spec's axes, in the order they
+    appear: on a ``StackedMesh`` (R, ...) with every rank's block, R the
+    product of the axes' sizes (a view when only dimension 0 is sharded); on
+    a ``DistMesh`` (1, ...) with this rank's.  A dimension over the axes (a,
+    b) splits a-major, as a ``PartitionSpec`` splits it."""
+    dims, parts = _placement(t, spec, mesh)
     if isinstance(mesh, DistMesh):
         for i, (names, n) in enumerate(zip(dims, parts)):
             if names:
@@ -327,6 +337,18 @@ def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         return t.unsqueeze(0)
     if not isinstance(mesh, StackedMesh):
         raise TypeError(f"shard_leaf needs a mesh of launch.mesh, got {type(mesh).__name__}")
+    return _stack_blocks(t, dims, parts, mesh)
+
+
+def all_blocks(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """Every rank's block of ``t`` placed by ``spec``, ``(R, ...)`` as
+    ``shard_leaf`` gives it on a ``StackedMesh``, on either mesh and without
+    communication (on a ``DistMesh``: a rank's whole local gradient before
+    its reduce-scatter)."""
+    return _stack_blocks(t, *_placement(t, spec, mesh), mesh)
+
+
+def _stack_blocks(t, dims, parts, mesh):
     shape, lead = [], []
     for i, size in enumerate(t.shape):
         names = dims[i] if i < len(dims) else ()

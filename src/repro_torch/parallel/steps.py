@@ -22,16 +22,28 @@ device (the JAX ``ShapeDtypeStruct``): ``input_specs``, ``batch_shardings``,
 (the specs its JAX closure pins a block to) and ``CellSetup``.
 
 ``make_train_setup(cfg, shape, mesh, pcfg, ocfg)`` is the data-parallel train
-step over a mesh of ``launch.mesh``, with the parameters ``replicated`` or the
-optimizer state sharded ``zero1``: each rank takes the gradient of its shard
-of the batch (``Ruleset.batch_axes``), the gradients are synchronised by
-FRED's schedule (``parallel.collectives.build_sync``: on the card through the
-tree-reduce kernel), and AdamW updates the whole state (replicated) or each
-rank's ``opt_spec`` shard of master and moments, whose parameter slices are
-then put together again (zero1; on a ``DistMesh`` by an all-gather).  What the
-setup cannot run yet it refuses with a ``ValueError``: FSDP, a model-parallel
-axis of more than one rank, expert parallelism and the prefill / decode
-setups wait for ROADMAP.md M9b2b.
+step over a mesh of ``launch.mesh``, with the parameters ``replicated``, the
+optimizer state sharded ``zero1``, or parameters and state sharded ``fsdp``
+(the ``ParallelConfig`` default): each rank takes the gradient of its shard of
+the batch (``Ruleset.batch_axes``), the gradients are synchronised by FRED's
+schedule (on the card through the tree-reduce kernel: ``build_sync`` to the
+whole mean, under fsdp ``build_shard_sync`` to each rank's block of it), and
+AdamW updates the whole state (replicated) or each rank's block of master and
+moments (zero1: ``opt_spec``, the parameter slices then put together again,
+on a ``DistMesh`` by an all-gather; fsdp: ``spec``, and the parameters stay
+in blocks).  Under fsdp each block's parameters are gathered right before the
+block runs (``make_layer_gather``, the models' ``layer_constrain``), the
+leaves outside the blocks once a call.  int8 moments take each row's scale
+over the whole row, also where a rank holds a piece of it.
+
+``make_prefill_setup`` / ``make_decode_setup`` / ``make_setup`` serve a cell
+over the same placements: each rank prefills or steps its rows of the batch.
+
+What the setups cannot run yet they refuse with a ``ValueError``: tensor
+parallelism over a ``model`` axis of more than one rank, expert parallelism
+inside the setups, and a serving batch that no data axis divides wait for
+ROADMAP.md M9b2b (as does a ``Trainer(mesh=)`` over a setup); compressed sync
+would be a different result.
 
 ``moe_ep_ffn_fn`` binds the expert-parallel FFN to a ``Ruleset``.
 """
@@ -51,9 +63,9 @@ from ..models import whisper
 from ..models.moe import moe_ffn_ep
 from ..models.config import ModelConfig, ParallelConfig, ShapeConfig
 from ..models.modules import tree_flatten, tree_map, tree_unflatten
-from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, global_norm, init_adam
-from .collectives import build_sync
-from .sharding import Ruleset, _spec, shard_leaf, unshard_leaf
+from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, init_adam
+from .collectives import build_shard_sync, build_sync
+from .sharding import Ruleset, _names, _spec, all_blocks, shard_leaf, unshard_leaf
 
 
 class TrainState(NamedTuple):
@@ -77,12 +89,14 @@ def batch_to_device(batch: Dict[str, Any], device, dtype: torch.dtype
             for k, v in batch.items()}
 
 
-def _enc_fn(cfg: ModelConfig, pcfg: ParallelConfig):
+def _enc_fn(cfg: ModelConfig, pcfg: ParallelConfig, layer_constrain=None):
     """The encoder of an audio model as ``loss_fn`` / ``prefill`` take it, or
-    None for the other families."""
+    None for the other families; ``layer_constrain`` goes to each encoder
+    block (FSDP's gather)."""
     if cfg.family != "audio":
         return None
-    return lambda p, b: whisper.encode(p, b, cfg, pcfg)
+    lc = layer_constrain or tfm._identity
+    return lambda p, b: whisper.encode(p, b, cfg, pcfg, layer_constrain=lc)
 
 
 def train_grads(params, batch, cfg: ModelConfig, pcfg: ParallelConfig, enc_fn=None,
@@ -213,55 +227,221 @@ def _param_setup(cfg: ModelConfig, pcfg: ParallelConfig, mesh):
 
 
 # --------------------------------------------------------------------------
-# the data-parallel train setup
+# placement of the parameters
 # --------------------------------------------------------------------------
 
-SETUP_SHARDINGS = ("replicated", "zero1")
+def _leaf_paths(tree, path=""):
+    """The path of every leaf in ``tree_flatten``'s order (a module function:
+    see ``models.modules.tree_flatten``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{path}/{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{path}/{i}")
+    else:
+        yield path
+
+
+def _flat_specs(spec_tree):
+    return tree_flatten(spec_tree, is_leaf=lambda x: isinstance(x, tuple))[0]
+
+
+def _check_divides(param_shapes, specs, mesh, what: str) -> None:
+    """A ``ValueError`` naming the first leaf whose sharded dimension does
+    not divide over its axes (the JAX package pads a ragged tail; the port
+    does not)."""
+    leaves = tree_flatten(param_shapes)[0]
+    for path, t, spec in zip(_leaf_paths(param_shapes), leaves, specs):
+        try:
+            all_blocks(t, spec, mesh)
+        except ValueError as e:
+            raise ValueError(f"{what}: parameter {path} {tuple(t.shape)} placed by "
+                             f"{spec}: {e}") from None
+
+
+def _gather_tree(tree, specs, gather):
+    """``gather(rows, spec)`` of every leaf of a parameter (sub)tree."""
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, specs[k], gather) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_gather_tree(v, s, gather) for v, s in zip(tree, specs)]
+    return gather(tree, specs)
+
+
+def _gather_outside(tree, specs, gather):
+    """The parameters with every leaf outside the stacks of blocks gathered
+    (``embed``, ``final_norm``, ``lm_head``, ``mm_proj``, ``shared_attn``,
+    the encoder's ``final_norm``); ``blocks`` and the encoder's ``blocks``
+    stay in the rows form, for ``layer_constrain`` to gather one at a time."""
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            out[k] = v
+        elif k == "encoder":
+            out[k] = _gather_outside(v, specs[k], gather)
+        else:
+            out[k] = _gather_tree(v, specs[k], gather)
+    return out
+
+
+class _GatherForGrad(torch.autograd.Function):
+    """``unshard_leaf`` of a ``DistMesh`` rank's block under autograd: the
+    forward all-gathers the whole tensor; the backward hands its gradient,
+    this rank's alone and not yet reduced, to ``sink[key]`` and none to the
+    block.  The setup reduce-scatters the sink's gradients after the
+    backward, leaf by leaf, in one order on every rank (``gloo`` pairs the
+    messages of equal shape in the order the ranks send them)."""
+
+    @staticmethod
+    def forward(ctx, rows, spec, mesh, sink, key):
+        ctx.sink, ctx.key = sink, key
+        return unshard_leaf(rows, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        prev = ctx.sink.get(ctx.key)
+        ctx.sink[ctx.key] = g if prev is None else prev + g
+        return None, None, None, None, None
+
+
+def _gather_fn(mesh, sink=None):
+    """``gather(rows, spec) -> whole tensor``: ``unshard_leaf`` (on a
+    ``StackedMesh`` a view or copy that autograd differentiates; on a
+    ``DistMesh`` an all-gather), through ``_GatherForGrad`` on a ``DistMesh``
+    when a gradient is taken and ``sink`` collects it."""
+    def gather(rows, spec):
+        if sink is not None and rows.requires_grad and torch.is_grad_enabled():
+            return _GatherForGrad.apply(rows, spec, mesh, sink, id(rows))
+        return unshard_leaf(rows, spec, mesh)
+    return gather
+
+
+def make_layer_gather(ruleset: Ruleset, axes_blocks, gather=None):
+    """The FSDP hook ``layer_constrain`` of ``models.transformer.loss_fn`` /
+    ``prefill`` / ``decode_step`` (and ``models.whisper.encode``): ``f(bp)``
+    gathers one block's parameters from the rows form of
+    ``make_layer_constrain(ruleset, axes_blocks)``'s specs to whole tensors,
+    ``unshard_leaf`` (an all-gather on a ``DistMesh``) unless ``gather(rows,
+    spec)`` is given.  Where the JAX closure pins a block to its stored
+    sharding, so that XLA gathers inside the layer loop, this gathers."""
+    specs = make_layer_constrain(ruleset, axes_blocks)
+    gather = gather or _gather_fn(ruleset.mesh)
+    return lambda bp: _gather_tree(bp, specs, gather)
+
+
+def _place_fn(cfg: ModelConfig, pcfg: ParallelConfig, ruleset: Ruleset, spec_tree):
+    """``place(params, sink=None) -> (tree, layer_constrain, enc_fn)``: what
+    ``loss_fn`` / ``prefill`` / ``decode_step`` take.  Under FSDP the leaves
+    outside the blocks are gathered once, and each block (the encoder's too)
+    by the hook when it runs; otherwise the parameters are whole."""
+    if pcfg.param_sharding != "fsdp":
+        return lambda params, sink=None: (params, tfm._identity, _enc_fn(cfg, pcfg))
+    axes = tfm.param_axes(cfg)
+    mesh = ruleset.mesh
+
+    def place(params, sink=None):
+        gather = _gather_fn(mesh, sink)
+        tree = _gather_outside(params, spec_tree, gather)
+        lc = make_layer_gather(ruleset, axes["blocks"], gather)
+        enc_lc = (make_layer_gather(ruleset, axes["encoder"]["blocks"], gather)
+                  if cfg.family == "audio" else None)
+        return tree, lc, _enc_fn(cfg, pcfg, enc_lc)
+    return place
+
+
+def _grad_norm(leaves, specs, mesh) -> torch.Tensor:
+    """The norm of a synced gradient, fp32: each leaf whole (``specs`` None)
+    or in the rows form of its spec.  Every block's sum of squares is taken
+    in float64 on its own, then the blocks' sums in rows order (on a
+    ``DistMesh`` all-gathered over the spec's axes), then the leaves'.  The
+    float64 sums of one gradient held whole or in blocks differ by ~1e-16 of
+    their size, so the fp32 norm, and with it the clip factor, is the same
+    for the three shardings unless a sum lies that close to an fp32 rounding
+    boundary."""
+    sums = []
+    for i, g in enumerate(leaves):
+        spec = None if specs is None else specs[i]
+        if spec is None:
+            sums.append(torch.sum(torch.square(g.double())))
+            continue
+        part = torch.stack([torch.sum(torch.square(r.double())) for r in g])
+        sums.append(torch.sum(unshard_leaf(part.reshape(-1, *(1 for _ in spec)), spec, mesh)))
+    return torch.sqrt(torch.sum(torch.stack(sums))).float()
+
+
+def _row_max_fn(spec, ndim: int, mesh):
+    """For an int8 moment in the rows form of ``spec`` (a leaf of ``ndim``
+    dims): the function that turns each block's per-row amax into the whole
+    row's (the max over the ranks that share the row), or None where the
+    leaf's last dim is whole."""
+    spec = tuple(spec)
+    last = [a for a in (_names(spec[-1]) if len(spec) == ndim else ()) if mesh.shape[a] > 1]
+    if not last:
+        return None
+    if isinstance(mesh, DistMesh):
+        def row_max(amax):                     # (1, ...): all-reduce max over `last`
+            return mesh.gather(amax.reshape(-1), last).amax(dim=0).reshape(amax.shape)
+        return row_max
+    every = [a for e in spec for a in _names(e)]
+    sizes, pos = [mesh.shape[a] for a in every], [every.index(a) for a in last]
+
+    def row_max(amax):                         # (R, ...): max over the row's blocks
+        x = amax.reshape(*sizes, *amax.shape[1:])
+        return x.amax(dim=pos, keepdim=True).expand(x.shape).reshape(amax.shape)
+    return row_max
+
+
+# --------------------------------------------------------------------------
+# the data-parallel setups
+# --------------------------------------------------------------------------
+
+SETUP_SHARDINGS = ("replicated", "zero1", "fsdp")
 SETUP_SYNCS = ("flat", "hierarchical")
+
+
+def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
+    """A ``ValueError`` (``TypeError`` for a foreign mesh) for what no setup
+    runs yet."""
+    if not isinstance(mesh, (StackedMesh, DistMesh)):
+        raise TypeError(f"{what} needs a mesh of launch.mesh, got {type(mesh).__name__}")
+    if pcfg.param_sharding not in SETUP_SHARDINGS:
+        raise ValueError(f"{what}: param_sharding={pcfg.param_sharding!r}; the setups "
+                         f"run {SETUP_SHARDINGS}")
+    idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in ruleset.dp]
+    if idle:
+        raise ValueError(
+            f"{what}: mesh axes {idle} of more than one rank carry no data "
+            f"parallelism (tensor parallelism over {pcfg.tp_axis or 'model'!r} waits for "
+            "ROADMAP.md M9b2b)")
+    if ruleset.ep_axis:
+        raise ValueError(
+            f"{what}: moe_ep_axis={pcfg.moe_ep_axis!r}; placing the experts over a data "
+            "axis inside the setups waits for ROADMAP.md M9b2b (moe_ep_ffn_fn runs "
+            "expert parallelism on its own)")
+    if not ruleset.dp:
+        raise ValueError(f"{what}: the mesh {mesh.axis_names} has no data axis")
 
 
 def _sync_axes(cfg, shape, mesh, pcfg, ocfg, ruleset) -> Tuple[str, Optional[str]]:
     """(inner, outer) data axes of the gradient sync; a ``ValueError`` for
     what the setup does not run."""
     if shape.kind != "train":
-        raise ValueError(f"make_train_setup: a {shape.kind!r} shape; the prefill and "
-                         "decode setups wait for ROADMAP.md M9b2b")
-    if not isinstance(mesh, (StackedMesh, DistMesh)):
-        raise TypeError(f"make_train_setup needs a mesh of launch.mesh, got {type(mesh).__name__}")
-    if pcfg.param_sharding not in SETUP_SHARDINGS:
-        raise ValueError(
-            f"make_train_setup: param_sharding={pcfg.param_sharding!r} (the ParallelConfig "
-            f"default is 'fsdp'); the setup runs {SETUP_SHARDINGS}, FSDP waits for "
-            "ROADMAP.md M9b2b")
-    idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in ruleset.dp]
-    if idle:
-        raise ValueError(
-            f"make_train_setup: mesh axes {idle} of more than one rank carry no data "
-            f"parallelism (tensor parallelism over {pcfg.tp_axis or 'model'!r} waits for "
-            "ROADMAP.md M9b2b)")
+        raise ValueError(f"make_train_setup: a {shape.kind!r} shape; make_setup sends it "
+                         f"to make_{shape.kind}_setup")
+    _check_mesh(mesh, pcfg, ruleset, "make_train_setup")
     if pcfg.grad_sync not in SETUP_SYNCS:
         raise ValueError(
             f"make_train_setup: grad_sync={pcfg.grad_sync!r}; the JAX setup's gradient "
             "reduction is exact, and the int8 cross-pod phase of 'compressed' would give "
             f"a different result, not the same one faster: use one of {SETUP_SYNCS}")
-    if pcfg.param_sharding == "zero1" and ocfg.moments_dtype == "int8":
-        raise ValueError(
-            "make_train_setup: int8 moments under zero1; the JAX moment's scale spans "
-            "the whole row and a rank's shard would take its own (ROADMAP.md M9b2b)")
-    if ruleset.ep_axis:
-        raise ValueError(
-            f"make_train_setup: moe_ep_axis={pcfg.moe_ep_axis!r}; placing the experts over "
-            "a data axis in the setup waits for ROADMAP.md M9b2b (moe_ep_ffn_fn runs "
-            "expert parallelism on its own)")
     dp = ruleset.dp
-    if not dp:
-        raise ValueError(f"make_train_setup: the mesh {mesh.axis_names} has no data axis")
     inner = dp[-1]
     outer = "pod" if "pod" in dp and inner != "pod" else None
     extra = [a for a in dp if a not in (inner, outer)]
     if extra:
         raise ValueError(f"make_train_setup: data axes {dp}; the sync reduces over "
-                         f"{inner!r} and 'pod' only (ROADMAP.md M9b2b)")
+                         f"{inner!r} and 'pod' only")
     return inner, outer
 
 
@@ -272,20 +452,38 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     ``StackedMesh``: every rank in turn on its device, the gradients stacked
     on a leading rank dimension; a ``DistMesh``: this rank, the others
     through ``torch.distributed``).  ``step_fn(state, batch)`` takes the whole
-    batch on every rank, as the JAX step takes the global array."""
+    batch on every rank, as the JAX step takes the global array.
+
+    ``param_sharding``: ``replicated`` (every rank the whole state),
+    ``zero1`` (whole parameters, master and moments in the rows form of
+    ``opt_spec``) or ``fsdp`` (parameters, master and moments in the rows
+    form of ``spec``; a rank holds its block of each leaf the spec shards;
+    each block's parameters gathered right before it runs, ``loss_fn``'s
+    ``layer_constrain``; the gradient reduce-scattered to the same rows).
+    The synced gradient of ``grad_fn`` is whole (replicated, zero1) or in the
+    rows form (fsdp); an int8 moment's ``scale`` is held beside its ``q``,
+    each rank the scales of its rows (ranks that share a row hold the same,
+    the whole row's)."""
     pcfg = pcfg or ParallelConfig()
     ocfg = ocfg or OptimConfig()
     ruleset, param_shapes, axes, param_shardings = _param_setup(cfg, pcfg, mesh)
     inner, outer = _sync_axes(cfg, shape, mesh, pcfg, ocfg, ruleset)
     sync_axes = tuple(a for a in (outer, inner) if a)
-    sync = build_sync(mesh, pcfg.grad_sync, inner_axis=inner, outer_axis=outer)
+    fsdp = pcfg.param_sharding == "fsdp"
+    zero1 = pcfg.param_sharding == "zero1"
+    specs = _flat_specs(param_shardings)
+    opt_specs = _flat_specs(tree_map(ruleset.opt_spec, axes))
+    if zero1 or fsdp:
+        _check_divides(param_shapes, opt_specs, mesh, "make_train_setup")
+    sync = (build_shard_sync if fsdp else build_sync)(
+        mesh, pcfg.grad_sync, inner_axis=inner, outer_axis=outer)
+    place = _place_fn(cfg, pcfg, ruleset, param_shardings)
     b_axes = ruleset.batch_axes(shape.global_batch) or ()
     n_rows = mesh.size(b_axes)              # distinct shards of the batch
-    zero1 = pcfg.param_sharding == "zero1"
-    enc_fn = _enc_fn(cfg, pcfg)
     opt_shardings = opt_state_shardings(ruleset, axes, ocfg)
-    is_spec = lambda x: isinstance(x, tuple)            # noqa: E731
-    opt_specs = tree_flatten(tree_map(ruleset.opt_spec, axes), is_leaf=is_spec)[0]
+    shapes = tree_flatten(param_shapes)[0]
+    row_max = ([_row_max_fn(s, t.dim(), mesh) for s, t in zip(opt_specs, shapes)]
+               if ocfg.moments_dtype == "int8" and (zero1 or fsdp) else None)
 
     # the batch row of each sync replica (row-major over the sync axes);
     # ranks along a data axis the batch does not divide over share a row
@@ -298,18 +496,40 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                     itertools.product(*(range(mesh.shape[a]) for a in sync_axes))]
 
     def init_state(params) -> TrainState:
-        """The optimizer state for ``params`` (this rank's whole tree):
-        replicated, ``init_adam`` of the whole tree; zero1, of each leaf's
-        ``opt_spec`` shard in the rows form (on a ``DistMesh`` a copy of
-        this rank's shard alone)."""
-        if not zero1:
+        """The state for ``params`` (the whole tree): replicated, the tree
+        and ``init_adam`` of it; zero1, ``init_adam`` of each leaf's
+        ``opt_spec`` rows; fsdp, each leaf's ``spec`` rows (a copy: on a
+        ``DistMesh`` this rank's block alone) and ``init_adam`` of them."""
+        if not (zero1 or fsdp):
             return TrainState(params, init_adam(params, ocfg))
         leaves, spec = tree_flatten(params)
-        rows = [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)]
-        return TrainState(params, init_adam(tree_unflatten(spec, rows), ocfg))
+        rows = tree_unflatten(spec, [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)])
+        if fsdp:
+            rows = tree_map(lambda t: t.clone(), rows)
+            return TrainState(rows, init_adam(rows, ocfg))
+        return TrainState(params, init_adam(rows, ocfg))
+
+    def rank_grads(params, batch, weight):
+        """One rank's gradient leaves (fsdp: every block of each leaf's rows
+        form) and metrics."""
+        if not fsdp:
+            g, m = train_grads(params, batch, cfg, pcfg, _enc_fn(cfg, pcfg), loss_weight=weight)
+            return tree_flatten(g)[0], m
+        leaves, spec = tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        sink = {} if isinstance(mesh, DistMesh) else None
+        tree, lc, enc_fn = place(tree_unflatten(spec, live), sink)
+        batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
+        total, m = tfm.loss_fn(tree, batch, cfg, pcfg, enc_fn=enc_fn, loss_weight=weight,
+                               layer_constrain=lc)
+        total.backward()
+        del tree, total
+        if sink is None:
+            return [p.grad for p in live], m
+        return [all_blocks(sink.pop(id(p)), s, mesh) for p, s in zip(live, specs)], m
 
     def grad_fn(state: TrainState, batch) -> Tuple[Any, Dict[str, torch.Tensor]]:
-        leaves = tree_flatten(state.params)[0]
+        leaves, spec = tree_flatten(state.params)
         batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
         placed = {k: shard_leaf(v, (b_axes,), mesh) for k, v in batch.items()}
         labelled = (batch["labels"] >= 0).sum()
@@ -325,9 +545,8 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
             rows = [(j, [i for i, r in enumerate(replica_rows) if r == j])
                     for j in range(n_rows)]
         for j, replicas in rows:
-            g, m = train_grads(state.params, {k: v[j] for k, v in placed.items()},
-                               cfg, pcfg, enc_fn, loss_weight=weights[j])
-            g_leaves, spec = tree_flatten(g)
+            g_leaves, m = rank_grads(state.params, {k: v[j] for k, v in placed.items()},
+                                     weights[j])
             if isinstance(mesh, DistMesh):
                 stacked = [t.unsqueeze(0) for t in g_leaves]
             else:
@@ -337,9 +556,15 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 for buf, t in zip(stacked, g_leaves):
                     for i in replicas:
                         buf[i].copy_(t)
-            del g, g_leaves
+            del g_leaves
             part.append(torch.stack([m["loss"] * counts[j], m["aux_loss"]]))
-        synced = sync(tree_unflatten(spec, stacked))
+        if fsdp:
+            out = []
+            for s in specs:                  # each leaf's buffer freed once reduced
+                out.append(sync(stacked.pop(0), s))
+            synced = tree_unflatten(spec, out)
+        else:
+            synced = sync(tree_unflatten(spec, stacked))
         del stacked
         # every batch row's (loss x count, aux), row-major over the batch axes
         vals = unshard_leaf(torch.stack(part)[:, None], (b_axes,), mesh)
@@ -348,17 +573,18 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         return synced, metrics
 
     def update_fn(state: TrainState, grads) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if not zero1:
-            params, opt, om = adam_update(state.params, grads, state.opt, ocfg)
-            return TrainState(params, opt), om
-        # the clip factor from the norm of the whole synced gradient
-        gnorm = global_norm(grads)
-        leaves, spec = tree_flatten(state.params)
         g_leaves = tree_flatten(grads)[0]
+        # the clip factor from the norm of the whole synced gradient
+        gnorm = _grad_norm(g_leaves, specs if fsdp else None, mesh)
+        if not zero1:
+            params, opt, om = adam_update(state.params, grads, state.opt, ocfg, gnorm=gnorm,
+                                          row_max=row_max)
+            return TrainState(params, opt), om
+        leaves, spec = tree_flatten(state.params)
         p_rows = [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)]
         g_rows = [shard_leaf(g, s, mesh) for g, s in zip(g_leaves, opt_specs)]
         _, opt, om = adam_update(tree_unflatten(spec, p_rows), tree_unflatten(spec, g_rows),
-                                 state.opt, ocfg, gnorm=gnorm)
+                                 state.opt, ocfg, gnorm=gnorm, row_max=row_max)
         for p, rows, s in zip(leaves, p_rows, opt_specs):
             full = unshard_leaf(rows, s, mesh)
             if full.untyped_storage().data_ptr() != p.untyped_storage().data_ptr():
@@ -379,6 +605,144 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      state_shapes=state_shapes,
                      state_shardings=TrainState(params=param_shardings, opt=opt_shardings),
                      init_state=init_state, grad_fn=grad_fn, update_fn=update_fn)
+
+
+def _serve_setup(cfg, shape, mesh, pcfg, what: str):
+    """What the prefill and decode setups share: (pcfg with remat "none",
+    ruleset, shapes, specs, batch axes, place, init_state)."""
+    pcfg = (pcfg or ParallelConfig()).replace(remat="none")
+    ruleset, param_shapes, axes, param_shardings = _param_setup(cfg, pcfg, mesh)
+    _check_mesh(mesh, pcfg, ruleset, what)
+    b_axes = ruleset.batch_axes(shape.global_batch)
+    if b_axes is None:
+        raise ValueError(
+            f"{what}: a batch of {shape.global_batch} that no data axis of {dict(mesh.shape)} "
+            "divides; the JAX setup spreads the cache's sequence over every axis there "
+            "(kv_cache_spec's flash-decoding layout), which waits for ROADMAP.md M9b2b")
+    specs = _flat_specs(param_shardings)
+    fsdp = pcfg.param_sharding == "fsdp"
+    if fsdp:
+        _check_divides(param_shapes, specs, mesh, what)
+
+    def init_state(params):
+        """The parameters placed for ``step_fn``: under fsdp each leaf's
+        ``spec`` rows (a copy), otherwise ``params`` themselves."""
+        if not fsdp:
+            return params
+        leaves, spec = tree_flatten(params)
+        return tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
+                                     for p, s in zip(leaves, specs)])
+    return (pcfg, ruleset, param_shapes, param_shardings, b_axes,
+            _place_fn(cfg, pcfg, ruleset, param_shardings), init_state)
+
+
+def _batch_rows(mesh, b_axes):
+    """The batch rows a call runs: every distinct one on a ``StackedMesh``,
+    this rank's on a ``DistMesh``."""
+    return [0] if isinstance(mesh, DistMesh) else range(mesh.size(b_axes))
+
+
+def _cat_rows(states):
+    """One decode state from the states of consecutive batch rows (each
+    tensor along its batch dimension, 1)."""
+    flat = [tree_flatten(s) for s in states]
+    return tree_unflatten(flat[0][1], [torch.cat(ts, dim=1) if torch.is_tensor(ts[0]) else ts[0]
+                                       for ts in zip(*(f[0] for f in flat))])
+
+
+def _row_view(state, j: int, b: int):
+    """Batch rows ``j*b .. j*b + b`` of a decode state, views of its
+    buffers (a decode step writes through them)."""
+    leaves, spec = tree_flatten(state)
+    return tree_unflatten(spec, [t.narrow(1, j * b, b) if torch.is_tensor(t) else t
+                                 for t in leaves])
+
+
+def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                       pcfg: Optional[ParallelConfig] = None) -> CellSetup:
+    """The prefill of one cell over ``mesh``: ``step_fn(params, batch) ->
+    (logits (B, V), DecodeState)``, ``params`` as ``init_state`` places them
+    (the whole batch on every rank, as the JAX step takes the global array).
+    Each rank prefills its rows of the batch (``Ruleset.batch_axes``); the
+    logits come back whole, in the batch's order (on a ``DistMesh`` by an
+    all-gather), and the decode state in the batch's rows form: every row in
+    order on a ``StackedMesh``, this rank's rows on a ``DistMesh``
+    (``state_shardings``).  Remat "none", as in the JAX setup."""
+    what = "make_prefill_setup"
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state = \
+        _serve_setup(cfg, shape, mesh, pcfg, what)
+    cache_len = shape.seq_len
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        tree, lc, enc_fn = place(params)
+        leaf = tree_flatten(params)[0][0]
+        batch = batch_to_device(batch, leaf.device, leaf.dtype)
+        placed = {k: shard_leaf(v, (b_axes,), mesh) for k, v in batch.items()}
+        logits, states = [], []
+        for j in _batch_rows(mesh, b_axes):
+            lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
+                                 cache_len, enc_fn=enc_fn, layer_constrain=lc)
+            logits.append(lg)
+            states.append(st)
+        return unshard_leaf(torch.stack(logits), (b_axes,), mesh), _cat_rows(states)
+
+    return CellSetup(cfg=cfg, pcfg=pcfg, shape=shape, mesh=mesh, ruleset=ruleset,
+                     param_shapes=param_shapes, param_shardings=param_shardings,
+                     step_fn=prefill_step,
+                     example_args=(param_shapes, input_specs(cfg, shape, pcfg)),
+                     state_shardings=ruleset.decode_state_shardings(cfg, shape.global_batch),
+                     init_state=init_state)
+
+
+def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      pcfg: Optional[ParallelConfig] = None) -> CellSetup:
+    """One decode step of one cell over ``mesh``, one new token against a
+    cache of ``shape.seq_len``: ``step_fn(params, state, tokens) -> (logits
+    (B, V), state)``, tokens (B, 1) whole, the state in the rows form that
+    ``make_prefill_setup`` returns.  Each rank steps its rows, writing its
+    part of the state in place (``decode_step``); the logits come back whole,
+    in the batch's order."""
+    what = "make_decode_setup"
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state = \
+        _serve_setup(cfg, shape, mesh, pcfg, what)
+    B = shape.global_batch
+    cdt = DTYPES[pcfg.compute_dtype]
+
+    @torch.no_grad()
+    def decode(params, state, tokens):
+        tree, lc, _ = place(params)
+        leaf = tree_flatten(params)[0][0]
+        tokens = batch_to_device({"tokens": tokens}, leaf.device, leaf.dtype)["tokens"]
+        placed = shard_leaf(tokens, (b_axes,), mesh)
+        b = placed.shape[1]
+        logits = []
+        for j in _batch_rows(mesh, b_axes):
+            sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
+            logits.append(tfm.decode_step(tree, placed[j], sub, cfg, pcfg,
+                                          layer_constrain=lc)[0])
+        return (unshard_leaf(torch.stack(logits), (b_axes,), mesh),
+                state._replace(index=state.index + 1))
+
+    state_shapes = tfm.init_decode_state(cfg, B, shape.seq_len, cdt, device="meta")
+    toks = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    return CellSetup(cfg=cfg, pcfg=pcfg, shape=shape, mesh=mesh, ruleset=ruleset,
+                     param_shapes=param_shapes, param_shardings=param_shardings,
+                     step_fn=decode, example_args=(param_shapes, state_shapes, toks),
+                     state_shapes=state_shapes,
+                     state_shardings=ruleset.decode_state_shardings(cfg, B),
+                     init_state=init_state)
+
+
+def make_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               pcfg: Optional[ParallelConfig] = None,
+               ocfg: Optional[OptimConfig] = None) -> CellSetup:
+    """The setup of a cell by its shape's kind: train, prefill or decode."""
+    if shape.kind == "train":
+        return make_train_setup(cfg, shape, mesh, pcfg, ocfg)
+    if shape.kind == "prefill":
+        return make_prefill_setup(cfg, shape, mesh, pcfg)
+    return make_decode_setup(cfg, shape, mesh, pcfg)
 
 
 def moe_ep_ffn_fn(ruleset: Ruleset, cfg: ModelConfig):

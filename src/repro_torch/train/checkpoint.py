@@ -30,8 +30,8 @@ Differences, and why:
     model never holds two copies of its state on the device; the JAX package
     places new arrays onto the target's shardings.
   * Leaves are taken in ``models.modules.tree_flatten`` order; there is no
-    mesh to re-shard onto (checkpoints of a setup's sharded state wait for
-    ROADMAP.md M9b2b).
+    mesh to re-shard onto (checkpoints of a setup's sharded state, zero1's
+    or FSDP's rows, wait for ``Trainer(mesh=)``, ROADMAP.md M9b2b).
 """
 
 from __future__ import annotations

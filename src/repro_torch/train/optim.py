@@ -8,7 +8,8 @@ Counterpart of ``repro.train.optim``, function for function:
 * ``master=False`` — params updated in their own dtype with fp32 math.
 * ``moments_dtype`` ∈ {float32, bfloat16, int8} — int8 stores blockless
   *per-row* quantized moments (scale shape = param.shape[:-1]), the 8-bit
-  Adam memory trick.
+  Adam memory trick.  A sharded setup whose ranks hold pieces of a row passes
+  ``adam_update(row_max=)``, so that the scale is the whole row's.
 
 ``OptimConfig`` is the port's own copy of the JAX package's, field for field
 (``tests/test_torch_optim.py`` holds the two equal).  All state leaves mirror
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,11 +61,14 @@ class AdamState(NamedTuple):
     v: Any
 
 
-def _quantize(x: torch.Tensor, signed: bool) -> QTensor:
+def _quantize(x: torch.Tensor, signed: bool, row_max=None) -> QTensor:
     # bf16 quantization input, as the reference: int8 output precision is
     # unaffected (7 bits << bf16's 8 mantissa bits)
     xf = x.to(torch.bfloat16).float()
     amax = xf.abs().amax(dim=-1) if x.dim() > 1 else xf.abs().amax()
+    if row_max is not None:
+        # a sharded row: the max over the ranks that hold its pieces
+        amax = row_max(amax)
     scale = torch.clamp_min(amax, 1e-20) / 127.0
     q = torch.round(xf / scale[..., None] if x.dim() > 1 else xf / scale)
     q = torch.clamp(q, -127 if signed else 0, 127).to(torch.int8)
@@ -76,9 +80,9 @@ def _dequantize(t: QTensor) -> torch.Tensor:
     return t.q.float() * s
 
 
-def _encode_moment(x: torch.Tensor, dtype: str, signed: bool):
+def _encode_moment(x: torch.Tensor, dtype: str, signed: bool, row_max=None):
     if dtype == "int8":
-        return _quantize(x, signed)
+        return _quantize(x, signed, row_max)
     return x.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
 
 
@@ -133,13 +137,18 @@ def _is_moment(x) -> bool:
 
 @torch.no_grad()
 def adam_update(params, grads, state: AdamState, ocfg: OptimConfig,
-                gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, AdamState, dict]:
+                gnorm: Optional[torch.Tensor] = None,
+                row_max: Optional[Sequence[Optional[Callable]]] = None
+                ) -> Tuple[Any, AdamState, dict]:
     """One AdamW step, in place.  Returns (params, new_state, metrics):
     ``params`` and the state's master and moment buffers are the objects
     passed in, their values overwritten; ``new_state.step`` is new.  The
     clip factor comes from ``gnorm``, by default the global norm of
-    ``grads``; a ZeRO-1 rank that updates its shard of the tree passes the
-    norm of the whole gradient."""
+    ``grads``; a ZeRO-1 or FSDP rank that updates its shard of the tree
+    passes the norm of the whole gradient.  ``row_max`` (one entry per leaf,
+    int8 moments only): for a leaf whose rows are split over ranks, the
+    function that turns each piece's amax into the whole row's, so that the
+    scale is the one the whole row takes; None where a row is whole."""
     step = state.step + 1
     lr = lr_schedule(step, ocfg)
     if gnorm is None:
@@ -152,7 +161,7 @@ def adam_update(params, grads, state: AdamState, ocfg: OptimConfig,
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
 
-    def leaf(p, g, m, v, mw):
+    def leaf(p, g, m, v, mw, rm):
         g = g.float() * clip
         mf = _decode_moment(m)
         vf = _decode_moment(v)
@@ -161,8 +170,8 @@ def adam_update(params, grads, state: AdamState, ocfg: OptimConfig,
         upd = (mf / bc1) / (torch.sqrt(vf / bc2) + ocfg.eps)
         base = mw if mw is not None else p.float()
         new_master = base - lr * (upd + ocfg.weight_decay * base)
-        _store_moment(m, _encode_moment(mf, ocfg.moments_dtype, True))
-        _store_moment(v, _encode_moment(vf, ocfg.moments_dtype, False))
+        _store_moment(m, _encode_moment(mf, ocfg.moments_dtype, True, rm))
+        _store_moment(v, _encode_moment(vf, ocfg.moments_dtype, False, rm))
         if mw is not None:
             mw.copy_(new_master)
         p.copy_(new_master)
@@ -173,9 +182,11 @@ def adam_update(params, grads, state: AdamState, ocfg: OptimConfig,
     v_flat = tree_flatten(state.v, is_leaf=_is_moment)[0]
     mw_flat = (tree_flatten(state.master)[0] if state.master is not None
                else [None] * len(p_flat))
-    if not len(p_flat) == len(g_flat) == len(m_flat) == len(v_flat) == len(mw_flat):
+    rm_flat = list(row_max) if row_max is not None else [None] * len(p_flat)
+    if not len(p_flat) == len(g_flat) == len(m_flat) == len(v_flat) == len(mw_flat) == \
+            len(rm_flat):
         raise ValueError("params, grads and optimizer state differ in structure")
-    for p, g, m, v, mw in zip(p_flat, g_flat, m_flat, v_flat, mw_flat):
-        leaf(p, g, m, v, mw)
+    for p, g, m, v, mw, rm in zip(p_flat, g_flat, m_flat, v_flat, mw_flat, rm_flat):
+        leaf(p, g, m, v, mw, rm)
     new_state = AdamState(step=step, master=state.master, m=state.m, v=state.v)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -14,9 +14,10 @@ contract:
     policy logs p50/p95 and flags steps > ``straggler_factor``×p50.
 
 Differences from the JAX package: one device, no mesh (``device`` takes the
-place of the ``mesh`` argument; a data-parallel step over a mesh, replicated
-or ZeRO-1, is ``parallel.steps.make_train_setup``, and a ``Trainer`` that
-drives it, with checkpoints of sharded state, waits for ROADMAP.md M9b2b),
+place of the ``mesh`` argument; a data-parallel step over a mesh, replicated,
+ZeRO-1 or FSDP, is ``parallel.steps.make_train_setup``, and a
+``Trainer(mesh=)`` that drives it, with checkpoints of sharded state, waits
+for ROADMAP.md M9b2b),
 and a step's time
 is read after ``torch.cuda.synchronize`` (before the clock is started and
 after the step), since PyTorch returns before the card has finished.

@@ -1,5 +1,6 @@
 """The data-parallel train setup (``parallel.steps.make_train_setup``,
-``param_sharding`` replicated and zero1) on the CPU, at reduced size.
+``param_sharding`` replicated and zero1; FSDP has its own file,
+``tests/test_torch_fsdp.py``) on the CPU, at reduced size.
 
 References:
 
@@ -15,14 +16,16 @@ References:
 (ii)  the JAX ``make_train_setup`` on 8 host devices, a (4, 2) ``data`` /
       ``model`` mesh, in one module-scoped subprocess (as
       ``tests/test_multidevice.py`` builds it): one step from the converted
-      weights, loss, ``grad_norm`` and every parameter after it, fp32.
+      weights, loss, ``grad_norm`` and every parameter after it, fp32; with
+      fsdp (which JAX partitions there as FSDP plus TP, the port over data
+      4) and with int8 moments under zero1 and fsdp too.
 (iii) one spawned world of 4 ``gloo`` ranks (a ``file://`` store, one timeout
       for the world): the ``DistMesh`` gives the ``StackedMesh``'s results,
       and under zero1 a rank holds a quarter of the optimizer state.
 
-And one test for each refusal: fsdp (the ``ParallelConfig`` default), a
-``model`` axis of more than one rank, compressed sync, int8 moments under
-zero1.
+And one test for each refusal: a ``model`` axis of more than one rank and
+compressed sync; fsdp (the ``ParallelConfig`` default) and int8 moments under
+zero1, once refused, now run (their tests keep their names).
 
 Tolerances, fp32: loss and ``grad_norm`` rtol 1e-5 (the rank's mean weighed
 by its token share, then summed, against one mean over the batch; measured
@@ -52,7 +55,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.config import ParallelConfig, ShapeConfig
-from repro_torch.models.modules import tree_flatten, tree_map
+from repro_torch.models.modules import tree_flatten, tree_map, tree_unflatten
 from repro_torch.parallel.sharding import unshard_leaf
 from repro_torch.parallel.steps import (TrainState, make_train_setup, make_train_step,
                                         train_grads)
@@ -67,11 +70,24 @@ CASES = {"zero1-data4-flat": ((4,), ("data",), "zero1", "flat"),
          "replicated-pod2-data2-hier": ((2, 2), ("pod", "data"), "replicated", "hierarchical"),
          "zero1-pod2-data2-model1-hier": ((2, 2, 1), ("pod", "data", "model"), "zero1",
                                           "hierarchical")}
+# placements of the JAX comparison that the one-device test does not take
+JAX_ONLY_CASES = {"fsdp-data4-flat": ((4,), ("data",), "fsdp", "flat")}
 GLOO_CASES = [("llama3.2-1b", "float32", "zero1-data4-flat"),
               ("llama3.2-1b", "float32", "replicated-pod2-data2-hier"),
               ("mixtral-8x7b", "float32", "zero1-pod2-data2-model1-hier"),
               ("llama3.2-1b", "bfloat16", "zero1-data4-flat")]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: beside the other
+    test workers on the same cores, a pool of threads per op spends its time
+    waiting (the results do not depend on it; the gloo ranks run one too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def config(arch):
@@ -145,7 +161,7 @@ def leaves(tree):
 
 
 def setup_of(cfg, case, ocfg=None, batch=B):
-    shape, axes, sharding, sync = CASES[case]
+    shape, axes, sharding, sync = {**CASES, **JAX_ONLY_CASES}[case]
     mesh = make_mesh(shape, axes, device="cpu")
     pcfg = ParallelConfig(param_sharding=sharding, grad_sync=sync, remat="none")
     return make_train_setup(cfg, ShapeConfig("t", "train", S, batch), mesh, pcfg,
@@ -316,10 +332,18 @@ def refused(pcfg=None, mesh=((4,), ("data",)), ocfg=None):
 
 
 def test_fsdp_the_default_is_refused():
-    with pytest.raises(ValueError, match="fsdp.*M9b2b"):
-        refused()
-    with pytest.raises(ValueError, match="fsdp.*M9b2b"):
-        refused(ParallelConfig(param_sharding="fsdp"))
+    """The name is historical: FSDP, the ``ParallelConfig`` default, was
+    refused until it ran; now the default builds an fsdp setup that takes a
+    step (``tests/test_torch_fsdp.py`` holds its results)."""
+    cfg = config("llama3.2-1b")
+    for pcfg in (None, ParallelConfig(param_sharding="fsdp")):
+        setup = make_train_setup(cfg, ShapeConfig("t", "train", S, B),
+                                 make_mesh((4,), ("data",), device="cpu"), pcfg,
+                                 OptimConfig(**OCFG))
+        assert setup.pcfg.param_sharding == "fsdp"
+        state, m = setup.step_fn(setup.init_state(params_of("llama3.2-1b", "float32")),
+                                 make_batch(cfg, 1))
+        assert np.isfinite(float(m["loss"])) and int(state.opt.step) == 1
 
 
 def test_a_model_axis_of_more_than_one_rank_is_refused():
@@ -334,19 +358,23 @@ def test_compressed_sync_is_refused():
 
 
 def test_int8_moments_under_zero1_are_refused():
-    with pytest.raises(ValueError, match="int8.*M9b2b"):
-        refused(ParallelConfig(param_sharding="zero1"),
+    """The name is historical: int8 moments under zero1 were refused while a
+    rank's shard of a row took its own scale; now the scale is the whole
+    row's (the max over the ranks that hold the row's pieces), and the
+    setup builds for every sharding (``tests/test_torch_fsdp.py`` holds the
+    moments equal to the replicated setup's)."""
+    for sharding in ("zero1", "replicated", "fsdp"):
+        refused(ParallelConfig(param_sharding=sharding),
                 ocfg=OptimConfig(master=False, moments_dtype="int8"))
-    # replicated keeps the whole row on every rank: int8 moments run there
-    refused(ParallelConfig(param_sharding="replicated"),
-            ocfg=OptimConfig(master=False, moments_dtype="int8"))
 
 
 # --------------------------------------------------------------------------
 # (ii) against the JAX setup on 8 host devices
 # --------------------------------------------------------------------------
 
-JAX_ARCHS = {"llama3.2-1b": ("replicated", "zero1"), "mixtral-8x7b": ("zero1",)}
+# a sharding with "-int8" takes int8 moments
+JAX_ARCHS = {"llama3.2-1b": ("replicated", "zero1", "fsdp", "zero1-int8", "fsdp-int8"),
+             "mixtral-8x7b": ("zero1", "fsdp")}
 
 JAX_RUN = """
 import dataclasses, sys
@@ -372,14 +400,15 @@ def flat(tree, prefix):
 
 
 mesh = make_mesh((4, 2), ("data", "model"))
-ocfg = OptimConfig(**{ocfg!r})
 for arch, shardings in ARCHS.items():
     cfg = get_config(arch).reduced()
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     batch = {{k: jnp.asarray(inp[arch + "|" + k]) for k in ("tokens", "labels")}}
     B, S = batch["tokens"].shape
-    for sharding in shardings:
+    for name in shardings:
+        sharding, int8 = name.split("-")[0], name.endswith("-int8")
+        ocfg = OptimConfig(**{ocfg!r}, **(dict(moments_dtype="int8") if int8 else {{}}))
         pcfg = ParallelConfig(param_sharding=sharding, remat="none",
                               param_dtype="float32", compute_dtype="float32")
         setup = make_train_setup(cfg, ShapeConfig("t", "train", S, B), mesh, pcfg, ocfg)
@@ -392,8 +421,8 @@ for arch, shardings in ARCHS.items():
                             out_shardings=setup.state_shardings)(params)
             state, m = setup.step_fn(state, batch)
         for k in ("loss", "aux_loss", "tokens", "grad_norm", "lr"):
-            out[arch + "|" + sharding + "|" + k] = np.asarray(m[k], np.float32)
-        flat(state.params, arch + "|" + sharding + "|p1|")
+            out[arch + "|" + name + "|" + k] = np.asarray(m[k], np.float32)
+        flat(state.params, arch + "|" + name + "|p1|")
 np.savez(sys.argv[2], **out)
 print("JAX_SETUP_OK", len(out))
 """
@@ -423,15 +452,25 @@ def test_setup_equals_the_jax_setup_on_8_host_devices(jax_setup, arch, sharding)
     inp, out = jax_setup
     cfg = config(arch)
     batch = {k: inp[arch + "|" + k] for k in ("tokens", "labels")}
-    case = "zero1-data4-flat" if sharding == "zero1" else "replicated-pod2-data2-hier"
-    state, metrics, _ = run_setup(setup_of(cfg, case), params_of(arch, "float32"), [batch])
+    placement, int8 = sharding.split("-")[0], sharding.endswith("-int8")
+    case = {"zero1": "zero1-data4-flat", "fsdp": "fsdp-data4-flat",
+            "replicated": "replicated-pod2-data2-hier"}[placement]
+    setup = setup_of(cfg, case, OptimConfig(**OCFG, **(dict(moments_dtype="int8") if int8
+                                                       else {})))
+    state, metrics, _ = run_setup(setup, params_of(arch, "float32"), [batch])
+    params = state.params
+    if placement == "fsdp":
+        specs = tree_flatten(setup.param_shardings, is_leaf=lambda x: isinstance(x, tuple))[0]
+        _, struct = tree_flatten(params)
+        params = tree_unflatten(struct, [unshard_leaf(r, sp, setup.mesh)
+                                         for r, sp in zip(leaves(params), specs)])
     pre = arch + "|" + sharding + "|"
     for k in ("loss", "aux_loss", "tokens", "grad_norm", "lr"):
         np.testing.assert_allclose(float(metrics[0][k]), float(out[pre + k]), rtol=1e-5,
                                    atol=1e-7, err_msg=k)
     want = from_jax_params(nest({k[len(pre) + 3:]: v for k, v in out.items()
                                  if k.startswith(pre + "p1|")}), cfg, device="cpu")
-    for g, w in zip(leaves(state.params), leaves(want)):
+    for g, w in zip(leaves(params), leaves(want)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
 
 
