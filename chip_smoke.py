@@ -16,7 +16,11 @@ card: mixtral's and arctic's MoE layers with their experts over data 4, and
 llama3.2-1b as a 4-stage GPipe pipeline; and the data-parallel setups:
 llama3.2-1b trained zero1, replicated and fsdp, mamba2-1.3b fsdp, each
 rank's gradient synchronised through the tree-reduce kernel, and llama3.2-1b
-and whisper-medium served fsdp through make_setup)
+and whisper-medium served fsdp through make_setup; and tensor parallelism
+over model, every TP all-reduce through the tree-reduce kernel: llama3.2-1b
+trained over data 2 x model 2 and pod 2 x data 2 x model 2, whisper-medium
+trained and served over data 2 x model 2, llama3.2-1b and llava-next-34b
+served over model 4)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -108,10 +112,10 @@ Phases:
            launches per step (asserted: 32 forward, 16 backward); then
            mamba2-1.3b the same way, 3 steps (its final checkpoint is
            written, its step checked, and removed; asserted: 96 SSD
-           forward, 48 backward); then mixtral-8x7b at full width and 2 of
+           forward, 48 backward); then mixtral-8x7b at full width and 1 of
            32 layers the same way, 3 steps (MFU on the active parameters,
-           the router's aux loss in every step; asserted: 4 flash forward,
-           2 backward a step; at S 2048 its window of 4096 cuts nothing);
+           the router's aux loss in every step; asserted: 2 flash forward,
+           1 backward a step; at S 2048 its window of 4096 cuts nothing);
            then through ``make_train_step``, 3 steps on one batch:
            llava-next-34b at full width and 2 of 60 layers (B 4 x (1024
            patches + 1024 tokens)) and whisper-medium at full width and depth
@@ -158,11 +162,24 @@ Phases:
            depth (8 x 224 tokens against 1500 frames, 16 steps; 288), the
            logits bit-equal to the one-device prefill / decode_step on each
            rank's rows; against the whole batch, greedy tokens equal but at
-           near-ties (counted) and the elements outside tol(bf16) counted
+           near-ties (counted) and the elements outside tol(bf16) counted;
+           then tensor parallelism over model (each rank its heads, MLP
+           columns and vocab block, the partials summed by the tree reduce):
+           (g) llama3.2-1b zero1 over data 2 x model 2, flat, two steps; (h)
+           fsdp over the same, its step 1 bit-equal to (g)'s; (i) fsdp over
+           pod 2 x data 2 x model 2, hierarchical, one step; (j)
+           whisper-medium at full depth fsdp over data 2 x model 2, one step
+           and served as (f); (k) llama3.2-1b and llava-next-34b (8 of 60
+           layers) served over data 1 x model 4: losses within 1e-4 of the
+           one-device step, flash and tree-reduce launches asserted
+           (``tp_tree_launches``), gradients and logits held against the
+           fp32 one-device route as far as the bf16 one is
+           (SETUP_TP_FP32_MARGIN), the elements outside tol(bf16) of the
+           bf16 route counted, greedy flips at near-ties only
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
-           llama3.2-1b, mamba2-1.3b and mixtral-8x7b (2 layers), from
+           llama3.2-1b, mamba2-1.3b and mixtral-8x7b (1 layer), from
            torch.profiler; for mixtral also the device time inside its MoE
            FFN, dispatch and combine (profiler ranges); then llava's prefill
            (30 layers) and four decode steps, and whisper's train step
@@ -2171,14 +2188,16 @@ TRAIN_ARCH = "llama3.2-1b"
 TRAIN_STEPS = 4            # then one more after the resume
 SSM_TRAIN_ARCH = "mamba2-1.3b"
 SSM_TRAIN_STEPS = 3
-# mixtral-8x7b at full width, 2 of its 32 layers (1.45e9 parameters a layer,
-# about 23 GB a layer with its fp32 master and moments), 3 steps at B 4 x S
-# 2048, where the window of 4096 cuts nothing: the windowed backward's cuts
+# mixtral-8x7b at full width, 1 of its 32 layers (1.45e9 parameters a layer,
+# about 23 GB a layer with its fp32 master and moments; 2 layers until the
+# setup phase's tensor-parallel cases, whose time the cut pays for: the
+# 44.3 GB final checkpoint of 2 layers took 61 s to write), 3 steps at B 4 x
+# S 2048, where the window of 4096 cuts nothing: the windowed backward's cuts
 # are held in the kernels phase at S 8192 (B 1 x S 8192, the same tokens a
 # step, ran out of the card's memory in AdamW's update); arctic is not trained
 # on one card (one expert layer's optimizer state alone is ~214 GB)
 MOE_TRAIN_ARCH = "mixtral-8x7b"
-MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_STEPS = 3
 # card (kernels) against CPU (plain versions) at full width, fp32, as (arch,
 # layers, B, S): the same function, products summed in another order on the
@@ -2205,6 +2224,29 @@ def expected_train_launches(cfg, pcfg):
         out.update(ssd_scan=cfg.num_layers * remat, ssd_scan_bwd=cfg.num_layers)
     out.update(flash_attention=attn * remat, flash_attention_bwd=attn)
     return out
+
+
+def tp_tree_launches(cfg, kind, remat=True):
+    """Tree-reduce launches of one batch row's TP group (its all-reduces over
+    ``model``; the data sync apart), ``kind`` train, prefill or decode: the
+    lookup's g; g after every attention, cross-attention and MLP of a block
+    (decode: the decoder's blocks only); in training besides the loss's
+    all-reduce, block remat's recompute of each block's g but its last (the
+    MLP's: ``torch.utils.checkpoint`` stops recomputing after the last
+    operation that saved a tensor for the backward, and nothing after that g
+    saves one), and f's backward: per block the attention's input, the
+    MLP's, for a cross-attention its queries and the encoder's output,
+    ``q_norm`` / ``k_norm`` per attention with qk-norm, and the head's
+    input."""
+    enc = cfg.n_enc_layers if cfg.family == "audio" and kind != "decode" else 0
+    cross = cfg.num_layers if cfg.family == "audio" else 0
+    g_blocks = 2 * enc + 2 * cfg.num_layers + cross
+    if kind != "train":
+        return 1 + g_blocks
+    attentions = enc + cfg.num_layers + cross
+    f = 2 * enc + 2 * cfg.num_layers + 2 * cross + (2 * attentions if cfg.qk_norm else 0) + 1
+    recompute = g_blocks - enc - cfg.num_layers if remat else 0
+    return 1 + g_blocks + recompute + 1 + f
 
 
 def train_flops_per_step(cfg, B, S, P=0):
@@ -2827,7 +2869,8 @@ SETUP_CASES = [("zero1", "flat", (4,), ("data",)),
                ("fsdp", "hierarchical", (2, 2, 1), ("pod", "data", "model"))]
 # the case whose synced gradient and update an fsdp case equals bit for bit:
 # the same ranks, the same sync tree
-SETUP_TWIN = {"fsdp_flat": "zero1_flat", "fsdp_hierarchical": "replicated_hierarchical"}
+SETUP_TWIN = {"fsdp_flat": "zero1_flat", "fsdp_hierarchical": "replicated_hierarchical",
+              "fsdp_flat_tp2": "zero1_flat_tp2"}
 SETUP_LOSS_RTOL = 2e-3
 # a rank's bf16 gradient and the synced mean are two bf16 roundings of the
 # one-device gradient's terms summed in another order: tol(bf16)
@@ -2842,6 +2885,41 @@ SETUP_SSM_ARCH, SETUP_SSM_LAYERS = "mamba2-1.3b", 12
 SETUP_SERVE = [("llama3.2-1b", 2048, 2048 + 16), ("whisper-medium", 224, 448)]
 SETUP_SERVE_MESH = ((4,), ("data",))
 SETUP_SERVE_TOKENS = 16
+# (g)-(k), tensor parallelism over model: every rank of the TP groups stacked
+# on the card, each against the one-device route on the same weights and
+# batch.  (g) zero1 over data 2 x model 2, flat, two steps; (h) fsdp over the
+# same, two steps, its step 1 bit for bit against (g)'s; (i) fsdp over pod 2
+# x data 2 x model 2, hierarchical, one step (llama3.2-1b as (a)-(d))
+SETUP_TP_CASES = [("zero1", "flat", (2, 2), ("data", "model"), 2),
+                  ("fsdp", "flat", (2, 2), ("data", "model"), 2),
+                  ("fsdp", "hierarchical", (2, 2, 2), ("pod", "data", "model"), 1)]
+SETUP_TP_LOSS_RTOL = 1e-4
+# Under TP a bf16 gradient or logit is rounded otherwise than the one-device
+# route's (each rank's partial is rounded before the tree sum), and the two
+# differ by two bf16 noises, which leave tol(bf16) for a gradient leaf
+# (``python3 tools/tp_rounding.py`` shows it at a reduced width on the CPU,
+# and PERF.md's tensor-parallel entry at full width on the card), while each lies as
+# far from fp32 as the other.  So a TP case is held against the fp32
+# one-device route on the same weights: its error there may be at most
+# SETUP_TP_FP32_MARGIN x the one-device bf16 route's (or tol(bf16)'s rtol
+# where that is larger).  A rank's missing all-reduce moves a leaf by O(1).
+SETUP_TP_FP32_MARGIN = 1.5
+# (j) whisper-medium at full width and depth, fsdp over data 2 x model 2,
+# trained one step (arch, B, S) and served (prompt, cache) as (f); (k) served
+# over data 1 x model 4, fsdp: llama3.2-1b at full depth and llava-next-34b
+# at 8 of 60 layers (arch, layers, prompt, cache, patches)
+SETUP_TP_MESH = ((2, 2), ("data", "model"))
+SETUP_TP_WHISPER = ("whisper-medium", 8, 448, 224, 448)
+SETUP_TP4_MESH = ((1, 4), ("data", "model"))
+SETUP_TP4_SERVE = [("llama3.2-1b", None, 2048, 2048 + 16, None),
+                   ("llava-next-34b", 8, 1024, 1024 + 1024 + 16, 1024)]
+
+
+def setup_case_name(sharding, mode, shape):
+    """A case's name in the report: its sharding and sync, and ``_tp<n>``
+    where the mesh ``shape`` (axis -> size) has a model axis of n > 1."""
+    tp = shape.get("model", 1)
+    return f"{sharding}_{mode}" + (f"_tp{tp}" if tp > 1 else "")
 
 
 def setup_batches(cfg, B, S, steps=SETUP_STEPS):
@@ -2874,40 +2952,73 @@ def _flat_specs(setup):
 
 
 def _counting_gathers():
-    """A patch of ``parallel.steps._gather_fn`` whose gathers count the
+    """A patch of ``parallel.steps._gather_fn`` and ``_tp_gather_fn`` (tensor
+    parallelism's gather over the data axes) whose gathers count the
     parameter leaves they put together and their bytes; yields the counts."""
     counts = {"gathers": 0, "gathered_bytes": 0}
-    plain = steps_module._gather_fn
 
-    def counting(mesh, sink=None):
-        gather = plain(mesh, sink)
+    def counting(plain):
+        def make(*args, **kw):
+            gather = plain(*args, **kw)
 
-        def counted(rows, spec):
-            full = gather(rows, spec)
-            counts["gathers"] += 1
-            counts["gathered_bytes"] += nbytes(full)
-            return full
-        return counted
-    return patched(steps_module, counts, _gather_fn=counting)
+            def counted(rows, spec):
+                full = gather(rows, spec)
+                counts["gathers"] += 1
+                counts["gathered_bytes"] += nbytes(full)
+                return full
+            return counted
+        return make
+    return patched(steps_module, counts, _gather_fn=counting(steps_module._gather_fn),
+                   _tp_gather_fn=counting(steps_module._tp_gather_fn))
 
 
-def setup_gathers_per_step(cfg, ranks):
-    """Parameter gathers of one fsdp train step: each rank gathers the
-    leaves outside the blocks once, and each block's leaves twice (the
-    forward and block remat's recompute)."""
+def setup_gathers_per_step(cfg, rows):
+    """Parameter gathers of one fsdp train step: each batch row (a rank, or
+    under TP a TP group) gathers the leaves outside the blocks once, and each
+    block's leaves, the encoder's too, twice (the forward and block remat's
+    recompute)."""
     axes = tfm.param_axes(cfg, stacked=False)
     is_spec = dict(is_leaf=lambda x: isinstance(x, tuple))
-    block = len(tree_flatten(axes["blocks"][0], **is_spec)[0])
-    outside = len(tree_flatten({k: v for k, v in axes.items() if k != "blocks"},
-                               **is_spec)[0])
-    return ranks * (outside + 2 * block * cfg.num_layers)
+    stacks = [axes["blocks"]] + ([axes["encoder"]["blocks"]] if "encoder" in axes else [])
+    blocks = sum(len(tree_flatten(b, **is_spec)[0]) for stack in stacks for b in stack)
+    every = len(tree_flatten(axes, **is_spec)[0])
+    return rows * (every - blocks + 2 * blocks)
+
+
+def _tp_sharded(setup):
+    """The number of leaves the setup's specs place over its TP axis."""
+    tp = setup.ruleset.tp
+    return sum(1 for s in _flat_specs(setup) if tp in [a for e in s if e for a in
+                                                        ((e,) if isinstance(e, str) else e)])
+
+
+def outside_tol(got, want, t):
+    """Elements of ``got`` outside ``t`` (atol + rtol x |want|) of ``want``."""
+    return int(((got.float() - want.float()).abs() >
+                t["atol"] + t["rtol"] * want.float().abs()).sum())
+
+
+def fro_rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def setup_fp32_grads(cfg, p0, batch):
+    """The one-device gradient of ``batch`` with ``p0`` in fp32 (block remat),
+    the reference a TP case's bf16 gradient and the one-device bf16 one are
+    each held against (SETUP_TP_FP32_MARGIN)."""
+    p32 = tree_map(lambda t: t.float(), p0)
+    pcfg = ParallelConfig(remat="block", param_dtype="float32", compute_dtype="float32")
+    g, _ = train_grads(p32, batch, cfg, pcfg, _enc_fn(cfg, pcfg))
+    del p32
+    return list(_flat(g))
 
 
 def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode, mshape,
-                     axes, kept=None, steps=SETUP_STEPS):
+                     axes, kept=None, steps=SETUP_STEPS, want32=None):
     """One train case of the setup phase: ``steps`` steps through
     ``make_train_setup`` against the one-device losses (``oracle``), step 1's
-    synced gradient against the one-device gradient ``want_g``; the
+    synced gradient against the one-device gradient ``want_g`` (under TP:
+    against the fp32 one ``want32`` as far as ``want_g`` is); the
     launches of every step asserted, fsdp's gathers counted (asserted).  With
     ``kept``: a twin of SETUP_TWIN keeps its step 1 there, and an fsdp case
     is held bit for bit against its twin's.  Returns (report entry, launches
@@ -2921,17 +3032,25 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
                           grad_sync=mode)
     setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
     ranks = mesh.size(axes)
+    n_rows = mesh.size(setup.ruleset.batch_axes(B))
     n_leaves = len(tree_flatten(p0)[0])
-    want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
-    for k, v in expected_sync_launches(mode, n_leaves).items():
-        want[k] += v
-    name = f"{sharding}_{mode}"
     fsdp = sharding == "fsdp"
+    tp = mesh.shape.get("model", 1) > 1
+    want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
+    # under TP each batch row's TP group all-reduces over model, and fsdp
+    # reduce-scatters each model block of a leaf over data on its own
+    for k, v in expected_sync_launches(
+            mode, n_leaves + (_tp_sharded(setup) if tp and fsdp else 0)).items():
+        want[k] += v
+    if tp:
+        want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train")
+    name = setup_case_name(sharding, mode, mesh.shape)
+    loss_rtol = SETUP_TP_LOSS_RTOL if tp else SETUP_LOSS_RTOL
     specs = _flat_specs(setup)
     state = setup.init_state(tree_map(lambda t: t.clone(), p0))
     entry = {"param_sharding": sharding, "grad_sync": mode, "layers": cfg.num_layers,
              "mesh": dict(zip(axes, mshape)), "loss": [], "grad_norm": [], "step_s": [],
-             "param_bytes_per_rank": rank_bytes([state.params], fsdp),
+             "param_bytes_per_rank": rank_bytes([state.params], fsdp or tp),
              "opt_bytes_per_rank": rank_bytes([state.opt.master, state.opt.m, state.opt.v],
                                               sharding != "replicated")}
     used = {k: 0 for k in WRAPPERS}
@@ -2957,37 +3076,57 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
                                  f"expected {want}")
         for k in used:
             used[k] += got[k]
-        if fsdp and counts["gathers"] != setup_gathers_per_step(cfg, ranks):
+        if fsdp and counts["gathers"] != setup_gathers_per_step(cfg, n_rows):
             raise AssertionError(f"setup {cfg.name} {name} step {i}: {counts['gathers']} "
-                                 f"gathers, expected {setup_gathers_per_step(cfg, ranks)}")
+                                 f"gathers, expected {setup_gathers_per_step(cfg, n_rows)}")
         loss = float(m["loss"])
         entry["loss"].append(loss)
         entry["grad_norm"].append(float(m["grad_norm"]))
-        if not abs(loss - oracle["loss"][i]) <= SETUP_LOSS_RTOL * abs(oracle["loss"][i]):
+        if not abs(loss - oracle["loss"][i]) <= loss_rtol * abs(oracle["loss"][i]):
             raise AssertionError(f"setup {cfg.name} {name} step {i}: loss {loss} against "
-                                 f"the one-device {oracle['loss'][i]}")
+                                 f"the one-device {oracle['loss'][i]} (rtol {loss_rtol})")
         if i > 0:
             continue
         whole = ([unshard_leaf(r, s, mesh) for r, s in zip(_flat(synced), specs)]
-                 if fsdp else list(_flat(synced)))
-        worst = max(float((a.float() - b.float()).norm() / b.float().norm())
-                    for a, b in zip(whole, _flat(want_g)))
-        del whole
+                 if fsdp or tp else list(_flat(synced)))
+        worst = max(fro_rel(a, b) for a, b in zip(whole, _flat(want_g)))
         entry["grad_fro_rel_worst"] = worst
-        if not worst <= SETUP_GRAD_FRO:
+        if tp:       # counted, not asserted: the ranks' partials round apart
+            entry["grad_outside_tol_bf16"] = sum(
+                outside_tol(a, b, tol(torch.bfloat16)) for a, b in zip(whole, _flat(want_g)))
+            entry["grad_elements"] = sum(a.numel() for a in whole)
+            tp32 = max(fro_rel(a, w) for a, w in zip(whole, want32))
+            one32 = max(fro_rel(b, w) for b, w in zip(_flat(want_g), want32))
+            limit = max(SETUP_GRAD_FRO, SETUP_TP_FP32_MARGIN * one32)
+            entry["grad_fro_rel_worst_vs_fp32"] = {"tp": tp32, "one_device_bf16": one32,
+                                                   "limit": limit}
+            if not tp32 <= limit:
+                raise AssertionError(f"setup {cfg.name} {name}: a synced gradient leaf is "
+                                     f"{tp32:.3e} off the fp32 one (the one-device bf16 "
+                                     f"route {one32:.3e}; limit {limit:.3e})")
+        elif not worst <= SETUP_GRAD_FRO:
             raise AssertionError(f"setup {cfg.name} {name}: a synced gradient leaf is "
                                  f"{worst:.3e} off the one-device one (limit {SETUP_GRAD_FRO})")
         if kept is not None and name in SETUP_TWIN.values():
             kept[name] = {"grads": synced, "mesh": mesh,
                           "params": tree_map(lambda t: t.clone(), state.params)}
-            if sharding == "zero1":
+            if tp:            # both whole, for a twin placed otherwise
+                kept[name]["grads"] = whole
+                kept[name]["params"] = [unshard_leaf(r, s, mesh).clone()   # not a view:
+                                        for r, s in zip(_flat(state.params), specs)]  # step 2
+            if sharding == "zero1" and not tp:
                 kept[name]["master"] = tree_map(lambda t: t.clone(), state.opt.master)
                 kept[name]["specs"] = tree_flatten(setup.state_shardings.opt.master,
                                                    is_leaf=lambda x: isinstance(x, tuple))[0]
+        del whole
         if kept is not None and name in SETUP_TWIN:
             twin = kept[SETUP_TWIN[name]]
-            same_g = [torch.equal(r, shard_leaf(g, s, mesh))
-                      for r, g, s in zip(_flat(synced), _flat(twin["grads"]), specs)]
+            if tp:
+                same_g = [torch.equal(unshard_leaf(r, s, mesh), g)
+                          for r, g, s in zip(_flat(synced), twin["grads"], specs)]
+            else:
+                same_g = [torch.equal(r, shard_leaf(g, s, mesh))
+                          for r, g, s in zip(_flat(synced), _flat(twin["grads"]), specs)]
             same_p = [torch.equal(unshard_leaf(r, s, mesh), p)
                       for r, p, s in zip(_flat(state.params), _flat(twin["params"]), specs)]
             entry["bit_equal_to"] = {"case": SETUP_TWIN[name], "grad_shards": sum(same_g),
@@ -3000,6 +3139,7 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
         del synced
     entry["step_s_median"] = statistics.median(entry["step_s"])
     entry["launches_per_step"] = want
+    entry["batch_rows"] = n_rows
     if fsdp:
         entry["gathers_per_step"] = gathers
     entry["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
@@ -3017,7 +3157,8 @@ def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS):
     torch.cuda.reset_peak_memory_stats()
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
     state = TrainState(tree_map(lambda t: t.clone(), p0), init_adam(p0, ocfg))
-    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg))
+    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg,
+                                                    _enc_fn(cfg, pcfg)))
     step = make_train_step(cfg, pcfg, ocfg)
     oracle = {"loss": [], "grad_norm": [], "step_s": [], "grad_s": grad_s}
     for batch in batches[:steps]:
@@ -3053,56 +3194,74 @@ def greedy_flips(got, want, limit):
     return len(flips)
 
 
-def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8):
-    """(f): ``arch`` at full width and depth, bf16, served through
-    ``make_setup`` (fsdp over SETUP_SERVE_MESH, every rank stacked on the
-    card): 8 requests of ``prompt`` tokens (whisper's against 1500 frames),
-    then ``new_tokens`` steps fed the greedy tokens of the one-device
-    ``prefill`` / ``decode_step`` on the whole batch.  Held bit for bit
-    against the one-device route run on each rank's rows (the same products:
-    what the setup adds, the placement, the gathers, the rows of the state,
-    must change no bit); against the whole batch, the logits' elements
-    outside tol(bf16) are counted (per-rank products of B 2 round otherwise
-    than B 8 ones) and a greedy token may differ only at a near-tie (counted).
-    The prefill's launches asserted.  Returns (report, the prefill's
-    launches)."""
-    cfg = get_config(arch)
+def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8,
+                mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None):
+    """(f), and under tensor parallelism (j), (k): ``arch`` at full width
+    (``layers`` of its depth, or all), bf16, served through ``make_setup``
+    (fsdp over ``mesh_spec``, every rank stacked on the card): 8 requests of
+    ``prompt`` tokens (whisper's against 1500 frames, llava's after
+    ``patches`` patch embeddings), then ``new_tokens`` steps fed the greedy
+    tokens of the one-device ``prefill`` / ``decode_step`` on the whole
+    batch.  Over data alone the setup is held bit for bit against the
+    one-device route run on each rank's rows (the same products: what the
+    setup adds, the placement, the gathers, the rows of the state, must
+    change no bit); under TP a rank's products run over its heads and vocab
+    columns and its partials are summed by the tree reduce, so each step's
+    logits are held to tol(bf16)'s rtol by Frobenius against the whole
+    batch's.  Against the whole batch the logits' elements outside tol(bf16)
+    are counted and a greedy token may differ only at a near-tie (counted).
+    The prefill's launches asserted (and under TP the decode steps' tree
+    reduces).  Returns (report, the prefill's launches)."""
+    cfg = _cut(arch, layers) if layers else get_config(arch)
     torch.cuda.reset_peak_memory_stats()
-    mesh = make_mesh(*SETUP_SERVE_MESH, device=dev)
-    ranks = mesh.size(SETUP_SERVE_MESH[1])
+    mesh = make_mesh(*mesh_spec, device=dev)
+    ranks = mesh.size(mesh_spec[1])
+    tp = mesh.shape.get("model", 1) > 1
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(9)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt))).to(dev)
-    batch = {"tokens": toks, **on(model_inputs(cfg, B, 2), dev, torch.bfloat16)}
+    batch = {"tokens": toks, **on(model_inputs(cfg, B, 2, patches), dev, torch.bfloat16)}
     pcfg = ParallelConfig(param_dtype="bfloat16")          # fsdp, the default
     pre = make_setup(cfg, ShapeConfig("prefill", "prefill", cache_len, B), mesh, pcfg)
     dec = make_setup(cfg, ShapeConfig("decode", "decode", cache_len, B), mesh, pcfg)
+    n_rows = mesh.size(pre.ruleset.batch_axes(B))
     placed = pre.init_state(params)
     enc_fn = _enc_fn(cfg, ParallelConfig(remat="none"))
     bf = tol(torch.bfloat16)
 
     with torch.inference_mode():
-        def one_device(rows, feed=None):
+        def one_device(rows, feed=None, weights=params):
             """prefill + ``new_tokens`` decode steps of the batch's ``rows``,
             fed ``feed``'s greedy tokens (its own without)."""
-            logits, st = tfm.prefill(params, {k: v[rows] for k, v in batch.items()}, cfg, None,
+            dt = tree_flatten(weights)[0][0].dtype
+            logits, st = tfm.prefill(weights, {k: v[rows] if k == "tokens" else v[rows].to(dt)
+                                               for k, v in batch.items()}, cfg, None,
                                      cache_len, enc_fn=enc_fn)
             out = [logits]
             for t in range(new_tokens):
                 src = feed[t][rows] if feed is not None else out[t]
-                logits, st = tfm.decode_step(params, src.argmax(-1)[:, None], st, cfg, None)
+                logits, st = tfm.decode_step(weights, src.argmax(-1)[:, None], st, cfg, None)
                 out.append(logits)
             return out
         want, t_one = timed(lambda: one_device(slice(None)))
-        b = B // ranks
-        per_rank = [one_device(slice(j * b, (j + 1) * b), want) for j in range(ranks)]
-        want_rows = [torch.cat([r[t] for r in per_rank]) for t in range(new_tokens + 1)]
-        del per_rank
+        want_rows = want32 = None
+        if tp:                 # the fp32 route, fed the same tokens (SETUP_TP_FP32_MARGIN)
+            p32 = tree_map(lambda t: t.float(), params)
+            want32 = [w.float() for w in one_device(slice(None), want, p32)]
+            del p32
+            release()
+        else:
+            b = B // ranks
+            per_rank = [one_device(slice(j * b, (j + 1) * b), want) for j in range(ranks)]
+            want_rows = [torch.cat([r[t] for r in per_rank]) for t in range(new_tokens + 1)]
+            del per_rank
         _zero_launches()
         with _counting_gathers() as counts:
             (got0, state), t_pre = timed(lambda: pre.step_fn(placed, batch))
         used = _launches()
         want_l = {k: v * ranks for k, v in expected_launches(cfg).items()}
+        if tp:
+            want_l["tree_reduce"] += n_rows * tp_tree_launches(cfg, "prefill")
         if used != want_l:
             raise AssertionError(f"setup serve {arch}: the prefill launched {used}, "
                                  f"expected {want_l}")
@@ -3113,38 +3272,80 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
                 logits, st = dec.step_fn(placed, st, want[t].argmax(-1)[:, None])
                 got.append(logits)
             return st
+        _zero_launches()
         state, t_dec = timed(lambda: steps(state))
-    same = [torch.equal(g, w) for g, w in zip(got, want_rows)]
-    if not all(same):
+        dec_used = _launches()
+        if tp and dec_used["tree_reduce"] != new_tokens * n_rows * tp_tree_launches(cfg, "decode"):
+            raise AssertionError(f"setup serve {arch}: {new_tokens} decode steps launched "
+                                 f"{dec_used}, expected {new_tokens * n_rows} x "
+                                 f"{tp_tree_launches(cfg, 'decode')} tree reduces")
+    same = [torch.equal(g, w) for g, w in zip(got, want_rows)] if want_rows else []
+    if want_rows and not all(same):
         t = same.index(False)
         err = float((got[t].float() - want_rows[t].float()).abs().max())
         raise AssertionError(f"setup serve {arch}: the logits of {len(same) - sum(same)} "
                              f"steps differ from the one-device route on the same rows "
                              f"(first step {t}, max abs err {err:.3e})")
-    outside, errs, flips = [], [], 0
+    outside, errs, fro, flips = [], [], [], 0
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"setup serve {arch}: non-finite logits")
         err = (g - w).abs()
         errs.append(float(err.max()))
-        outside.append(int((err > bf["atol"] + bf["rtol"] * w.abs()).sum()))
+        fro.append(fro_rel(g, w))
+        outside.append(outside_tol(g, w, bf))
         flips += greedy_flips(g, w, bf["atol"] + bf["rtol"] * float(w.abs().max()))
-    report = {"config": f"{arch} full width and depth, bf16, fsdp over "
-                        f"{dict(zip(*SETUP_SERVE_MESH[::-1]))}",
+    vs32 = None
+    if tp:
+        vs32 = {"tp": [fro_rel(g, w) for g, w in zip(got, want32)],
+                "one_device_bf16": [fro_rel(g, w) for g, w in zip(want, want32)]}
+        vs32["limit"] = [max(bf["rtol"], SETUP_TP_FP32_MARGIN * e)
+                         for e in vs32["one_device_bf16"]]
+        bad = [t for t, (e, lim) in enumerate(zip(vs32["tp"], vs32["limit"])) if not e <= lim]
+        if bad:
+            raise AssertionError(f"setup serve {arch}: the logits of steps {bad} are further "
+                                 f"from the fp32 route than allowed: {vs32}")
+    report = {"config": f"{arch} full width, {cfg.num_layers} layers, bf16, fsdp over "
+                        f"{dict(zip(*mesh_spec[::-1]))}",
               "batch": B, "prompt": prompt, "cache": cache_len, "new_tokens": new_tokens,
               **({"frames": cfg.enc_seq} if cfg.family == "audio" else {}),
-              "bit_equal_to_one_device_on_the_ranks_rows": sum(same),
-              "whole_batch": {"max_abs_err": errs, "outside_tol_bf16": outside,
+              **({"patches": patches} if patches else {}),
+              "whole_batch": {"max_abs_err": errs, "fro_rel": fro, "outside_tol_bf16": outside,
                               "elements_per_step": got[0].numel(), "greedy_flips": flips},
-              "prefill_launches": used, "prefill_gathers": dict(counts),
+              **({"fro_rel_vs_fp32": vs32} if vs32 else {}),
+              "prefill_launches": used, "decode_launches": dec_used,
+              "prefill_gathers": dict(counts),
               "param_bytes_per_rank": rank_bytes([placed], True),
               "seconds": {"setup": {"prefill": t_pre, "decode": t_dec},
                           "one_device": {"prefill_and_decode": t_one}},
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "card": card}
-    del params, placed, state, want, want_rows, got, pre, dec
+    if not tp:
+        report["bit_equal_to_one_device_on_the_ranks_rows"] = sum(same)
+    del params, placed, state, want, want_rows, want32, got, pre, dec
     release()
     return report, used
+
+
+def setup_tp_whisper(dev, card):
+    """(j) train: whisper-medium at full width and depth, fsdp over
+    SETUP_TP_MESH, one step against the one-device step (B 8 x 448 tokens,
+    1500 frames)."""
+    arch, B, S = SETUP_TP_WHISPER[:3]
+    cfg = get_config(arch)
+    batches = setup_batches(cfg, B, S, steps=1)
+    for b in batches:
+        b.update(model_inputs(cfg, B, 3))
+    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    want_g, oracle = setup_oracle(dev, cfg, p0, batches, steps=1)
+    want32 = setup_fp32_grads(cfg, p0, batches[0])
+    release()
+    entry, used = setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, "fsdp", "flat",
+                                   *SETUP_TP_MESH, steps=1, want32=want32)
+    del p0, want_g, want32
+    release()
+    return {"config": f"{arch} full width and depth, B {B} x {S}, {cfg.enc_seq} frames",
+            "one_device": oracle, "fsdp_flat_tp2": entry}, used
 
 
 def phase_setup(dev, card):
@@ -3154,7 +3355,10 @@ def phase_setup(dev, card):
     gradient, the launches of every step (asserted), zero1's AdamW update
     bit-equal to the replicated one on the same synced gradient, and the
     fsdp cases' synced gradient shards and updates bit-equal to their twins'
-    (SETUP_TWIN); then (e) mamba2 under fsdp and (f) the serving setups.
+    (SETUP_TWIN); then (g)-(i), the same under tensor parallelism over
+    ``model`` (SETUP_TP_CASES, (h) bit for bit against (g)); (e) mamba2
+    under fsdp; (f) the serving setups; (j) whisper-medium trained and served
+    under TP; (k) llama3.2-1b and llava-next-34b served over model 4.
     Returns each case's launches."""
     cfg = get_config(SETUP_ARCH)
     B, S = SETUP_BATCH
@@ -3193,7 +3397,18 @@ def phase_setup(dev, card):
         report[name], launches[name] = setup_train_case(
             dev, card, cfg, p0, batches, want_g, report["one_device"], sharding, mode,
             mshape, axes, kept)
-    del kept, want_g
+    for k in list(kept):
+        del kept[k]
+    release()
+    # (g)-(i) tensor parallelism over model
+    want32 = setup_fp32_grads(cfg, p0, batches[0])
+    release()
+    for sharding, mode, mshape, axes, steps in SETUP_TP_CASES:
+        name = setup_case_name(sharding, mode, dict(zip(axes, mshape)))
+        report[name], launches[name] = setup_train_case(
+            dev, card, cfg, p0, batches, want_g, report["one_device"], sharding, mode,
+            mshape, axes, kept, steps=steps, want32=want32)
+    del kept, want_g, want32
     release()
     # (e) the SSD kernels through gathered Mamba2 blocks
     ssm = _cut(SETUP_SSM_ARCH, SETUP_SSM_LAYERS)
@@ -3212,6 +3427,16 @@ def phase_setup(dev, card):
     for arch, prompt, cache_len in SETUP_SERVE:
         report[f"serve_{arch}"], launches[f"serve_{arch}"] = setup_serve(
             dev, card, arch, prompt, cache_len)
+    # (j) whisper-medium under TP: one train step, then served
+    report["tp_whisper"], launches["tp_whisper_train"] = setup_tp_whisper(dev, card)
+    arch, _, _, prompt, cache_len = SETUP_TP_WHISPER
+    report["tp_whisper"]["serve"], launches["tp_whisper_serve"] = setup_serve(
+        dev, card, arch, prompt, cache_len, mesh_spec=SETUP_TP_MESH)
+    # (k) served over model 4
+    for arch, layers, prompt, cache_len, patches in SETUP_TP4_SERVE:
+        report[f"serve_tp4_{arch}"], launches[f"serve_tp4_{arch}"] = setup_serve(
+            dev, card, arch, prompt, cache_len, mesh_spec=SETUP_TP4_MESH, layers=layers,
+            patches=patches)
     emit(report)
     del p0
     release()

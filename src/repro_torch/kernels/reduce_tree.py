@@ -93,10 +93,11 @@ tree_reduce.launches = 0
 
 
 def tree_reduce_plain(shards: torch.Tensor) -> torch.Tensor:
-    """``ref_reduce`` over dimension -2, on any device: fp32, the first half
-    plus the second half, an odd last shard carried to the next level, until
-    one row is left; cast to the shards' dtype."""
-    x = shards.float()
+    """``ref_reduce`` over dimension -2, on any device: fp32 (float64 for
+    float64 shards, which the kernel does not take: a gradient check), the
+    first half plus the second half, an odd last shard carried to the next
+    level, until one row is left; cast to the shards' dtype."""
+    x = shards.to(torch.promote_types(shards.dtype, torch.float32))
     m = x.shape[-2]
     while m > 1:
         half = m // 2

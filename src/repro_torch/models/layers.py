@@ -34,6 +34,22 @@ Two deliberate differences from the JAX file:
 A block's FFN is the SwiGLU MLP or, for ``ffn="moe"``, the mixture of experts
 (``models.moe``), whose router aux loss ``apply_attn_block`` returns.
 
+Tensor parallelism: ``apply_attention``, ``apply_mlp`` and ``apply_attn_block``
+take ``tp=``, a ``parallel.tp.TPContext`` (default None: one device, the same
+code and launches as without it).  Under TP the sharded leaves (``wq`` /
+``wk`` / ``wv`` / ``wo`` / ``bq`` / ``bk`` / ``bv``, ``w_gate`` / ``w_up`` /
+``w_down``) are in the rows form over the TP axis and the norms whole; the
+residual ``x`` is whole on every rank.  Each rank takes ``x`` through f
+(``tp.copy``), projects its query and KV heads and runs ``ops.attention`` on
+them (the flash kernel at its heads, the GQA group unchanged), or its MLP
+columns, and multiplies by its rows of ``wo`` / ``w_down``; the partial sums
+go through g (``tp.reduce``, the tree-reduce kernel) before the residual add.
+``q_norm`` / ``k_norm``, which every rank reads, go through f too, so that
+their gradient is summed by the same all-reduce on both meshes.  A KV cache
+under TP holds the heads of the rows form (every head on a ``StackedMesh``,
+this rank's on a ``DistMesh``); each rank reads and writes its heads' slice
+of it in place.
+
 Each ``init_*`` has a sibling ``*_axes(cfg, ...)`` that returns the same tree
 with, in place of each tensor, the logical axis names of its dimensions (a
 tuple of names, the JAX package's ``AxisNames``); ``transformer.param_axes``
@@ -102,7 +118,7 @@ def _project_q(p, cfg, x):
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)          # a TP rank holds H / tp heads
     if "q_norm" in p:  # qwen3 qk-norm (per-head RMS)
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -110,14 +126,14 @@ def _project_q(p, cfg, x):
 
 def _project_qkv(p, cfg, x, kv_x, positions, *, use_rope: bool):
     Sk = kv_x.shape[1]
-    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q = _project_q(p, cfg, x)
     k = kv_x @ p["wk"]
     v = kv_x @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(kv_x.shape[0], Sk, Hkv, hd)
-    v = v.reshape(kv_x.shape[0], Sk, Hkv, hd)
+    k = k.reshape(kv_x.shape[0], Sk, -1, hd)
+    v = v.reshape(kv_x.shape[0], Sk, -1, hd)
     if "k_norm" in p:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if use_rope and cfg.rope != "none":
@@ -132,7 +148,7 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
                     cache: Optional[KVCache] = None,
                     cache_index: Optional[int] = None,
                     cache_len: Optional[int] = None, kv_x=None,
-                    causal: bool = True, window: int = 0,
+                    causal: bool = True, window: int = 0, tp=None,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Unified attention. Returns (out, new_cache).
 
@@ -140,8 +156,12 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
     position the new token is written at.  With ``kv_x`` (cross-attention)
     the keys and values are projected from ``kv_x`` without RoPE; at
     ``decode`` they are read from ``cache``, the static cross cache, which is
-    returned as it is.
+    returned as it is.  With ``tp`` each rank runs its heads (``_attention_tp``).
     """
+    if tp is not None:
+        return _attention_tp(p, cfg, pcfg, x, tp, positions=positions, mode=mode, cache=cache,
+                             cache_index=cache_index, cache_len=cache_len, kv_x=kv_x,
+                             causal=causal, window=window)
     B, S = x.shape[:2]
     cross = kv_x is not None
     if mode == "decode" and cross:
@@ -171,6 +191,40 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
                                      window=window)
     B2, S2 = out.shape[:2]
     return out.reshape(B2, S2, -1) @ p["wo"], new_cache
+
+
+_TP_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def _attention_tp(p, cfg, pcfg, x, tp, *, positions, mode, cache, cache_index, cache_len,
+                  kv_x, causal, window):
+    """``apply_attention`` of a TP group: each rank's heads in turn, on its
+    rows of the sharded leaves; the rows' partial outputs summed by g.  A
+    prefill's new cache holds the ranks' heads side by side (the rows form's
+    heads); at decode each rank writes its slice of ``cache`` in place."""
+    cross = kv_x is not None
+    xr = tp.copy(x)
+    kvr = tp.copy(kv_x) if cross and mode != "decode" else xr if cross else None
+    shared = {k: tp.copy(p[k]) for k in ("q_norm", "k_norm") if k in p}
+    parts, caches = [], []
+    for r in range(tp.rows):
+        pr = {k: p[k][r] for k in _TP_ATTN if k in p}
+        pr.update({k: v[r] for k, v in shared.items()})
+        cr = None
+        if cache is not None:
+            h = cache.k.shape[2] // tp.rows
+            cr = KVCache(cache.k.narrow(2, r * h, h), cache.v.narrow(2, r * h, h))
+        out, new = apply_attention(pr, cfg, pcfg, xr[r], positions=positions, mode=mode,
+                                   cache=cr, cache_index=cache_index, cache_len=cache_len,
+                                   kv_x=None if kvr is None else kvr[r], causal=causal,
+                                   window=window)
+        parts.append(out)
+        caches.append(new)
+    new_cache = cache
+    if mode == "prefill":
+        new_cache = KVCache(torch.cat([c.k for c in caches], dim=2),
+                            torch.cat([c.v for c in caches], dim=2))
+    return tp.reduce(torch.stack(parts)), new_cache
 
 
 def _write_cache(buf: torch.Tensor, kv: torch.Tensor, pos: int) -> torch.Tensor:
@@ -231,8 +285,15 @@ def mlp_axes(cfg) -> Dict[str, Tuple[str, ...]]:
     return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
 
 
-def apply_mlp(p, x):
-    return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+def apply_mlp(p, x, tp=None):
+    """The SwiGLU MLP; with ``tp`` each rank's columns of ``w_gate`` /
+    ``w_up`` and rows of ``w_down`` in turn, the partials summed by g."""
+    if tp is None:
+        return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+    xr = tp.copy(x)
+    return tp.reduce(torch.stack([
+        swiglu(xr[r] @ p["w_gate"][r], xr[r] @ p["w_up"][r]) @ p["w_down"][r]
+        for r in range(tp.rows)]))
 
 
 # --------------------------------------------------------------------------
@@ -270,32 +331,33 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
                      cache_index: Optional[int] = None,
                      cache_len: Optional[int] = None,
                      cross_cache: Optional[KVCache] = None, enc_out=None,
-                     causal=True):
+                     causal=True, tp=None):
     """Returns (x, new_cache, new_cross_cache, aux_loss), the JAX package's
     4-tuple.  A block with cross-attention reads ``enc_out`` (train, prefill;
     prefill returns the new cross cache) or ``cross_cache`` (decode; returned
     as it is); aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP
-    block)."""
+    block).  ``tp``: the block of a TP group (an MLP block: a MoE one under
+    TP waits for ROADMAP.md M9b2b, ``transformer`` refuses it)."""
     h, new_cache = apply_attention(
         p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
         positions=positions, mode=mode, cache=cache, cache_index=cache_index,
-        cache_len=cache_len, causal=causal, window=cfg.sliding_window)
+        cache_len=cache_len, causal=causal, window=cfg.sliding_window, tp=tp)
     x = x + h
     new_cross = cross_cache
     if "cross" in p:
         xq = rms_norm(x, p["ln_x"], cfg.norm_eps)
         if mode == "decode":
             hx, _ = apply_attention(p["cross"], cfg, pcfg, xq, positions=positions,
-                                    mode="decode", cache=cross_cache, kv_x=x)
+                                    mode="decode", cache=cross_cache, kv_x=x, tp=tp)
         else:
             hx, new_cross = apply_attention(
                 p["cross"], cfg, pcfg, xq, positions=positions, mode=mode,
-                cache_len=enc_out.shape[1], kv_x=enc_out, causal=False)
+                cache_len=enc_out.shape[1], kv_x=enc_out, causal=False, tp=tp)
         x = x + hx
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts and "router" in p["ffn"]:
         ff, aux = moe.moe_ffn(p["ffn"], y, cfg)
     else:
-        ff = apply_mlp(p["ffn"], y)
+        ff = apply_mlp(p["ffn"], y, tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + ff, new_cache, new_cross, aux

@@ -182,7 +182,8 @@ class _CrossEntropy(torch.autograd.Function):
         lse = torch.empty(flat.shape[0], dtype=torch.float32, device=logits.device)
         rows = max(1, _CE_CHUNK_ELEMENTS // v)
         for r0 in range(0, flat.shape[0], rows):
-            x = flat[r0:r0 + rows].float()
+            # a copy also in fp32: the padded columns are written below
+            x = flat[r0:r0 + rows].to(torch.float32, copy=True)
             if vocab_size < v:                 # padded vocab: out of the exp-sum
                 x[:, vocab_size:] = NEG_BIG
             m = x.amax(dim=-1)
@@ -210,7 +211,7 @@ class _CrossEntropy(torch.autograd.Function):
         w = g_loss.float() * (lab >= 0).float() / count
         rows = max(1, _CE_CHUNK_ELEMENTS // v)
         for r0 in range(0, flat.shape[0], rows):
-            x = flat[r0:r0 + rows].float()
+            x = flat[r0:r0 + rows].to(torch.float32, copy=True)
             if ctx.vocab_size < v:
                 x[:, ctx.vocab_size:] = NEG_BIG
             lse_c = lse[r0:r0 + rows, None]

@@ -28,9 +28,10 @@ the combine.  Routing, capacity and combine are ``moe_ffn``'s, so it equals
 ``moe_ffn(n_groups=n)``.  Its gradients flow through both exchanges
 (``launch.mesh.all_to_all``).  The experts' logical axes are ``moe_axes``
 (``parallel.sharding.Ruleset`` places them); the setups of
-``parallel.steps`` shard the experts' hidden dim under FSDP, and placing the
-experts over a data axis inside them (expert parallelism in the setup) waits
-for ROADMAP.md M9b2b.  The
+``parallel.steps`` shard the experts' hidden dim under FSDP; placing the
+experts over a data axis inside them (expert parallelism in the setup) and a
+MoE block under tensor parallelism (experts or their hidden dim over
+``model``, ``moe_buckets`` placed there) wait for ROADMAP.md M9b2b.  The
 capacity factor is ``cfg.capacity_factor``;
 vary it with ``dataclasses.replace``.
 """

@@ -46,6 +46,17 @@ of ``params["blocks"]`` right before the block runs (inside its
 to the identity; ``parallel.steps``'s FSDP setups pass one that gathers the
 block's shards.
 
+``loss_fn``, ``prefill``, ``decode_step`` (and ``models.whisper.encode``) take
+``tp=``, a ``parallel.tp.TPContext`` (the dense, vlm and audio families;
+default None, one device).  Under TP the sharded leaves are in the rows form
+over the TP axis (``parallel.steps``' setups place them): the embedding's
+vocab rows and an untied head's columns too.  The lookup is vocab-parallel
+(``tp.embed``), the head product column-parallel (each rank's ``(.., V /
+tp)`` logits), the loss the vocab-parallel cross-entropy; ``prefill`` and
+``decode_step`` return the logits in the rows form ``(R, B, V / tp)`` for the
+setup to gather, and keep the heads of the rows form in the decode state.
+``mm_proj`` and the norms are whole on every rank.
+
 The decode state is updated **in place**: ``decode_step`` writes the new K/V,
 SSM states and conv lags into the buffers of the state it was given and
 returns a state that shares them, so the old state must not be used again
@@ -179,10 +190,15 @@ def param_axes(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Any]:
 # shared forward machinery
 # --------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg, batch):
+def _lookup(params, tokens, tp):
+    """The token embedding: vocab-parallel under ``tp``."""
+    return params["embed"][tokens] if tp is None else tp.embed(params["embed"], tokens)
+
+
+def _embed_inputs(params, cfg, batch, tp=None):
     """Token (+ patch) embedding.  Returns (x, positions)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = _lookup(params, tokens, tp)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype) @ params["mm_proj"]
         x = torch.cat([pe, x], dim=1)
@@ -207,6 +223,23 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _logits(params, cfg, x, tp):
+    """``x @ head``; under ``tp`` each rank's vocab columns, the rows form
+    ``(R, ..., V / tp)`` (x through f: every rank reads it)."""
+    if tp is None:
+        return x @ _head(params, cfg)
+    xr = tp.copy(x)
+    if cfg.tie_embeddings:
+        return torch.stack([xr[r] @ params["embed"][r].T for r in range(tp.rows)])
+    return torch.stack([xr[r] @ params["lm_head"][r] for r in range(tp.rows)])
+
+
+def _require_tp(cfg, tp):
+    if tp is not None and cfg.family in ("moe", "ssm", "hybrid"):
+        raise ValueError(f"tensor parallelism for the {cfg.family} family ({cfg.name}) "
+                         "waits for ROADMAP.md M9b2b")
+
+
 def _identity(bp):
     return bp
 
@@ -228,7 +261,7 @@ def _maybe_remat(fn, pcfg: ParallelConfig):
 # --------------------------------------------------------------------------
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
-            enc_fn=None, loss_weight=None, layer_constrain=_identity):
+            enc_fn=None, loss_weight=None, layer_constrain=_identity, tp=None):
     """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
     tensors (-1 = masked), plus ``patch_embeds`` (vlm) or ``frames`` (audio,
     encoded by ``enc_fn``).  Returns ``(total, {"loss", "aux_loss",
@@ -245,15 +278,18 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     ``total = loss + cfg.router_aux_weight * aux``; with ``loss_weight`` (a
     scalar), ``total = loss * loss_weight + cfg.router_aux_weight * aux``: a
     data-parallel rank weighs its shard's mean by its share of the labelled
-    tokens (``parallel.steps.make_train_setup``)."""
+    tokens (``parallel.steps.make_train_setup``).  With ``tp`` the loss is
+    the vocab-parallel cross-entropy of each rank's logits, the same on
+    every rank."""
     _require_ported(cfg)
+    _require_tp(cfg, tp)
     pcfg = pcfg or ParallelConfig()
-    x, positions = _embed_inputs(params, cfg, batch)
+    x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
 
     def attn(h, bp, enc_out=None, lc=_identity):
         out = apply_attn_block(lc(bp), cfg, pcfg, h, positions=positions, mode="train",
-                               enc_out=enc_out)
+                               enc_out=enc_out, tp=tp)
         return out[0], out[3]
     attn = _maybe_remat(attn, pcfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -274,13 +310,16 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
             x, a = attn(x, bp, enc_out, layer_constrain)
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ _head(params, cfg)
+    logits = _logits(params, cfg, x, tp)
     labels = batch["labels"]
     if cfg.family == "vlm" and "patch_embeds" in batch:
         # image positions don't predict tokens
         P = batch["patch_embeds"].shape[1]
         labels = torch.cat([labels.new_full((labels.shape[0], P), -1), labels], dim=1)
-    loss, count = softmax_cross_entropy(logits, labels, cfg.vocab_size)
+    if tp is None:
+        loss, count = softmax_cross_entropy(logits, labels, cfg.vocab_size)
+    else:
+        loss, count = tp.cross_entropy(logits, labels, cfg.vocab_size)
     weighted = loss if loss_weight is None else loss * loss_weight
     total = weighted + cfg.router_aux_weight * aux
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": count}
@@ -302,18 +341,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     return _state_buffers(cfg, batch, cache_len, dtype, dev)
 
 
-def _kv_buffers(cfg, n, batch, cache_len, dtype, device) -> KVCache:
-    """K and V buffers of ``n`` stacked caches, (n, B, S_cache, Hkv, hd)."""
-    shape = (n, batch, _cache_len(cfg, cache_len), cfg.n_kv_heads,
+def _kv_buffers(cfg, n, batch, cache_len, dtype, device, kv_heads=None) -> KVCache:
+    """K and V buffers of ``n`` stacked caches, (n, B, S_cache, Hkv, hd);
+    ``kv_heads`` (a TP rows form's) in place of ``cfg.n_kv_heads``."""
+    shape = (n, batch, _cache_len(cfg, cache_len), kv_heads or cfg.n_kv_heads,
              cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
+def _state_buffers(cfg, batch, cache_len, dtype, device, kv_heads=None) -> DecodeState:
     """The zeroed decode state of the family: every layer's cache or state
     in one stacked buffer, as the JAX package's scan stacks them (SSM states
-    in fp32, the rest in ``dtype``)."""
+    in fp32, the rest in ``dtype``); ``kv_heads``: see ``_kv_buffers``."""
     L = cfg.num_layers
     kv = ssm = shared = cross = None
     if _is_ssm(cfg):
@@ -323,9 +363,9 @@ def _state_buffers(cfg, batch, cache_len, dtype, device) -> DecodeState:
             shared = _kv_buffers(cfg, L // cfg.attn_every, batch, cache_len,
                                  dtype, device)
     else:
-        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device)
+        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device, kv_heads)
         if cfg.family == "audio":
-            cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device)
+            cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device, kv_heads)
     return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=cross,
                        index=0)
 
@@ -363,17 +403,20 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
-            cache_len: int, enc_fn=None, layer_constrain=_identity
+            cache_len: int, enc_fn=None, layer_constrain=_identity, tp=None
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt (after the patches, for a vlm batch with
     ``patch_embeds``; against the encoded ``frames`` for audio, through
     ``enc_fn``); return (last-token logits (B, V), DecodeState).  The state's
-    ``index`` counts the patches too."""
+    ``index`` counts the patches too.  With ``tp`` the logits are the rows
+    form (R, B, V / tp) and the caches hold the rows form's KV heads."""
     _require_ported(cfg)
-    x, positions = _embed_inputs(params, cfg, batch)
+    _require_tp(cfg, tp)
+    x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
     B, S = x.shape[:2]
-    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device)._replace(index=S)
+    kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else None
+    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device, kv_heads)._replace(index=S)
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
                        state.shared_kv, mode="prefill", cache_len=cache_len,
@@ -382,24 +425,26 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
         for l, bp in enumerate(params["blocks"]):
             x, kvl, xkvl, _ = apply_attn_block(layer_constrain(bp), cfg, pcfg, x,
                                                positions=positions, mode="prefill",
-                                               cache_len=cache_len, enc_out=enc_out)
+                                               cache_len=cache_len, enc_out=enc_out, tp=tp)
             state.kv.k[l].copy_(kvl.k)
             state.kv.v[l].copy_(kvl.v)
             if xkvl is not None:
                 state.cross_kv.k[l].copy_(xkvl.k)
                 state.cross_kv.v[l].copy_(xkvl.v)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = x @ _head(params, cfg)
-    return logits[:, 0], state
+    logits = _logits(params, cfg, x, tp)
+    return logits[..., 0, :], state
 
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
-                pcfg: Optional[ParallelConfig], layer_constrain=_identity
+                pcfg: Optional[ParallelConfig], layer_constrain=_identity, tp=None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-    """One decode step.  tokens: (B, 1) integer → logits (B, V).  Every row
-    sits at position ``state.index``."""
+    """One decode step.  tokens: (B, 1) integer → logits (B, V) (with ``tp``
+    the rows form (R, B, V / tp)).  Every row sits at position
+    ``state.index``."""
     _require_ported(cfg)
-    x = params["embed"][tokens]
+    _require_tp(cfg, tp)
+    x = _lookup(params, tokens, tp)
     B = x.shape[0]
     positions = torch.full((B, 1), state.index, dtype=torch.int32,
                            device=x.device)
@@ -414,7 +459,7 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
             x = apply_attn_block(
                 layer_constrain(bp), cfg, pcfg, x, positions=positions, mode="decode",
                 cache=KVCache(state.kv.k[l], state.kv.v[l]),
-                cache_index=state.index, cross_cache=cross)[0]
+                cache_index=state.index, cross_cache=cross, tp=tp)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ _head(params, cfg)
-    return logits[:, 0], state._replace(index=state.index + 1)
+    logits = _logits(params, cfg, x, tp)
+    return logits[..., 0, :], state._replace(index=state.index + 1)

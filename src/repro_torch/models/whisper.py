@@ -42,11 +42,13 @@ def encoder_axes(cfg, stacked: bool = True) -> Dict[str, Any]:
             "final_norm": ("embed",)}
 
 
-def encode(params, batch, cfg, pcfg=None, layer_constrain=lambda bp: bp) -> torch.Tensor:
+def encode(params, batch, cfg, pcfg=None, layer_constrain=lambda bp: bp,
+           tp=None) -> torch.Tensor:
     """frames (B, enc_seq, d_model) → encoder hidden states, each block under
     ``transformer._maybe_remat``, RoPE positions ``0..enc_seq-1``.
     ``layer_constrain`` is applied to each encoder block's parameters inside
-    that region, as ``transformer.loss_fn`` applies it to the decoder's."""
+    that region, as ``transformer.loss_fn`` applies it to the decoder's;
+    ``tp`` goes to each block (tensor parallelism, ``models.layers``)."""
     from .transformer import _maybe_remat    # transformer imports this module
     pcfg = pcfg or ParallelConfig()
     enc = params["encoder"]
@@ -56,7 +58,7 @@ def encode(params, batch, cfg, pcfg=None, layer_constrain=lambda bp: bp) -> torc
 
     def run(h, bp):
         return apply_attn_block(layer_constrain(bp), cfg, pcfg, h, positions=positions,
-                                mode="train", causal=False)[0]
+                                mode="train", causal=False, tp=tp)[0]
     run = _maybe_remat(run, pcfg)
     for bp in enc["blocks"]:
         x = run(x, bp)

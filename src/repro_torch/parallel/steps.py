@@ -39,11 +39,29 @@ over the whole row, also where a rank holds a piece of it.
 ``make_prefill_setup`` / ``make_decode_setup`` / ``make_setup`` serve a cell
 over the same placements: each rank prefills or steps its rows of the batch.
 
+Tensor parallelism: a TP axis (``pcfg.tp_axis``, ``model``) of more than one
+rank runs Megatron's split (``parallel.tp``) for the dense, vlm and audio
+families.  Every sharding then holds the parameters in the rows form of
+``spec`` (which puts ``vocab`` / ``qkv`` / ``kv`` / ``mlp`` on the axis; the
+data axes too under fsdp), the optimizer state in that of ``opt_spec``.  A
+rank of a TP group computes with its model block of each leaf (under fsdp
+gathered over the spec's data axes only) and the whole residual stream; on a
+``StackedMesh`` the ranks of each batch row's TP group run in turn inside
+every block.  A rank's gradient is its model block's; the sync runs over the
+data axes for each model block (``build_sync`` of the blocks side by side,
+under fsdp ``build_shard_sync`` of each), so a leaf whole over the axis (the
+norms, ``mm_proj``, ``q_norm`` / ``k_norm``) is synced once.  The serving
+setups keep each rank's KV heads in the decode state's rows form
+(``kv_cache_spec``) and gather the logits whole.  The residual is not
+sequence-sharded (``seq_shard`` is a placement in the JAX package, not a
+different result).
+
 What the setups cannot run yet they refuse with a ``ValueError``: tensor
-parallelism over a ``model`` axis of more than one rank, expert parallelism
-inside the setups, and a serving batch that no data axis divides wait for
-ROADMAP.md M9b2b (as does a ``Trainer(mesh=)`` over a setup); compressed sync
-would be a different result.
+parallelism for the moe, ssm and hybrid families or with heads that do not
+divide the TP degree, expert parallelism inside the setups, and a serving
+batch that no data axis divides wait for ROADMAP.md M9b2b (as does a
+``Trainer(mesh=)`` over a setup); compressed sync would be a different
+result.
 
 ``moe_ep_ffn_fn`` binds the expert-parallel FFN to a ``Ruleset``.
 """
@@ -66,6 +84,7 @@ from ..models.modules import tree_flatten, tree_map, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, init_adam
 from .collectives import build_shard_sync, build_sync
 from .sharding import Ruleset, _names, _spec, all_blocks, shard_leaf, unshard_leaf
+from .tp import TPContext
 
 
 class TrainState(NamedTuple):
@@ -89,14 +108,14 @@ def batch_to_device(batch: Dict[str, Any], device, dtype: torch.dtype
             for k, v in batch.items()}
 
 
-def _enc_fn(cfg: ModelConfig, pcfg: ParallelConfig, layer_constrain=None):
+def _enc_fn(cfg: ModelConfig, pcfg: ParallelConfig, layer_constrain=None, tp=None):
     """The encoder of an audio model as ``loss_fn`` / ``prefill`` take it, or
     None for the other families; ``layer_constrain`` goes to each encoder
-    block (FSDP's gather)."""
+    block (FSDP's gather), ``tp`` (a ``TPContext``) to each block."""
     if cfg.family != "audio":
         return None
     lc = layer_constrain or tfm._identity
-    return lambda p, b: whisper.encode(p, b, cfg, pcfg, layer_constrain=lc)
+    return lambda p, b: whisper.encode(p, b, cfg, pcfg, layer_constrain=lc, tp=tp)
 
 
 def train_grads(params, batch, cfg: ModelConfig, pcfg: ParallelConfig, enc_fn=None,
@@ -286,23 +305,25 @@ def _gather_outside(tree, specs, gather):
 
 
 class _GatherForGrad(torch.autograd.Function):
-    """``unshard_leaf`` of a ``DistMesh`` rank's block under autograd: the
-    forward all-gathers the whole tensor; the backward hands its gradient,
-    this rank's alone and not yet reduced, to ``sink[key]`` and none to the
-    block.  The setup reduce-scatters the sink's gradients after the
-    backward, leaf by leaf, in one order on every rank (``gloo`` pairs the
-    messages of equal shape in the order the ranks send them)."""
+    """``gather(rows)`` of a rank's block under autograd (``unshard_leaf`` of
+    a ``DistMesh`` rank's block; under TP the gather over the data axes
+    alone, on either mesh): the forward gathers; the backward hands its
+    gradient, this rank's alone and not yet reduced (under TP its model
+    block's), to ``sink[key]`` and none to the block.  The setup
+    reduce-scatters the sink's gradients after the backward, leaf by leaf,
+    in one order on every rank (``gloo`` pairs the messages of equal shape
+    in the order the ranks send them)."""
 
     @staticmethod
-    def forward(ctx, rows, spec, mesh, sink, key):
+    def forward(ctx, rows, gather, sink, key):
         ctx.sink, ctx.key = sink, key
-        return unshard_leaf(rows, spec, mesh)
+        return gather(rows)
 
     @staticmethod
     def backward(ctx, g):
         prev = ctx.sink.get(ctx.key)
         ctx.sink[ctx.key] = g if prev is None else prev + g
-        return None, None, None, None, None
+        return None, None, None, None
 
 
 def _gather_fn(mesh, sink=None):
@@ -312,8 +333,46 @@ def _gather_fn(mesh, sink=None):
     when a gradient is taken and ``sink`` collects it."""
     def gather(rows, spec):
         if sink is not None and rows.requires_grad and torch.is_grad_enabled():
-            return _GatherForGrad.apply(rows, spec, mesh, sink, id(rows))
+            return _GatherForGrad.apply(rows, lambda r: unshard_leaf(r, spec, mesh), sink,
+                                        id(rows))
         return unshard_leaf(rows, spec, mesh)
+    return gather
+
+
+def _split_spec(spec, axis: str) -> Tuple[Tuple, Tuple]:
+    """(``spec`` without ``axis``, ``spec`` with ``axis`` alone): a leaf's
+    placement over the data axes and over the TP axis."""
+    spec = tuple(spec)
+    return (_spec(tuple(a for a in _names(e) if a != axis) for e in spec),
+            _spec(tuple(a for a in _names(e) if a == axis) for e in spec))
+
+
+def _spec_axes(spec) -> list:
+    return [a for e in spec for a in _names(e)]
+
+
+def _tp_gather_fn(mesh, tp: str, sink=None):
+    """``gather(rows, spec)`` under tensor parallelism over ``tp``: a leaf in
+    the rows form of ``spec`` → what the ranks of a TP group compute with:
+    the rows form over ``tp`` alone (gathered over the spec's data axes, on a
+    ``DistMesh`` by an all-gather over them), or, for a leaf whole over
+    ``tp``, the whole tensor.  With ``sink`` a gather over data axes under
+    autograd goes through ``_GatherForGrad`` on either mesh, its gradient (the
+    rows form over ``tp``) to the sink; a leaf the spec places over ``tp``
+    alone takes its gradient in ``.grad``."""
+    def over_data(rows, spec):
+        dspec, mspec = _split_spec(spec, tp)
+        if isinstance(mesh, DistMesh):
+            return unshard_leaf(rows, dspec, mesh).unsqueeze(0)
+        return shard_leaf(unshard_leaf(rows, spec, mesh), mspec, mesh)
+
+    def gather(rows, spec):
+        if any(a != tp for a in _spec_axes(spec)):
+            if sink is not None and rows.requires_grad and torch.is_grad_enabled():
+                rows = _GatherForGrad.apply(rows, lambda r: over_data(r, spec), sink, id(rows))
+            else:
+                rows = over_data(rows, spec)
+        return rows if tp in _spec_axes(spec) else rows[0]
     return gather
 
 
@@ -330,23 +389,25 @@ def make_layer_gather(ruleset: Ruleset, axes_blocks, gather=None):
     return lambda bp: _gather_tree(bp, specs, gather)
 
 
-def _place_fn(cfg: ModelConfig, pcfg: ParallelConfig, ruleset: Ruleset, spec_tree):
+def _place_fn(cfg: ModelConfig, pcfg: ParallelConfig, ruleset: Ruleset, spec_tree, tp=None):
     """``place(params, sink=None) -> (tree, layer_constrain, enc_fn)``: what
     ``loss_fn`` / ``prefill`` / ``decode_step`` take.  Under FSDP the leaves
     outside the blocks are gathered once, and each block (the encoder's too)
-    by the hook when it runs; otherwise the parameters are whole."""
-    if pcfg.param_sharding != "fsdp":
+    by the hook when it runs; otherwise the parameters are whole.  Under
+    tensor parallelism (``tp`` a ``TPContext``), every sharding: the same
+    hooks with ``_tp_gather_fn``, the ranks' model blocks."""
+    if pcfg.param_sharding != "fsdp" and tp is None:
         return lambda params, sink=None: (params, tfm._identity, _enc_fn(cfg, pcfg))
     axes = tfm.param_axes(cfg)
     mesh = ruleset.mesh
 
     def place(params, sink=None):
-        gather = _gather_fn(mesh, sink)
+        gather = _gather_fn(mesh, sink) if tp is None else _tp_gather_fn(mesh, tp.axis, sink)
         tree = _gather_outside(params, spec_tree, gather)
         lc = make_layer_gather(ruleset, axes["blocks"], gather)
         enc_lc = (make_layer_gather(ruleset, axes["encoder"]["blocks"], gather)
                   if cfg.family == "audio" else None)
-        return tree, lc, _enc_fn(cfg, pcfg, enc_lc)
+        return tree, lc, _enc_fn(cfg, pcfg, enc_lc, tp)
     return place
 
 
@@ -368,6 +429,55 @@ def _grad_norm(leaves, specs, mesh) -> torch.Tensor:
         part = torch.stack([torch.sum(torch.square(r.double())) for r in g])
         sums.append(torch.sum(unshard_leaf(part.reshape(-1, *(1 for _ in spec)), spec, mesh)))
     return torch.sqrt(torch.sum(torch.stack(sums))).float()
+
+
+def _extra_axes(src, dst) -> Tuple:
+    """The axes ``dst`` splits each dimension over beyond ``src``'s (which
+    must lead its entry): ``dst`` refines ``src``."""
+    out = []
+    for i, e in enumerate(dst):
+        have, names = _names(src[i]) if i < len(src) else (), _names(e)
+        if names[:len(have)] != have:
+            raise ValueError(f"spec {tuple(dst)} does not refine {tuple(src)}")
+        out.append(names[len(have):])
+    return _spec(out)
+
+
+def _refine(rows, src, dst, mesh):
+    """A leaf in the rows form of ``src`` → that of ``dst``, which refines
+    it (ZeRO-1's optimizer rows from the parameters' under TP): on a
+    ``DistMesh`` this rank's piece of its block, no communication."""
+    if isinstance(mesh, DistMesh):
+        return shard_leaf(rows[0], _extra_axes(src, dst), mesh)
+    return shard_leaf(unshard_leaf(rows, src, mesh), dst, mesh)
+
+
+def _coarsen(rows, dst, src, mesh):
+    """The inverse of ``_refine`` (on a ``DistMesh`` an all-gather over the
+    axes ``dst`` adds)."""
+    if isinstance(mesh, DistMesh):
+        return unshard_leaf(rows, _extra_axes(src, dst), mesh).unsqueeze(0)
+    return shard_leaf(unshard_leaf(rows, dst, mesh), src, mesh)
+
+
+def _tp_shard_sync(sync, g, spec, mesh, tp: str):
+    """``build_shard_sync``'s ``sync`` of one leaf under TP: ``g`` (replicas,
+    R, ...) each replica's gradient in the rows form over ``tp`` (R 1 for a
+    leaf whole over it).  Each model block is reduce-scattered over the
+    spec's data axes on its own; the blocks are put together in the rows
+    form of ``spec``."""
+    dspec, _ = _split_spec(spec, tp)
+    per = [sync(all_blocks(g[:, r], (None,) + tuple(dspec), mesh).movedim(0, 1), dspec)
+           for r in range(g.shape[1])]
+    if len(per) == 1:
+        return per[0]
+    every = _spec_axes(spec)
+    have = [tp] + [a for a in every if a != tp]
+    x = torch.stack(per)                        # (model, data rows, ...)
+    blk = x.shape[2:]
+    x = x.reshape(*(mesh.shape[a] for a in have), *blk)
+    x = x.permute(*(have.index(a) for a in every), *range(len(have), len(have) + len(blk)))
+    return x.reshape(-1, *blk)
 
 
 def _row_max_fn(spec, ndim: int, mesh):
@@ -398,6 +508,18 @@ def _row_max_fn(spec, ndim: int, mesh):
 
 SETUP_SHARDINGS = ("replicated", "zero1", "fsdp")
 SETUP_SYNCS = ("flat", "hierarchical")
+TP_FAMILIES = ("dense", "vlm", "audio")
+
+
+def _tp_axis(ruleset: Ruleset) -> Optional[str]:
+    """The ruleset's TP axis where it has more than one rank, else None."""
+    tp = ruleset.tp
+    return tp if tp and ruleset.mesh.shape[tp] > 1 else None
+
+
+def _tp_context(ruleset: Ruleset) -> Optional[TPContext]:
+    tp = _tp_axis(ruleset)
+    return TPContext(ruleset.mesh, tp) if tp else None
 
 
 def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
@@ -408,12 +530,22 @@ def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
     if pcfg.param_sharding not in SETUP_SHARDINGS:
         raise ValueError(f"{what}: param_sharding={pcfg.param_sharding!r}; the setups "
                          f"run {SETUP_SHARDINGS}")
-    idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in ruleset.dp]
+    tp, cfg = _tp_axis(ruleset), ruleset.cfg
+    idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in ruleset.dp
+            and a != tp]
     if idle:
+        raise ValueError(f"{what}: mesh axes {idle} of more than one rank are neither data "
+                         f"axes nor the TP axis {pcfg.tp_axis!r}")
+    if tp and cfg.family not in TP_FAMILIES:
         raise ValueError(
-            f"{what}: mesh axes {idle} of more than one rank carry no data "
-            f"parallelism (tensor parallelism over {pcfg.tp_axis or 'model'!r} waits for "
-            "ROADMAP.md M9b2b)")
+            f"{what}: tensor parallelism over {tp!r} ({mesh.shape[tp]} ranks) for the "
+            f"{cfg.family} family ({cfg.name}) waits for ROADMAP.md M9b2b (the setups run it "
+            f"for {TP_FAMILIES})")
+    if tp and (cfg.n_heads % mesh.shape[tp] or cfg.n_kv_heads % mesh.shape[tp]):
+        raise ValueError(
+            f"{what}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do not divide over "
+            f"{mesh.shape[tp]} ranks of {tp!r}; padding the heads (query) and replicating "
+            "them (KV) under tensor parallelism waits for ROADMAP.md M9b2b")
     if ruleset.ep_axis:
         raise ValueError(
             f"{what}: moe_ep_axis={pcfg.moe_ep_axis!r}; placing the experts over a data "
@@ -471,19 +603,20 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     sync_axes = tuple(a for a in (outer, inner) if a)
     fsdp = pcfg.param_sharding == "fsdp"
     zero1 = pcfg.param_sharding == "zero1"
+    tp = _tp_context(ruleset)
     specs = _flat_specs(param_shardings)
     opt_specs = _flat_specs(tree_map(ruleset.opt_spec, axes))
-    if zero1 or fsdp:
+    if zero1 or fsdp or tp:
         _check_divides(param_shapes, opt_specs, mesh, "make_train_setup")
     sync = (build_shard_sync if fsdp else build_sync)(
         mesh, pcfg.grad_sync, inner_axis=inner, outer_axis=outer)
-    place = _place_fn(cfg, pcfg, ruleset, param_shardings)
+    place = _place_fn(cfg, pcfg, ruleset, param_shardings, tp)
     b_axes = ruleset.batch_axes(shape.global_batch) or ()
     n_rows = mesh.size(b_axes)              # distinct shards of the batch
     opt_shardings = opt_state_shardings(ruleset, axes, ocfg)
     shapes = tree_flatten(param_shapes)[0]
     row_max = ([_row_max_fn(s, t.dim(), mesh) for s, t in zip(opt_specs, shapes)]
-               if ocfg.moments_dtype == "int8" and (zero1 or fsdp) else None)
+               if ocfg.moments_dtype == "int8" and (zero1 or fsdp or tp) else None)
 
     # the batch row of each sync replica (row-major over the sync axes);
     # ranks along a data axis the batch does not divide over share a row
@@ -498,32 +631,37 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def init_state(params) -> TrainState:
         """The state for ``params`` (the whole tree): replicated, the tree
         and ``init_adam`` of it; zero1, ``init_adam`` of each leaf's
-        ``opt_spec`` rows; fsdp, each leaf's ``spec`` rows (a copy: on a
-        ``DistMesh`` this rank's block alone) and ``init_adam`` of them."""
-        if not (zero1 or fsdp):
+        ``opt_spec`` rows; fsdp, and every sharding under TP, each leaf's
+        ``spec`` rows (a copy: on a ``DistMesh`` this rank's block alone) and
+        ``init_adam`` of them (of the ``opt_spec`` rows under zero1)."""
+        if not (zero1 or fsdp or tp):
             return TrainState(params, init_adam(params, ocfg))
         leaves, spec = tree_flatten(params)
         rows = tree_unflatten(spec, [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)])
-        if fsdp:
-            rows = tree_map(lambda t: t.clone(), rows)
-            return TrainState(rows, init_adam(rows, ocfg))
+        if fsdp or tp:
+            held = tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
+                                         for p, s in zip(leaves, specs)])
+            return TrainState(held, init_adam(rows if zero1 else held, ocfg))
         return TrainState(params, init_adam(rows, ocfg))
 
     def rank_grads(params, batch, weight):
         """One rank's gradient leaves (fsdp: every block of each leaf's rows
-        form) and metrics."""
-        if not fsdp:
+        form; under TP the rows form over the TP axis, of a leaf whole over
+        it (1, ...)) and metrics."""
+        if not (fsdp or tp):
             g, m = train_grads(params, batch, cfg, pcfg, _enc_fn(cfg, pcfg), loss_weight=weight)
             return tree_flatten(g)[0], m
         leaves, spec = tree_flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        sink = {} if isinstance(mesh, DistMesh) else None
+        sink = {} if isinstance(mesh, DistMesh) or tp else None
         tree, lc, enc_fn = place(tree_unflatten(spec, live), sink)
         batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
         total, m = tfm.loss_fn(tree, batch, cfg, pcfg, enc_fn=enc_fn, loss_weight=weight,
-                               layer_constrain=lc)
+                               layer_constrain=lc, tp=tp)
         total.backward()
         del tree, total
+        if tp:
+            return [sink.pop(id(p)) if id(p) in sink else p.grad for p in live], m
         if sink is None:
             return [p.grad for p in live], m
         return [all_blocks(sink.pop(id(p)), s, mesh) for p, s in zip(live, specs)], m
@@ -561,7 +699,8 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         if fsdp:
             out = []
             for s in specs:                  # each leaf's buffer freed once reduced
-                out.append(sync(stacked.pop(0), s))
+                g = stacked.pop(0)
+                out.append(_tp_shard_sync(sync, g, s, mesh, tp.axis) if tp else sync(g, s))
             synced = tree_unflatten(spec, out)
         else:
             synced = sync(tree_unflatten(spec, stacked))
@@ -575,12 +714,20 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def update_fn(state: TrainState, grads) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         g_leaves = tree_flatten(grads)[0]
         # the clip factor from the norm of the whole synced gradient
-        gnorm = _grad_norm(g_leaves, specs if fsdp else None, mesh)
+        gnorm = _grad_norm(g_leaves, specs if fsdp or tp else None, mesh)
         if not zero1:
             params, opt, om = adam_update(state.params, grads, state.opt, ocfg, gnorm=gnorm,
                                           row_max=row_max)
             return TrainState(params, opt), om
         leaves, spec = tree_flatten(state.params)
+        if tp:              # the parameters and the gradient in the spec's rows form
+            p_rows = [_refine(p, s, o, mesh) for p, s, o in zip(leaves, specs, opt_specs)]
+            g_rows = [_refine(g, s, o, mesh) for g, s, o in zip(g_leaves, specs, opt_specs)]
+            _, opt, om = adam_update(tree_unflatten(spec, p_rows), tree_unflatten(spec, g_rows),
+                                     state.opt, ocfg, gnorm=gnorm, row_max=row_max)
+            for p, rows, s, o in zip(leaves, p_rows, specs, opt_specs):
+                p.copy_(_coarsen(rows, o, s, mesh))
+            return TrainState(state.params, opt), om
         p_rows = [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)]
         g_rows = [shard_leaf(g, s, mesh) for g, s in zip(g_leaves, opt_specs)]
         _, opt, om = adam_update(tree_unflatten(spec, p_rows), tree_unflatten(spec, g_rows),
@@ -613,6 +760,7 @@ def _serve_setup(cfg, shape, mesh, pcfg, what: str):
     pcfg = (pcfg or ParallelConfig()).replace(remat="none")
     ruleset, param_shapes, axes, param_shardings = _param_setup(cfg, pcfg, mesh)
     _check_mesh(mesh, pcfg, ruleset, what)
+    tp = _tp_context(ruleset)
     b_axes = ruleset.batch_axes(shape.global_batch)
     if b_axes is None:
         raise ValueError(
@@ -621,19 +769,20 @@ def _serve_setup(cfg, shape, mesh, pcfg, what: str):
             "(kv_cache_spec's flash-decoding layout), which waits for ROADMAP.md M9b2b")
     specs = _flat_specs(param_shardings)
     fsdp = pcfg.param_sharding == "fsdp"
-    if fsdp:
+    if fsdp or tp:
         _check_divides(param_shapes, specs, mesh, what)
 
     def init_state(params):
-        """The parameters placed for ``step_fn``: under fsdp each leaf's
-        ``spec`` rows (a copy), otherwise ``params`` themselves."""
-        if not fsdp:
+        """The parameters placed for ``step_fn``: under fsdp, and every
+        sharding under TP, each leaf's ``spec`` rows (a copy), otherwise
+        ``params`` themselves."""
+        if not (fsdp or tp):
             return params
         leaves, spec = tree_flatten(params)
         return tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
                                      for p, s in zip(leaves, specs)])
     return (pcfg, ruleset, param_shapes, param_shardings, b_axes,
-            _place_fn(cfg, pcfg, ruleset, param_shardings), init_state)
+            _place_fn(cfg, pcfg, ruleset, param_shardings, tp), init_state, tp)
 
 
 def _batch_rows(mesh, b_axes):
@@ -667,9 +816,11 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     logits come back whole, in the batch's order (on a ``DistMesh`` by an
     all-gather), and the decode state in the batch's rows form: every row in
     order on a ``StackedMesh``, this rank's rows on a ``DistMesh``
-    (``state_shardings``).  Remat "none", as in the JAX setup."""
+    (``state_shardings``; under TP the KV heads likewise: every head on a
+    ``StackedMesh``, this rank's on a ``DistMesh``).  Remat "none", as in
+    the JAX setup."""
     what = "make_prefill_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     cache_len = shape.seq_len
 
@@ -682,8 +833,8 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         logits, states = [], []
         for j in _batch_rows(mesh, b_axes):
             lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
-                                 cache_len, enc_fn=enc_fn, layer_constrain=lc)
-            logits.append(lg)
+                                 cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp)
+            logits.append(lg if tp is None else tp.gather_logits(lg))
             states.append(st)
         return unshard_leaf(torch.stack(logits), (b_axes,), mesh), _cat_rows(states)
 
@@ -704,7 +855,7 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     part of the state in place (``decode_step``); the logits come back whole,
     in the batch's order."""
     what = "make_decode_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     B = shape.global_batch
     cdt = DTYPES[pcfg.compute_dtype]
@@ -719,8 +870,8 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         logits = []
         for j in _batch_rows(mesh, b_axes):
             sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
-            logits.append(tfm.decode_step(tree, placed[j], sub, cfg, pcfg,
-                                          layer_constrain=lc)[0])
+            lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc, tp=tp)[0]
+            logits.append(lg if tp is None else tp.gather_logits(lg))
         return (unshard_leaf(torch.stack(logits), (b_axes,), mesh),
                 state._replace(index=state.index + 1))
 

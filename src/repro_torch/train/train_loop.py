@@ -15,7 +15,8 @@ contract:
 
 Differences from the JAX package: one device, no mesh (``device`` takes the
 place of the ``mesh`` argument; a data-parallel step over a mesh, replicated,
-ZeRO-1 or FSDP, is ``parallel.steps.make_train_setup``, and a
+ZeRO-1 or FSDP, with tensor parallelism over ``model`` for the attention
+families, is ``parallel.steps.make_train_setup``, and a
 ``Trainer(mesh=)`` that drives it, with checkpoints of sharded state, waits
 for ROADMAP.md M9b2b),
 and a step's time

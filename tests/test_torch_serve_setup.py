@@ -19,14 +19,17 @@ References:
       by a jitted identity with ``out_shardings``): the logits of the prefill
       and of 4 decode steps from the converted weights, against the port's
       fsdp setups over data 4, at ``tests/test_torch_models.py``'s
-      ``MODEL_TOL`` (atol 1e-4 / rtol 1e-3).
+      ``MODEL_TOL`` (atol 1e-4 / rtol 1e-3); and llama, llava and whisper's
+      against the port's own (4, 2) setups, tensor parallelism over
+      ``model`` 2.
 (iii) the ``CellSetup`` fields against the same subprocess's setups on a
       data 8 mesh: the input and decode-state shapes and dtypes
       (``example_args`` / ``state_shapes``, on the meta device here), the
       parameter count, and ``state_shardings`` spec for spec.
 
-And each refusal: a batch that no data axis divides, a ``model`` axis of
-more than one rank, ``moe_ep_axis`` set.
+And each refusal: a batch that no data axis divides, a MoE or SSM
+configuration under a ``model`` axis of more than one rank, ``moe_ep_axis``
+set.
 """
 
 import os
@@ -254,6 +257,22 @@ def test_serving_setups_equal_the_jax_setups_on_8_host_devices(jax_serve, arch):
                                    **MODEL_TOL)
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llava-next-34b", "whisper-medium"])
+def test_tp_serving_setups_equal_the_jax_setups_on_8_host_devices(jax_serve, arch):
+    """The port's own (4, 2) ``data`` / ``model`` setups (fsdp, tensor
+    parallelism over ``model`` 2: each rank its heads, its vocab block, its
+    KV heads of the cache) against the JAX setups on the same mesh."""
+    out, _ = jax_serve
+    cfg = config(arch)
+    batch, steps = serve_batch(cfg)
+    params = from_jax_params(jax_params(arch), cfg, device="cpu")
+    mesh = make_mesh((4, 2), ("data", "model"), device="cpu")
+    got, _ = through_setups(cfg, params, batch, steps, mesh, "fsdp")
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(g.numpy(), out[f"{arch}|{i}"], err_msg=f"step {i}",
+                                   **MODEL_TOL)
+
+
 def _shape_list(tree):
     return [[list(t.shape), str(t.dtype).replace("torch.", "")]
             for t in tree_flatten(tree)[0] if torch.is_tensor(t)]
@@ -292,12 +311,18 @@ def test_cell_setup_fields_equal_the_jax_ones(jax_serve, arch):
 @pytest.mark.parametrize("make", [make_prefill_setup, make_decode_setup],
                          ids=["prefill", "decode"])
 def test_the_serving_setups_refuse_what_waits(make):
+    """Its tensor-parallel line is historical: a ``model`` axis of 2 was
+    refused for every family; now it is refused for the MoE and SSM ones
+    (``tests/test_torch_tp.py`` serves the attention families over it)."""
     cfg = config("llama3.2-1b")
     shape = ShapeConfig("s", "prefill", 32, B)
     data4 = make_mesh((4,), ("data",), device="cpu")
     with pytest.raises(ValueError, match="batch of 3.*flash-decoding.*M9b2b"):
         make(cfg, ShapeConfig("s", "prefill", 32, 3), data4)
-    with pytest.raises(ValueError, match="tensor parallelism.*M9b2b"):
-        make(cfg, shape, make_mesh((4, 2), ("data", "model"), device="cpu"))
+    # tensor parallelism runs for the attention families; a MoE or SSM
+    # configuration under a model axis of 2 waits
+    for arch in ("mixtral-8x7b", "mamba2-1.3b"):
+        with pytest.raises(ValueError, match="tensor parallelism.*M9b2b"):
+            make(config(arch), shape, make_mesh((4, 2), ("data", "model"), device="cpu"))
     with pytest.raises(ValueError, match="moe_ep_axis.*inside the setups.*M9b2b"):
         make(config("mixtral-8x7b"), shape, data4, ParallelConfig(moe_ep_axis="data"))

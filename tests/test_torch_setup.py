@@ -18,12 +18,16 @@ References:
       ``tests/test_multidevice.py`` builds it): one step from the converted
       weights, loss, ``grad_norm`` and every parameter after it, fp32; with
       fsdp (which JAX partitions there as FSDP plus TP, the port over data
-      4) and with int8 moments under zero1 and fsdp too.
+      4) and with int8 moments under zero1 and fsdp too; and llama3.2-1b's
+      five against the port's own (4, 2) setups, tensor parallelism over
+      ``model`` 2 (``tests/test_torch_tp.py`` holds them against the
+      one-device step).
 (iii) one spawned world of 4 ``gloo`` ranks (a ``file://`` store, one timeout
       for the world): the ``DistMesh`` gives the ``StackedMesh``'s results,
       and under zero1 a rank holds a quarter of the optimizer state.
 
-And one test for each refusal: a ``model`` axis of more than one rank and
+And one test for each refusal: a ``model`` axis of more than one rank for the
+moe and ssm families, and
 compressed sync; fsdp (the ``ParallelConfig`` default) and int8 moments under
 zero1, once refused, now run (their tests keep their names).
 
@@ -347,8 +351,18 @@ def test_fsdp_the_default_is_refused():
 
 
 def test_a_model_axis_of_more_than_one_rank_is_refused():
-    with pytest.raises(ValueError, match="model.*M9b2b"):
-        refused(ParallelConfig(param_sharding="replicated"), ((4, 2), ("data", "model")))
+    """The name is historical: a ``model`` axis of more than one rank was
+    refused until tensor parallelism ran; now a dense (4, 2) setup builds
+    (``tests/test_torch_tp.py`` and ``test_tp_setup_equals_the_jax_setup``
+    hold its results), and a mixtral or mamba2 one, whose TP waits, is
+    refused naming M9b2b."""
+    mesh = ((4, 2), ("data", "model"))
+    refused(ParallelConfig(param_sharding="replicated"), mesh)
+    for arch in ("mixtral-8x7b", "mamba2-1.3b"):
+        with pytest.raises(ValueError, match="model.*M9b2b"):
+            make_train_setup(config(arch), ShapeConfig("t", "train", S, B),
+                             make_mesh(*mesh, device="cpu"),
+                             ParallelConfig(param_sharding="replicated"))
 
 
 def test_compressed_sync_is_refused():
@@ -471,6 +485,35 @@ def test_setup_equals_the_jax_setup_on_8_host_devices(jax_setup, arch, sharding)
     want = from_jax_params(nest({k[len(pre) + 3:]: v for k, v in out.items()
                                  if k.startswith(pre + "p1|")}), cfg, device="cpu")
     for g, w in zip(leaves(params), leaves(want)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sharding", JAX_ARCHS["llama3.2-1b"])
+def test_tp_setup_equals_the_jax_setup_on_8_host_devices(jax_setup, sharding):
+    """The port's own (4, 2) ``data`` / ``model`` setup, tensor parallelism
+    over ``model`` 2 (``parallel.tp``), against the JAX setup on the same
+    mesh: one step from the converted weights, the metrics and every
+    parameter after it (gathered whole), at the tolerances above."""
+    arch = "llama3.2-1b"
+    inp, out = jax_setup
+    cfg = config(arch)
+    batch = {k: inp[arch + "|" + k] for k in ("tokens", "labels")}
+    placement, int8 = sharding.split("-")[0], sharding.endswith("-int8")
+    mesh = make_mesh((4, 2), ("data", "model"), device="cpu")
+    setup = make_train_setup(cfg, ShapeConfig("t", "train", S, B), mesh,
+                             ParallelConfig(param_sharding=placement, remat="none"),
+                             OptimConfig(**OCFG, **(dict(moments_dtype="int8") if int8 else {})))
+    assert setup.ruleset.tp == "model"
+    state, metrics, _ = run_setup(setup, params_of(arch, "float32"), [batch])
+    specs = tree_flatten(setup.param_shardings, is_leaf=lambda x: isinstance(x, tuple))[0]
+    params = [unshard_leaf(r, sp, mesh) for r, sp in zip(leaves(state.params), specs)]
+    pre = arch + "|" + sharding + "|"
+    for k in ("loss", "aux_loss", "tokens", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(metrics[0][k]), float(out[pre + k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    want = from_jax_params(nest({k[len(pre) + 3:]: v for k, v in out.items()
+                                 if k.startswith(pre + "p1|")}), cfg, device="cpu")
+    for g, w in zip(params, leaves(want)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
 
 
