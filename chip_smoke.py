@@ -20,7 +20,9 @@ and whisper-medium served fsdp through make_setup; and tensor parallelism
 over model, every TP all-reduce through the tree-reduce kernel: llama3.2-1b
 trained over data 2 x model 2 and pod 2 x data 2 x model 2, whisper-medium
 trained and served over data 2 x model 2, llama3.2-1b and llava-next-34b
-served over model 4)
+served over model 4; the MoE family under tensor and expert parallelism:
+mixtral-8x7b trained over data 2 x model 2 and served with its experts over
+data 2, arctic-480b served over model 2)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -175,7 +177,20 @@ Phases:
            (``tp_tree_launches``), gradients and logits held against the
            fp32 one-device route as far as the bf16 one is
            (SETUP_TP_FP32_MARGIN), the elements outside tol(bf16) of the
-           bf16 route counted, greedy flips at near-ties only
+           bf16 route counted, greedy flips at near-ties only; then, on a
+           line of its own, the MoE family under tensor parallelism (the
+           router once on a row's whole input, each rank its experts or
+           their mlp block) and expert parallelism (moe_ep_axis: the lanes of
+           the data axis through each MoE block together, the all-to-all
+           over them): (l) mixtral-8x7b at 1 of 32 layers trained fsdp over
+           data 2 x model 2, two steps; (m) the same one step, replicated,
+           the experts over data and their mlp dim over model; (n)
+           arctic-480b at 1 of 35 layers served over data 1 x model 2; (o)
+           mixtral at 4 layers served with the experts over data 2 and
+           model 2 (8 x 512 tokens, 8 steps): as (g)-(k), and the routing
+           against the fp32 route's (a token may choose other experts only
+           at a near-tie there, counted; logits compared on the rows whose
+           last token's routing agrees), a rank's expert bytes
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -1721,8 +1736,8 @@ def route_log():
         calls[-1]["kept"] = (slot >= 0).sum(dim=-1).cpu()
         return slot
 
-    def ffn(params, x, cfg):
-        out, aux = ffn0(params, x, cfg)
+    def ffn(params, x, cfg, **kw):
+        out, aux = ffn0(params, x, cfg, **kw)
         calls[-1]["out"] = out.detach().float().cpu()
         return out, aux
     return patched(moe, calls, _route=route, _dispatch_indices=dispatch, moe_ffn=ffn)
@@ -2229,22 +2244,27 @@ def expected_train_launches(cfg, pcfg):
 def tp_tree_launches(cfg, kind, remat=True):
     """Tree-reduce launches of one batch row's TP group (its all-reduces over
     ``model``; the data sync apart), ``kind`` train, prefill or decode: the
-    lookup's g; g after every attention, cross-attention and MLP of a block
-    (decode: the decoder's blocks only); in training besides the loss's
-    all-reduce, block remat's recompute of each block's g but its last (the
-    MLP's: ``torch.utils.checkpoint`` stops recomputing after the last
-    operation that saved a tensor for the backward, and nothing after that g
-    saves one), and f's backward: per block the attention's input, the
-    MLP's, for a cross-attention its queries and the encoder's output,
-    ``q_norm`` / ``k_norm`` per attention with qk-norm, and the head's
-    input."""
+    lookup's g; g after every attention, cross-attention, MLP and MoE FFN of
+    a block (decode: the decoder's blocks only); in training besides the
+    loss's all-reduce, block remat's recompute of each block's g but its last
+    (the MLP's or the MoE FFN's: ``torch.utils.checkpoint`` stops
+    recomputing after the last operation that saved a tensor for the
+    backward, and nothing after that g saves one), and f's backward: per
+    block the attention's input, the MLP's (a MoE FFN's input and its
+    combine weights: two), for a cross-attention its queries and the
+    encoder's output, ``q_norm`` / ``k_norm`` per attention with qk-norm, and
+    the head's input.  Under expert parallelism each lane of an EP group
+    runs these for its own batch row (the lanes' all-to-all is no
+    all-reduce)."""
     enc = cfg.n_enc_layers if cfg.family == "audio" and kind != "decode" else 0
     cross = cfg.num_layers if cfg.family == "audio" else 0
     g_blocks = 2 * enc + 2 * cfg.num_layers + cross
     if kind != "train":
         return 1 + g_blocks
     attentions = enc + cfg.num_layers + cross
-    f = 2 * enc + 2 * cfg.num_layers + 2 * cross + (2 * attentions if cfg.qk_norm else 0) + 1
+    ffn_f = 2 if cfg.n_experts else 1
+    f = 2 * enc + (1 + ffn_f) * cfg.num_layers + 2 * cross + \
+        (2 * attentions if cfg.qk_norm else 0) + 1
     recompute = g_blocks - enc - cfg.num_layers if remat else 0
     return 1 + g_blocks + recompute + 1 + f
 
@@ -2913,6 +2933,25 @@ SETUP_TP_WHISPER = ("whisper-medium", 8, 448, 224, 448)
 SETUP_TP4_MESH = ((1, 4), ("data", "model"))
 SETUP_TP4_SERVE = [("llama3.2-1b", None, 2048, 2048 + 16, None),
                    ("llava-next-34b", 8, 1024, 1024 + 1024 + 16, 1024)]
+# (l)-(o), the MoE family under tensor parallelism over model and expert
+# parallelism over data (moe_ep_axis), at full width, bf16, each against the
+# one-device route on the same weights.  (l) mixtral-8x7b trained under fsdp
+# over data 2 x model 2, two steps (its 8 experts over model, 4 a rank, their
+# mlp dim over data); (m) the same model one step under replicated with the
+# experts over data (4 a rank) and each expert's mlp dim over model (7168 a
+# rank): the setup's all-to-all on the card.  Both at 1 of 32 layers and the
+# train phase's B 4 x S 2048, against one one-device oracle.
+SETUP_MOE_TRAIN = ("mixtral-8x7b", 1, 4, 2048)         # arch, layers, B, S
+SETUP_MOE_TRAIN_CASES = [("fsdp", "", 2), ("replicated", "data", 1)]   # sharding, EP axis, steps
+SETUP_MOE_MESH = ((2, 2), ("data", "model"))
+# (n) arctic-480b (1 of 35 layers, 13.9e9 parameters, 27.8 GB of bf16) served
+# over data 1 x model 2 (64 experts a rank, the dense residual split column /
+# row); (o) mixtral-8x7b (4 of 32 layers) served with the experts over data 2
+# and their mlp dim over model 2: 8 prompts of 512 tokens, then
+# SETUP_MOE_TOKENS decode steps: (arch, layers, prompt, cache, mesh, EP axis)
+SETUP_MOE_SERVE = [("arctic-480b", 1, 512, 512 + 8, ((1, 2), ("data", "model")), ""),
+                   ("mixtral-8x7b", 4, 512, 512 + 8, SETUP_MOE_MESH, "data")]
+SETUP_MOE_TOKENS = 8
 
 
 def setup_case_name(sharding, mode, shape):
@@ -2985,13 +3024,6 @@ def setup_gathers_per_step(cfg, rows):
     return rows * (every - blocks + 2 * blocks)
 
 
-def _tp_sharded(setup):
-    """The number of leaves the setup's specs place over its TP axis."""
-    tp = setup.ruleset.tp
-    return sum(1 for s in _flat_specs(setup) if tp in [a for e in s if e for a in
-                                                        ((e,) if isinstance(e, str) else e)])
-
-
 def outside_tol(got, want, t):
     """Elements of ``got`` outside ``t`` (atol + rtol x |want|) of ``want``."""
     return int(((got.float() - want.float()).abs() >
@@ -3002,65 +3034,181 @@ def fro_rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def setup_fp32_grads(cfg, p0, batch):
+def setup_fp32_grads(cfg, p0, batch, routes=None):
     """The one-device gradient of ``batch`` with ``p0`` in fp32 (block remat),
     the reference a TP case's bf16 gradient and the one-device bf16 one are
-    each held against (SETUP_TP_FP32_MARGIN)."""
+    each held against (SETUP_TP_FP32_MARGIN).  A MoE model's routings go to
+    ``routes`` (``setup_route_log``)."""
     p32 = tree_map(lambda t: t.float(), p0)
     pcfg = ParallelConfig(remat="block", param_dtype="float32", compute_dtype="float32")
-    g, _ = train_grads(p32, batch, cfg, pcfg, _enc_fn(cfg, pcfg))
+    with setup_route_log(routes):
+        g, _ = train_grads(p32, batch, cfg, pcfg, _enc_fn(cfg, pcfg))
     del p32
     return list(_flat(g))
 
 
+def setup_route_log(calls=None):
+    """While active, appends to ``calls`` (when it is a list) each MoE
+    routing's experts (sorted per token, (G, T, k)) and router probabilities
+    (G, T, E), on the CPU; a routing equal to one already recorded (block
+    remat's recompute of it) is left out.  Yields ``calls``."""
+    if calls is None:
+        return contextlib.nullcontext()
+    route0 = moe._route
+
+    def route(x, router_w, n_experts, top_k):
+        out = route0(x, router_w, n_experts, top_k)
+        with torch.no_grad():
+            probs = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1).cpu()
+        if not any(c["probs"].shape == probs.shape and torch.equal(c["probs"], probs)
+                   for c in calls):
+            calls.append({"experts": torch.sort(out[0], dim=-1).values.cpu(), "probs": probs})
+        return out
+    return patched(moe, calls, _route=route)
+
+
+def compare_setup_routes(name, got, one, ref, group, top_k):
+    """The routings of a setup case (``got``: ``group`` consecutive calls, its
+    batch rows or EP lanes, make one call of the one-device route) against
+    the fp32 one-device route's (``ref``), beside the one-device bf16 route's
+    (``one``), by the TP cases' rule for rounding: the router probabilities'
+    relative Frobenius error against fp32 at most SETUP_TP_FP32_MARGIN x the
+    one-device bf16 route's; a token may choose other experts than the fp32
+    route only at a near-tie there (the gap between its k-th and (k+1)-th
+    probability below max(ROUTE_TIE_EPS, 2 x SETUP_TP_FP32_MARGIN x the
+    one-device bf16 route's largest probability error), counted.  Returns
+    (report, per call the tokens (G, T) where the setup's and the one-device
+    route's experts both agree with the fp32 route's)."""
+    merged = [{"experts": torch.cat([c["experts"] for c in got[i:i + group]]),
+               "probs": torch.cat([c["probs"] for c in got[i:i + group]])}
+              for i in range(0, len(got), group)]
+    if not len(merged) == len(one) == len(ref):
+        raise AssertionError(f"{name}: {len(got)} routings in groups of {group}, "
+                             f"{len(one)} and {len(ref)} on the one-device routes")
+    noise_one = max(float((o["probs"] - r["probs"]).abs().max()) for o, r in zip(one, ref))
+    limit = max(ROUTE_TIE_EPS, 2 * SETUP_TP_FP32_MARGIN * noise_one)
+    flips = flips_one = tokens = 0
+    worst_gap, agree = 0.0, []
+    for i, (g, o, r) in enumerate(zip(merged, one, ref)):
+        top = torch.sort(r["probs"], dim=-1, descending=True).values
+        gap = top[..., top_k - 1] - top[..., top_k]
+        moved = (g["experts"] != r["experts"]).any(dim=-1)
+        moved_one = (o["experts"] != r["experts"]).any(dim=-1)
+        tokens += moved.numel()
+        if moved.any():
+            worst_gap = max(worst_gap, float(gap[moved].max()))
+            if float(gap[moved].max()) >= limit:
+                raise AssertionError(f"{name} routing {i}: {int(moved.sum())} tokens chose "
+                                     f"other experts than the fp32 route at a probability "
+                                     f"gap up to {float(gap[moved].max()):.3e} (limit "
+                                     f"{limit:.3e})")
+        flips += int(moved.sum())
+        flips_one += int(moved_one.sum())
+        agree.append(~(moved | moved_one))
+    fro = {"setup": max(fro_rel(g["probs"], r["probs"]) for g, r in zip(merged, ref)),
+           "one_device_bf16": max(fro_rel(o["probs"], r["probs"]) for o, r in zip(one, ref))}
+    if not fro["setup"] <= SETUP_TP_FP32_MARGIN * fro["one_device_bf16"]:
+        raise AssertionError(f"{name}: the router probabilities are further from the fp32 "
+                             f"route than the one-device bf16 route's allow: {fro}")
+    return {"routings": len(merged), "tokens_routed": tokens, "tokens_flipped": flips,
+            "tokens_flipped_one_device_bf16": flips_one, "largest_gap_of_a_flip": worst_gap,
+            "flip_gap_limit": limit, "route_tie_eps": ROUTE_TIE_EPS,
+            "prob_max_abs_err_one_device_bf16": noise_one,
+            "prob_fro_rel_worst_vs_fp32": fro}, agree
+
+
+def _synced_blocks(setup):
+    """The blocks the data sync reduces, one tree-reduce stage each: every
+    leaf once, a leaf over the TP axis under fsdp once a model block (each
+    reduce-scattered over data on its own); an expert leaf held over the EP
+    axis none (its gradient is already the lanes' sum, and the smoke's meshes
+    have no outer axis to reduce it over)."""
+    rs = setup.ruleset
+    tp = rs.tp if rs.tp and setup.mesh.shape[rs.tp] > 1 else None
+    axes = tree_flatten(tfm.param_axes(setup.cfg, stacked=False),
+                        is_leaf=lambda x: isinstance(x, tuple))[0]
+    n = 0
+    for a, spec in zip(axes, _flat_specs(setup)):
+        if rs.ep_axis and "expert" in a:
+            continue
+        split = tp in [x for e in spec if e for x in ((e,) if isinstance(e, str) else e)]
+        n += setup.mesh.shape[tp] if tp and split and setup.pcfg.param_sharding == "fsdp" else 1
+    return n
+
+
+def expert_bytes_per_rank(setup, params):
+    """Bytes of the expert leaves one rank holds (one row of each rows form)."""
+    axes = tree_flatten(tfm.param_axes(setup.cfg, stacked=False),
+                        is_leaf=lambda x: isinstance(x, tuple))[0]
+    return sum(nbytes(t[0]) for a, t in zip(axes, _flat(params)) if "expert" in a)
+
+
+@contextlib.contextmanager
+def flash_heads():
+    """While active, the (query, KV) head counts of every ``ops.attention``
+    call are collected in the set it yields (each flash call of a TP rank
+    sees the rank's heads)."""
+    heads, plain = set(), ops.attention
+
+    def attention(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return plain(q, k, v, **kw)
+    with patched(ops, heads, attention=attention):
+        yield heads
+
+
 def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode, mshape,
-                     axes, kept=None, steps=SETUP_STEPS, want32=None):
+                     axes, kept=None, steps=SETUP_STEPS, want32=None, ep="", routes=None):
     """One train case of the setup phase: ``steps`` steps through
     ``make_train_setup`` against the one-device losses (``oracle``), step 1's
     synced gradient against the one-device gradient ``want_g`` (under TP:
     against the fp32 one ``want32`` as far as ``want_g`` is); the
     launches of every step asserted, fsdp's gathers counted (asserted).  With
     ``kept``: a twin of SETUP_TWIN keeps its step 1 there, and an fsdp case
-    is held bit for bit against its twin's.  Returns (report entry, launches
-    over the steps)."""
+    is held bit for bit against its twin's.  ``ep``: the EP axis
+    (``moe_ep_axis``).  With ``routes`` (a MoE model's one-device routings,
+    ``{"one": bf16, "ref": fp32}``) step 1's routings are held against them
+    (``compare_setup_routes``).  Returns (report entry, launches over the
+    steps)."""
     B, S = batches[0]["tokens"].shape
     shape = ShapeConfig(f"train_{B}x{S}", "train", S, B)
     ocfg = OptimConfig()
     torch.cuda.reset_peak_memory_stats()
     mesh = make_mesh(mshape, axes, device=dev)
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding=sharding,
-                          grad_sync=mode)
+                          grad_sync=mode, moe_ep_axis=ep)
     setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
     ranks = mesh.size(axes)
     n_rows = mesh.size(setup.ruleset.batch_axes(B))
-    n_leaves = len(tree_flatten(p0)[0])
     fsdp = sharding == "fsdp"
     tp = mesh.shape.get("model", 1) > 1
     want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
-    # under TP each batch row's TP group all-reduces over model, and fsdp
-    # reduce-scatters each model block of a leaf over data on its own
-    for k, v in expected_sync_launches(
-            mode, n_leaves + (_tp_sharded(setup) if tp and fsdp else 0)).items():
+    # under TP each batch row's TP group (under EP each lane's) all-reduces
+    # over model; the sync reduces _synced_blocks blocks
+    for k, v in expected_sync_launches(mode, _synced_blocks(setup)).items():
         want[k] += v
     if tp:
         want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train")
-    name = setup_case_name(sharding, mode, mesh.shape)
+    name = setup_case_name(sharding, mode, mesh.shape) + (f"_ep_{ep}" if ep else "")
     loss_rtol = SETUP_TP_LOSS_RTOL if tp else SETUP_LOSS_RTOL
     specs = _flat_specs(setup)
     state = setup.init_state(tree_map(lambda t: t.clone(), p0))
     entry = {"param_sharding": sharding, "grad_sync": mode, "layers": cfg.num_layers,
              "mesh": dict(zip(axes, mshape)), "loss": [], "grad_norm": [], "step_s": [],
-             "param_bytes_per_rank": rank_bytes([state.params], fsdp or tp),
+             "param_bytes_per_rank": rank_bytes([state.params], fsdp or tp or ep),
              "opt_bytes_per_rank": rank_bytes([state.opt.master, state.opt.m, state.opt.v],
-                                              sharding != "replicated")}
+                                              sharding != "replicated" or tp or bool(ep))}
+    if cfg.n_experts:
+        entry["expert_bytes_per_rank"] = expert_bytes_per_rank(setup, state.params)
     used = {k: 0 for k in WRAPPERS}
-    gathers = []
+    gathers, got_routes = [], [] if routes else None
     for i, batch in enumerate(batches[:steps]):
         _zero_launches()                          # counts of this path only
-        with _counting_gathers() as counts:
+        with _counting_gathers() as counts, flash_heads() as heads:
             t0 = time.perf_counter()
             if i == 0:                            # the step in its two halves
-                synced, m = setup.grad_fn(state, batch)
+                with setup_route_log(got_routes):
+                    synced, m = setup.grad_fn(state, batch)
                 torch.cuda.synchronize()
                 entry["grad_fn_s"] = time.perf_counter() - t0
                 state, om = setup.update_fn(state, synced)
@@ -3070,6 +3218,7 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
             torch.cuda.synchronize()
             entry["step_s"].append(time.perf_counter() - t0)
         gathers.append(dict(counts))
+        entry["flash_heads"] = sorted(heads)
         got = _launches()
         if got != want:
             raise AssertionError(f"setup {cfg.name} {name} step {i}: launched {got}, "
@@ -3087,8 +3236,12 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
                                  f"the one-device {oracle['loss'][i]} (rtol {loss_rtol})")
         if i > 0:
             continue
+        if routes:            # one layer: a batch row's (lane's) routing once
+            entry["routing"], _ = compare_setup_routes(
+                f"setup {cfg.name} {name}", got_routes, routes["one"], routes["ref"], n_rows,
+                cfg.top_k)
         whole = ([unshard_leaf(r, s, mesh) for r, s in zip(_flat(synced), specs)]
-                 if fsdp or tp else list(_flat(synced)))
+                 if fsdp or tp or ep else list(_flat(synced)))
         worst = max(fro_rel(a, b) for a, b in zip(whole, _flat(want_g)))
         entry["grad_fro_rel_worst"] = worst
         if tp:       # counted, not asserted: the ranks' partials round apart
@@ -3149,16 +3302,18 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
     return entry, used
 
 
-def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS):
+def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS, routes=None):
     """The one-device make_train_step on the whole batch, in place on its own
     copy: the losses, grad norms and seconds of ``steps`` steps and step 1's
-    gradient (from ``train_grads``)."""
+    gradient (from ``train_grads``; a MoE model's routings of it to
+    ``routes``)."""
     ocfg = OptimConfig()
     torch.cuda.reset_peak_memory_stats()
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16")
     state = TrainState(tree_map(lambda t: t.clone(), p0), init_adam(p0, ocfg))
-    (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg,
-                                                    _enc_fn(cfg, pcfg)))
+    with setup_route_log(routes):
+        (want_g, _), grad_s = timed(lambda: train_grads(state.params, batches[0], cfg, pcfg,
+                                                        _enc_fn(cfg, pcfg)))
     step = make_train_step(cfg, pcfg, ocfg)
     oracle = {"loss": [], "grad_norm": [], "step_s": [], "grad_s": grad_s}
     for batch in batches[:steps]:
@@ -3194,40 +3349,74 @@ def greedy_flips(got, want, limit):
     return len(flips)
 
 
+def _recast(tree, dtype):
+    """Every tensor of a tree of dictionaries and lists replaced, in place, by
+    its cast to ``dtype``, one leaf at a time: a model the card cannot hold
+    in both dtypes at once (arctic's layer: 27.8 GB of bf16, 55.6 GB of fp32)
+    goes to fp32 and back (bf16 -> fp32 -> bf16 is exact).  A module function
+    (see ``models.modules.tree_flatten``)."""
+    for k in (list(tree) if isinstance(tree, dict) else range(len(tree))):
+        if torch.is_tensor(tree[k]):
+            tree[k] = tree[k].to(dtype)
+        else:
+            _recast(tree[k], dtype)
+
+
+def _serve_routes(calls, per_step, rows, ep):
+    """A setup's routings in the one-device route's order (each step's layers,
+    a layer's batch rows or EP lanes one after another): over data the
+    setup runs a batch row's layers before the next row's; under EP a
+    layer's lanes run together."""
+    if ep or rows == 1:
+        return calls
+    out = []
+    for i in range(0, len(calls), per_step):
+        step = calls[i:i + per_step]
+        layers = per_step // rows
+        out += [step[r * layers + l] for l in range(layers) for r in range(rows)]
+    return out
+
+
 def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8,
-                mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None):
-    """(f), and under tensor parallelism (j), (k): ``arch`` at full width
-    (``layers`` of its depth, or all), bf16, served through ``make_setup``
-    (fsdp over ``mesh_spec``, every rank stacked on the card): 8 requests of
-    ``prompt`` tokens (whisper's against 1500 frames, llava's after
-    ``patches`` patch embeddings), then ``new_tokens`` steps fed the greedy
-    tokens of the one-device ``prefill`` / ``decode_step`` on the whole
-    batch.  Over data alone the setup is held bit for bit against the
-    one-device route run on each rank's rows (the same products: what the
-    setup adds, the placement, the gathers, the rows of the state, must
-    change no bit); under TP a rank's products run over its heads and vocab
-    columns and its partials are summed by the tree reduce, so each step's
-    logits are held to tol(bf16)'s rtol by Frobenius against the whole
-    batch's.  Against the whole batch the logits' elements outside tol(bf16)
-    are counted and a greedy token may differ only at a near-tie (counted).
-    The prefill's launches asserted (and under TP the decode steps' tree
-    reduces).  Returns (report, the prefill's launches)."""
+                mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None, ep=""):
+    """(f), and under tensor parallelism (j), (k), (n), (o): ``arch`` at full
+    width (``layers`` of its depth, or all), bf16, served through
+    ``make_setup`` (fsdp over ``mesh_spec``, every rank stacked on the card;
+    ``ep`` the EP axis, ``moe_ep_axis``): 8 requests of ``prompt`` tokens
+    (whisper's against 1500 frames, llava's after ``patches`` patch
+    embeddings), then ``new_tokens`` steps fed the greedy tokens of the
+    one-device ``prefill`` / ``decode_step`` on the whole batch.  Over data
+    alone the setup is held bit for bit against the one-device route run on
+    each rank's rows (the same products: what the setup adds, the
+    placement, the gathers, the rows of the state, must change no bit); under
+    TP a rank's products run over its heads and vocab columns (and experts)
+    and its partials are summed by the tree reduce, so each step's logits
+    are held against the fp32 route as far as the one-device bf16 route is
+    (SETUP_TP_FP32_MARGIN).  A MoE model's routings are held against the
+    fp32 route's (``compare_setup_routes``), and its logits are compared on
+    the rows whose routing agrees so far.  Against the whole batch the
+    logits' elements outside tol(bf16) are counted and a greedy token may
+    differ only at a near-tie (counted).  The prefill's launches asserted
+    (and under TP the decode steps' tree reduces).  Returns (report, the
+    prefill's launches)."""
     cfg = _cut(arch, layers) if layers else get_config(arch)
     torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
     mesh = make_mesh(*mesh_spec, device=dev)
     ranks = mesh.size(mesh_spec[1])
     tp = mesh.shape.get("model", 1) > 1
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    t_init = time.perf_counter() - t_init
     rng = np.random.default_rng(9)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt))).to(dev)
     batch = {"tokens": toks, **on(model_inputs(cfg, B, 2, patches), dev, torch.bfloat16)}
-    pcfg = ParallelConfig(param_dtype="bfloat16")          # fsdp, the default
+    pcfg = ParallelConfig(param_dtype="bfloat16", moe_ep_axis=ep)     # fsdp, the default
     pre = make_setup(cfg, ShapeConfig("prefill", "prefill", cache_len, B), mesh, pcfg)
     dec = make_setup(cfg, ShapeConfig("decode", "decode", cache_len, B), mesh, pcfg)
     n_rows = mesh.size(pre.ruleset.batch_axes(B))
-    placed = pre.init_state(params)
     enc_fn = _enc_fn(cfg, ParallelConfig(remat="none"))
     bf = tol(torch.bfloat16)
+    routes = {"one": [], "ref": [], "got": []} if cfg.n_experts else {}
 
     with torch.inference_mode():
         def one_device(rows, feed=None, weights=params):
@@ -3243,20 +3432,24 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
                 logits, st = tfm.decode_step(weights, src.argmax(-1)[:, None], st, cfg, None)
                 out.append(logits)
             return out
-        want, t_one = timed(lambda: one_device(slice(None)))
+        with setup_route_log(routes.get("one")):
+            want, t_one = timed(lambda: one_device(slice(None)))
         want_rows = want32 = None
         if tp:                 # the fp32 route, fed the same tokens (SETUP_TP_FP32_MARGIN)
-            p32 = tree_map(lambda t: t.float(), params)
-            want32 = [w.float() for w in one_device(slice(None), want, p32)]
-            del p32
+            _recast(params, torch.float32)
+            with setup_route_log(routes.get("ref")):
+                want32 = [w.float() for w in one_device(slice(None), want)]
+            _recast(params, torch.bfloat16)
             release()
         else:
             b = B // ranks
             per_rank = [one_device(slice(j * b, (j + 1) * b), want) for j in range(ranks)]
             want_rows = [torch.cat([r[t] for r in per_rank]) for t in range(new_tokens + 1)]
             del per_rank
+        placed = pre.init_state(params)
         _zero_launches()
-        with _counting_gathers() as counts:
+        with _counting_gathers() as counts, flash_heads() as heads, \
+                setup_route_log(routes.get("got")):
             (got0, state), t_pre = timed(lambda: pre.step_fn(placed, batch))
         used = _launches()
         want_l = {k: v * ranks for k, v in expected_launches(cfg).items()}
@@ -3273,7 +3466,8 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
                 got.append(logits)
             return st
         _zero_launches()
-        state, t_dec = timed(lambda: steps(state))
+        with setup_route_log(routes.get("got")):
+            state, t_dec = timed(lambda: steps(state))
         dec_used = _launches()
         if tp and dec_used["tree_reduce"] != new_tokens * n_rows * tp_tree_launches(cfg, "decode"):
             raise AssertionError(f"setup serve {arch}: {new_tokens} decode steps launched "
@@ -3286,8 +3480,26 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
         raise AssertionError(f"setup serve {arch}: the logits of {len(same) - sum(same)} "
                              f"steps differ from the one-device route on the same rows "
                              f"(first step {t}, max abs err {err:.3e})")
+    # the rows each step's logits are compared on: all, or for a MoE model
+    # those whose last token chose the fp32 route's experts in every layer
+    # (as the parity phase compares a row where its last token's routing
+    # agrees; a flip at an earlier position reaches the logits through
+    # attention only)
+    rows = [torch.ones(B, dtype=torch.bool)] * len(got)
+    routing = None
+    if routes and tp:
+        L = cfg.num_layers
+        ordered = _serve_routes(routes["got"], n_rows * L, n_rows, ep)
+        routing, agree = compare_setup_routes(f"setup serve {arch}", ordered, routes["one"],
+                                              routes["ref"], n_rows, cfg.top_k)
+        rows = [torch.stack([a[:, -1] for a in agree[t * L:(t + 1) * L]]).all(dim=0)
+                for t in range(len(got))]
+        if not all(r.any() for r in rows):
+            raise AssertionError(f"setup serve {arch}: a step with no row whose last token's "
+                                 f"routing agrees with the fp32 route's: {routing}")
+        routing["rows_compared_per_step"] = [int(r.sum()) for r in rows]
     outside, errs, fro, flips = [], [], [], 0
-    for g, w in zip(got, want):
+    for g, w, r in zip(got, want, rows):
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"setup serve {arch}: non-finite logits")
@@ -3295,11 +3507,14 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
         errs.append(float(err.max()))
         fro.append(fro_rel(g, w))
         outside.append(outside_tol(g, w, bf))
-        flips += greedy_flips(g, w, bf["atol"] + bf["rtol"] * float(w.abs().max()))
+        flips += greedy_flips(g[r.to(g.device)], w[r.to(w.device)],
+                              bf["atol"] + bf["rtol"] * float(w.abs().max()))
     vs32 = None
     if tp:
-        vs32 = {"tp": [fro_rel(g, w) for g, w in zip(got, want32)],
-                "one_device_bf16": [fro_rel(g, w) for g, w in zip(want, want32)]}
+        vs32 = {"tp": [fro_rel(g[r.to(g.device)], w[r.to(w.device)])
+                       for g, w, r in zip(got, want32, rows)],
+                "one_device_bf16": [fro_rel(g[r.to(g.device)], w[r.to(w.device)])
+                                    for g, w, r in zip(want, want32, rows)]}
         vs32["limit"] = [max(bf["rtol"], SETUP_TP_FP32_MARGIN * e)
                          for e in vs32["one_device_bf16"]]
         bad = [t for t, (e, lim) in enumerate(zip(vs32["tp"], vs32["limit"])) if not e <= lim]
@@ -3307,17 +3522,21 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
             raise AssertionError(f"setup serve {arch}: the logits of steps {bad} are further "
                                  f"from the fp32 route than allowed: {vs32}")
     report = {"config": f"{arch} full width, {cfg.num_layers} layers, bf16, fsdp over "
-                        f"{dict(zip(*mesh_spec[::-1]))}",
+                        f"{dict(zip(*mesh_spec[::-1]))}" + (f", experts over {ep!r}" if ep else ""),
               "batch": B, "prompt": prompt, "cache": cache_len, "new_tokens": new_tokens,
               **({"frames": cfg.enc_seq} if cfg.family == "audio" else {}),
               **({"patches": patches} if patches else {}),
               "whole_batch": {"max_abs_err": errs, "fro_rel": fro, "outside_tol_bf16": outside,
                               "elements_per_step": got[0].numel(), "greedy_flips": flips},
               **({"fro_rel_vs_fp32": vs32} if vs32 else {}),
+              **({"routing": routing} if routing else {}),
               "prefill_launches": used, "decode_launches": dec_used,
+              "flash_heads": sorted(heads),
               "prefill_gathers": dict(counts),
               "param_bytes_per_rank": rank_bytes([placed], True),
-              "seconds": {"setup": {"prefill": t_pre, "decode": t_dec},
+              **({"expert_bytes_per_rank": expert_bytes_per_rank(pre, placed)}
+                 if cfg.n_experts else {}),
+              "seconds": {"init": t_init, "setup": {"prefill": t_pre, "decode": t_dec},
                           "one_device": {"prefill_and_decode": t_one}},
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "card": card}
     if not tp:
@@ -3348,6 +3567,43 @@ def setup_tp_whisper(dev, card):
             "one_device": oracle, "fsdp_flat_tp2": entry}, used
 
 
+def setup_moe_train(dev, card):
+    """(l), (m): mixtral-8x7b at full width and SETUP_MOE_TRAIN's depth,
+    bf16, trained through ``make_train_setup`` over SETUP_MOE_MESH under TP +
+    fsdp and under EP + TP (SETUP_MOE_TRAIN_CASES), against one one-device
+    oracle on the same weights and batches: the loss of each step, step 1's
+    synced gradient against the fp32 route as far as the one-device bf16
+    route is, step 1's routing against the fp32 route's.  The oracle's state
+    is released before a setup builds (the card holds 1.7e9 parameters'
+    weights, fp32 master and moments, ~24 GB, once at a time); its gradients
+    and routings are kept."""
+    arch, layers, B, S = SETUP_MOE_TRAIN
+    cfg = _cut(arch, layers)
+    batches = setup_batches(cfg, B, S, steps=max(c[2] for c in SETUP_MOE_TRAIN_CASES))
+    t0 = time.perf_counter()
+    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    init_s = time.perf_counter() - t0
+    routes = {"one": [], "ref": []}
+    want_g, oracle = setup_oracle(dev, cfg, p0, batches, steps=len(batches),
+                                  routes=routes["one"])
+    want32 = setup_fp32_grads(cfg, p0, batches[0], routes=routes["ref"])
+    release()
+    report = {"config": f"{arch} full width, {layers} of {get_config(arch).num_layers} layers, "
+                        f"bf16 params, fp32 master and moments, block remat",
+              "batch": B, "seq": S, "init_s": init_s, "one_device": oracle, "card": card}
+    launches = {}
+    for sharding, ep, steps in SETUP_MOE_TRAIN_CASES:
+        name = setup_case_name(sharding, "flat", dict(zip(SETUP_MOE_MESH[1],
+                                                          SETUP_MOE_MESH[0])))
+        name += f"_ep_{ep}" if ep else ""
+        report[name], launches[f"moe_{name}"] = setup_train_case(
+            dev, card, cfg, p0, batches, want_g, oracle, sharding, "flat", *SETUP_MOE_MESH,
+            steps=steps, want32=want32, ep=ep, routes=routes)
+    del p0, want_g, want32
+    release()
+    return report, launches
+
+
 def phase_setup(dev, card):
     """llama3.2-1b at full width and depth through ``make_train_setup`` (the
     four SETUP_CASES) against the one-device ``make_train_step``: the loss of
@@ -3358,8 +3614,9 @@ def phase_setup(dev, card):
     (SETUP_TWIN); then (g)-(i), the same under tensor parallelism over
     ``model`` (SETUP_TP_CASES, (h) bit for bit against (g)); (e) mamba2
     under fsdp; (f) the serving setups; (j) whisper-medium trained and served
-    under TP; (k) llama3.2-1b and llava-next-34b served over model 4.
-    Returns each case's launches."""
+    under TP; (k) llama3.2-1b and llava-next-34b served over model 4; (l)-(o)
+    the MoE family under TP and EP (``setup_moe_train``, SETUP_MOE_SERVE), on
+    a line of their own.  Returns each case's launches."""
     cfg = get_config(SETUP_ARCH)
     B, S = SETUP_BATCH
     batches = setup_batches(cfg, B, S)
@@ -3392,8 +3649,8 @@ def phase_setup(dev, card):
                 raise AssertionError(f"setup: zero1's update differs from the replicated one "
                                      f"in {len(same) - sum(same)} parameter and "
                                      f"{len(same_master) - sum(same_master)} master leaves")
-            del st, r, z["master"]
-            release()
+            del st, r, z["master"], z      # z, a name for kept's entry, would hold its
+            release()                       # gradient and parameters to the phase's end
         report[name], launches[name] = setup_train_case(
             dev, card, cfg, p0, batches, want_g, report["one_device"], sharding, mode,
             mshape, axes, kept)
@@ -3438,8 +3695,18 @@ def phase_setup(dev, card):
             dev, card, arch, prompt, cache_len, mesh_spec=SETUP_TP4_MESH, layers=layers,
             patches=patches)
     emit(report)
-    del p0
+    del p0, report
     release()
+    # (l)-(o) the MoE family under TP and EP, on a line of their own
+    moe_report = {"phase": "setup_moe", "card": card}
+    moe_report["train"], used = setup_moe_train(dev, card)
+    launches.update(used)
+    for arch, layers, prompt, cache_len, mesh_spec, ep in SETUP_MOE_SERVE:
+        name = f"serve_moe_{arch}" + (f"_ep_{ep}" if ep else "")
+        moe_report[name], launches[name] = setup_serve(
+            dev, card, arch, prompt, cache_len, new_tokens=SETUP_MOE_TOKENS,
+            mesh_spec=mesh_spec, layers=layers, ep=ep)
+    emit(moe_report)
     return launches
 
 

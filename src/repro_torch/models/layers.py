@@ -48,7 +48,13 @@ go through g (``tp.reduce``, the tree-reduce kernel) before the residual add.
 their gradient is summed by the same all-reduce on both meshes.  A KV cache
 under TP holds the heads of the rows form (every head on a ``StackedMesh``,
 this rank's on a ``DistMesh``); each rank reads and writes its heads' slice
-of it in place.
+of it in place.  A MoE block's FFN under TP is ``moe.moe_ffn(tp=)``: the router
+once on the whole input, each rank's experts (or their ``mlp`` blocks).
+
+Expert parallelism in the setups: ``apply_attn_blocks_ep`` runs one block for
+the lanes of an EP group (``ep``, a ``parallel.tp.EPContext``), each lane's
+attention on its own rows and parameters, then the MoE FFN of every lane
+together (``moe.moe_ffn_lanes``).
 
 Each ``init_*`` has a sibling ``*_axes(cfg, ...)`` that returns the same tree
 with, in place of each tensor, the logical axis names of its dimensions (a
@@ -336,8 +342,7 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
     4-tuple.  A block with cross-attention reads ``enc_out`` (train, prefill;
     prefill returns the new cross cache) or ``cross_cache`` (decode; returned
     as it is); aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP
-    block).  ``tp``: the block of a TP group (an MLP block: a MoE one under
-    TP waits for ROADMAP.md M9b2b, ``transformer`` refuses it)."""
+    block).  ``tp``: the block of a TP group."""
     h, new_cache = apply_attention(
         p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
         positions=positions, mode=mode, cache=cache, cache_index=cache_index,
@@ -356,8 +361,31 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
         x = x + hx
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts and "router" in p["ffn"]:
-        ff, aux = moe.moe_ffn(p["ffn"], y, cfg)
+        ff, aux = moe.moe_ffn(p["ffn"], y, cfg, tp=tp)
     else:
         ff = apply_mlp(p["ffn"], y, tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + ff, new_cache, new_cross, aux
+
+
+def apply_attn_blocks_ep(ps, cfg, pcfg, xs, *, positions, mode="train", caches=None,
+                         cache_index: Optional[int] = None,
+                         cache_len: Optional[int] = None, tp=None, ep=None):
+    """One MoE block for the lanes of an expert-parallel group: ``ps`` each
+    lane's parameters of the block (the expert leaves one joint tensor, see
+    ``moe.moe_ffn_lanes``), ``xs`` each lane's residual (b, S, d), ``caches``
+    each lane's ``KVCache`` (decode).  Each lane's attention runs on its own
+    rows (under ``tp`` at its TP ranks' heads), then the FFN of every lane
+    together.  Returns (the lanes' residuals, their new caches, aux (lanes,))."""
+    hs, ys, new = [], [], []
+    for r, p in enumerate(ps):
+        h, c = apply_attention(
+            p["attn"], cfg, pcfg, rms_norm(xs[r], p["ln1"], cfg.norm_eps),
+            positions=positions, mode=mode, cache=None if caches is None else caches[r],
+            cache_index=cache_index, cache_len=cache_len, window=cfg.sliding_window, tp=tp)
+        x = xs[r] + h
+        hs.append(x)
+        ys.append(rms_norm(x, p["ln2"], cfg.norm_eps))
+        new.append(c)
+    ff, aux = moe.moe_ffn_lanes([p["ffn"] for p in ps], ys, cfg, ep=ep, tp=tp)
+    return [x + f for x, f in zip(hs, ff)], new, aux

@@ -27,13 +27,32 @@ local weight shard, and the inverse all-to-all brings the outputs back for
 the combine.  Routing, capacity and combine are ``moe_ffn``'s, so it equals
 ``moe_ffn(n_groups=n)``.  Its gradients flow through both exchanges
 (``launch.mesh.all_to_all``).  The experts' logical axes are ``moe_axes``
-(``parallel.sharding.Ruleset`` places them); the setups of
-``parallel.steps`` shard the experts' hidden dim under FSDP; placing the
-experts over a data axis inside them (expert parallelism in the setup) and a
-MoE block under tensor parallelism (experts or their hidden dim over
-``model``, ``moe_buckets`` placed there) wait for ROADMAP.md M9b2b.  The
-capacity factor is ``cfg.capacity_factor``;
-vary it with ``dataclasses.replace``.
+(``parallel.sharding.Ruleset`` places them).  The capacity factor is
+``cfg.capacity_factor``; vary it with ``dataclasses.replace``.
+
+Tensor parallelism (``moe_ffn(tp=)``, a ``parallel.tp.TPContext``): Megatron's
+split over the rows form of the TP axis.  Where the experts divide the TP
+degree a rank holds its E / tp experts' ``w_gate`` / ``w_up`` / ``w_down``,
+otherwise every expert's columns of ``w_gate`` / ``w_up`` and rows of
+``w_down``; arctic's ``dense`` residual is split column / row on
+``mlp_dense``.  The router runs once, on the whole input, outside the ranks:
+the routing, the aux loss and the bucket slots are computed once.  The
+input and the combine weights reach the ranks through f (``tp.copy``), so
+that their gradients are summed by the all-reduce on both meshes; each rank
+fills the buckets of the experts it holds from its copy of the input at the
+shared slots (an integer-indexed scatter, so f sits on its input, whose
+gradient is smaller than the buckets'), runs its experts and combines its
+partial; its partial of the dense residual is added, and one g
+(``tp.reduce``, one tree-reduce launch) sums the ranks.
+
+Expert parallelism inside the setups (``moe_ffn_lanes``): the lanes of an EP
+group (the ranks of the EP axis, each with its own sequences) run the FFN
+together.  Each lane routes its own sequences, one group a sequence (the
+capacity of ``moe_ffn``'s default), the all-to-all hands each lane its E / n
+experts' buckets from every lane, the experts run on the local shard (and
+under TP on the rank's ``mlp`` block), and the inverse all-to-all brings the
+outputs back for the combine.  So it equals ``moe_ffn`` of the whole batch
+with one group a sequence.
 """
 
 from __future__ import annotations
@@ -137,23 +156,46 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int,
     return slot.reshape(*lead, T, k)
 
 
-def _group_dispatch(xg: torch.Tensor, router_w: torch.Tensor, E: int, k: int,
-                    capacity: int):
-    """(G, T, d) → dispatched buckets (G, E, C, d), the flat slots (G, T·k),
-    combine weights (G, T, k) and aux (G,).  The buffer has one row more than
-    E·C: every dropped choice is written there and the row is cut off (the
-    JAX package's ``mode="drop"``)."""
-    G, T, d = xg.shape
+def _route_slots(xg: torch.Tensor, router_w: torch.Tensor, E: int, k: int,
+                 capacity: int):
+    """Routing and bucket slots of (G, T, d) groups: the flat slots (G, T·k),
+    combine weights (G, T, k) and aux (G,)."""
     expert_idx, combine_w, aux = _route(xg, router_w, E, k)
     slot = _dispatch_indices(expert_idx, E, capacity)
-    flat_slot = slot.reshape(G, T * k)
-    rows = E * capacity + 1
-    target = torch.where(flat_slot >= 0, flat_slot, E * capacity) + \
+    return slot.reshape(xg.shape[0], -1), combine_w, aux
+
+
+def _fill_buckets(xg: torch.Tensor, flat_slot: torch.Tensor, n_experts: int,
+                  capacity: int, k: int) -> torch.Tensor:
+    """(G, T, d) tokens → (G, n_experts, C, d) buckets, each choice at its
+    slot of ``flat_slot`` (G, T·k) in the flat (n_experts·C) buffer.  The
+    buffer has one row more: every choice at slot -1 (dropped, or another
+    rank's expert) is written there and the row is cut off (the JAX
+    package's ``mode="drop"``)."""
+    G, T, d = xg.shape
+    rows = n_experts * capacity + 1
+    target = torch.where(flat_slot >= 0, flat_slot, n_experts * capacity) + \
         rows * torch.arange(G, device=xg.device)[:, None]
     src = xg.repeat_interleave(k, dim=1).reshape(G * T * k, d)
     buckets = xg.new_zeros((G * rows, d)).index_copy(0, target.reshape(-1), src)
-    buckets = buckets.view(G, rows, d)[:, :E * capacity]
-    return buckets.reshape(G, E, capacity, d), flat_slot, combine_w, aux
+    buckets = buckets.view(G, rows, d)[:, :n_experts * capacity]
+    return buckets.reshape(G, n_experts, capacity, d)
+
+
+def _group_dispatch(xg: torch.Tensor, router_w: torch.Tensor, E: int, k: int,
+                    capacity: int):
+    """(G, T, d) → dispatched buckets (G, E, C, d), the flat slots (G, T·k),
+    combine weights (G, T, k) and aux (G,)."""
+    flat_slot, combine_w, aux = _route_slots(xg, router_w, E, k, capacity)
+    return _fill_buckets(xg, flat_slot, E, capacity, k), flat_slot, combine_w, aux
+
+
+def _local_slots(flat_slot: torch.Tensor, first: int, n: int, capacity: int) -> torch.Tensor:
+    """The slots of experts ``first`` .. ``first + n - 1`` in their own
+    (n·C) buffer; -1 for the other experts' choices and the dropped ones."""
+    lo = first * capacity
+    inside = (flat_slot >= lo) & (flat_slot < lo + n * capacity)
+    return torch.where(inside, flat_slot - lo, -1)
 
 
 def _group_combine(y_e: torch.Tensor, flat_slot: torch.Tensor,
@@ -191,12 +233,17 @@ def _dense_residual(params, x: torch.Tensor) -> torch.Tensor:
     return (swiglu(x2d @ dn["w_gate"], x2d @ dn["w_up"]) @ dn["w_down"]).reshape(x.shape)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg, *, n_groups: Optional[int] = None
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def moe_ffn(params, x: torch.Tensor, cfg, *, n_groups: Optional[int] = None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE FFN over ``n_groups`` groups of B·S/G tokens each (G = B,
     one sequence a group, by default), the capacity from a group's tokens.
     x: (B, S, d) → ((B, S, d), aux fp32 scalar, the mean of the groups' aux
-    losses)."""
+    losses).  With ``tp`` the expert leaves and ``dense`` are in the rows
+    form over the TP axis (``_moe_ffn_tp``); x, the router and the result
+    are whole."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     G = n_groups or B
@@ -204,6 +251,9 @@ def moe_ffn(params, x: torch.Tensor, cfg, *, n_groups: Optional[int] = None
         raise ValueError(f"moe_ffn: {B * S} tokens do not split into {G} groups")
     T_g = B * S // G
     capacity = capacity_of(T_g, cfg)
+    if tp is not None:
+        out, aux = _moe_ffn_tp(params, x.reshape(G, T_g, d), cfg, capacity, tp)
+        return out.reshape(B, S, d), aux.mean()
     buckets, flat_slot, combine_w, aux = _group_dispatch(
         x.reshape(G, T_g, d), params["router"], E, k, capacity)
     y = _experts(params, buckets, "gecd,edf->gecf", "gecf,efd->gecd")
@@ -263,3 +313,99 @@ def moe_ffn_ep(params, x: torch.Tensor, cfg, *, mesh, ep_axis: str
     if cfg.moe_dense_ff:
         out = out + _dense_residual(params, x)
     return out, pmean(mesh, aux, (ep_axis,))
+
+
+def _row(tree, r: int):
+    """Row ``r`` of every tensor of a (nested) dictionary in the rows form."""
+    return {n: _row(v, r) if isinstance(v, dict) else v[r] for n, v in tree.items()}
+
+
+def _moe_ffn_tp(params, xg: torch.Tensor, cfg, capacity: int, tp):
+    """``moe_ffn`` of a TP group on (G, T, d) groups: the routing and the
+    slots once, on the whole input; then each rank of the rows form in turn
+    fills the buckets of the experts it holds (E / tp of them where they
+    divide the degree, else every expert's ``mlp`` block) from its copy of
+    the input (f), runs them, combines its partial with the combine weights
+    (f) and adds its partial of the dense residual; g sums the ranks.
+    Returns ((G, T, d), aux (G,))."""
+    G, T, d = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    flat_slot, combine_w, aux = _route_slots(xg, params["router"], E, k, capacity)
+    xr, cw = tp.copy(xg), tp.copy(combine_w)
+    held = params["w_gate"].shape[1]
+    parts = []
+    for r, c in enumerate(tp.mesh.row_coords(tp.axis)):
+        slot = flat_slot if held == E else _local_slots(flat_slot, c * held, held, capacity)
+        buckets = _fill_buckets(xr[r], slot, held, capacity, k)
+        y = _experts({n: params[n][r] for n in EXPERT_LEAVES}, buckets,
+                     "gecd,edf->gecf", "gecf,efd->gecd")
+        out = _group_combine(y.reshape(G, held * capacity, d), slot, cw[r], T, k)
+        if cfg.moe_dense_ff:
+            out = out + _dense_residual({"dense": _row(params["dense"], r)}, xr[r])
+        parts.append(out)
+    return tp.reduce(torch.stack(parts)), aux
+
+
+def moe_ffn_lanes(lanes, ys, cfg, *, ep, tp=None):
+    """The MoE FFN of the lanes of an expert-parallel group (``ep``, a
+    ``parallel.tp.EPContext``: the ranks of a data axis, every one on a
+    ``StackedMesh``, this rank on a ``DistMesh``), as the setups of
+    ``parallel.steps`` run it.
+
+    ``ys``: each lane's (b, S, d) input (its own sequences); ``lanes``: each
+    lane's FFN parameters, the router and arctic's ``dense`` the lane's own
+    copies (under ``tp`` ``dense`` in the rows form over the TP axis), the
+    expert leaves the rows form of ``('data', None, 'model')`` (the lanes'
+    E / n experts, under ``tp`` their ``mlp`` blocks), one tensor for every
+    lane.  Each lane routes its sequences one group a sequence (the capacity
+    of S tokens), fills its (b, E, C, d) buckets; the all-to-all over the EP
+    axis hands each lane its experts' buckets from every lane (sender-major,
+    then sequence); the experts run; the inverse all-to-all and the combine
+    follow.  Under ``tp`` the routing is the lane's, once; the input and the
+    combine weights reach the TP ranks through f, every TP rank exchanges
+    and runs its ``mlp`` block, and one g sums its partial (with the dense
+    residual's).  Returns (each lane's (b, S, d) output, aux (lanes,): each
+    lane's mean over its sequences).  Equals ``moe_ffn`` of the lanes'
+    sequences one group a sequence."""
+    R, n = ep.rows, ep.size
+    E, k = cfg.n_experts, cfg.top_k
+    if E % n or len(ys) != R or len(lanes) != R:
+        raise ValueError(f"moe_ffn_lanes: {E} experts over {n} ranks of {ep.axis!r}, "
+                         f"{len(ys)} lanes given, {R} expected")
+    b, S, d = ys[0].shape
+    C = capacity_of(S, cfg)
+    w = {nm: lanes[0][nm].view(R, -1, *lanes[0][nm].shape[1:]) for nm in EXPERT_LEAVES}
+    if w["w_gate"].shape[2] != E // n:
+        raise ValueError(f"moe_ffn_lanes: w_gate {tuple(lanes[0]['w_gate'].shape)} does not "
+                         f"hold {E // n} experts a rank of {ep.axis!r}")
+    routed = [_route_slots(y, lane["router"], E, k, C) for y, lane in zip(ys, lanes)]
+    if tp is None:
+        yr = [y[None] for y in ys]
+        cws = [cw[None] for _, cw, _ in routed]
+        dense = [{"dense": lane["dense"]} for lane in lanes] if cfg.moe_dense_ff else None
+    else:
+        yr = [tp.copy(y) for y in ys]
+        cws = [tp.copy(cw) for _, cw, _ in routed]
+    parts = [[] for _ in range(R)]
+    for t in range(w["w_gate"].shape[1]):
+        buckets = torch.stack([_fill_buckets(yr[r][t], routed[r][0], E, C, k)
+                               for r in range(R)])
+        # dispatch: lane j's experts' block to lane j; keep every lane's
+        # buckets of the local experts, sender-major
+        send = buckets.view(R, b, n, E // n, C, d).transpose(1, 2)
+        got = all_to_all(ep.mesh, send, (ep.axis,))
+        local = got.permute(0, 3, 1, 2, 4, 5).reshape(R, E // n, n * b * C, d)
+        y = _experts({nm: v[:, t] for nm, v in w.items()}, local,
+                     "recd,redf->recf", "recf,refd->recd")
+        # combine: the exact inverse exchange
+        back = all_to_all(ep.mesh, y.view(R, E // n, n, b, C, d).permute(0, 2, 3, 1, 4, 5),
+                          (ep.axis,))
+        mine = back.permute(0, 2, 1, 3, 4, 5).reshape(R, b, E * C, d)
+        for r in range(R):
+            out = _group_combine(mine[r], routed[r][0], cws[r][t], S, k)
+            if cfg.moe_dense_ff:
+                dn = dense[r] if tp is None else {"dense": _row(lanes[r]["dense"], t)}
+                out = out + _dense_residual(dn, yr[r][t])
+            parts[r].append(out)
+    outs = [p[0] if tp is None else tp.reduce(torch.stack(p)) for p in parts]
+    return outs, torch.stack([aux.mean() for _, _, aux in routed])

@@ -47,7 +47,7 @@ to the identity; ``parallel.steps``'s FSDP setups pass one that gathers the
 block's shards.
 
 ``loss_fn``, ``prefill``, ``decode_step`` (and ``models.whisper.encode``) take
-``tp=``, a ``parallel.tp.TPContext`` (the dense, vlm and audio families;
+``tp=``, a ``parallel.tp.TPContext`` (the dense, moe, vlm and audio families;
 default None, one device).  Under TP the sharded leaves are in the rows form
 over the TP axis (``parallel.steps``' setups place them): the embedding's
 vocab rows and an untied head's columns too.  The lookup is vocab-parallel
@@ -55,7 +55,18 @@ vocab rows and an untied head's columns too.  The lookup is vocab-parallel
 tp)`` logits), the loss the vocab-parallel cross-entropy; ``prefill`` and
 ``decode_step`` return the logits in the rows form ``(R, B, V / tp)`` for the
 setup to gather, and keep the heads of the rows form in the decode state.
-``mm_proj`` and the norms are whole on every rank.
+``mm_proj``, the norms and a MoE block's router are whole on every rank.
+
+``loss_fn``, ``prefill`` and ``decode_step`` take ``ep=``, a
+``parallel.tp.EPContext`` (the moe family; the setups' expert parallelism):
+the lanes of an EP group run together.  Then ``params`` is a list with one
+tree per lane (each lane's own copies of the leaves the lanes share; the
+expert leaves one joint tensor in every tree), ``layer_constrain`` a list
+with one hook per lane (or one hook for every lane), the batch's tensors
+(lanes, b, ...), ``loss_weight`` (lanes,).  ``loss_fn`` returns the sum of the lanes' totals and each lane's
+metrics; ``prefill`` the logits (lanes, b, V) (under ``tp`` (lanes, R, b,
+V / tp)) and one decode state with the lanes' rows one after another, which
+``decode_step`` takes with tokens (lanes, b, 1).
 
 The decode state is updated **in place**: ``decode_step`` writes the new K/V,
 SSM states and conv lags into the buffers of the state it was given and
@@ -71,7 +82,8 @@ import torch
 import torch.utils.checkpoint
 
 from .config import ModelConfig, ParallelConfig
-from .layers import KVCache, apply_attn_block, attn_block_axes, init_attn_block
+from .layers import (KVCache, apply_attn_block, apply_attn_blocks_ep, attn_block_axes,
+                     init_attn_block)
 from .modules import (dense_init, embed_init, ones_init, resolve_device,
                       rms_norm, softmax_cross_entropy, stack_axes)
 from .ssm import SSMState, init_mamba2, init_ssm_state, mamba2_axes, mamba2_forward
@@ -235,9 +247,15 @@ def _logits(params, cfg, x, tp):
 
 
 def _require_tp(cfg, tp):
-    if tp is not None and cfg.family in ("moe", "ssm", "hybrid"):
+    if tp is not None and cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"tensor parallelism for the {cfg.family} family ({cfg.name}) "
-                         "waits for ROADMAP.md M9b2b")
+                         "waits for ROADMAP.md M9b2b (SSM / hybrid TP)")
+
+
+def _require_ep(cfg, ep):
+    if cfg.family != "moe":
+        raise ValueError(f"expert parallelism over {ep.axis!r} needs the moe family, "
+                         f"not {cfg.family} ({cfg.name})")
 
 
 def _identity(bp):
@@ -261,7 +279,7 @@ def _maybe_remat(fn, pcfg: ParallelConfig):
 # --------------------------------------------------------------------------
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
-            enc_fn=None, loss_weight=None, layer_constrain=_identity, tp=None):
+            enc_fn=None, loss_weight=None, layer_constrain=_identity, tp=None, ep=None):
     """Causal LM loss.  batch: tokens (B, S) and labels (B, S) integer
     tensors (-1 = masked), plus ``patch_embeds`` (vlm) or ``frames`` (audio,
     encoded by ``enc_fn``).  Returns ``(total, {"loss", "aux_loss",
@@ -280,10 +298,13 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     data-parallel rank weighs its shard's mean by its share of the labelled
     tokens (``parallel.steps.make_train_setup``).  With ``tp`` the loss is
     the vocab-parallel cross-entropy of each rank's logits, the same on
-    every rank."""
+    every rank.  With ``ep`` the lanes of an EP group (see the module
+    docstring): the total is the sum of the lanes', the metrics (lanes,)."""
     _require_ported(cfg)
     _require_tp(cfg, tp)
     pcfg = pcfg or ParallelConfig()
+    if ep is not None:
+        return _loss_fn_ep(params, batch, cfg, pcfg, loss_weight, layer_constrain, tp, ep)
     x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
 
@@ -323,6 +344,54 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     weighted = loss if loss_weight is None else loss * loss_weight
     total = weighted + cfg.router_aux_weight * aux
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": count}
+
+
+def _lane_hooks(layer_constrain, n):
+    """Each lane's hook: ``layer_constrain`` itself when it is a list, else
+    the one hook (the identity by default) for every lane."""
+    return layer_constrain if isinstance(layer_constrain, list) else [layer_constrain] * n
+
+
+def _lane_inputs(lanes, tokens, tp):
+    """Each lane's embedding of its (b, S) tokens, and the positions."""
+    xs = [_lookup(lane, t, tp) for lane, t in zip(lanes, tokens)]
+    b, S = xs[0].shape[:2]
+    return xs, torch.arange(S, dtype=torch.int32, device=xs[0].device)[None].expand(b, S)
+
+
+def _loss_fn_ep(lanes, batch, cfg, pcfg, loss_weight, layer_constrain, tp, ep):
+    """``loss_fn`` of the lanes of an EP group: each lane's embedding, then
+    every block with the lanes together (``apply_attn_blocks_ep``, under
+    ``_maybe_remat``), then each lane's head and loss."""
+    _require_ep(cfg, ep)
+    R = len(lanes)
+    lcs = _lane_hooks(layer_constrain, R)
+    xs, positions = _lane_inputs(lanes, batch["tokens"], tp)
+
+    def blocks(hs, bps):
+        out = apply_attn_blocks_ep([lc(bp) for lc, bp in zip(lcs, bps)], cfg, pcfg, hs,
+                                   positions=positions, mode="train", tp=tp, ep=ep)
+        return out[0], out[2]
+    blocks = _maybe_remat(blocks, pcfg)
+    aux = torch.zeros(R, dtype=torch.float32, device=xs[0].device)
+    for l in range(len(lanes[0]["blocks"])):
+        xs, a = blocks(xs, [lane["blocks"][l] for lane in lanes])
+        aux = aux + a
+    total, losses, counts = 0.0, [], []
+    for r, lane in enumerate(lanes):
+        x = rms_norm(xs[r], lane["final_norm"], cfg.norm_eps)
+        logits = _logits(lane, cfg, x, tp)
+        labels = batch["labels"][r]
+        if tp is None:
+            loss, count = softmax_cross_entropy(logits, labels, cfg.vocab_size)
+        else:
+            loss, count = tp.cross_entropy(logits, labels, cfg.vocab_size)
+        weighted = loss if loss_weight is None else loss * loss_weight[r]
+        total = total + weighted + cfg.router_aux_weight * aux[r]
+        losses.append(loss.detach())
+        counts.append(count)
+    return total, {"loss": torch.stack(losses), "aux_loss": aux.detach(),
+                   "tokens": torch.stack(counts)}
 
 
 # --------------------------------------------------------------------------
@@ -403,15 +472,19 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
-            cache_len: int, enc_fn=None, layer_constrain=_identity, tp=None
+            cache_len: int, enc_fn=None, layer_constrain=_identity, tp=None, ep=None
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt (after the patches, for a vlm batch with
     ``patch_embeds``; against the encoded ``frames`` for audio, through
     ``enc_fn``); return (last-token logits (B, V), DecodeState).  The state's
     ``index`` counts the patches too.  With ``tp`` the logits are the rows
-    form (R, B, V / tp) and the caches hold the rows form's KV heads."""
+    form (R, B, V / tp) and the caches hold the rows form's KV heads.  With
+    ``ep`` the lanes of an EP group (see the module docstring)."""
     _require_ported(cfg)
     _require_tp(cfg, tp)
+    if ep is not None:
+        return _serve_ep(params, batch["tokens"], None, cfg, pcfg, layer_constrain, tp, ep,
+                         cache_len=cache_len)
     x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
     B, S = x.shape[:2]
@@ -437,13 +510,16 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
 
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
-                pcfg: Optional[ParallelConfig], layer_constrain=_identity, tp=None
-                ) -> Tuple[torch.Tensor, DecodeState]:
+                pcfg: Optional[ParallelConfig], layer_constrain=_identity, tp=None,
+                ep=None) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B, 1) integer → logits (B, V) (with ``tp``
     the rows form (R, B, V / tp)).  Every row sits at position
-    ``state.index``."""
+    ``state.index``.  With ``ep`` the lanes of an EP group (see the module
+    docstring)."""
     _require_ported(cfg)
     _require_tp(cfg, tp)
+    if ep is not None:
+        return _serve_ep(params, tokens, state, cfg, pcfg, layer_constrain, tp, ep)
     x = _lookup(params, tokens, tp)
     B = x.shape[0]
     positions = torch.full((B, 1), state.index, dtype=torch.int32,
@@ -463,3 +539,37 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x, tp)
     return logits[..., 0, :], state._replace(index=state.index + 1)
+
+
+def _serve_ep(lanes, tokens, state, cfg, pcfg, layer_constrain, tp, ep, cache_len=None):
+    """``prefill`` (``state`` None) or ``decode_step`` of the lanes of an EP
+    group: tokens (lanes, b, S); each lane reads and writes its rows of the
+    decode state (lane r rows r·b ...), the blocks run with the lanes
+    together.  Returns (logits (lanes, ...), state)."""
+    _require_ep(cfg, ep)
+    R = len(lanes)
+    lcs = _lane_hooks(layer_constrain, R)
+    xs, positions = _lane_inputs(lanes, tokens, tp)
+    b, S = xs[0].shape[:2]
+    decode = state is not None
+    if decode:
+        positions = torch.full((b, 1), state.index, dtype=torch.int32, device=xs[0].device)
+    else:
+        kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else None
+        state = _state_buffers(cfg, R * b, cache_len, xs[0].dtype, xs[0].device,
+                               kv_heads)._replace(index=S)
+    for l in range(len(lanes[0]["blocks"])):
+        caches = ([KVCache(state.kv.k[l].narrow(0, r * b, b), state.kv.v[l].narrow(0, r * b, b))
+                   for r in range(R)] if decode else None)
+        xs, new, _ = apply_attn_blocks_ep(
+            [lc(lane["blocks"][l]) for lc, lane in zip(lcs, lanes)], cfg, pcfg, xs,
+            positions=positions, mode="decode" if decode else "prefill", caches=caches,
+            cache_index=state.index if decode else None, cache_len=cache_len, tp=tp, ep=ep)
+        if not decode:
+            for r, kv in enumerate(new):
+                state.kv.k[l, r * b:(r + 1) * b].copy_(kv.k)
+                state.kv.v[l, r * b:(r + 1) * b].copy_(kv.v)
+    logits = torch.stack([
+        _logits(lane, cfg, rms_norm(x[:, -1:], lane["final_norm"], cfg.norm_eps), tp)[..., 0, :]
+        for lane, x in zip(lanes, xs)])
+    return logits, state._replace(index=state.index + 1) if decode else state

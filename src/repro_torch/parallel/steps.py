@@ -40,7 +40,7 @@ over the whole row, also where a rank holds a piece of it.
 over the same placements: each rank prefills or steps its rows of the batch.
 
 Tensor parallelism: a TP axis (``pcfg.tp_axis``, ``model``) of more than one
-rank runs Megatron's split (``parallel.tp``) for the dense, vlm and audio
+rank runs Megatron's split (``parallel.tp``) for the dense, moe, vlm and audio
 families.  Every sharding then holds the parameters in the rows form of
 ``spec`` (which puts ``vocab`` / ``qkv`` / ``kv`` / ``mlp`` on the axis; the
 data axes too under fsdp), the optimizer state in that of ``opt_spec``.  A
@@ -54,16 +54,37 @@ norms, ``mm_proj``, ``q_norm`` / ``k_norm``) is synced once.  The serving
 setups keep each rank's KV heads in the decode state's rows form
 (``kv_cache_spec``) and gather the logits whole.  The residual is not
 sequence-sharded (``seq_shard`` is a placement in the JAX package, not a
-different result).
+different result).  A MoE block's router runs once on a TP group's whole
+input (``models.moe.moe_ffn(tp=)``).
+
+Expert parallelism (``pcfg.moe_ep_axis``, the ``Ruleset``'s ``ep_axis``, a
+data axis): the expert leaves are held over it (``spec`` ``('data', None,
+'model')``: each rank its E / n experts, under TP their ``mlp`` block), and
+the ranks of the axis, the lanes of an EP group, run together through the
+model (``loss_fn`` / ``prefill`` / ``decode_step`` with ``ep=``, a
+``parallel.tp.EPContext``): each lane's attention on its own sequences, then
+every MoE block's all-to-all over the lanes (``models.moe.moe_ffn_lanes``).
+As in the JAX setups each lane routes one group a sequence, so the result is
+``moe_ffn``'s of the whole batch.  Each leaf the lanes share reaches every
+lane through its own copy (``_GatherForGrad``, whose backward hands the
+lane's gradient to a sink and sums nothing), so it keeps a per-lane gradient
+for ``build_sync`` / ``build_shard_sync`` to average as before.  An expert
+leaf's gradient already sums every lane's tokens (the all-to-all's
+backward): it is divided by the lanes and reduced over the remaining data
+axis (``pod``) only.  The EP axis must be the sync's inner axis and the
+batch's last axis.
 
 What the setups cannot run yet they refuse with a ``ValueError``: tensor
-parallelism for the moe, ssm and hybrid families or with heads that do not
-divide the TP degree, expert parallelism inside the setups, and a serving
-batch that no data axis divides wait for ROADMAP.md M9b2b (as does a
-``Trainer(mesh=)`` over a setup); compressed sync would be a different
-result.
+parallelism for the ssm and hybrid families or with heads that do not
+divide the TP degree, and a serving batch that no data axis divides wait
+for ROADMAP.md (SSM / hybrid TP, padded heads, the flash-decoding layout;
+as does a ``Trainer(mesh=)`` over a setup); compressed sync would be a
+different result; zero1 with ``moe_ep_axis`` set is refused as the JAX
+setup refuses it (``opt_spec`` puts the data axis on the experts' ``embed``
+dim beside their ``expert`` dim, a ``DuplicateSpecError`` there).
 
-``moe_ep_ffn_fn`` binds the expert-parallel FFN to a ``Ruleset``.
+``moe_ep_ffn_fn`` binds the expert-parallel FFN to a ``Ruleset`` (on its own,
+one group a rank: ``models.moe.moe_ffn_ep``).
 """
 
 from __future__ import annotations
@@ -84,7 +105,7 @@ from ..models.modules import tree_flatten, tree_map, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, init_adam
 from .collectives import build_shard_sync, build_sync
 from .sharding import Ruleset, _names, _spec, all_blocks, shard_leaf, unshard_leaf
-from .tp import TPContext
+from .tp import EPContext, TPContext
 
 
 class TrainState(NamedTuple):
@@ -351,7 +372,8 @@ def _spec_axes(spec) -> list:
     return [a for e in spec for a in _names(e)]
 
 
-def _tp_gather_fn(mesh, tp: str, sink=None):
+def _tp_gather_fn(mesh, tp: Optional[str], sink=None, lane: Optional[int] = None,
+                  joint=frozenset()):
     """``gather(rows, spec)`` under tensor parallelism over ``tp``: a leaf in
     the rows form of ``spec`` → what the ranks of a TP group compute with:
     the rows form over ``tp`` alone (gathered over the spec's data axes, on a
@@ -359,20 +381,32 @@ def _tp_gather_fn(mesh, tp: str, sink=None):
     ``tp``, the whole tensor.  With ``sink`` a gather over data axes under
     autograd goes through ``_GatherForGrad`` on either mesh, its gradient (the
     rows form over ``tp``) to the sink; a leaf the spec places over ``tp``
-    alone takes its gradient in ``.grad``."""
+    alone takes its gradient in ``.grad``.
+
+    For lane ``lane`` of an expert-parallel group (``tp`` may then be None)
+    an expert leaf (its id in ``joint``) comes as it is, the rows form every
+    lane of the group computes with (its gradient in ``.grad``); every other
+    leaf reaches the lane through ``_GatherForGrad``, also where nothing is
+    gathered, its gradient the lane's own in ``sink[(id, lane)]``."""
     def over_data(rows, spec):
         dspec, mspec = _split_spec(spec, tp)
+        if not _spec_axes(dspec):
+            return rows
         if isinstance(mesh, DistMesh):
             return unshard_leaf(rows, dspec, mesh).unsqueeze(0)
         return shard_leaf(unshard_leaf(rows, spec, mesh), mspec, mesh)
 
     def gather(rows, spec):
-        if any(a != tp for a in _spec_axes(spec)):
+        if id(rows) in joint:
+            return rows
+        axes = _spec_axes(spec)
+        if lane is not None or any(a != tp for a in axes):
             if sink is not None and rows.requires_grad and torch.is_grad_enabled():
-                rows = _GatherForGrad.apply(rows, lambda r: over_data(r, spec), sink, id(rows))
+                key = id(rows) if lane is None else (id(rows), lane)
+                rows = _GatherForGrad.apply(rows, lambda r: over_data(r, spec), sink, key)
             else:
                 rows = over_data(rows, spec)
-        return rows if tp in _spec_axes(spec) else rows[0]
+        return rows if tp in axes else rows[0]
     return gather
 
 
@@ -389,20 +423,37 @@ def make_layer_gather(ruleset: Ruleset, axes_blocks, gather=None):
     return lambda bp: _gather_tree(bp, specs, gather)
 
 
-def _place_fn(cfg: ModelConfig, pcfg: ParallelConfig, ruleset: Ruleset, spec_tree, tp=None):
-    """``place(params, sink=None) -> (tree, layer_constrain, enc_fn)``: what
-    ``loss_fn`` / ``prefill`` / ``decode_step`` take.  Under FSDP the leaves
-    outside the blocks are gathered once, and each block (the encoder's too)
-    by the hook when it runs; otherwise the parameters are whole.  Under
-    tensor parallelism (``tp`` a ``TPContext``), every sharding: the same
-    hooks with ``_tp_gather_fn``, the ranks' model blocks."""
-    if pcfg.param_sharding != "fsdp" and tp is None:
-        return lambda params, sink=None: (params, tfm._identity, _enc_fn(cfg, pcfg))
+def _expert_leaves(cfg: ModelConfig):
+    """For every parameter leaf in ``tree_flatten``'s order, whether it is an
+    expert leaf (``expert`` among its logical axes)."""
+    return ["expert" in a for a in _flat_specs(tfm.param_axes(cfg, stacked=False))]
+
+
+def _place_fn(cfg: ModelConfig, pcfg: ParallelConfig, ruleset: Ruleset, spec_tree, tp=None,
+              ep=None):
+    """``place(params, sink=None, lane=0) -> (tree, layer_constrain,
+    enc_fn)``: what ``loss_fn`` / ``prefill`` / ``decode_step`` take.  Under
+    FSDP the leaves outside the blocks are gathered once, and each block (the
+    encoder's too) by the hook when it runs; otherwise the parameters are
+    whole.  Under tensor parallelism (``tp`` a ``TPContext``) or expert
+    parallelism (``ep`` an ``EPContext``), every sharding: the same hooks
+    with ``_tp_gather_fn``, the ranks' model blocks (under EP lane
+    ``lane``'s copies, the expert leaves as they are)."""
+    if pcfg.param_sharding != "fsdp" and tp is None and ep is None:
+        return lambda params, sink=None, lane=0: (params, tfm._identity, _enc_fn(cfg, pcfg))
     axes = tfm.param_axes(cfg)
     mesh = ruleset.mesh
 
-    def place(params, sink=None):
-        gather = _gather_fn(mesh, sink) if tp is None else _tp_gather_fn(mesh, tp.axis, sink)
+    is_expert = _expert_leaves(cfg)
+
+    def place(params, sink=None, lane=0):
+        if tp is None and ep is None:
+            gather = _gather_fn(mesh, sink)
+        elif ep is None:
+            gather = _tp_gather_fn(mesh, tp.axis, sink)
+        else:
+            joint = frozenset(id(t) for t, e in zip(tree_flatten(params)[0], is_expert) if e)
+            gather = _tp_gather_fn(mesh, tp and tp.axis, sink, lane, joint)
         tree = _gather_outside(params, spec_tree, gather)
         lc = make_layer_gather(ruleset, axes["blocks"], gather)
         enc_lc = (make_layer_gather(ruleset, axes["encoder"]["blocks"], gather)
@@ -508,7 +559,7 @@ def _row_max_fn(spec, ndim: int, mesh):
 
 SETUP_SHARDINGS = ("replicated", "zero1", "fsdp")
 SETUP_SYNCS = ("flat", "hierarchical")
-TP_FAMILIES = ("dense", "vlm", "audio")
+TP_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _tp_axis(ruleset: Ruleset) -> Optional[str]:
@@ -520,6 +571,30 @@ def _tp_axis(ruleset: Ruleset) -> Optional[str]:
 def _tp_context(ruleset: Ruleset) -> Optional[TPContext]:
     tp = _tp_axis(ruleset)
     return TPContext(ruleset.mesh, tp) if tp else None
+
+
+def _ep_context(ruleset: Ruleset, b_axes, what: str) -> Optional[EPContext]:
+    """The ruleset's expert parallelism as an ``EPContext``, or None; a
+    ``ValueError`` where the EP axis is not the batch's last axis (the lanes
+    of a group are then consecutive batch rows) and the sync's inner axis."""
+    ep = ruleset.ep_axis
+    if not ep:
+        return None
+    dp = ruleset.dp
+    if ep not in dp or not b_axes or b_axes[-1] != ep or dp[-1] != ep:
+        raise ValueError(f"{what}: moe_ep_axis={ep!r}: the setups run expert parallelism "
+                         f"over the inner data axis that the batch splits over last; the "
+                         f"data axes are {dp}, the batch's {b_axes}")
+    return EPContext(ruleset.mesh, ep)
+
+
+def _ep_groups(mesh, n_rows: int, ep: EPContext):
+    """The batch rows of each EP group, in order (lane r of group g is row
+    g·n + r): every group on a ``StackedMesh``, this rank's row on a
+    ``DistMesh``."""
+    if isinstance(mesh, DistMesh):
+        return [[0]]
+    return [list(range(g * ep.size, (g + 1) * ep.size)) for g in range(n_rows // ep.size)]
 
 
 def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
@@ -539,18 +614,13 @@ def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
     if tp and cfg.family not in TP_FAMILIES:
         raise ValueError(
             f"{what}: tensor parallelism over {tp!r} ({mesh.shape[tp]} ranks) for the "
-            f"{cfg.family} family ({cfg.name}) waits for ROADMAP.md M9b2b (the setups run it "
-            f"for {TP_FAMILIES})")
+            f"{cfg.family} family ({cfg.name}) waits for ROADMAP.md M9b2b (SSM / hybrid TP; "
+            f"the setups run it for {TP_FAMILIES})")
     if tp and (cfg.n_heads % mesh.shape[tp] or cfg.n_kv_heads % mesh.shape[tp]):
         raise ValueError(
             f"{what}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do not divide over "
             f"{mesh.shape[tp]} ranks of {tp!r}; padding the heads (query) and replicating "
             "them (KV) under tensor parallelism waits for ROADMAP.md M9b2b")
-    if ruleset.ep_axis:
-        raise ValueError(
-            f"{what}: moe_ep_axis={pcfg.moe_ep_axis!r}; placing the experts over a data "
-            "axis inside the setups waits for ROADMAP.md M9b2b (moe_ep_ffn_fn runs "
-            "expert parallelism on its own)")
     if not ruleset.dp:
         raise ValueError(f"{what}: the mesh {mesh.axis_names} has no data axis")
 
@@ -603,20 +673,28 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     sync_axes = tuple(a for a in (outer, inner) if a)
     fsdp = pcfg.param_sharding == "fsdp"
     zero1 = pcfg.param_sharding == "zero1"
+    if zero1 and ruleset.ep_axis:
+        raise ValueError(
+            f"make_train_setup: zero1 with moe_ep_axis={ruleset.ep_axis!r}: opt_spec puts the "
+            f"data axis {ruleset.dp[-1]!r} on the experts' embed dim beside their expert dim, "
+            f"{ruleset.opt_spec(('expert', 'embed', 'mlp'))}, a duplicated axis (the JAX "
+            "setup raises DuplicateSpecError there); use replicated or fsdp")
     tp = _tp_context(ruleset)
+    b_axes = ruleset.batch_axes(shape.global_batch) or ()
+    n_rows = mesh.size(b_axes)              # distinct shards of the batch
+    ep = _ep_context(ruleset, b_axes, "make_train_setup")
+    held = fsdp or tp or ep                 # every leaf in the rows form of its spec
     specs = _flat_specs(param_shardings)
     opt_specs = _flat_specs(tree_map(ruleset.opt_spec, axes))
-    if zero1 or fsdp or tp:
+    if zero1 or held:
         _check_divides(param_shapes, opt_specs, mesh, "make_train_setup")
     sync = (build_shard_sync if fsdp else build_sync)(
         mesh, pcfg.grad_sync, inner_axis=inner, outer_axis=outer)
-    place = _place_fn(cfg, pcfg, ruleset, param_shardings, tp)
-    b_axes = ruleset.batch_axes(shape.global_batch) or ()
-    n_rows = mesh.size(b_axes)              # distinct shards of the batch
+    place = _place_fn(cfg, pcfg, ruleset, param_shardings, tp, ep)
     opt_shardings = opt_state_shardings(ruleset, axes, ocfg)
     shapes = tree_flatten(param_shapes)[0]
     row_max = ([_row_max_fn(s, t.dim(), mesh) for s, t in zip(opt_specs, shapes)]
-               if ocfg.moments_dtype == "int8" and (zero1 or fsdp or tp) else None)
+               if ocfg.moments_dtype == "int8" and (zero1 or held) else None)
 
     # the batch row of each sync replica (row-major over the sync axes);
     # ranks along a data axis the batch does not divide over share a row
@@ -625,23 +703,36 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         for a in b_axes:
             row = row * mesh.shape[a] + coords[sync_axes.index(a)]
         return row
-    replica_rows = [batch_row(c) for c in
-                    itertools.product(*(range(mesh.shape[a]) for a in sync_axes))]
+    replica_coords = list(itertools.product(*(range(mesh.shape[a]) for a in sync_axes)))
+    replica_rows = [batch_row(c) for c in replica_coords]
+    if ep:
+        # an expert leaf's gradient is one EP group's (its lanes' tokens
+        # summed), synced over the outer axis alone: the group of each of its
+        # replicas, and its mean over them divided by the lanes
+        is_expert = _expert_leaves(cfg)
+        rest_group = {(c[0] if outer else 0): r // ep.size
+                      for c, r in zip(replica_coords, replica_rows)}
+        expert_sync = build_sync(mesh, "flat", inner_axis=outer) if outer else None
+
+        def sync_expert(g):
+            g = expert_sync(g) if expert_sync else g[0]
+            return (g / ep.size).to(g.dtype)
 
     def init_state(params) -> TrainState:
         """The state for ``params`` (the whole tree): replicated, the tree
         and ``init_adam`` of it; zero1, ``init_adam`` of each leaf's
-        ``opt_spec`` rows; fsdp, and every sharding under TP, each leaf's
-        ``spec`` rows (a copy: on a ``DistMesh`` this rank's block alone) and
-        ``init_adam`` of them (of the ``opt_spec`` rows under zero1)."""
-        if not (zero1 or fsdp or tp):
+        ``opt_spec`` rows; fsdp, and every sharding under TP or EP, each
+        leaf's ``spec`` rows (a copy: on a ``DistMesh`` this rank's block
+        alone) and ``init_adam`` of them (of the ``opt_spec`` rows under
+        zero1)."""
+        if not (zero1 or held):
             return TrainState(params, init_adam(params, ocfg))
         leaves, spec = tree_flatten(params)
         rows = tree_unflatten(spec, [shard_leaf(p, s, mesh) for p, s in zip(leaves, opt_specs)])
-        if fsdp or tp:
-            held = tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
+        if held:
+            kept = tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
                                          for p, s in zip(leaves, specs)])
-            return TrainState(held, init_adam(rows if zero1 else held, ocfg))
+            return TrainState(kept, init_adam(rows if zero1 else kept, ocfg))
         return TrainState(params, init_adam(rows, ocfg))
 
     def rank_grads(params, batch, weight):
@@ -666,6 +757,24 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
             return [p.grad for p in live], m
         return [all_blocks(sink.pop(id(p)), s, mesh) for p, s in zip(live, specs)], m
 
+    def lane_grads(params, batch, weights):
+        """The lanes of one EP group together: of each leaf the lanes share,
+        every lane's own gradient (lanes, the rows form over the TP axis); of
+        each expert leaf, the gradient of its rows (every lane's tokens);
+        the metrics (lanes,)."""
+        leaves, spec = tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        sink = {}
+        tree = tree_unflatten(spec, live)
+        lanes = [place(tree, sink, r) for r in range(ep.rows)]
+        batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
+        total, m = tfm.loss_fn([t for t, _, _ in lanes], batch, cfg, pcfg, loss_weight=weights,
+                               layer_constrain=[lc for _, lc, _ in lanes], tp=tp, ep=ep)
+        total.backward()
+        del tree, lanes, total
+        return [p.grad if e else torch.stack([sink.pop((id(p), r)) for r in range(ep.rows)])
+                for p, e in zip(live, is_expert)], m
+
     def grad_fn(state: TrainState, batch) -> Tuple[Any, Dict[str, torch.Tensor]]:
         leaves, spec = tree_flatten(state.params)
         batch = batch_to_device(batch, leaves[0].device, leaves[0].dtype)
@@ -677,7 +786,30 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         # mean of the ranks' gradients is the gradient of the global mean
         weights = counts * n_rows / denom
         stacked, part = None, []
-        if isinstance(mesh, DistMesh):
+        for g_i, lanes in enumerate(_ep_groups(mesh, n_rows, ep) if ep else []):
+            g_leaves, m = lane_grads(state.params, {k: v[lanes] for k, v in placed.items()},
+                                     weights[lanes])
+            if isinstance(mesh, DistMesh):
+                stacked = [t.unsqueeze(0) if e else t for t, e in zip(g_leaves, is_expert)]
+            else:
+                if stacked is None:     # an expert leaf's by replica of the outer axis
+                    stacked = [t.new_empty((len(rest_group),) + tuple(t.shape)) if e else
+                               t.new_empty((len(replica_rows),) + tuple(t.shape[1:]))
+                               for t, e in zip(g_leaves, is_expert)]
+                for buf, t, e in zip(stacked, g_leaves, is_expert):
+                    if e:
+                        for q in (q for q, g in rest_group.items() if g == g_i):
+                            buf[q].copy_(t)
+                        continue
+                    for i, r in enumerate(replica_rows):
+                        if r in lanes:
+                            buf[i].copy_(t[lanes.index(r)])
+            del g_leaves
+            for lane, j in enumerate(lanes):
+                part.append(torch.stack([m["loss"][lane] * counts[j], m["aux_loss"][lane]]))
+        if ep:
+            rows = []
+        elif isinstance(mesh, DistMesh):
             rows = [(0, [0])]
         else:
             rows = [(j, [i for i, r in enumerate(replica_rows) if r == j])
@@ -696,15 +828,18 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                         buf[i].copy_(t)
             del g_leaves
             part.append(torch.stack([m["loss"] * counts[j], m["aux_loss"]]))
-        if fsdp:
-            out = []
-            for s in specs:                  # each leaf's buffer freed once reduced
-                g = stacked.pop(0)
-                out.append(_tp_shard_sync(sync, g, s, mesh, tp.axis) if tp else sync(g, s))
-            synced = tree_unflatten(spec, out)
-        else:
-            synced = sync(tree_unflatten(spec, stacked))
-        del stacked
+        out = []
+        for i, s in enumerate(specs):         # each leaf's buffer freed once reduced
+            g, stacked[i] = stacked[i], None
+            if ep and is_expert[i]:
+                out.append(sync_expert(g))
+            elif fsdp:
+                out.append(_tp_shard_sync(sync, g, s, mesh, tp and tp.axis)
+                           if tp or ep else sync(g, s))
+            else:
+                out.append(sync(g))
+        del stacked, g
+        synced = tree_unflatten(spec, out)
         # every batch row's (loss x count, aux), row-major over the batch axes
         vals = unshard_leaf(torch.stack(part)[:, None], (b_axes,), mesh)
         metrics = {"loss": vals[:, 0].sum() / denom, "aux_loss": vals[:, 1].mean(),
@@ -714,7 +849,7 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def update_fn(state: TrainState, grads) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         g_leaves = tree_flatten(grads)[0]
         # the clip factor from the norm of the whole synced gradient
-        gnorm = _grad_norm(g_leaves, specs if fsdp or tp else None, mesh)
+        gnorm = _grad_norm(g_leaves, specs if held else None, mesh)
         if not zero1:
             params, opt, om = adam_update(state.params, grads, state.opt, ocfg, gnorm=gnorm,
                                           row_max=row_max)
@@ -756,7 +891,7 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def _serve_setup(cfg, shape, mesh, pcfg, what: str):
     """What the prefill and decode setups share: (pcfg with remat "none",
-    ruleset, shapes, specs, batch axes, place, init_state)."""
+    ruleset, shapes, specs, batch axes, place, init_state, tp, ep)."""
     pcfg = (pcfg or ParallelConfig()).replace(remat="none")
     ruleset, param_shapes, axes, param_shardings = _param_setup(cfg, pcfg, mesh)
     _check_mesh(mesh, pcfg, ruleset, what)
@@ -767,22 +902,23 @@ def _serve_setup(cfg, shape, mesh, pcfg, what: str):
             f"{what}: a batch of {shape.global_batch} that no data axis of {dict(mesh.shape)} "
             "divides; the JAX setup spreads the cache's sequence over every axis there "
             "(kv_cache_spec's flash-decoding layout), which waits for ROADMAP.md M9b2b")
+    ep = _ep_context(ruleset, b_axes, what)
     specs = _flat_specs(param_shardings)
-    fsdp = pcfg.param_sharding == "fsdp"
-    if fsdp or tp:
+    held = pcfg.param_sharding == "fsdp" or tp or ep
+    if held:
         _check_divides(param_shapes, specs, mesh, what)
 
     def init_state(params):
         """The parameters placed for ``step_fn``: under fsdp, and every
-        sharding under TP, each leaf's ``spec`` rows (a copy), otherwise
-        ``params`` themselves."""
-        if not (fsdp or tp):
+        sharding under TP or EP, each leaf's ``spec`` rows (a copy),
+        otherwise ``params`` themselves."""
+        if not held:
             return params
         leaves, spec = tree_flatten(params)
         return tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
                                      for p, s in zip(leaves, specs)])
     return (pcfg, ruleset, param_shapes, param_shardings, b_axes,
-            _place_fn(cfg, pcfg, ruleset, param_shardings, tp), init_state, tp)
+            _place_fn(cfg, pcfg, ruleset, param_shardings, tp, ep), init_state, tp, ep)
 
 
 def _batch_rows(mesh, b_axes):
@@ -818,9 +954,10 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     order on a ``StackedMesh``, this rank's rows on a ``DistMesh``
     (``state_shardings``; under TP the KV heads likewise: every head on a
     ``StackedMesh``, this rank's on a ``DistMesh``).  Remat "none", as in
-    the JAX setup."""
+    the JAX setup.  Under EP the lanes of each EP group prefill together
+    (``tfm.prefill(ep=)``)."""
     what = "make_prefill_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     cache_len = shape.seq_len
 
@@ -831,11 +968,18 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         batch = batch_to_device(batch, leaf.device, leaf.dtype)
         placed = {k: shard_leaf(v, (b_axes,), mesh) for k, v in batch.items()}
         logits, states = [], []
-        for j in _batch_rows(mesh, b_axes):
-            lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
-                                 cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp)
-            logits.append(lg if tp is None else tp.gather_logits(lg))
-            states.append(st)
+        if ep:                  # the lanes of each EP group together
+            for rows in _ep_groups(mesh, mesh.size(b_axes), ep):
+                lg, st = tfm.prefill([tree] * ep.rows, {k: v[rows] for k, v in placed.items()},
+                                     cfg, pcfg, cache_len, layer_constrain=lc, tp=tp, ep=ep)
+                logits += [x if tp is None else tp.gather_logits(x) for x in lg]
+                states.append(st)
+        else:
+            for j in _batch_rows(mesh, b_axes):
+                lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
+                                     cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp)
+                logits.append(lg if tp is None else tp.gather_logits(lg))
+                states.append(st)
         return unshard_leaf(torch.stack(logits), (b_axes,), mesh), _cat_rows(states)
 
     return CellSetup(cfg=cfg, pcfg=pcfg, shape=shape, mesh=mesh, ruleset=ruleset,
@@ -853,9 +997,10 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     (B, V), state)``, tokens (B, 1) whole, the state in the rows form that
     ``make_prefill_setup`` returns.  Each rank steps its rows, writing its
     part of the state in place (``decode_step``); the logits come back whole,
-    in the batch's order."""
+    in the batch's order.  Under EP the lanes of each EP group step
+    together."""
     what = "make_decode_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     B = shape.global_batch
     cdt = DTYPES[pcfg.compute_dtype]
@@ -868,10 +1013,18 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         placed = shard_leaf(tokens, (b_axes,), mesh)
         b = placed.shape[1]
         logits = []
-        for j in _batch_rows(mesh, b_axes):
-            sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
-            lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc, tp=tp)[0]
-            logits.append(lg if tp is None else tp.gather_logits(lg))
+        if ep:                  # the lanes of each EP group together
+            for g, rows in enumerate(_ep_groups(mesh, mesh.size(b_axes), ep)):
+                sub = state if isinstance(mesh, DistMesh) else _row_view(state, g, ep.rows * b)
+                lg = tfm.decode_step([tree] * ep.rows, placed[rows], sub, cfg, pcfg,
+                                     layer_constrain=lc, tp=tp, ep=ep)[0]
+                logits += [x if tp is None else tp.gather_logits(x) for x in lg]
+        else:
+            for j in _batch_rows(mesh, b_axes):
+                sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
+                lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc,
+                                     tp=tp)[0]
+                logits.append(lg if tp is None else tp.gather_logits(lg))
         return (unshard_leaf(torch.stack(logits), (b_axes,), mesh),
                 state._replace(index=state.index + 1))
 

@@ -35,7 +35,14 @@ one: not bit-equal to it.
 
 ``TPContext`` binds the operators to a mesh and an axis; the model functions
 (``models.layers``, ``models.transformer``, ``models.whisper``) take one as
-``tp=`` and run each rank's heads, MLP columns and vocab block in turn.
+``tp=`` and run each rank's heads, MLP columns, experts (or their ``mlp``
+blocks) and vocab block in turn.
+
+``EPContext`` binds expert parallelism inside the setups to a mesh and its
+EP axis (a data axis): ``models.transformer``'s functions take one as
+``ep=`` and run the lanes of an EP group (the ranks of the axis, each with
+its own sequences) together through every MoE block
+(``models.moe.moe_ffn_lanes``, whose all-to-all is ``launch.mesh``'s).
 """
 
 from __future__ import annotations
@@ -275,3 +282,21 @@ class TPContext:
 
     def gather_logits(self, rows: torch.Tensor) -> torch.Tensor:
         return gather_logits(rows, self.mesh, self.axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    """Expert parallelism over the data axis ``axis`` of ``mesh`` inside the
+    setups: what the model functions take as ``ep=``.  ``rows`` is the
+    number of lanes a call runs (the axis's size on a ``StackedMesh``, 1 on
+    a ``DistMesh``)."""
+    mesh: Any
+    axis: str
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def rows(self) -> int:
+        return self.mesh.rows((self.axis,))

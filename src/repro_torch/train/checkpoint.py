@@ -31,8 +31,8 @@ Differences, and why:
     places new arrays onto the target's shardings.
   * Leaves are taken in ``models.modules.tree_flatten`` order; there is no
     mesh to re-shard onto (checkpoints of a setup's sharded state, zero1's
-    or FSDP's rows or a TP rank's model blocks, wait for ``Trainer(mesh=)``,
-    ROADMAP.md M9b2b).
+    or FSDP's rows or a TP rank's model blocks or an EP rank's experts, wait
+    for ``Trainer(mesh=)``, ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

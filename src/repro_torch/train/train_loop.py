@@ -15,10 +15,10 @@ contract:
 
 Differences from the JAX package: one device, no mesh (``device`` takes the
 place of the ``mesh`` argument; a data-parallel step over a mesh, replicated,
-ZeRO-1 or FSDP, with tensor parallelism over ``model`` for the attention
-families, is ``parallel.steps.make_train_setup``, and a
-``Trainer(mesh=)`` that drives it, with checkpoints of sharded state, waits
-for ROADMAP.md M9b2b),
+ZeRO-1 or FSDP, with tensor parallelism over ``model`` for the attention and
+MoE families and expert parallelism over a data axis for the MoE family, is
+``parallel.steps.make_train_setup``, and a ``Trainer(mesh=)`` that drives
+it, with checkpoints of sharded state, waits: ROADMAP.md, Queue 1),
 and a step's time
 is read after ``torch.cuda.synchronize`` (before the clock is started and
 after the step), since PyTorch returns before the card has finished.

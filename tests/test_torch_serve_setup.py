@@ -27,9 +27,9 @@ References:
       (``example_args`` / ``state_shapes``, on the meta device here), the
       parameter count, and ``state_shardings`` spec for spec.
 
-And each refusal: a batch that no data axis divides, a MoE or SSM
-configuration under a ``model`` axis of more than one rank, ``moe_ep_axis``
-set.
+And each refusal: a batch that no data axis divides, an SSM configuration
+under a ``model`` axis of more than one rank (a MoE one and ``moe_ep_axis``,
+once refused, now build).
 """
 
 import os
@@ -311,18 +311,22 @@ def test_cell_setup_fields_equal_the_jax_ones(jax_serve, arch):
 @pytest.mark.parametrize("make", [make_prefill_setup, make_decode_setup],
                          ids=["prefill", "decode"])
 def test_the_serving_setups_refuse_what_waits(make):
-    """Its tensor-parallel line is historical: a ``model`` axis of 2 was
-    refused for every family; now it is refused for the MoE and SSM ones
+    """Its tensor-parallel and ``moe_ep_axis`` lines are historical: a
+    ``model`` axis of 2 was refused for every family, then for the MoE and
+    SSM ones, and ``moe_ep_axis`` was refused; now the MoE family builds
+    under both (``tests/test_torch_moe_tp.py`` serves it over them) and a
+    ``model`` axis of 2 is refused for the SSM family alone
     (``tests/test_torch_tp.py`` serves the attention families over it)."""
     cfg = config("llama3.2-1b")
     shape = ShapeConfig("s", "prefill", 32, B)
     data4 = make_mesh((4,), ("data",), device="cpu")
     with pytest.raises(ValueError, match="batch of 3.*flash-decoding.*M9b2b"):
         make(cfg, ShapeConfig("s", "prefill", 32, 3), data4)
-    # tensor parallelism runs for the attention families; a MoE or SSM
+    # tensor parallelism runs for the attention and MoE families; an SSM
     # configuration under a model axis of 2 waits
-    for arch in ("mixtral-8x7b", "mamba2-1.3b"):
-        with pytest.raises(ValueError, match="tensor parallelism.*M9b2b"):
-            make(config(arch), shape, make_mesh((4, 2), ("data", "model"), device="cpu"))
-    with pytest.raises(ValueError, match="moe_ep_axis.*inside the setups.*M9b2b"):
-        make(config("mixtral-8x7b"), shape, data4, ParallelConfig(moe_ep_axis="data"))
+    model2 = make_mesh((4, 2), ("data", "model"), device="cpu")
+    assert make(config("mixtral-8x7b"), shape, model2).ruleset.expert_sharded
+    with pytest.raises(ValueError, match="tensor parallelism.*M9b2b"):
+        make(config("mamba2-1.3b"), shape, model2)
+    setup = make(config("mixtral-8x7b"), shape, data4, ParallelConfig(moe_ep_axis="data"))
+    assert setup.ruleset.ep_axis == "data"
