@@ -22,7 +22,10 @@ trained over data 2 x model 2 and pod 2 x data 2 x model 2, whisper-medium
 trained and served over data 2 x model 2, llama3.2-1b and llava-next-34b
 served over model 4; the MoE family under tensor and expert parallelism:
 mixtral-8x7b trained over data 2 x model 2 and served with its experts over
-data 2, arctic-480b served over model 2)
+data 2, arctic-480b served over model 2; the SSM and hybrid families under
+tensor parallelism: mamba2-1.3b trained over data 2 x model 2 and served at
+full depth, zamba2-2.7b trained over model 4 and served over data 2 x
+model 2)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -60,12 +63,14 @@ Phases:
            (fp32 / bf16, with and without an initial state), strided slices
            of one conv output,
            then mamba2's and zamba2's serving prefill shapes, y and the final
-           state, with timings; ssd_scan_bwd against ssd_scan_bwd_plain: the
+           state, with timings, and the setup phase's shapes at a TP rank's
+           heads (SSD_TP_FWD); ssd_scan_bwd against ssd_scan_bwd_plain: the
            same sweep in fp32 and bf16, with and without an initial state and
            a final-state cotangent, contiguous and as strided slices of one
            conv output, then mamba2's and zamba2's training shapes (B 4,
            S 2048; two calls bit-equal) with timings, the plain backward and
-           autograd through ssd_scan_plain beside them; tree_reduce,
+           autograd through ssd_scan_plain beside them, and at a TP rank's
+           heads (SSD_TP_BWD; zamba2's 20 heads give k = 5); tree_reduce,
            quantize and dequantize bit for bit against their plain
            versions: the reference's sweeps in fp32 and bf16, strided batch
            views, a rounding-tie case, then the sync phase's largest leaf
@@ -190,7 +195,17 @@ Phases:
            model 2 (8 x 512 tokens, 8 steps): as (g)-(k), and the routing
            against the fp32 route's (a token may choose other experts only
            at a near-tie there, counted; logits compared on the rows whose
-           last token's routing agrees), a rank's expert bytes
+           last token's routing agrees), a rank's expert bytes; then, on
+           a line of its own, the SSM and hybrid families under tensor
+           parallelism (each rank projects and convolves its block of the
+           fused columns and channels, two gathers, each rank scans its
+           heads): (p) mamba2-1.3b at 12 of 48 layers trained fsdp over data
+           2 x model 2, two steps; (q) zamba2-2.7b at 12 of 54 layers
+           trained replicated over data 1 x model 4, one step (the SSD
+           backward at 20 heads a rank, k = 5); (r) mamba2-1.3b at full
+           depth and (s) zamba2-2.7b at 12 layers served fsdp over data 2 x
+           model 2 (8 x 2048 tokens, 16 steps): as (g)-(k), every SSD scan
+           and flash call at a rank's heads (asserted)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -273,7 +288,7 @@ PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parall
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
-                 "sync": 300, "train": 600, "parallel": 240, "setup": 300, "profile": 300}
+                 "sync": 300, "train": 600, "parallel": 240, "setup": 480, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -322,6 +337,14 @@ SSD_SWEEP = [(2, S, 4, 16, 8, G) for S in (64, 100, 96) for G in (1, 2)] + [
     # a ragged last chunk (200 = 3 x 64 + 8, 130 = 2 x 64 + 2), two groups
     (2, 200, 4, 64, 128, 1), (2, 130, 4, 32, 64, 2)]
 SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
+# the SSD kernels at a tensor-parallel rank's heads, the shapes the setup
+# phase's SSM cases (p)-(s) launch, S 2048: (arch, batch rows a call, heads a
+# rank).  Forward: mamba2's 32 of 64 at model 2 ((p), (r); 4 rows: B 8 over
+# data 2), zamba2's 40 of 80 at model 2 ((s)) and 20 at model 4 ((q), B 8).
+# Backward: (p) and (q); at 20 heads the bf16 backward takes k = 5 heads a
+# block (``bwd_heads_per_block``).
+SSD_TP_FWD = [("mamba2-1.3b", 4, 32), ("zamba2-2.7b", 4, 40), ("zamba2-2.7b", 8, 20)]
+SSD_TP_BWD = [("mamba2-1.3b", 4, 32), ("zamba2-2.7b", 8, 20)]
 # Kernel and plain version compute from the same inputs, in another order: the
 # fp32 kernel in fp32, the bf16 kernel on the tensor cores with every operand
 # that is not an exact bf16 input (M, w.x, the carried state) split into two
@@ -1131,6 +1154,23 @@ def kernels_ssd(dev):
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
         }
+    tp_rank = {}
+    for arch, B, H in SSD_TP_FWD:
+        cfg = get_config(arch)
+        shape = dict(B=B, S=2048, H=H, hd=cfg.ssm_headdim, N=cfg.ssm_state, G=cfg.ssm_groups)
+        args = make_ssd(24, **shape, dtype=torch.bfloat16, device=dev, served=True, fused=True)
+        y, hT = ssd_scan(*args[:5], return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssd_scan_plain(*args[:5], return_state=True)
+        name = f"ssd_scan {arch} TP rank shape {tuple(shape.values())}"
+        err_y, rel_y = hold(f"{name} y", y, y_ref, **MAIN_TOL, row_limit=MAIN_ROW_REL_TOL)
+        err_h, _ = hold(f"{name} final state", hT, h_ref, **SSD_STATE_TOL,
+                        row_limit=MAIN_ROW_REL_TOL)
+        n_cases += 1
+        tp_rank[f"{arch} B {B} H {H}"] = {
+            "max_abs_err": err_y, "max_row_err_over_row_rms": rel_y, "state_max_abs_err": err_h,
+            "ms": cuda_ms(lambda: ssd_scan(*args[:5], return_state=True), warmup=3, reps=15)}
+        del args, y, hT, y_ref, h_ref
     main = served[SSD_SERVED[0]]
     entry = {
         "name": "ssd_scan_fwd", "route": "cuda",
@@ -1147,7 +1187,7 @@ def kernels_ssd(dev):
     emit({"phase": "kernels", "kernel": "ssd_scan_fwd", "cases": n_cases,
           "sweep_max_abs_err": {str(k): {"y": v[0], "final_state": v[1]}
                                 for k, v in worst.items()},
-          "served": served})
+          "served": served, "tp_rank_shapes": tp_rank})
     return entry
 
 
@@ -1318,6 +1358,30 @@ def kernels_ssd_bwd(dev):
         }
         del y, leaves, got, args, dy
         torch.cuda.empty_cache()
+    tp_rank = {}
+    for arch, B, H in SSD_TP_BWD:
+        cfg = get_config(arch)
+        shape = dict(B=B, S=2048, H=H, hd=cfg.ssm_headdim, N=cfg.ssm_state, G=cfg.ssm_groups)
+        args = make_ssd(25, **shape, dtype=torch.bfloat16, device=dev, served=True, fused=True)
+        dy, _ = ssd_cotangents(26, B, 2048, H, shape["hd"], shape["N"], torch.bfloat16, dev)
+        got = ssd_scan_bwd(*args[:5], dy)
+        again = ssd_scan_bwd(*args[:5], dy)
+        torch.cuda.synchronize()
+        name = f"ssd_scan_bwd {arch} TP rank shape {tuple(shape.values())}"
+        for g_name, a, b in zip(SSD_GRADS, got, again):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name} {g_name}: two calls differ in "
+                                     f"{int((a != b).sum())} elements")
+        del again
+        readings = hold_ssd_grads(name, got, ssd_scan_bwd_plain(*args[:5], dy), torch.bfloat16)
+        err, fro = worst_of(readings)
+        n_cases += 1
+        tp_rank[f"{arch} B {B} H {H}"] = {
+            "max_abs_err": err, "frobenius_rel_err": fro, "two_calls_bit_equal": True,
+            "heads_per_block": bwd_heads_per_block(H, shape["G"]),
+            "ms": cuda_ms(lambda: ssd_scan_bwd(*args[:5], dy), warmup=3, reps=15)}
+        del args, dy, got
+        torch.cuda.empty_cache()
     main = shapes[SSD_SERVED[0]]
     entry = {
         "name": "ssd_scan_bwd", "route": "cuda",
@@ -1339,7 +1403,7 @@ def kernels_ssd_bwd(dev):
           "sweep_worst": {str(k): dict(zip(("max_abs_err_over_max", "frobenius_rel_err"),
                                            worst_of(v)), by_gradient=v)
                           for k, v in worst.items()},
-          "training_shapes": shapes})
+          "training_shapes": shapes, "tp_rank_shapes": tp_rank})
     return entry
 
 
@@ -2255,7 +2319,20 @@ def tp_tree_launches(cfg, kind, remat=True):
     encoder's output, ``q_norm`` / ``k_norm`` per attention with qk-norm, and
     the head's input.  Under expert parallelism each lane of an EP group
     runs these for its own batch row (the lanes' all-to-all is no
-    all-reduce)."""
+    all-reduce).  A Mamba2 block (the ssm and hybrid families) runs two g,
+    its gated norm's sum of squares and its output's, the first again in
+    remat's recompute, and in the backward four: f's of its input and of the
+    norm's mean, and the two gathers' (its in-projection's and its conv
+    output's); the hybrid's shared block counts as an attention block at
+    each of its applications."""
+    if cfg.family in ("ssm", "hybrid"):
+        apps = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+        g_blocks = 2 * cfg.num_layers + 2 * apps
+        if kind != "train":
+            return 1 + g_blocks
+        f = 4 * cfg.num_layers + 2 * apps + (2 * apps if cfg.qk_norm else 0) + 1
+        recompute = cfg.num_layers + apps if remat else 0
+        return 1 + g_blocks + recompute + 1 + f
     enc = cfg.n_enc_layers if cfg.family == "audio" and kind != "decode" else 0
     cross = cfg.num_layers if cfg.family == "audio" else 0
     g_blocks = 2 * enc + 2 * cfg.num_layers + cross
@@ -2952,6 +3029,22 @@ SETUP_MOE_MESH = ((2, 2), ("data", "model"))
 SETUP_MOE_SERVE = [("arctic-480b", 1, 512, 512 + 8, ((1, 2), ("data", "model")), ""),
                    ("mixtral-8x7b", 4, 512, 512 + 8, SETUP_MOE_MESH, "data")]
 SETUP_MOE_TOKENS = 8
+# (p)-(s), the SSM and hybrid families under tensor parallelism over model,
+# at full width, bf16, each against the one-device route on the same weights
+# and batches (B 8 x S 2048), on a line of their own.  (p) mamba2-1.3b at 12
+# of 48 layers trained fsdp over data 2 x model 2, two steps (the SSD kernels
+# at 32 of 64 heads a rank); (q) zamba2-2.7b at 12 of 54 layers (two
+# applications of its shared block) trained one step replicated over data 1
+# x model 4 (the SSD kernels at 20 of 80 heads, the backward's k = 5; flash at
+# 8 / 8 heads of hd 80): (arch, layers, sharding, mesh, steps)
+SETUP_SSM_TRAIN = [("mamba2-1.3b", 12, "fsdp", ((2, 2), ("data", "model")), 2),
+                   ("zamba2-2.7b", 12, "replicated", ((1, 4), ("data", "model")), 1)]
+# (r) mamba2-1.3b at full depth and (s) zamba2-2.7b at 12 layers served fsdp
+# over data 2 x model 2 (SSD at 32 and 40 heads a rank, zamba2's flash at 16 /
+# 16): 8 prompts, then SETUP_SERVE_TOKENS decode steps: (arch, layers, prompt,
+# cache length)
+SETUP_SSM_SERVE = [("mamba2-1.3b", None, 2048, 2048 + SETUP_SERVE_TOKENS),
+                   ("zamba2-2.7b", 12, 2048, 2048 + SETUP_SERVE_TOKENS)]
 
 
 def setup_case_name(sharding, mode, shape):
@@ -3157,6 +3250,19 @@ def flash_heads():
         yield heads
 
 
+@contextlib.contextmanager
+def ssd_heads():
+    """While active, the head count of every ``ops.ssd`` call is collected in
+    the set it yields (each SSD scan of a TP rank sees the rank's heads)."""
+    heads, plain = set(), ops.ssd
+
+    def ssd(x, *a, **kw):
+        heads.add(x.shape[2])
+        return plain(x, *a, **kw)
+    with patched(ops, heads, ssd=ssd):
+        yield heads
+
+
 def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode, mshape,
                      axes, kept=None, steps=SETUP_STEPS, want32=None, ep="", routes=None):
     """One train case of the setup phase: ``steps`` steps through
@@ -3204,7 +3310,7 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
     gathers, got_routes = [], [] if routes else None
     for i, batch in enumerate(batches[:steps]):
         _zero_launches()                          # counts of this path only
-        with _counting_gathers() as counts, flash_heads() as heads:
+        with _counting_gathers() as counts, flash_heads() as heads, ssd_heads() as s_heads:
             t0 = time.perf_counter()
             if i == 0:                            # the step in its two halves
                 with setup_route_log(got_routes):
@@ -3219,6 +3325,7 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
             entry["step_s"].append(time.perf_counter() - t0)
         gathers.append(dict(counts))
         entry["flash_heads"] = sorted(heads)
+        entry["ssd_heads"] = sorted(s_heads)
         got = _launches()
         if got != want:
             raise AssertionError(f"setup {cfg.name} {name} step {i}: launched {got}, "
@@ -3448,7 +3555,7 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
             del per_rank
         placed = pre.init_state(params)
         _zero_launches()
-        with _counting_gathers() as counts, flash_heads() as heads, \
+        with _counting_gathers() as counts, flash_heads() as heads, ssd_heads() as s_heads, \
                 setup_route_log(routes.get("got")):
             (got0, state), t_pre = timed(lambda: pre.step_fn(placed, batch))
         used = _launches()
@@ -3531,7 +3638,7 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
               **({"fro_rel_vs_fp32": vs32} if vs32 else {}),
               **({"routing": routing} if routing else {}),
               "prefill_launches": used, "decode_launches": dec_used,
-              "flash_heads": sorted(heads),
+              "flash_heads": sorted(heads), "ssd_heads": sorted(s_heads),
               "prefill_gathers": dict(counts),
               "param_bytes_per_rank": rank_bytes([placed], True),
               **({"expert_bytes_per_rank": expert_bytes_per_rank(pre, placed)}
@@ -3604,6 +3711,55 @@ def setup_moe_train(dev, card):
     return report, launches
 
 
+def setup_ssm(dev, card):
+    """(p)-(s): the SSM and hybrid families under tensor parallelism
+    (SETUP_SSM_TRAIN, SETUP_SSM_SERVE), each train case against its own
+    one-device oracle (the losses; step 1's synced gradient against the fp32
+    route as far as the one-device bf16 route is), each served one through
+    ``setup_serve``; every SSD scan and flash call of the setup at a rank's
+    heads (asserted).  Returns (report, launches)."""
+    report, launches = {"phase": "setup_ssm", "card": card}, {}
+    B, S = SETUP_BATCH
+    for arch, layers, sharding, (mshape, axes), steps in SETUP_SSM_TRAIN:
+        cfg = _cut(arch, layers)
+        tp = dict(zip(axes, mshape))["model"]
+        batches = setup_batches(cfg, B, S, steps=steps)
+        p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+        want_g, oracle = setup_oracle(dev, cfg, p0, batches, steps=steps)
+        want32 = setup_fp32_grads(cfg, p0, batches[0])
+        release()
+        entry, used = setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding,
+                                       "flat", mshape, axes, steps=steps, want32=want32)
+        want_heads = {"ssd": [cfg.ssm_heads // tp],
+                      "flash": [(cfg.n_heads // tp, cfg.n_kv_heads // tp)] if cfg.n_heads
+                      else []}
+        if entry["ssd_heads"] != want_heads["ssd"] or entry["flash_heads"] != want_heads["flash"]:
+            raise AssertionError(f"setup {cfg.name}: SSD heads {entry['ssd_heads']}, flash "
+                                 f"heads {entry['flash_heads']}, expected {want_heads}")
+        entry["ssd_bwd_heads_per_block"] = bwd_heads_per_block(cfg.ssm_heads // tp,
+                                                               cfg.ssm_groups)
+        name = setup_case_name(sharding, "flat", dict(zip(axes, mshape)))
+        report[f"{arch}_{name}"] = {
+            "config": f"{arch} full width, {layers} of {get_config(arch).num_layers} layers, "
+                      f"bf16 params, fp32 master and moments, block remat, B {B} x S {S}",
+            "one_device": oracle, name: entry}
+        launches[f"ssm_{arch}_{name}"] = used
+        del p0, want_g, want32, batches
+        release()
+    for arch, layers, prompt, cache_len in SETUP_SSM_SERVE:
+        name = f"serve_{arch}_tp2"
+        report[name], launches[name] = setup_serve(dev, card, arch, prompt, cache_len,
+                                                   mesh_spec=SETUP_TP_MESH, layers=layers)
+        cfg = _cut(arch, layers)
+        want_heads = ([cfg.ssm_heads // 2],
+                      [[cfg.n_heads // 2, cfg.n_kv_heads // 2]] if cfg.n_heads else [])
+        got_heads = (report[name]["ssd_heads"], [list(h) for h in report[name]["flash_heads"]])
+        if got_heads != want_heads:
+            raise AssertionError(f"setup serve {arch}: SSD / flash heads {got_heads}, "
+                                 f"expected {want_heads}")
+    return report, launches
+
+
 def phase_setup(dev, card):
     """llama3.2-1b at full width and depth through ``make_train_setup`` (the
     four SETUP_CASES) against the one-device ``make_train_step``: the loss of
@@ -3616,7 +3772,8 @@ def phase_setup(dev, card):
     under fsdp; (f) the serving setups; (j) whisper-medium trained and served
     under TP; (k) llama3.2-1b and llava-next-34b served over model 4; (l)-(o)
     the MoE family under TP and EP (``setup_moe_train``, SETUP_MOE_SERVE), on
-    a line of their own.  Returns each case's launches."""
+    a line of their own; (p)-(s) the SSM and hybrid families under TP
+    (``setup_ssm``), on a line of their own.  Returns each case's launches."""
     cfg = get_config(SETUP_ARCH)
     B, S = SETUP_BATCH
     batches = setup_batches(cfg, B, S)
@@ -3707,6 +3864,11 @@ def phase_setup(dev, card):
             dev, card, arch, prompt, cache_len, new_tokens=SETUP_MOE_TOKENS,
             mesh_spec=mesh_spec, layers=layers, ep=ep)
     emit(moe_report)
+    del moe_report
+    release()
+    ssm_report, used = setup_ssm(dev, card)
+    launches.update(used)
+    emit(ssm_report)
     return launches
 
 

@@ -126,10 +126,30 @@ def ssd_reference(x, dt, A, Bmat, Cmat, initial_state=None,
     return (y, h) if return_state else y
 
 
+def _scan_heads(x, dt, A, Bmat, Cmat, h0, decode: bool):
+    """The SSD scan of some heads: ``ops.ssd`` over the sequence, or at
+    ``decode`` (S == 1 with a state ``h0``) the O(1) recurrence.  Returns
+    (y (B, S, H, hd), final state (B, H, hd, N), fp32)."""
+    if decode:
+        H, G = x.shape[2], Bmat.shape[2]
+        decay = torch.exp(dt[:, 0] * A)                       # (B,H)
+        Bh = Bmat[:, 0].float().repeat_interleave(H // G, dim=1)
+        Ch = Cmat[:, 0].float().repeat_interleave(H // G, dim=1)
+        upd = torch.einsum("bh,bhd,bhn->bhdn", dt[:, 0], x[:, 0].float(), Bh)
+        hT = h0.float() * decay[..., None, None] + upd
+        y = torch.einsum("bhn,bhdn->bhd", Ch, hT)[:, None].to(x.dtype)
+        return y, hT
+    h0 = h0.float().contiguous() if h0 is not None else None
+    return ops.ssd(x, dt, A, Bmat, Cmat, initial_state=h0, return_state=True)
+
+
 def mamba2_forward(params, u: torch.Tensor, cfg, *,
                    state: Optional[SSMState] = None,
-                   return_state: bool = False):
-    """Full Mamba2 mixer.  u: (B, S, d_model) → (B, S, d_model)."""
+                   return_state: bool = False, tp=None):
+    """Full Mamba2 mixer.  u: (B, S, d_model) → (B, S, d_model).  ``tp``: a
+    ``parallel.tp.TPContext``, the mixer of a TP group (``_mamba2_tp``)."""
+    if tp is not None:
+        return _mamba2_tp(params, u, cfg, tp, state, return_state)
     B, S, _ = u.shape
     H, hd, N, G = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
     di = cfg.d_inner
@@ -144,19 +164,8 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *,
     Cmat = xBC[..., di + G * N:].view(B, S, G, N)
     A = -torch.exp(params["a_log"].float())
     dt = F.softplus(dt.float() + params["dt_bias"].float())   # (B,S,H)
-
-    if S == 1 and state is not None:
-        # O(1) decode recurrence
-        decay = torch.exp(dt[:, 0] * A)                       # (B,H)
-        Bh = Bmat[:, 0].float().repeat_interleave(H // G, dim=1)
-        Ch = Cmat[:, 0].float().repeat_interleave(H // G, dim=1)
-        upd = torch.einsum("bh,bhd,bhn->bhdn", dt[:, 0], x[:, 0].float(), Bh)
-        hT = state.h.float() * decay[..., None, None] + upd
-        y = torch.einsum("bhn,bhdn->bhd", Ch, hT)[:, None].to(u.dtype)
-    else:
-        h0 = state.h.float().contiguous() if state is not None else None
-        y, hT = ops.ssd(x, dt, A, Bmat, Cmat, initial_state=h0,
-                        return_state=True)
+    y, hT = _scan_heads(x, dt, A, Bmat, Cmat, state.h if state is not None else None,
+                        S == 1 and state is not None)
 
     y = y + x * params["d_skip"].to(u.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
@@ -169,10 +178,95 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *,
     return out
 
 
+def tp_groups(cfg, size: int):
+    """For each coordinate of a TP axis of ``size`` ranks, the slice of the
+    B / C groups its ``ssm_heads / size`` heads read; a ``ValueError`` (naming
+    ROADMAP.md M9b2b) where the heads do not divide the ranks, or a rank's
+    heads neither cover whole groups nor lie in one."""
+    H, G = cfg.ssm_heads, cfg.ssm_groups
+    if H % size:
+        raise ValueError(
+            f"{H} SSM heads of {cfg.name} do not divide over {size} ranks; padding them "
+            "under tensor parallelism waits for ROADMAP.md M9b2b")
+    Hr, per = H // size, H // G
+    if Hr % per == 0:
+        return [slice(c * Hr // per, (c + 1) * Hr // per) for c in range(size)]
+    if per % Hr == 0:
+        return [slice(c * Hr // per, c * Hr // per + 1) for c in range(size)]
+    raise ValueError(
+        f"{cfg.name}: a rank's {Hr} SSM heads straddle the groups of {per} heads "
+        f"({G} groups) over {size} ranks; that split waits for ROADMAP.md M9b2b")
+
+
+def _mamba2_tp(params, u, cfg, tp, state, return_state):
+    """``mamba2_forward`` of a TP group.  The sharded leaves are in the rows
+    form over the TP axis (``parallel.sharding``'s ``spec``): a rank holds a
+    contiguous block of the fused ``[z | x | B | C | dt]`` columns of
+    ``in_proj`` and of the ``x | B | C`` channels of ``conv_w`` / ``conv_b``
+    (both straddle the components), its heads' ``a_log`` / ``dt_bias`` /
+    ``d_skip`` and its heads' block of ``norm_g`` and of ``out_proj``'s rows.
+    ``u`` goes through f; each rank projects its columns, and one gather
+    makes the whole projection on every rank; each rank convolves its block
+    of channels (with its block of the conv lag, ``ssm_state_spec``'s), and
+    a second gather makes the whole conv output; each rank then scans its
+    heads (its x, z and dt, the B / C groups they read, its block of the
+    state ``h``) through ``ops.ssd``, adds the D skip and gates.  The gated
+    RMSNorm's mean runs over all of ``d_inner``: each rank's (B, S) sum of
+    squares goes through g and the mean back through f, so the two
+    all-reduces move B x S values, not the (B, S, d_inner) a gather would.
+    Each rank multiplies by its rows of ``out_proj``; g sums the partials.
+    A state holds the rows form's heads and conv channels."""
+    B, S, _ = u.shape
+    hd, N, G, di = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups, cfg.d_inner
+    groups = tp_groups(cfg, tp.size)
+    Hr, dr, cr = cfg.ssm_heads // tp.size, di // tp.size, (di + 2 * G * N) // tp.size
+    dt0 = 2 * di + 2 * G * N                   # the dt columns of the projection
+    decode = S == 1 and state is not None
+    ur = tp.copy(u)
+    zxbcdt = tp.gather(torch.stack([ur[r] @ params["in_proj"][r] for r in range(tp.rows)]))
+    convs, lags = [], []
+    for r, c in enumerate(tp.coords):
+        lag = state.conv[..., r * cr:(r + 1) * cr] if state is not None else None
+        out, lag = _causal_conv(zxbcdt[r][..., di + c * cr:di + (c + 1) * cr],
+                                params["conv_w"][r], params["conv_b"][r], lag)
+        convs.append(out)
+        lags.append(lag)
+    xBC = tp.gather(torch.stack(convs))
+    gated, squares, hs = [], [], []
+    for r, c in enumerate(tp.coords):
+        row, proj, g = xBC[r], zxbcdt[r], groups[c]
+        x = row[..., c * dr:(c + 1) * dr].view(B, S, Hr, hd)
+        Bmat = row[..., di:di + G * N].view(B, S, G, N)[:, :, g]
+        Cmat = row[..., di + G * N:].view(B, S, G, N)[:, :, g]
+        A = -torch.exp(params["a_log"][r].float())
+        dt = F.softplus(proj[..., dt0 + c * Hr:dt0 + (c + 1) * Hr].float() +
+                        params["dt_bias"][r].float())
+        h0 = state.h[:, r * Hr:(r + 1) * Hr] if state is not None else None
+        y, hT = _scan_heads(x, dt, A, Bmat, Cmat, h0, decode)
+        y = y + x * params["d_skip"][r].to(u.dtype)[None, None, :, None]
+        y = y.reshape(B, S, dr)
+        y = y * F.silu(proj[..., c * dr:(c + 1) * dr].float()).to(y.dtype)
+        gated.append(y)
+        squares.append(y.float().square().sum(dim=-1))
+        hs.append(hT)
+    var = tp.copy(tp.reduce(torch.stack(squares)) / di)
+    out = tp.reduce(torch.stack([
+        ((y.float() * torch.rsqrt(var[r] + cfg.norm_eps)[..., None] *
+          params["norm_g"][r].float()).to(y.dtype)) @ params["out_proj"][r]
+        for r, y in enumerate(gated)]))
+    if return_state:
+        return out, SSMState(h=torch.cat(hs, dim=1), conv=torch.cat(lags, dim=-1))
+    return out
+
+
 def init_ssm_state(cfg, batch: int, dtype=torch.float32,
-                   device="cuda") -> SSMState:
+                   device="cuda", tp=None) -> SSMState:
+    """A zeroed state; with ``tp`` the rows form's heads and conv channels
+    (every one on a ``StackedMesh``, this rank's on a ``DistMesh``)."""
     H, hd, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * N
+    if tp is not None:
+        H, conv_dim = tp.heads(H), conv_dim // tp.size * tp.rows
     return SSMState(
         h=torch.zeros((batch, H, hd, N), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,

@@ -47,14 +47,16 @@ to the identity; ``parallel.steps``'s FSDP setups pass one that gathers the
 block's shards.
 
 ``loss_fn``, ``prefill``, ``decode_step`` (and ``models.whisper.encode``) take
-``tp=``, a ``parallel.tp.TPContext`` (the dense, moe, vlm and audio families;
-default None, one device).  Under TP the sharded leaves are in the rows form
+``tp=``, a ``parallel.tp.TPContext`` (every family; default None, one
+device).  Under TP the sharded leaves are in the rows form
 over the TP axis (``parallel.steps``' setups place them): the embedding's
 vocab rows and an untied head's columns too.  The lookup is vocab-parallel
 (``tp.embed``), the head product column-parallel (each rank's ``(.., V /
 tp)`` logits), the loss the vocab-parallel cross-entropy; ``prefill`` and
 ``decode_step`` return the logits in the rows form ``(R, B, V / tp)`` for the
-setup to gather, and keep the heads of the rows form in the decode state.
+setup to gather, and keep the heads of the rows form in the decode state (a
+Mamba2 layer's SSM heads and conv channels too: ``models.ssm.mamba2_forward(
+tp=)``; the hybrid's shared block runs as an attention block of the group).
 ``mm_proj``, the norms and a MoE block's router are whole on every rank.
 
 ``loss_fn``, ``prefill`` and ``decode_step`` take ``ep=``, a
@@ -246,12 +248,6 @@ def _logits(params, cfg, x, tp):
     return torch.stack([xr[r] @ params["lm_head"][r] for r in range(tp.rows)])
 
 
-def _require_tp(cfg, tp):
-    if tp is not None and cfg.family in ("ssm", "hybrid"):
-        raise ValueError(f"tensor parallelism for the {cfg.family} family ({cfg.name}) "
-                         "waits for ROADMAP.md M9b2b (SSM / hybrid TP)")
-
-
 def _require_ep(cfg, ep):
     if cfg.family != "moe":
         raise ValueError(f"expert parallelism over {ep.axis!r} needs the moe family, "
@@ -301,7 +297,6 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
     every rank.  With ``ep`` the lanes of an EP group (see the module
     docstring): the total is the sum of the lanes', the metrics (lanes,)."""
     _require_ported(cfg)
-    _require_tp(cfg, tp)
     pcfg = pcfg or ParallelConfig()
     if ep is not None:
         return _loss_fn_ep(params, batch, cfg, pcfg, loss_weight, layer_constrain, tp, ep)
@@ -318,12 +313,13 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig] = No
         def mamba(h, bp):
             bp = layer_constrain(bp)
             return h + mamba2_forward(bp["ssm"], rms_norm(h, bp["ln"], cfg.norm_eps),
-                                      cfg)
+                                      cfg, tp=tp)
         mamba = _maybe_remat(mamba, pcfg)
         for l, bp in enumerate(params["blocks"]):
             x = mamba(x, bp)
             if _shared_after(cfg, l) is not None:
-                # the shared block lies outside params["blocks"]: not constrained
+                # the shared block lies outside params["blocks"]: the setups
+                # place (under fsdp gather) it once a call, not by the hook
                 x, a = attn(x, params["shared_attn"])
                 aux = aux + a
     else:
@@ -410,47 +406,50 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     return _state_buffers(cfg, batch, cache_len, dtype, dev)
 
 
-def _kv_buffers(cfg, n, batch, cache_len, dtype, device, kv_heads=None) -> KVCache:
+def _kv_buffers(cfg, n, batch, cache_len, dtype, device, tp=None) -> KVCache:
     """K and V buffers of ``n`` stacked caches, (n, B, S_cache, Hkv, hd);
-    ``kv_heads`` (a TP rows form's) in place of ``cfg.n_kv_heads``."""
-    shape = (n, batch, _cache_len(cfg, cache_len), kv_heads or cfg.n_kv_heads,
-             cfg.head_dim)
+    with ``tp`` the rows form's KV heads."""
+    kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else cfg.n_kv_heads
+    shape = (n, batch, _cache_len(cfg, cache_len), kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _state_buffers(cfg, batch, cache_len, dtype, device, kv_heads=None) -> DecodeState:
+def _state_buffers(cfg, batch, cache_len, dtype, device, tp=None) -> DecodeState:
     """The zeroed decode state of the family: every layer's cache or state
     in one stacked buffer, as the JAX package's scan stacks them (SSM states
-    in fp32, the rest in ``dtype``); ``kv_heads``: see ``_kv_buffers``."""
+    in fp32, the rest in ``dtype``); with ``tp`` (a ``TPContext``) the rows
+    form's KV heads, SSM heads and conv channels."""
     L = cfg.num_layers
     kv = ssm = shared = cross = None
     if _is_ssm(cfg):
-        one = init_ssm_state(cfg, batch, dtype, device=device)
+        one = init_ssm_state(cfg, batch, dtype, device=device, tp=tp)
         ssm = SSMState(*(t.new_zeros((L, *t.shape)) for t in one))
         if cfg.family == "hybrid":
             shared = _kv_buffers(cfg, L // cfg.attn_every, batch, cache_len,
-                                 dtype, device)
+                                 dtype, device, tp)
     else:
-        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device, kv_heads)
+        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device, tp)
         if cfg.family == "audio":
-            cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device, kv_heads)
+            cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device, tp)
     return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=cross,
                        index=0)
 
 
 def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
                shared: Optional[KVCache], *, mode: str, cache_len=None,
-               cache_index=None, layer_constrain=_identity):
+               cache_index=None, layer_constrain=_identity, tp=None):
     """The Mamba2 stack (and the hybrid's shared block), writing each
     layer's SSM state, conv lag and shared-block KV slice into the stacked
     buffers in place.  Returns the residual stream.  ``layer_constrain`` is
-    applied to each Mamba2 block, not to the shared block."""
+    applied to each Mamba2 block, not to the shared block (the setups place
+    it once a call).  ``tp``: each block of a TP group, the buffers in the
+    rows form's heads and channels."""
     for l, bp in enumerate(params["blocks"]):
         bp = layer_constrain(bp)
         st = SSMState(ssm.h[l], ssm.conv[l]) if mode == "decode" else None
         out, new = mamba2_forward(bp["ssm"], rms_norm(x, bp["ln"], cfg.norm_eps),
-                                  cfg, state=st, return_state=True)
+                                  cfg, state=st, return_state=True, tp=tp)
         x = x + out
         ssm.h[l].copy_(new.h)
         ssm.conv[l].copy_(new.conv)
@@ -461,11 +460,11 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
             x = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
                 mode="decode", cache=KVCache(shared.k[g], shared.v[g]),
-                cache_index=cache_index)[0]
+                cache_index=cache_index, tp=tp)[0]
         else:
             x, kvg, _, _ = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
-                mode="prefill", cache_len=cache_len)
+                mode="prefill", cache_len=cache_len, tp=tp)
             shared.k[g].copy_(kvg.k)
             shared.v[g].copy_(kvg.v)
     return x
@@ -481,19 +480,17 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
     form (R, B, V / tp) and the caches hold the rows form's KV heads.  With
     ``ep`` the lanes of an EP group (see the module docstring)."""
     _require_ported(cfg)
-    _require_tp(cfg, tp)
     if ep is not None:
         return _serve_ep(params, batch["tokens"], None, cfg, pcfg, layer_constrain, tp, ep,
                          cache_len=cache_len)
     x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
     B, S = x.shape[:2]
-    kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else None
-    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device, kv_heads)._replace(index=S)
+    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device, tp)._replace(index=S)
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
                        state.shared_kv, mode="prefill", cache_len=cache_len,
-                       layer_constrain=layer_constrain)
+                       layer_constrain=layer_constrain, tp=tp)
     else:
         for l, bp in enumerate(params["blocks"]):
             x, kvl, xkvl, _ = apply_attn_block(layer_constrain(bp), cfg, pcfg, x,
@@ -517,7 +514,6 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
     ``state.index``.  With ``ep`` the lanes of an EP group (see the module
     docstring)."""
     _require_ported(cfg)
-    _require_tp(cfg, tp)
     if ep is not None:
         return _serve_ep(params, tokens, state, cfg, pcfg, layer_constrain, tp, ep)
     x = _lookup(params, tokens, tp)
@@ -527,7 +523,7 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
                        state.shared_kv, mode="decode", cache_index=state.index,
-                       layer_constrain=layer_constrain)
+                       layer_constrain=layer_constrain, tp=tp)
     else:
         for l, bp in enumerate(params["blocks"]):
             cross = (KVCache(state.cross_kv.k[l], state.cross_kv.v[l])
@@ -555,9 +551,8 @@ def _serve_ep(lanes, tokens, state, cfg, pcfg, layer_constrain, tp, ep, cache_le
     if decode:
         positions = torch.full((b, 1), state.index, dtype=torch.int32, device=xs[0].device)
     else:
-        kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else None
         state = _state_buffers(cfg, R * b, cache_len, xs[0].dtype, xs[0].device,
-                               kv_heads)._replace(index=S)
+                               tp)._replace(index=S)
     for l in range(len(lanes[0]["blocks"])):
         caches = ([KVCache(state.kv.k[l].narrow(0, r * b, b), state.kv.v[l].narrow(0, r * b, b))
                    for r in range(R)] if decode else None)

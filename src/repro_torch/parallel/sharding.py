@@ -42,13 +42,13 @@ The rest of the JAX ``Ruleset`` is here as metadata, leaf for leaf:
 shape; on one device the closure itself returns its value), and the decode
 state's ``kv_cache_spec``, ``ssm_state_spec`` and ``decode_state_shardings``
 (the port's ``DecodeState`` structure).  The setups of ``parallel.steps``
-place parameters by these specs over the data axes and, for the dense, moe,
-vlm and audio families, over a ``model`` axis of more than one rank, whose
-products ``parallel.tp`` runs (tensor parallelism), and the MoE family's
-experts over an EP data axis (``moe_ep_axis``); the SSM and hybrid families'
-TP, heads that do not divide the TP degree, the flash-decoding layout of a
-batch no data axis divides and sequence parallelism wait (ROADMAP.md,
-Queue 1).
+place parameters by these specs over the data axes and, for every family,
+over a ``model`` axis of more than one rank, whose products ``parallel.tp``
+runs (tensor parallelism; a Mamba2 block's decode state in the rows form of
+``ssm_state_spec``), and the MoE family's experts over an EP data axis
+(``moe_ep_axis``); heads that do not divide the TP degree, the
+flash-decoding layout of a batch no data axis divides and sequence
+parallelism wait (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

@@ -40,10 +40,10 @@ over the whole row, also where a rank holds a piece of it.
 over the same placements: each rank prefills or steps its rows of the batch.
 
 Tensor parallelism: a TP axis (``pcfg.tp_axis``, ``model``) of more than one
-rank runs Megatron's split (``parallel.tp``) for the dense, moe, vlm and audio
-families.  Every sharding then holds the parameters in the rows form of
-``spec`` (which puts ``vocab`` / ``qkv`` / ``kv`` / ``mlp`` on the axis; the
-data axes too under fsdp), the optimizer state in that of ``opt_spec``.  A
+rank runs Megatron's split (``parallel.tp``) for every family.  Every sharding
+then holds the parameters in the rows form of ``spec`` (which puts ``vocab`` /
+``qkv`` / ``kv`` / ``mlp`` / ``ssm_in`` / ``ssm_head`` on the axis; the data
+axes too under fsdp), the optimizer state in that of ``opt_spec``.  A
 rank of a TP group computes with its model block of each leaf (under fsdp
 gathered over the spec's data axes only) and the whole residual stream; on a
 ``StackedMesh`` the ranks of each batch row's TP group run in turn inside
@@ -52,10 +52,14 @@ data axes for each model block (``build_sync`` of the blocks side by side,
 under fsdp ``build_shard_sync`` of each), so a leaf whole over the axis (the
 norms, ``mm_proj``, ``q_norm`` / ``k_norm``) is synced once.  The serving
 setups keep each rank's KV heads in the decode state's rows form
-(``kv_cache_spec``) and gather the logits whole.  The residual is not
+(``kv_cache_spec``), a Mamba2 layer's SSM heads and conv channels likewise
+(``ssm_state_spec``), and gather the logits whole.  The residual is not
 sequence-sharded (``seq_shard`` is a placement in the JAX package, not a
 different result).  A MoE block's router runs once on a TP group's whole
-input (``models.moe.moe_ffn(tp=)``).
+input (``models.moe.moe_ffn(tp=)``).  A Mamba2 block gathers its fused
+in-projection and its conv output over the axis (``models.ssm.mamba2_forward(
+tp=)``); the hybrid's shared attention block is placed (under fsdp gathered)
+once a call, as every leaf outside the blocks.
 
 Expert parallelism (``pcfg.moe_ep_axis``, the ``Ruleset``'s ``ep_axis``, a
 data axis): the expert leaves are held over it (``spec`` ``('data', None,
@@ -75,10 +79,10 @@ axis (``pod``) only.  The EP axis must be the sync's inner axis and the
 batch's last axis.
 
 What the setups cannot run yet they refuse with a ``ValueError``: tensor
-parallelism for the ssm and hybrid families or with heads that do not
-divide the TP degree, and a serving batch that no data axis divides wait
-for ROADMAP.md (SSM / hybrid TP, padded heads, the flash-decoding layout;
-as does a ``Trainer(mesh=)`` over a setup); compressed sync would be a
+parallelism with attention or SSM heads that do not divide the TP degree,
+and a serving batch that no data axis divides wait for ROADMAP.md M9b2b
+(padded heads, the flash-decoding layout; as does a ``Trainer(mesh=)`` over
+a setup); compressed sync would be a
 different result; zero1 with ``moe_ep_axis`` set is refused as the JAX
 setup refuses it (``opt_spec`` puts the data axis on the experts' ``embed``
 dim beside their ``expert`` dim, a ``DuplicateSpecError`` there).
@@ -100,6 +104,7 @@ from ..launch.mesh import DistMesh, StackedMesh
 from ..models import transformer as tfm
 from ..models import whisper
 from ..models.moe import moe_ffn_ep
+from ..models.ssm import tp_groups
 from ..models.config import ModelConfig, ParallelConfig, ShapeConfig
 from ..models.modules import tree_flatten, tree_map, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, init_adam
@@ -559,7 +564,6 @@ def _row_max_fn(spec, ndim: int, mesh):
 
 SETUP_SHARDINGS = ("replicated", "zero1", "fsdp")
 SETUP_SYNCS = ("flat", "hierarchical")
-TP_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _tp_axis(ruleset: Ruleset) -> Optional[str]:
@@ -611,16 +615,13 @@ def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
     if idle:
         raise ValueError(f"{what}: mesh axes {idle} of more than one rank are neither data "
                          f"axes nor the TP axis {pcfg.tp_axis!r}")
-    if tp and cfg.family not in TP_FAMILIES:
-        raise ValueError(
-            f"{what}: tensor parallelism over {tp!r} ({mesh.shape[tp]} ranks) for the "
-            f"{cfg.family} family ({cfg.name}) waits for ROADMAP.md M9b2b (SSM / hybrid TP; "
-            f"the setups run it for {TP_FAMILIES})")
     if tp and (cfg.n_heads % mesh.shape[tp] or cfg.n_kv_heads % mesh.shape[tp]):
         raise ValueError(
             f"{what}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do not divide over "
             f"{mesh.shape[tp]} ranks of {tp!r}; padding the heads (query) and replicating "
             "them (KV) under tensor parallelism waits for ROADMAP.md M9b2b")
+    if tp and cfg.ssm_heads:
+        tp_groups(cfg, mesh.shape[tp])          # SSM heads that the ranks cannot split
     if not ruleset.dp:
         raise ValueError(f"{what}: the mesh {mesh.axis_names} has no data axis")
 

@@ -24,7 +24,13 @@ axis: a leading dimension of ``mesh.rows((axis,))``, every rank's block on a
   (zeros elsewhere), then g.
 * ``vocab_parallel_cross_entropy``: the mean token cross-entropy of logits
   whose vocab is split over the ranks, with its gradient written by hand.
-* ``gather_logits``: a rank's ``(..., V / tp)`` logits → whole ``(..., V)``.
+* ``gather_from_tp(rows)``: each rank's block of the last dimension → the
+  whole tensor as every row (an all-gather); its backward sums the rows'
+  gradients (one all-reduce) and hands each rank its block, a
+  reduce-scatter.  The Mamba2 mixer gathers its fused in-projection and its
+  conv output so (``models.ssm.mamba2_forward(tp=)``).
+* ``gather_logits``: a rank's ``(..., V / tp)`` logits → whole ``(..., V)``
+  (forward only, for serving).
 
 Every sum over the ranks is ``collectives.flat_all_reduce`` over the axis:
 ``mesh.exchange``, ``ops.reduce_shards`` (on the card the tree-reduce kernel
@@ -34,9 +40,9 @@ kernel's fixed tree), so a TP result is rounded otherwise than the one-device
 one: not bit-equal to it.
 
 ``TPContext`` binds the operators to a mesh and an axis; the model functions
-(``models.layers``, ``models.transformer``, ``models.whisper``) take one as
-``tp=`` and run each rank's heads, MLP columns, experts (or their ``mlp``
-blocks) and vocab block in turn.
+(``models.layers``, ``models.ssm``, ``models.transformer``, ``models.whisper``)
+take one as ``tp=`` and run each rank's heads (attention or SSM), MLP columns,
+experts (or their ``mlp`` blocks) and vocab block in turn.
 
 ``EPContext`` binds expert parallelism inside the setups to a mesh and its
 EP axis (a data axis): ``models.transformer``'s functions take one as
@@ -54,7 +60,7 @@ import torch
 
 from ..models.modules import NEG_BIG, _CE_CHUNK_ELEMENTS
 from .collectives import flat_all_reduce
-from .sharding import unshard_leaf
+from .sharding import shard_leaf, unshard_leaf
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -104,6 +110,40 @@ class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.unsqueeze(0).expand(ctx.rows, *g.shape), None, None
+
+
+def _last_dim_spec(ndim: int, axis: str):
+    """The spec of a tensor of ``ndim`` dims whose last one is split over
+    ``axis``."""
+    return (None,) * (ndim - 1) + (axis,)
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather of the last dimension: forward every rank's block → the
+    whole tensor as every row; backward the rows' gradients summed by one
+    all-reduce, each rank its block of the sum (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, rows, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        whole = unshard_leaf(rows, _last_dim_spec(rows.dim() - 1, axis), mesh)
+        return whole.unsqueeze(0).expand(rows.shape[0], *whole.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce_rows(g, ctx.mesh, ctx.axis)
+        return shard_leaf(total, _last_dim_spec(total.dim(), ctx.axis), ctx.mesh), None, None
+
+
+def gather_from_tp(rows: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``rows`` (R, ..., n / tp), each rank's block of the last dimension in
+    the rows form → (R, ..., n), every row the whole tensor (a view of one
+    copy); the gradient of a rank's block is its block of the sum of the
+    rows' gradients (on the card one tree-reduce launch)."""
+    if rows.shape[0] != mesh.rows((axis,)):
+        raise ValueError(f"gather_from_tp: need the rows form over {axis!r}, a leading "
+                         f"dimension of {mesh.rows((axis,))}, got {tuple(rows.shape)}")
+    return _GatherFromTP.apply(rows, mesh, axis)
 
 
 def copy_to_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -241,7 +281,7 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, voc
 def gather_logits(rows: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """A rank's ``(R, ..., V / tp)`` logits → the whole ``(..., V)`` (on a
     ``DistMesh`` an all-gather over the axis)."""
-    return unshard_leaf(rows, (None,) * (rows.dim() - 2) + (axis,), mesh)
+    return unshard_leaf(rows, _last_dim_spec(rows.dim() - 1, axis), mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +300,11 @@ class TPContext:
     def rows(self) -> int:
         return self.mesh.rows((self.axis,))
 
+    @property
+    def coords(self):
+        """The coordinate along the axis of each row of the rows form."""
+        return self.mesh.row_coords(self.axis)
+
     def heads(self, n: int) -> int:
         """Of ``n`` heads split over the axis, how many the rows form holds
         (all ``n`` on a ``StackedMesh``, this rank's on a ``DistMesh``)."""
@@ -272,6 +317,9 @@ class TPContext:
 
     def reduce(self, parts: torch.Tensor) -> torch.Tensor:
         return reduce_from_tp(parts, self.mesh, self.axis)
+
+    def gather(self, rows: torch.Tensor) -> torch.Tensor:
+        return gather_from_tp(rows, self.mesh, self.axis)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return vocab_parallel_embed(table, tokens, self.mesh, self.axis)

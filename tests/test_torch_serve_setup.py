@@ -313,20 +313,20 @@ def test_cell_setup_fields_equal_the_jax_ones(jax_serve, arch):
 def test_the_serving_setups_refuse_what_waits(make):
     """Its tensor-parallel and ``moe_ep_axis`` lines are historical: a
     ``model`` axis of 2 was refused for every family, then for the MoE and
-    SSM ones, and ``moe_ep_axis`` was refused; now the MoE family builds
-    under both (``tests/test_torch_moe_tp.py`` serves it over them) and a
-    ``model`` axis of 2 is refused for the SSM family alone
-    (``tests/test_torch_tp.py`` serves the attention families over it)."""
+    SSM ones, then for the SSM one, and ``moe_ep_axis`` was refused; now
+    every family builds under ``model`` 2 (``tests/test_torch_tp.py``,
+    ``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py`` serve
+    them over it) and the MoE family under ``moe_ep_axis``.  A batch that
+    no data axis divides is still refused."""
     cfg = config("llama3.2-1b")
     shape = ShapeConfig("s", "prefill", 32, B)
     data4 = make_mesh((4,), ("data",), device="cpu")
     with pytest.raises(ValueError, match="batch of 3.*flash-decoding.*M9b2b"):
         make(cfg, ShapeConfig("s", "prefill", 32, 3), data4)
-    # tensor parallelism runs for the attention and MoE families; an SSM
-    # configuration under a model axis of 2 waits
+    # tensor parallelism runs for every family
     model2 = make_mesh((4, 2), ("data", "model"), device="cpu")
     assert make(config("mixtral-8x7b"), shape, model2).ruleset.expert_sharded
-    with pytest.raises(ValueError, match="tensor parallelism.*M9b2b"):
-        make(config("mamba2-1.3b"), shape, model2)
+    setup = make(config("mamba2-1.3b"), shape, model2)
+    assert setup.state_shardings.ssm.h == (None, "data", "model", None, None)
     setup = make(config("mixtral-8x7b"), shape, data4, ParallelConfig(moe_ep_axis="data"))
     assert setup.ruleset.ep_axis == "data"

@@ -26,10 +26,10 @@ References:
       for the world): the ``DistMesh`` gives the ``StackedMesh``'s results,
       and under zero1 a rank holds a quarter of the optimizer state.
 
-And one test for each refusal: a ``model`` axis of more than one rank for the
-ssm family (the moe family's line, once refused, now builds), and
-compressed sync; fsdp (the ``ParallelConfig`` default) and int8 moments under
-zero1, once refused, now run (their tests keep their names).
+And one test for each refusal: compressed sync; a ``model`` axis of more
+than one rank (the dense, moe and ssm families, once refused, now build),
+fsdp (the ``ParallelConfig`` default) and int8 moments under zero1, once
+refused, now run (their tests keep their names).
 
 Tolerances, fp32: loss and ``grad_norm`` rtol 1e-5 (the rank's mean weighed
 by its token share, then summed, against one mean over the batch; measured
@@ -354,19 +354,21 @@ def test_a_model_axis_of_more_than_one_rank_is_refused():
     """The name is historical: a ``model`` axis of more than one rank was
     refused until tensor parallelism ran; now a dense (4, 2) setup builds
     (``tests/test_torch_tp.py`` and ``test_tp_setup_equals_the_jax_setup``
-    hold its results), and so does a mixtral one, whose line was refused
-    until the MoE family's TP ran (``tests/test_torch_moe_tp.py`` holds its
-    results); a mamba2 one, whose TP waits, is refused naming M9b2b."""
+    hold its results), and so do a mixtral one and a mamba2 one, whose lines
+    were refused until the MoE family's TP and then the SSM family's ran
+    (``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py`` hold
+    their results)."""
     mesh = ((4, 2), ("data", "model"))
     refused(ParallelConfig(param_sharding="replicated"), mesh)
     setup = make_train_setup(config("mixtral-8x7b"), ShapeConfig("t", "train", S, B),
                              make_mesh(*mesh, device="cpu"),
                              ParallelConfig(param_sharding="replicated"))
     assert setup.ruleset.expert_sharded
-    with pytest.raises(ValueError, match="model.*M9b2b"):
-        make_train_setup(config("mamba2-1.3b"), ShapeConfig("t", "train", S, B),
-                         make_mesh(*mesh, device="cpu"),
-                         ParallelConfig(param_sharding="replicated"))
+    setup = make_train_setup(config("mamba2-1.3b"), ShapeConfig("t", "train", S, B),
+                             make_mesh(*mesh, device="cpu"),
+                             ParallelConfig(param_sharding="replicated"))
+    assert setup.ruleset.tp == "model"
+    assert setup.param_shardings["blocks"][0]["ssm"]["in_proj"] == (None, "model")
 
 
 def test_compressed_sync_is_refused():

@@ -32,10 +32,10 @@ References:
       ``file://`` store, one timeout): an fsdp train step, a zero1 step with
       int8 moments, and a prefill + 2 decode steps of llama3.2-1b and
       whisper-medium equal the ``StackedMesh``'s bit for bit.
-(v)   The refusals (ssm, hybrid under ``model`` 2; heads that do not
-      divide the degree), each a ``ValueError`` naming ROADMAP.md M9b2b (the
-      moe family, once refused, now builds; its results are in
-      ``tests/test_torch_moe_tp.py``), and
+(v)   The refusals (heads that do not divide the degree), each a
+      ``ValueError`` naming ROADMAP.md M9b2b (the moe, ssm and hybrid
+      families, once refused, now build; their results are in
+      ``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py``), and
       a rank's parameter and optimizer bytes at ``(data 2, model 2)`` fsdp
       against the count from the specs.
 
@@ -470,16 +470,24 @@ def test_a_tp_serving_call_runs_its_all_reduces(monkeypatch):
     ("llama3.2-1b", {}, "heads do not divide.*M9b2b")])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_what_tp_does_not_run_is_refused(arch, kw, match, kind):
-    """The mixtral cases' name is historical: the moe family under ``model``
-    2 was refused (the match string in their IDs) until tensor parallelism
-    ran for it; now its setups build and place the experts over ``model``
-    (``tests/test_torch_moe_tp.py`` holds their results)."""
+    """The names of the mixtral, mamba2 and zamba2 cases are historical: the
+    moe, ssm and hybrid families under ``model`` 2 were refused (the match
+    strings in their IDs) until tensor parallelism ran for them; now their
+    setups build and place the experts, or the Mamba2 blocks' fused
+    in-projection, over ``model`` (``tests/test_torch_moe_tp.py`` and
+    ``tests/test_torch_ssm_tp.py`` hold their results).  The llama cases,
+    heads that do not divide the degree, are still refused."""
     cfg = config(arch, **kw)
     mesh_name = "data1-model4" if not kw and arch == "llama3.2-1b" else "data2-model2"
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "ssm", "hybrid"):
         setup = tp_setup(cfg, mesh_name, "fsdp", kind=kind, cache=S)
-        assert setup.ruleset.tp == "model" and setup.ruleset.expert_sharded
-        assert setup.param_shardings["blocks"][0]["ffn"]["w_gate"] == ("model", None, "data")
+        assert setup.ruleset.tp == "model"
+        if cfg.family == "moe":
+            assert setup.ruleset.expert_sharded
+            assert setup.param_shardings["blocks"][0]["ffn"]["w_gate"] == \
+                ("model", None, "data")
+        else:
+            assert setup.param_shardings["blocks"][0]["ssm"]["in_proj"] == ("data", "model")
         return
     with pytest.raises(ValueError, match=match):
         tp_setup(cfg, mesh_name, "fsdp", kind=kind, cache=S)
