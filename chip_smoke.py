@@ -25,7 +25,10 @@ mixtral-8x7b trained over data 2 x model 2 and served with its experts over
 data 2, arctic-480b served over model 2; the SSM and hybrid families under
 tensor parallelism: mamba2-1.3b trained over data 2 x model 2 and served at
 full depth, zamba2-2.7b trained over model 4 and served over data 2 x
-model 2)
+model 2; heads that do not divide the TP degree and the flash-decoding layout
+of the decode caches: llama3.2-1b served over model 16 and, one sequence of
+8192 tokens, over data 2 x model 2, qwen1.5-4b trained over data 2 x model 8
+and served over model 8, mixtral-8x7b served over model 16 past its window)
 through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
@@ -55,9 +58,11 @@ Phases:
            sweep: Sq 37 / Sk 1500, Sq 1500 / Sk 37, 1500 / 1500 at 16 / 16
            heads of hd 64, and 56 / 8 heads of hd 128; timed: its
            cross-attention B 8, Sq 448, Sk 1500 and its encoder B 8, S 1500,
-           forward and backward) and llava's training shape (B 4, S 2048, 56
-           / 8 heads of hd 128, causal), each beside its bound, its plain
-           version and scaled_dot_product_attention (or autograd through it);
+           forward and backward), llava's training shape (B 4, S 2048, 56
+           / 8 heads of hd 128, causal) and a TP rank's padded heads in the
+           setup phase's case (u) (B 4, S 2048, 3 / 3 heads of hd 128,
+           causal), each beside its bound, its plain version and
+           scaled_dot_product_attention (or autograd through it);
            ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
@@ -205,7 +210,25 @@ Phases:
            backward at 20 heads a rank, k = 5); (r) mamba2-1.3b at full
            depth and (s) zamba2-2.7b at 12 layers served fsdp over data 2 x
            model 2 (8 x 2048 tokens, 16 steps): as (g)-(k), every SSD scan
-           and flash call at a rank's heads (asserted)
+           and flash call at a rank's heads (asserted); then, on a line of
+           its own, heads that do not divide the TP degree (a rank projects
+           its block of the flattened head columns, the query and KV columns
+           gathered where their heads do not divide, each rank attends at its
+           padded query heads) and the flash-decoding layout of the decode
+           caches (each rank its block of the caches' sequence; a decode step
+           combines the ranks' softmax statistics by two tree reduces and an
+           all-gather): (t) llama3.2-1b at full depth served over data 1 x
+           model 16 (8 prompts of 1024-2048 tokens left-padded to 2048, 16
+           steps); (u) qwen1.5-4b at 4 of 40 layers (20 / 20 heads: 3 a rank,
+           rank 7 none) trained fsdp over data 2 x model 8, one step at B 8
+           x S 2048, and served over data 1 x model 8 (8 x 2048, 8 steps);
+           (v) mixtral-8x7b at 2 of 32 layers served over data 1 x model 16
+           (2 prompts of 6144 past its window, 16 steps); (w) llama3.2-1b
+           served over data 2 x model 2 with one sequence of 8192 tokens
+           (16 steps; the caches' sequence over all four ranks): as (g)-(k),
+           the flash launches at a rank's padded heads and the decode steps'
+           tree reduces asserted (``tp_tree_launches``, ``flash_ranks``),
+           the decode-state bytes a rank holds
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -883,6 +906,9 @@ WHISPER_ENC_ATTN = dict(B=8, S=1500, Hq=16, Hkv=16, hd=64, dtype=torch.bfloat16,
 WHISPER_CROSS_ATTN = dict(B=8, Sq=448, Sk=1500, Hq=16, Hkv=16, hd=64, dtype=torch.bfloat16,
                           causal=False)
 LLAVA_TRAIN_ATTN = dict(B=4, S=2048, Hq=56, Hkv=8, hd=128, dtype=torch.bfloat16, causal=True)
+# a TP rank's padded heads in the setup phase's case (u): qwen1.5-4b's 20 / 20
+# heads over model 8 give 3 a rank, each with its KV head, at a data row's B 4
+QWEN_TP_ATTN = dict(B=4, S=2048, Hq=3, Hkv=3, hd=128, dtype=torch.bfloat16, causal=True)
 
 
 def attention_case(label, m, seed, dev):
@@ -975,13 +1001,17 @@ def kernels_flash_cross(dev, fwd_main, bwd_main):
     """The flash kernels at the shapes no other model path gives them:
     whisper's cross-attention (non-causal, Sq 448 != Sk 1500) and encoder
     (non-causal, S 1500 ragged against the tiles), two new entries, and
-    llava's training shape (a group of 7 at hd 128), added to the main
+    llava's training shape (a group of 7 at hd 128) and a TP rank's padded
+    heads (QWEN_TP_ATTN, the setup phase's case (u)), added to the main
     entries ``fwd_main`` / ``bwd_main``."""
     cross_f, cross_b = attention_case("whisper cross shape", WHISPER_CROSS_ATTN, 51, dev)
     enc_f, enc_b = attention_case("whisper encoder shape", WHISPER_ENC_ATTN, 54, dev)
     llava_f, llava_b = attention_case("llava training shape", LLAVA_TRAIN_ATTN, 57, dev)
     fwd_main["llava_training_shape"] = llava_f
     bwd_main["llava_training_shape"] = llava_b
+    tp_f, tp_b = attention_case("qwen1.5-4b TP rank shape", QWEN_TP_ATTN, 60, dev)
+    fwd_main["tp_rank_shape"] = tp_f
+    bwd_main["tp_rank_shape"] = tp_b
     common = {"route": "cuda", "replaces": "src/repro/kernels/flash_attention.py:102",
               "launches": None,
               "launches_are": "whisper-medium's (24 encoder, 24 self- and 24 "
@@ -994,7 +1024,7 @@ def kernels_flash_cross(dev, fwd_main, bwd_main):
            "encoder_shape": enc_b}
     emit({"phase": "kernels", "kernel": "flash_attention cross / encoder / llava",
           "cross": [cross_f, cross_b], "encoder": [enc_f, enc_b],
-          "llava_training_shape": [llava_f, llava_b]})
+          "llava_training_shape": [llava_f, llava_b], "tp_rank_shape": [tp_f, tp_b]})
     return [fwd, bwd]
 
 
@@ -2305,7 +2335,7 @@ def expected_train_launches(cfg, pcfg):
     return out
 
 
-def tp_tree_launches(cfg, kind, remat=True):
+def tp_tree_launches(cfg, kind, remat=True, tp=0, seq=False):
     """Tree-reduce launches of one batch row's TP group (its all-reduces over
     ``model``; the data sync apart), ``kind`` train, prefill or decode: the
     lookup's g; g after every attention, cross-attention, MLP and MoE FFN of
@@ -2324,26 +2354,53 @@ def tp_tree_launches(cfg, kind, remat=True):
     remat's recompute, and in the backward four: f's of its input and of the
     norm's mean, and the two gathers' (its in-projection's and its conv
     output's); the hybrid's shared block counts as an attention block at
-    each of its applications."""
+    each of its applications.
+
+    Heads that do not divide ``tp`` (the degree; 0: they divide): in
+    training every attention's gather of its KV (and query) columns adds one
+    all-reduce to the backward, and where the query heads do not divide,
+    the gather of the heads' outputs another.  ``seq``: the self-attention
+    caches in the flash-decoding layout; a decode step then adds two per
+    self-attention, the combine's denominators and values (its max is an
+    all-gather)."""
+    self_attn = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else \
+        0 if cfg.family == "ssm" else cfg.num_layers
+    extra = 0
+    if kind == "decode" and seq:
+        extra = 2 * self_attn
+    if kind == "train" and tp and cfg.n_kv_heads and cfg.n_kv_heads % tp:
+        audio = cfg.family == "audio"
+        attentions = self_attn + (cfg.n_enc_layers + cfg.num_layers if audio else 0)
+        extra = attentions * (1 + (1 if cfg.n_heads % tp else 0))
     if cfg.family in ("ssm", "hybrid"):
         apps = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
         g_blocks = 2 * cfg.num_layers + 2 * apps
         if kind != "train":
-            return 1 + g_blocks
+            return 1 + g_blocks + extra
         f = 4 * cfg.num_layers + 2 * apps + (2 * apps if cfg.qk_norm else 0) + 1
         recompute = cfg.num_layers + apps if remat else 0
-        return 1 + g_blocks + recompute + 1 + f
+        return 1 + g_blocks + recompute + 1 + f + extra
     enc = cfg.n_enc_layers if cfg.family == "audio" and kind != "decode" else 0
     cross = cfg.num_layers if cfg.family == "audio" else 0
     g_blocks = 2 * enc + 2 * cfg.num_layers + cross
     if kind != "train":
-        return 1 + g_blocks
+        return 1 + g_blocks + extra
     attentions = enc + cfg.num_layers + cross
     ffn_f = 2 if cfg.n_experts else 1
     f = 2 * enc + (1 + ffn_f) * cfg.num_layers + 2 * cross + \
         (2 * attentions if cfg.qk_norm else 0) + 1
     recompute = g_blocks - enc - cfg.num_layers if remat else 0
-    return 1 + g_blocks + recompute + 1 + f
+    return 1 + g_blocks + recompute + 1 + f + extra
+
+
+def flash_ranks(cfg, tp):
+    """The ranks of a TP group of degree ``tp`` that run a flash call at an
+    attention: every rank, but past the last of the query heads padded to
+    ceil(Hq / tp) a rank (20 over 8: 7 ranks)."""
+    if not cfg.n_heads:
+        return tp
+    hp = -(-cfg.n_heads // tp)
+    return -(-cfg.n_heads // hp)
 
 
 def train_flops_per_step(cfg, B, S, P=0):
@@ -3047,6 +3104,32 @@ SETUP_SSM_SERVE = [("mamba2-1.3b", None, 2048, 2048 + SETUP_SERVE_TOKENS),
                    ("zamba2-2.7b", 12, 2048, 2048 + SETUP_SERVE_TOKENS)]
 
 
+# (t)-(w), heads that do not divide the TP degree and the flash-decoding
+# layout of the decode caches, at full width, bf16, each against the
+# one-device route on the same weights, on a line of their own.  (t)
+# llama3.2-1b at full depth served over data 1 x model 16, the JAX production
+# model degree (2 query heads a rank, its 8 KV heads gathered whole, the
+# caches' sequence over model): 8 prompts of 1024-2048 tokens left-padded to
+# 2048, then SETUP_SERVE_TOKENS steps; (arch, layers, prompt, cache, B, mesh,
+# new tokens, prompt lengths)
+SETUP_HEADS_SERVE = [
+    ("llama3.2-1b", None, 2048, 2048 + 16, 8, ((1, 16), ("data", "model")), 16, (1024, 2048)),
+    # (u) qwen1.5-4b (20 query / 20 KV heads: 3 a rank, rank 6 two, rank 7
+    # none) at 4 of 40 layers over data 1 x model 8, 8 x 2048, 8 steps
+    ("qwen1.5-4b", 4, 2048, 2048 + 8, 8, ((1, 8), ("data", "model")), 8, None),
+    # (v) mixtral-8x7b at 2 of 32 layers over data 1 x model 16: 2 prompts of
+    # 6144 past its window of 4096, then 16 steps (the rolling cache, its
+    # 4096 slots over model)
+    ("mixtral-8x7b", 2, 6144, 6144 + 16, 2, ((1, 16), ("data", "model")), 16, None),
+    # (w) llama3.2-1b over data 2 x model 2, one sequence of 8192 (B 1, which
+    # no data axis divides: the caches' sequence over all four ranks)
+    ("llama3.2-1b", None, 8192, 8192 + 16, 1, ((2, 2), ("data", "model")), 16, None)]
+# (u) trained: qwen1.5-4b at 4 of 40 layers, fsdp over data 2 x model 8, one
+# step at B 8 x S 2048 (the flash backward at a rank's 3 padded heads):
+# (arch, layers, sharding, mesh, steps)
+SETUP_HEADS_TRAIN = ("qwen1.5-4b", 4, "fsdp", ((2, 8), ("data", "model")), 1)
+
+
 def setup_case_name(sharding, mode, shape):
     """A case's name in the report: its sharding and sync, and ``_tp<n>``
     where the mesh ``shape`` (axis -> size) has a model axis of n > 1."""
@@ -3072,6 +3155,19 @@ def rank_bytes(trees, sharded):
     one row of each leaf's rows form, else every leaf whole."""
     return sum(nbytes(t) // (t.shape[0] if sharded else 1)
                for tree in trees for t in _flat(tree))
+
+
+def state_bytes_per_rank(state, specs, mesh):
+    """Bytes of a decode state one rank holds: each tensor of the state (on
+    a ``StackedMesh`` every rank's rows, a cache in the flash-decoding layout
+    padded to a multiple of the ranks) over the ranks its spec splits it
+    over."""
+    is_spec = dict(is_leaf=lambda x: isinstance(x, tuple) and not hasattr(x, "_fields"))
+    tensors = [t for t in tree_flatten(state)[0] if torch.is_tensor(t)]
+    spec_list = [s for s in tree_flatten(specs, **is_spec)[0] if isinstance(s, tuple) and s]
+    return sum(nbytes(t) // math.prod(mesh.shape[a] for e in s if e
+                                      for a in ((e,) if isinstance(e, str) else e))
+               for t, s in zip(tensors, spec_list))
 
 
 def _flat(tree):
@@ -3284,17 +3380,18 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding=sharding,
                           grad_sync=mode, moe_ep_axis=ep)
     setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
-    ranks = mesh.size(axes)
     n_rows = mesh.size(setup.ruleset.batch_axes(B))
     fsdp = sharding == "fsdp"
-    tp = mesh.shape.get("model", 1) > 1
-    want = {k: v * ranks for k, v in expected_train_launches(cfg, pcfg).items()}
+    tpd = mesh.shape.get("model", 1)
+    tp = tpd > 1
+    want = {k: v * n_rows * (flash_ranks(cfg, tpd) if k.startswith("flash") else tpd)
+            for k, v in expected_train_launches(cfg, pcfg).items()}
     # under TP each batch row's TP group (under EP each lane's) all-reduces
     # over model; the sync reduces _synced_blocks blocks
     for k, v in expected_sync_launches(mode, _synced_blocks(setup)).items():
         want[k] += v
     if tp:
-        want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train")
+        want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train", tp=tpd)
     name = setup_case_name(sharding, mode, mesh.shape) + (f"_ep_{ep}" if ep else "")
     loss_rtol = SETUP_TP_LOSS_RTOL if tp else SETUP_LOSS_RTOL
     specs = _flat_specs(setup)
@@ -3485,7 +3582,7 @@ def _serve_routes(calls, per_step, rows, ep):
 
 
 def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8,
-                mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None, ep=""):
+                mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None, ep="", lengths=None):
     """(f), and under tensor parallelism (j), (k), (n), (o): ``arch`` at full
     width (``layers`` of its depth, or all), bf16, served through
     ``make_setup`` (fsdp over ``mesh_spec``, every rank stacked on the card;
@@ -3504,23 +3601,34 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
     the rows whose routing agrees so far.  Against the whole batch the
     logits' elements outside tol(bf16) are counted and a greedy token may
     differ only at a near-tie (counted).  The prefill's launches asserted
-    (and under TP the decode steps' tree reduces).  Returns (report, the
+    (and under TP the decode steps' tree reduces).  ``lengths`` (lo, hi):
+    each request's prompt drawn in [lo, hi] tokens and left-padded with
+    token 0 to ``prompt``, as the engine pads a batch.  Returns (report, the
     prefill's launches)."""
     cfg = _cut(arch, layers) if layers else get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t_init = time.perf_counter()
     mesh = make_mesh(*mesh_spec, device=dev)
     ranks = mesh.size(mesh_spec[1])
-    tp = mesh.shape.get("model", 1) > 1
+    tpd = mesh.shape.get("model", 1)
+    tp = tpd > 1
     params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
     t_init = time.perf_counter() - t_init
     rng = np.random.default_rng(9)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt))).to(dev)
+    toks = rng.integers(0, cfg.vocab_size, (B, prompt))
+    if lengths:
+        for r, n in enumerate(rng.integers(lengths[0], lengths[1] + 1, B)):
+            toks[r, :prompt - n] = 0
+    toks = torch.from_numpy(toks).to(dev)
     batch = {"tokens": toks, **on(model_inputs(cfg, B, 2, patches), dev, torch.bfloat16)}
     pcfg = ParallelConfig(param_dtype="bfloat16", moe_ep_axis=ep)     # fsdp, the default
     pre = make_setup(cfg, ShapeConfig("prefill", "prefill", cache_len, B), mesh, pcfg)
     dec = make_setup(cfg, ShapeConfig("decode", "decode", cache_len, B), mesh, pcfg)
-    n_rows = mesh.size(pre.ruleset.batch_axes(B))
+    b_axes = pre.ruleset.batch_axes(B) or ()
+    n_rows = mesh.size(b_axes)
+    # the decode caches in the flash-decoding layout: KV heads that do not
+    # divide the degree, or a batch that no data axis divides
+    seq = cfg.family != "ssm" and ((tp and cfg.n_kv_heads % tpd != 0) or not b_axes)
     enc_fn = _enc_fn(cfg, ParallelConfig(remat="none"))
     bf = tol(torch.bfloat16)
     routes = {"one": [], "ref": [], "got": []} if cfg.n_experts else {}
@@ -3559,9 +3667,10 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
                 setup_route_log(routes.get("got")):
             (got0, state), t_pre = timed(lambda: pre.step_fn(placed, batch))
         used = _launches()
-        want_l = {k: v * ranks for k, v in expected_launches(cfg).items()}
+        want_l = {k: v * n_rows * (flash_ranks(cfg, tpd) if k.startswith("flash") else tpd)
+                  for k, v in expected_launches(cfg).items()}
         if tp:
-            want_l["tree_reduce"] += n_rows * tp_tree_launches(cfg, "prefill")
+            want_l["tree_reduce"] += n_rows * tp_tree_launches(cfg, "prefill", tp=tpd)
         if used != want_l:
             raise AssertionError(f"setup serve {arch}: the prefill launched {used}, "
                                  f"expected {want_l}")
@@ -3576,10 +3685,11 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
         with setup_route_log(routes.get("got")):
             state, t_dec = timed(lambda: steps(state))
         dec_used = _launches()
-        if tp and dec_used["tree_reduce"] != new_tokens * n_rows * tp_tree_launches(cfg, "decode"):
+        per_step = tp_tree_launches(cfg, "decode", tp=tpd, seq=seq)
+        if tp and dec_used["tree_reduce"] != new_tokens * n_rows * per_step:
             raise AssertionError(f"setup serve {arch}: {new_tokens} decode steps launched "
                                  f"{dec_used}, expected {new_tokens * n_rows} x "
-                                 f"{tp_tree_launches(cfg, 'decode')} tree reduces")
+                                 f"{per_step} tree reduces")
     same = [torch.equal(g, w) for g, w in zip(got, want_rows)] if want_rows else []
     if want_rows and not all(same):
         t = same.index(False)
@@ -3641,6 +3751,9 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
               "flash_heads": sorted(heads), "ssd_heads": sorted(s_heads),
               "prefill_gathers": dict(counts),
               "param_bytes_per_rank": rank_bytes([placed], True),
+              "decode_state_bytes_per_rank": state_bytes_per_rank(state, pre.state_shardings,
+                                                                  mesh),
+              "flash_decoding": seq,
               **({"expert_bytes_per_rank": expert_bytes_per_rank(pre, placed)}
                  if cfg.n_experts else {}),
               "seconds": {"init": t_init, "setup": {"prefill": t_pre, "decode": t_dec},
@@ -3760,6 +3873,57 @@ def setup_ssm(dev, card):
     return report, launches
 
 
+def setup_heads(dev, card):
+    """(t)-(w): heads that do not divide the TP degree and the flash-decoding
+    layout (SETUP_HEADS_TRAIN, SETUP_HEADS_SERVE): the train case against
+    its one-device oracle (the loss; step 1's synced gradient against the
+    fp32 route as far as the one-device bf16 route is), each served one
+    through ``setup_serve``; every flash call at a rank's padded heads
+    (asserted), the decode steps' combine counted in their tree reduces.
+    Returns (report, launches)."""
+    report, launches = {"phase": "setup_heads", "card": card}, {}
+    B, S = SETUP_BATCH
+    arch, layers, sharding, (mshape, axes), steps = SETUP_HEADS_TRAIN
+    cfg = _cut(arch, layers)
+    tpd = dict(zip(axes, mshape))["model"]
+    batches = setup_batches(cfg, B, S, steps=steps)
+    p0 = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    want_g, oracle = setup_oracle(dev, cfg, p0, batches, steps=steps)
+    want32 = setup_fp32_grads(cfg, p0, batches[0])
+    release()
+    entry, used = setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding,
+                                   "flat", mshape, axes, steps=steps, want32=want32)
+    hp = -(-cfg.n_heads // tpd)
+    want_heads = sorted({(hp, hp), (cfg.n_heads - hp * (flash_ranks(cfg, tpd) - 1),) * 2})
+    if entry["flash_heads"] != want_heads:
+        raise AssertionError(f"setup {cfg.name}: flash heads {entry['flash_heads']}, "
+                             f"expected {want_heads}")
+    name = setup_case_name(sharding, "flat", dict(zip(axes, mshape)))
+    report[f"{arch}_{name}"] = {
+        "config": f"{arch} full width, {layers} of {get_config(arch).num_layers} layers, "
+                  f"bf16 params, fp32 master and moments, block remat, B {B} x S {S}",
+        "one_device": oracle, name: entry}
+    launches[f"heads_{arch}_{name}"] = used
+    del p0, want_g, want32, batches
+    release()
+    for arch, layers, prompt, cache_len, b, mesh_spec, new, lengths in SETUP_HEADS_SERVE:
+        name = f"serve_heads_{arch}_" + "x".join(map(str, mesh_spec[0])) + f"_b{b}"
+        report[name], launches[name] = setup_serve(
+            dev, card, arch, prompt, cache_len, new_tokens=new, B=b, mesh_spec=mesh_spec,
+            layers=layers, lengths=lengths)
+        cfg = _cut(arch, layers) if layers else get_config(arch)
+        tpd = dict(zip(mesh_spec[1], mesh_spec[0]))["model"]
+        hp = -(-cfg.n_heads // tpd)
+        got = {tuple(h) for h in report[name]["flash_heads"]}
+        if {q for q, _ in got} - {hp, cfg.n_heads - hp * (flash_ranks(cfg, tpd) - 1)}:
+            raise AssertionError(f"setup serve {arch}: flash heads {sorted(got)}, a rank's "
+                                 f"padded heads are {hp}")
+        if not report[name]["flash_decoding"]:
+            raise AssertionError(f"setup serve {arch}: the caches are not in the "
+                                 f"flash-decoding layout")
+    return report, launches
+
+
 def phase_setup(dev, card):
     """llama3.2-1b at full width and depth through ``make_train_setup`` (the
     four SETUP_CASES) against the one-device ``make_train_step``: the loss of
@@ -3773,7 +3937,9 @@ def phase_setup(dev, card):
     under TP; (k) llama3.2-1b and llava-next-34b served over model 4; (l)-(o)
     the MoE family under TP and EP (``setup_moe_train``, SETUP_MOE_SERVE), on
     a line of their own; (p)-(s) the SSM and hybrid families under TP
-    (``setup_ssm``), on a line of their own.  Returns each case's launches."""
+    (``setup_ssm``), on a line of their own; (t)-(w) heads that do not
+    divide the TP degree and the flash-decoding layout (``setup_heads``), on
+    a line of their own.  Returns each case's launches."""
     cfg = get_config(SETUP_ARCH)
     B, S = SETUP_BATCH
     batches = setup_batches(cfg, B, S)
@@ -3869,6 +4035,12 @@ def phase_setup(dev, card):
     ssm_report, used = setup_ssm(dev, card)
     launches.update(used)
     emit(ssm_report)
+    del ssm_report
+    release()
+    # (t)-(w) heads that do not divide the degree, on a line of their own
+    heads_report, used = setup_heads(dev, card)
+    launches.update(used)
+    emit(heads_report)
     return launches
 
 

@@ -170,6 +170,37 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # decode
 # --------------------------------------------------------------------------
 
+def decode_valid(pos: torch.Tensor, cache_len, window: int = 0) -> torch.Tensor:
+    """(B|1, n) bool: which of the cache slots ``pos`` (n,) a decode step
+    reads, for ``cache_len`` (int, scalar or (B,)) valid positions and an
+    optional ``window``."""
+    clen = torch.as_tensor(cache_len, device=pos.device).reshape(-1, 1)
+    valid = pos[None, :] < clen                                   # (B|1, n)
+    if window:
+        valid = valid & (pos[None, :] >= clen - window)
+    return valid
+
+
+def decode_scores(q, k_cache, valid, scale: Optional[float] = None) -> torch.Tensor:
+    """The fp32 scores (B, Hkv, group, n) of the single query ``q`` (B, 1,
+    Hq, hd) against the cache slots ``k_cache`` (B, n, Hkv, hd), ``NEG_INF``
+    where ``valid`` (B|1, n) is False.  The product runs in the cache dtype."""
+    B, _, Hq, hd = q.shape
+    Hkv = k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    # (B,Hkv,group,hd) x (B,Hkv,hd,n) -> (B,Hkv,group,n)
+    s = torch.matmul(qg, k_cache.permute(0, 2, 3, 1)).float() * scale
+    return torch.where(valid[:, None, None, :], s,
+                       torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
+
+
+def decode_values(p: torch.Tensor, denom: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """``(p / denom)`` cast to the cache dtype, times the values (B, n, Hkv,
+    hd): (B, Hkv, group, hd) in the cache dtype."""
+    return torch.matmul((p / denom).to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      scale: Optional[float] = None):
     """Single-token decode attention over a KV cache.
@@ -182,26 +213,17 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     fp32 sum to bf16 on the way out, which the JAX package's
     ``preferred_element_type=float32`` does not.  The difference is one bf16
     rounding of each score and lies inside the bf16 tolerance of the tests;
-    for an fp32 cache the two agree.
+    for an fp32 cache the two agree.  ``decode_scores`` and
+    ``decode_values`` are its two products; ``parallel.tp.flash_decode``
+    runs them on each rank's block of a cache whose sequence is split over
+    ranks and sums the statistics between them.
     """
     B, _, Hq, hd = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    group = Hq // Hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, Hkv, group, hd)
-    # (B,Hkv,group,hd) x (B,Hkv,hd,S) -> (B,Hkv,group,S)
-    s = torch.matmul(qg, k_cache.permute(0, 2, 3, 1)).float() * scale
-    pos = torch.arange(S, device=q.device)
-    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
-    valid = pos[None, :] < clen                                   # (B|1, S)
-    if window:
-        valid = valid & (pos[None, :] >= clen - window)
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=torch.float32,
-                                 device=q.device))
+    S = k_cache.shape[1]
+    s = decode_scores(q, k_cache, decode_valid(torch.arange(S, device=q.device), cache_len,
+                                               window), scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul((p / denom).to(v_cache.dtype),
-                       v_cache.permute(0, 2, 1, 3)).float()       # (B,Hkv,g,hd)
+    out = decode_values(p, denom, v_cache).float()                # (B,Hkv,g,hd)
     return out.reshape(B, 1, Hq, hd).to(q.dtype)

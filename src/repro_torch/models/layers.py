@@ -51,6 +51,28 @@ this rank's on a ``DistMesh``); each rank reads and writes its heads' slice
 of it in place.  A MoE block's FFN under TP is ``moe.moe_ffn(tp=)``: the router
 once on the whole input, each rank's experts (or their ``mlp`` blocks).
 
+Heads that do not divide the TP degree (``_attention_tp_padded``), placed as
+the JAX package places them: a rank holds its block of the flattened ``Hq·hd``
+/ ``Hkv·hd`` columns (2.5 query heads of qwen1.5-4b at ``model`` 8, half a KV
+head of llama3.2-1b at ``model`` 16).  Each rank projects its columns; the
+key and value columns are gathered, and the query columns where ``Hq`` does
+not divide (one gather, ``tp.gather_parts``).  Each rank
+then attends at its padded query heads (``tp.head_ranges``) with the KV heads
+they read (the flash kernel on the card; a rank past the last head runs
+none); the heads' outputs are gathered where ``Hq`` does not divide, so that
+each rank multiplies its own block of ``wo``'s rows, then g.
+
+The flash-decoding layout (``kv_seq=``, a ``parallel.tp.KVSeqContext``): the
+self-attention cache's sequence in blocks over the ranks, every KV head on
+every rank (``Ruleset.kv_cache_spec`` where the KV heads do not divide, or
+where no data axis divides the batch).  A prefill keeps each rank's block of
+the whole cache; a decode step gathers the whole query and the new K / V,
+the rank that owns the slot writes it (``p % window`` for a rolling buffer),
+and ``tp.flash_decode`` combines every rank's partial softmax statistics;
+each rank then takes its block of the output's columns to its rows of
+``wo``.  A cross-attention cache keeps its sequence whole, its heads in the
+rows form where they divide and whole (replicated) where they do not.
+
 Expert parallelism in the setups: ``apply_attn_blocks_ep`` runs one block for
 the lanes of an EP group (``ep``, a ``parallel.tp.EPContext``), each lane's
 attention on its own rows and parameters, then the MoE FFN of every lane
@@ -154,7 +176,7 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
                     cache: Optional[KVCache] = None,
                     cache_index: Optional[int] = None,
                     cache_len: Optional[int] = None, kv_x=None,
-                    causal: bool = True, window: int = 0, tp=None,
+                    causal: bool = True, window: int = 0, tp=None, kv_seq=None,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Unified attention. Returns (out, new_cache).
 
@@ -163,11 +185,13 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
     the keys and values are projected from ``kv_x`` without RoPE; at
     ``decode`` they are read from ``cache``, the static cross cache, which is
     returned as it is.  With ``tp`` each rank runs its heads (``_attention_tp``).
+    ``kv_seq``: the self-attention cache in the flash-decoding layout (see
+    the module docstring).
     """
     if tp is not None:
         return _attention_tp(p, cfg, pcfg, x, tp, positions=positions, mode=mode, cache=cache,
                              cache_index=cache_index, cache_len=cache_len, kv_x=kv_x,
-                             causal=causal, window=window)
+                             causal=causal, window=window, kv_seq=kv_seq)
     B, S = x.shape[:2]
     cross = kv_x is not None
     if mode == "decode" and cross:
@@ -179,7 +203,10 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
     q, k, v = _project_qkv(p, cfg, x, kv_x if cross else x, positions,
                            use_rope=not cross)
 
-    if mode == "decode":
+    if mode == "decode" and kv_seq is not None:
+        out = _decode_seq(q, k, v, cache, cache_index, window, kv_seq)
+        new_cache = cache
+    elif mode == "decode":
         # write new K/V at cache_index (rolling slot for SWA buffers)
         S_cache = cache.k.shape[1]
         write_pos = cache_index % S_cache if window else cache_index
@@ -195,19 +222,41 @@ def apply_attention(p, cfg, pcfg, x, *, positions, mode: str = "train",
         if mode == "prefill":
             new_cache = _build_cache(k, v, cache_len=cache_len or k.shape[1],
                                      window=window)
+            if kv_seq is not None:
+                new_cache = KVCache(kv_seq.place(new_cache.k), kv_seq.place(new_cache.v))
     B2, S2 = out.shape[:2]
     return out.reshape(B2, S2, -1) @ p["wo"], new_cache
+
+
+def _decode_seq(q, k, v, cache, cache_index, window, kv_seq):
+    """A decode step's self-attention over a cache in the flash-decoding
+    layout: the new K / V (B, 1, Hkv, hd), whole, written at its slot
+    (``p % length`` for a rolling buffer, else ``p``, clamped into the
+    buffer as ``_write_cache`` clamps it), then ``kv_seq.attend`` over the
+    ``min(p + 1, length)`` valid slots.  Returns (B, 1, Hq, hd)."""
+    n = kv_seq.length
+    pos = cache_index % n if window else min(cache_index, n - 1)
+    kv_seq.write(cache.k, k, pos)
+    kv_seq.write(cache.v, v, pos)
+    return kv_seq.attend(q, cache.k, cache.v, min(cache_index + 1, n))
 
 
 _TP_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
 def _attention_tp(p, cfg, pcfg, x, tp, *, positions, mode, cache, cache_index, cache_len,
-                  kv_x, causal, window):
+                  kv_x, causal, window, kv_seq=None):
     """``apply_attention`` of a TP group: each rank's heads in turn, on its
     rows of the sharded leaves; the rows' partial outputs summed by g.  A
     prefill's new cache holds the ranks' heads side by side (the rows form's
-    heads); at decode each rank writes its slice of ``cache`` in place."""
+    heads); at decode each rank writes its slice of ``cache`` in place.
+    Heads that do not divide the degree, and a cache in the flash-decoding
+    layout, go to ``_attention_tp_padded``."""
+    if (cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size
+            or (kv_seq is not None and kv_x is None)):
+        return _attention_tp_padded(p, cfg, x, tp, positions=positions, mode=mode, cache=cache,
+                                    cache_index=cache_index, cache_len=cache_len, kv_x=kv_x,
+                                    causal=causal, window=window, kv_seq=kv_seq)
     cross = kv_x is not None
     xr = tp.copy(x)
     kvr = tp.copy(kv_x) if cross and mode != "decode" else xr if cross else None
@@ -230,6 +279,114 @@ def _attention_tp(p, cfg, pcfg, x, tp, *, positions, mode, cache, cache_index, c
     if mode == "prefill":
         new_cache = KVCache(torch.cat([c.k for c in caches], dim=2),
                             torch.cat([c.v for c in caches], dim=2))
+    return tp.reduce(torch.stack(parts)), new_cache
+
+
+def _columns(p, w, b, xr, r):
+    """Row ``r``'s projection onto its block of ``p[w]``'s columns (+ bias)."""
+    y = xr[r] @ p[w][r]
+    return y + p[b][r] if b in p else y
+
+
+def _shape_heads(t, cfg, norm, positions, use_rope):
+    """(B, S, H, hd) heads: the per-head RMS norm ``norm`` (qk-norm, or
+    None), then RoPE at ``positions`` where ``use_rope``."""
+    if norm is not None:
+        t = rms_norm(t, norm, cfg.norm_eps)
+    if use_rope and cfg.rope != "none":
+        t = apply_rope(t, positions, cfg.rope_theta, cfg.rope)
+    return t
+
+
+def _kv_for(k, v, a: int, b: int, group: int):
+    """The KV heads that query heads ``a .. b-1`` read (head h reads h //
+    ``group``), laid out for ``ops.attention``: a slice where they form a
+    GQA layout of their own, else one KV head per query head."""
+    idx = [h // group for h in range(a, b)]
+    lo, n_kv, n = idx[0], idx[-1] - idx[0] + 1, b - a
+    if n % n_kv == 0 and all(i == lo + j // (n // n_kv) for j, i in enumerate(idx)):
+        return k[:, :, lo:lo + n_kv], v[:, :, lo:lo + n_kv]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _attention_tp_padded(p, cfg, x, tp, *, positions, mode, cache, cache_index, cache_len,
+                         kv_x, causal, window, kv_seq):
+    """``_attention_tp`` where the query or KV heads do not divide the
+    degree, or the cache is in the flash-decoding layout (``kv_seq``; see
+    the module docstring).  The key and value columns are always gathered
+    (their heads do not divide, or the layout keeps every head); the query
+    columns where ``Hq`` does not divide, or at a decode step over
+    ``kv_seq``.  A cross-attention cache here holds every KV head.  Every
+    rank runs every gather, also a rank past the last query head (its
+    output, padding only, stays in the graph), so that the ranks of a
+    ``DistMesh`` run their collectives in one order."""
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S = x.shape[:2]
+    cross = kv_x is not None
+    decode = mode == "decode"
+    if not cross and mode != "train" and kv_seq is None:
+        raise ValueError(f"{cfg.name}: {Hkv} KV heads over {tp.size} ranks of {tp.axis!r}: the "
+                         f"decode cache takes the flash-decoding layout, pass kv_seq "
+                         f"(parallel.tp.KVSeqContext; the setups make it from kv_cache_spec)")
+    seq = decode and not cross                      # flash decoding over kv_seq
+    q_whole = seq or Hq % tp.size != 0
+    xr = tp.copy(x)
+    shared = {k: tp.copy(p[k]) for k in ("q_norm", "k_norm") if k in p}
+    cols = [torch.stack([_columns(p, "wq", "bq", xr, r) for r in range(tp.rows)])]
+    if not (cross and decode):
+        src = tp.copy(kv_x) if cross else xr
+        cols += [torch.stack([_columns(p, w, b, src, r) for r in range(tp.rows)])
+                 for w, b in (("wk", "bk"), ("wv", "bv"))]
+    if q_whole:
+        cols = tp.gather_parts(cols)
+    elif len(cols) > 1:
+        cols[1:] = tp.gather_parts(cols[1:])
+    Sk = kv_x.shape[1] if cross else S
+
+    def heads(t, r, whole, n_seq):
+        return (tp.whole_row(t[r]) if whole else t[r]).reshape(B, n_seq, -1, hd)
+
+    outs, kept, out = [], None, None
+    for r, (a, b) in enumerate(tp.head_ranges(Hq)):
+        q = heads(cols[0], r, q_whole, S)
+        if not seq:
+            q = q[:, :, a:b] if q_whole else q
+        q = _shape_heads(q, cfg, shared["q_norm"][r] if "q_norm" in shared else None,
+                         positions, not cross)
+        if cross and decode:
+            k, v = cache.k, cache.v
+        else:
+            k, v = heads(cols[1], r, True, Sk), heads(cols[2], r, True, Sk)
+            k = _shape_heads(k, cfg, shared["k_norm"][r] if "k_norm" in shared else None,
+                             positions, not cross)
+            kept = kept or (k, v)
+        if seq:                 # no gradient: one row's whole query stands for every row's
+            out = _decode_seq(q, k, v, cache, cache_index, window, kv_seq)
+            break
+        if b == a:              # a rank past the last query head
+            outs.append(q)
+            continue
+        k, v = _kv_for(k, v, a, b, Hq // Hkv)
+        outs.append(decode_attention(q, k, v, k.shape[1]) if decode else
+                    ops.attention(q, k, v, causal=causal, window=window))
+    new_cache = cache
+    if mode == "prefill" and cross:
+        new_cache = KVCache(kept[0].contiguous(), kept[1].contiguous())
+    elif mode == "prefill":
+        whole = _build_cache(*kept, cache_len=cache_len or S, window=window)
+        new_cache = KVCache(kv_seq.place(whole.k), kv_seq.place(whole.v))
+    cw = Hq * hd // tp.size
+    if seq:
+        flat = out.reshape(B, S, Hq * hd)
+        parts = [flat[..., c * cw:(c + 1) * cw] @ p["wo"][r] for r, c in enumerate(tp.coords)]
+    elif not q_whole:
+        parts = [o.reshape(B, S, -1) @ p["wo"][r] for r, o in enumerate(outs)]
+    else:
+        hp = tp.padded(Hq)
+        got = tp.gather(torch.stack([torch.nn.functional.pad(o, (0, 0, 0, hp - o.shape[2]))
+                                     .reshape(B, S, hp * hd) for o in outs]))
+        parts = [got[r][..., c * cw:(c + 1) * cw] @ p["wo"][r] for r, c in enumerate(tp.coords)]
     return tp.reduce(torch.stack(parts)), new_cache
 
 
@@ -337,16 +494,18 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
                      cache_index: Optional[int] = None,
                      cache_len: Optional[int] = None,
                      cross_cache: Optional[KVCache] = None, enc_out=None,
-                     causal=True, tp=None):
+                     causal=True, tp=None, kv_seq=None):
     """Returns (x, new_cache, new_cross_cache, aux_loss), the JAX package's
     4-tuple.  A block with cross-attention reads ``enc_out`` (train, prefill;
     prefill returns the new cross cache) or ``cross_cache`` (decode; returned
     as it is); aux_loss is the MoE router's (an fp32 scalar, 0 for an MLP
-    block).  ``tp``: the block of a TP group."""
+    block).  ``tp``: the block of a TP group; ``kv_seq``: its self-attention
+    cache in the flash-decoding layout."""
     h, new_cache = apply_attention(
         p["attn"], cfg, pcfg, rms_norm(x, p["ln1"], cfg.norm_eps),
         positions=positions, mode=mode, cache=cache, cache_index=cache_index,
-        cache_len=cache_len, causal=causal, window=cfg.sliding_window, tp=tp)
+        cache_len=cache_len, causal=causal, window=cfg.sliding_window, tp=tp,
+        kv_seq=kv_seq)
     x = x + h
     new_cross = cross_cache
     if "cross" in p:
@@ -370,7 +529,7 @@ def apply_attn_block(p, cfg, pcfg, x, *, positions, mode="train",
 
 def apply_attn_blocks_ep(ps, cfg, pcfg, xs, *, positions, mode="train", caches=None,
                          cache_index: Optional[int] = None,
-                         cache_len: Optional[int] = None, tp=None, ep=None):
+                         cache_len: Optional[int] = None, tp=None, ep=None, kv_seq=None):
     """One MoE block for the lanes of an expert-parallel group: ``ps`` each
     lane's parameters of the block (the expert leaves one joint tensor, see
     ``moe.moe_ffn_lanes``), ``xs`` each lane's residual (b, S, d), ``caches``
@@ -382,7 +541,8 @@ def apply_attn_blocks_ep(ps, cfg, pcfg, xs, *, positions, mode="train", caches=N
         h, c = apply_attention(
             p["attn"], cfg, pcfg, rms_norm(xs[r], p["ln1"], cfg.norm_eps),
             positions=positions, mode=mode, cache=None if caches is None else caches[r],
-            cache_index=cache_index, cache_len=cache_len, window=cfg.sliding_window, tp=tp)
+            cache_index=cache_index, cache_len=cache_len, window=cfg.sliding_window, tp=tp,
+            kv_seq=kv_seq)
         x = xs[r] + h
         hs.append(x)
         ys.append(rms_norm(x, p["ln2"], cfg.norm_eps))

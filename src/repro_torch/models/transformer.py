@@ -406,20 +406,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     return _state_buffers(cfg, batch, cache_len, dtype, dev)
 
 
-def _kv_buffers(cfg, n, batch, cache_len, dtype, device, tp=None) -> KVCache:
+def _kv_buffers(cfg, n, batch, cache_len, dtype, device, tp=None, kv_seq=None) -> KVCache:
     """K and V buffers of ``n`` stacked caches, (n, B, S_cache, Hkv, hd);
-    with ``tp`` the rows form's KV heads."""
-    kv_heads = tp.heads(cfg.n_kv_heads) if tp is not None else cfg.n_kv_heads
-    shape = (n, batch, _cache_len(cfg, cache_len), kv_heads, cfg.head_dim)
+    with ``tp`` the rows form's KV heads where they divide the degree, every
+    head where they do not; with ``kv_seq`` every head and the layout's
+    slots (``rows * block``)."""
+    kv_heads = cfg.n_kv_heads
+    if tp is not None and kv_seq is None and cfg.n_kv_heads % tp.size == 0:
+        kv_heads = tp.heads(cfg.n_kv_heads)
+    slots = kv_seq.rows * kv_seq.block if kv_seq is not None else _cache_len(cfg, cache_len)
+    shape = (n, batch, slots, kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _state_buffers(cfg, batch, cache_len, dtype, device, tp=None) -> DecodeState:
+def _state_buffers(cfg, batch, cache_len, dtype, device, tp=None, kv_seq=None) -> DecodeState:
     """The zeroed decode state of the family: every layer's cache or state
     in one stacked buffer, as the JAX package's scan stacks them (SSM states
     in fp32, the rest in ``dtype``); with ``tp`` (a ``TPContext``) the rows
-    form's KV heads, SSM heads and conv channels."""
+    form's KV heads, SSM heads and conv channels; with ``kv_seq`` the self
+    caches in the flash-decoding layout."""
     L = cfg.num_layers
     kv = ssm = shared = cross = None
     if _is_ssm(cfg):
@@ -427,9 +433,9 @@ def _state_buffers(cfg, batch, cache_len, dtype, device, tp=None) -> DecodeState
         ssm = SSMState(*(t.new_zeros((L, *t.shape)) for t in one))
         if cfg.family == "hybrid":
             shared = _kv_buffers(cfg, L // cfg.attn_every, batch, cache_len,
-                                 dtype, device, tp)
+                                 dtype, device, tp, kv_seq)
     else:
-        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device, tp)
+        kv = _kv_buffers(cfg, L, batch, cache_len, dtype, device, tp, kv_seq)
         if cfg.family == "audio":
             cross = _kv_buffers(cfg, L, batch, cfg.enc_seq, dtype, device, tp)
     return DecodeState(kv=kv, ssm=ssm, shared_kv=shared, cross_kv=cross,
@@ -438,13 +444,14 @@ def _state_buffers(cfg, batch, cache_len, dtype, device, tp=None) -> DecodeState
 
 def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
                shared: Optional[KVCache], *, mode: str, cache_len=None,
-               cache_index=None, layer_constrain=_identity, tp=None):
+               cache_index=None, layer_constrain=_identity, tp=None, kv_seq=None):
     """The Mamba2 stack (and the hybrid's shared block), writing each
     layer's SSM state, conv lag and shared-block KV slice into the stacked
     buffers in place.  Returns the residual stream.  ``layer_constrain`` is
     applied to each Mamba2 block, not to the shared block (the setups place
     it once a call).  ``tp``: each block of a TP group, the buffers in the
-    rows form's heads and channels."""
+    rows form's heads and channels; ``kv_seq``: the shared block's caches
+    in the flash-decoding layout."""
     for l, bp in enumerate(params["blocks"]):
         bp = layer_constrain(bp)
         st = SSMState(ssm.h[l], ssm.conv[l]) if mode == "decode" else None
@@ -460,42 +467,45 @@ def _ssm_stack(params, cfg, pcfg, x, positions, ssm: SSMState,
             x = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
                 mode="decode", cache=KVCache(shared.k[g], shared.v[g]),
-                cache_index=cache_index, tp=tp)[0]
+                cache_index=cache_index, tp=tp, kv_seq=kv_seq)[0]
         else:
             x, kvg, _, _ = apply_attn_block(
                 params["shared_attn"], cfg, pcfg, x, positions=positions,
-                mode="prefill", cache_len=cache_len, tp=tp)
+                mode="prefill", cache_len=cache_len, tp=tp, kv_seq=kv_seq)
             shared.k[g].copy_(kvg.k)
             shared.v[g].copy_(kvg.v)
     return x
 
 
 def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
-            cache_len: int, enc_fn=None, layer_constrain=_identity, tp=None, ep=None
-            ) -> Tuple[torch.Tensor, DecodeState]:
+            cache_len: int, enc_fn=None, layer_constrain=_identity, tp=None, ep=None,
+            kv_seq=None) -> Tuple[torch.Tensor, DecodeState]:
     """Run the prompt (after the patches, for a vlm batch with
     ``patch_embeds``; against the encoded ``frames`` for audio, through
     ``enc_fn``); return (last-token logits (B, V), DecodeState).  The state's
     ``index`` counts the patches too.  With ``tp`` the logits are the rows
     form (R, B, V / tp) and the caches hold the rows form's KV heads.  With
-    ``ep`` the lanes of an EP group (see the module docstring)."""
+    ``ep`` the lanes of an EP group (see the module docstring).  With
+    ``kv_seq`` the self caches in the flash-decoding layout."""
     _require_ported(cfg)
     if ep is not None:
         return _serve_ep(params, batch["tokens"], None, cfg, pcfg, layer_constrain, tp, ep,
-                         cache_len=cache_len)
+                         cache_len=cache_len, kv_seq=kv_seq)
     x, positions = _embed_inputs(params, cfg, batch, tp)
     enc_out = _encode(params, batch, cfg, enc_fn)
     B, S = x.shape[:2]
-    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device, tp)._replace(index=S)
+    state = _state_buffers(cfg, B, cache_len, x.dtype, x.device, tp,
+                           kv_seq)._replace(index=S)
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
                        state.shared_kv, mode="prefill", cache_len=cache_len,
-                       layer_constrain=layer_constrain, tp=tp)
+                       layer_constrain=layer_constrain, tp=tp, kv_seq=kv_seq)
     else:
         for l, bp in enumerate(params["blocks"]):
             x, kvl, xkvl, _ = apply_attn_block(layer_constrain(bp), cfg, pcfg, x,
                                                positions=positions, mode="prefill",
-                                               cache_len=cache_len, enc_out=enc_out, tp=tp)
+                                               cache_len=cache_len, enc_out=enc_out, tp=tp,
+                                               kv_seq=kv_seq)
             state.kv.k[l].copy_(kvl.k)
             state.kv.v[l].copy_(kvl.v)
             if xkvl is not None:
@@ -508,14 +518,16 @@ def prefill(params, batch, cfg: ModelConfig, pcfg: Optional[ParallelConfig],
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                 pcfg: Optional[ParallelConfig], layer_constrain=_identity, tp=None,
-                ep=None) -> Tuple[torch.Tensor, DecodeState]:
+                ep=None, kv_seq=None) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B, 1) integer → logits (B, V) (with ``tp``
     the rows form (R, B, V / tp)).  Every row sits at position
     ``state.index``.  With ``ep`` the lanes of an EP group (see the module
-    docstring)."""
+    docstring); with ``kv_seq`` the self caches in the flash-decoding
+    layout (``prefill``'s)."""
     _require_ported(cfg)
     if ep is not None:
-        return _serve_ep(params, tokens, state, cfg, pcfg, layer_constrain, tp, ep)
+        return _serve_ep(params, tokens, state, cfg, pcfg, layer_constrain, tp, ep,
+                         kv_seq=kv_seq)
     x = _lookup(params, tokens, tp)
     B = x.shape[0]
     positions = torch.full((B, 1), state.index, dtype=torch.int32,
@@ -523,7 +535,7 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
     if _is_ssm(cfg):
         x = _ssm_stack(params, cfg, pcfg, x, positions, state.ssm,
                        state.shared_kv, mode="decode", cache_index=state.index,
-                       layer_constrain=layer_constrain, tp=tp)
+                       layer_constrain=layer_constrain, tp=tp, kv_seq=kv_seq)
     else:
         for l, bp in enumerate(params["blocks"]):
             cross = (KVCache(state.cross_kv.k[l], state.cross_kv.v[l])
@@ -531,13 +543,14 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
             x = apply_attn_block(
                 layer_constrain(bp), cfg, pcfg, x, positions=positions, mode="decode",
                 cache=KVCache(state.kv.k[l], state.kv.v[l]),
-                cache_index=state.index, cross_cache=cross, tp=tp)[0]
+                cache_index=state.index, cross_cache=cross, tp=tp, kv_seq=kv_seq)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x, tp)
     return logits[..., 0, :], state._replace(index=state.index + 1)
 
 
-def _serve_ep(lanes, tokens, state, cfg, pcfg, layer_constrain, tp, ep, cache_len=None):
+def _serve_ep(lanes, tokens, state, cfg, pcfg, layer_constrain, tp, ep, cache_len=None,
+              kv_seq=None):
     """``prefill`` (``state`` None) or ``decode_step`` of the lanes of an EP
     group: tokens (lanes, b, S); each lane reads and writes its rows of the
     decode state (lane r rows r·b ...), the blocks run with the lanes
@@ -552,14 +565,15 @@ def _serve_ep(lanes, tokens, state, cfg, pcfg, layer_constrain, tp, ep, cache_le
         positions = torch.full((b, 1), state.index, dtype=torch.int32, device=xs[0].device)
     else:
         state = _state_buffers(cfg, R * b, cache_len, xs[0].dtype, xs[0].device,
-                               tp)._replace(index=S)
+                               tp, kv_seq)._replace(index=S)
     for l in range(len(lanes[0]["blocks"])):
         caches = ([KVCache(state.kv.k[l].narrow(0, r * b, b), state.kv.v[l].narrow(0, r * b, b))
                    for r in range(R)] if decode else None)
         xs, new, _ = apply_attn_blocks_ep(
             [lc(lane["blocks"][l]) for lc, lane in zip(lcs, lanes)], cfg, pcfg, xs,
             positions=positions, mode="decode" if decode else "prefill", caches=caches,
-            cache_index=state.index if decode else None, cache_len=cache_len, tp=tp, ep=ep)
+            cache_index=state.index if decode else None, cache_len=cache_len, tp=tp, ep=ep,
+            kv_seq=kv_seq)
         if not decode:
             for r, kv in enumerate(new):
                 state.kv.k[l, r * b:(r + 1) * b].copy_(kv.k)

@@ -46,9 +46,11 @@ place parameters by these specs over the data axes and, for every family,
 over a ``model`` axis of more than one rank, whose products ``parallel.tp``
 runs (tensor parallelism; a Mamba2 block's decode state in the rows form of
 ``ssm_state_spec``), and the MoE family's experts over an EP data axis
-(``moe_ep_axis``); heads that do not divide the TP degree, the
-flash-decoding layout of a batch no data axis divides and sequence
-parallelism wait (ROADMAP.md, Queue 1).
+(``moe_ep_axis``); where ``kv_cache_spec`` puts the decode caches' sequence
+on a mesh axis (KV heads that do not divide the TP degree, or a batch that
+no data axis divides) the caches take the flash-decoding layout
+(``parallel.tp.KVSeqContext``).  Sequence parallelism waits (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations

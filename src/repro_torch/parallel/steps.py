@@ -55,8 +55,15 @@ setups keep each rank's KV heads in the decode state's rows form
 (``kv_cache_spec``), a Mamba2 layer's SSM heads and conv channels likewise
 (``ssm_state_spec``), and gather the logits whole.  The residual is not
 sequence-sharded (``seq_shard`` is a placement in the JAX package, not a
-different result).  A MoE block's router runs once on a TP group's whole
-input (``models.moe.moe_ffn(tp=)``).  A Mamba2 block gathers its fused
+different result).  Heads that do not divide the degree run as the JAX
+package places them (``models.layers``): the query heads padded, the KV
+heads gathered whole, and the serving setups keep the decode caches in the
+flash-decoding layout of ``kv_cache_spec`` (``parallel.tp.KVSeqContext``:
+each rank its block of the cache's sequence, every KV head), which a
+serving batch that no data axis divides takes too: every data row then
+computes the same prefill and each rank keeps its block of the sequence.  A
+MoE block's router runs once on a TP group's whole input
+(``models.moe.moe_ffn(tp=)``).  A Mamba2 block gathers its fused
 in-projection and its conv output over the axis (``models.ssm.mamba2_forward(
 tp=)``); the hybrid's shared attention block is placed (under fsdp gathered)
 once a call, as every leaf outside the blocks.
@@ -79,10 +86,9 @@ axis (``pod``) only.  The EP axis must be the sync's inner axis and the
 batch's last axis.
 
 What the setups cannot run yet they refuse with a ``ValueError``: tensor
-parallelism with attention or SSM heads that do not divide the TP degree,
-and a serving batch that no data axis divides wait for ROADMAP.md M9b2b
-(padded heads, the flash-decoding layout; as does a ``Trainer(mesh=)`` over
-a setup); compressed sync would be a
+parallelism with SSM heads that do not divide the TP degree waits for
+ROADMAP.md M9b2b (``models.ssm.tp_groups``; as does a ``Trainer(mesh=)``
+over a setup); compressed sync would be a
 different result; zero1 with ``moe_ep_axis`` set is refused as the JAX
 setup refuses it (``opt_spec`` puts the data axis on the experts' ``embed``
 dim beside their ``expert`` dim, a ``DuplicateSpecError`` there).
@@ -110,7 +116,7 @@ from ..models.modules import tree_flatten, tree_map, tree_unflatten
 from ..train.optim import AdamState, OptimConfig, QTensor, adam_update, init_adam
 from .collectives import build_shard_sync, build_sync
 from .sharding import Ruleset, _names, _spec, all_blocks, shard_leaf, unshard_leaf
-from .tp import EPContext, TPContext
+from .tp import EPContext, KVSeqContext, TPContext
 
 
 class TrainState(NamedTuple):
@@ -295,7 +301,8 @@ def _flat_specs(spec_tree):
 def _check_divides(param_shapes, specs, mesh, what: str) -> None:
     """A ``ValueError`` naming the first leaf whose sharded dimension does
     not divide over its axes (the JAX package pads a ragged tail; the port
-    does not)."""
+    does not: it pads heads, never a parameter's columns, which the
+    flattened ``Hq·hd`` / ``Hkv·hd`` of every configuration divide)."""
     leaves = tree_flatten(param_shapes)[0]
     for path, t, spec in zip(_leaf_paths(param_shapes), leaves, specs):
         try:
@@ -615,11 +622,6 @@ def _check_mesh(mesh, pcfg, ruleset, what: str) -> None:
     if idle:
         raise ValueError(f"{what}: mesh axes {idle} of more than one rank are neither data "
                          f"axes nor the TP axis {pcfg.tp_axis!r}")
-    if tp and (cfg.n_heads % mesh.shape[tp] or cfg.n_kv_heads % mesh.shape[tp]):
-        raise ValueError(
-            f"{what}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do not divide over "
-            f"{mesh.shape[tp]} ranks of {tp!r}; padding the heads (query) and replicating "
-            "them (KV) under tensor parallelism waits for ROADMAP.md M9b2b")
     if tp and cfg.ssm_heads:
         tp_groups(cfg, mesh.shape[tp])          # SSM heads that the ranks cannot split
     if not ruleset.dp:
@@ -890,19 +892,29 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      init_state=init_state, grad_fn=grad_fn, update_fn=update_fn)
 
 
+def _kv_seq_context(ruleset: Ruleset, cfg: ModelConfig, shape: ShapeConfig
+                    ) -> Optional[KVSeqContext]:
+    """The flash-decoding layout of the decode caches where ``kv_cache_spec``
+    puts their sequence on axes of more than one rank (KV heads that do not
+    divide the TP degree; every axis where no data axis divides the batch),
+    with the logical cache length of ``shape``; else None."""
+    if cfg.family == "ssm":
+        return None
+    axes = _names(ruleset.kv_cache_spec(shape.global_batch)[2])
+    if ruleset.mesh.size(axes) == 1:
+        return None
+    return KVSeqContext(ruleset.mesh, axes, tfm._cache_len(cfg, shape.seq_len))
+
+
 def _serve_setup(cfg, shape, mesh, pcfg, what: str):
     """What the prefill and decode setups share: (pcfg with remat "none",
-    ruleset, shapes, specs, batch axes, place, init_state, tp, ep)."""
+    ruleset, shapes, specs, batch axes (empty where no data axis divides the
+    batch), place, init_state, tp, ep, kv_seq)."""
     pcfg = (pcfg or ParallelConfig()).replace(remat="none")
     ruleset, param_shapes, axes, param_shardings = _param_setup(cfg, pcfg, mesh)
     _check_mesh(mesh, pcfg, ruleset, what)
     tp = _tp_context(ruleset)
-    b_axes = ruleset.batch_axes(shape.global_batch)
-    if b_axes is None:
-        raise ValueError(
-            f"{what}: a batch of {shape.global_batch} that no data axis of {dict(mesh.shape)} "
-            "divides; the JAX setup spreads the cache's sequence over every axis there "
-            "(kv_cache_spec's flash-decoding layout), which waits for ROADMAP.md M9b2b")
+    b_axes = ruleset.batch_axes(shape.global_batch) or ()
     ep = _ep_context(ruleset, b_axes, what)
     specs = _flat_specs(param_shardings)
     held = pcfg.param_sharding == "fsdp" or tp or ep
@@ -919,12 +931,15 @@ def _serve_setup(cfg, shape, mesh, pcfg, what: str):
         return tree_unflatten(spec, [shard_leaf(p, s, mesh).clone()
                                      for p, s in zip(leaves, specs)])
     return (pcfg, ruleset, param_shapes, param_shardings, b_axes,
-            _place_fn(cfg, pcfg, ruleset, param_shardings, tp, ep), init_state, tp, ep)
+            _place_fn(cfg, pcfg, ruleset, param_shardings, tp, ep), init_state, tp, ep,
+            _kv_seq_context(ruleset, cfg, shape))
 
 
 def _batch_rows(mesh, b_axes):
     """The batch rows a call runs: every distinct one on a ``StackedMesh``,
-    this rank's on a ``DistMesh``."""
+    this rank's on a ``DistMesh`` (one, the whole batch, where ``b_axes`` is
+    empty: every data rank runs it, and holds its block of the caches'
+    sequence)."""
     return [0] if isinstance(mesh, DistMesh) else range(mesh.size(b_axes))
 
 
@@ -954,11 +969,12 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     all-gather), and the decode state in the batch's rows form: every row in
     order on a ``StackedMesh``, this rank's rows on a ``DistMesh``
     (``state_shardings``; under TP the KV heads likewise: every head on a
-    ``StackedMesh``, this rank's on a ``DistMesh``).  Remat "none", as in
-    the JAX setup.  Under EP the lanes of each EP group prefill together
-    (``tfm.prefill(ep=)``)."""
+    ``StackedMesh``, this rank's on a ``DistMesh``; in the flash-decoding
+    layout of ``kv_cache_spec`` the blocks of the caches' sequence so, padded
+    to a multiple of the ranks).  Remat "none", as in the JAX setup.  Under
+    EP the lanes of each EP group prefill together (``tfm.prefill(ep=)``)."""
     what = "make_prefill_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep, kv_seq = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     cache_len = shape.seq_len
 
@@ -972,13 +988,15 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         if ep:                  # the lanes of each EP group together
             for rows in _ep_groups(mesh, mesh.size(b_axes), ep):
                 lg, st = tfm.prefill([tree] * ep.rows, {k: v[rows] for k, v in placed.items()},
-                                     cfg, pcfg, cache_len, layer_constrain=lc, tp=tp, ep=ep)
+                                     cfg, pcfg, cache_len, layer_constrain=lc, tp=tp, ep=ep,
+                                     kv_seq=kv_seq)
                 logits += [x if tp is None else tp.gather_logits(x) for x in lg]
                 states.append(st)
         else:
             for j in _batch_rows(mesh, b_axes):
                 lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
-                                     cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp)
+                                     cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp,
+                                     kv_seq=kv_seq)
                 logits.append(lg if tp is None else tp.gather_logits(lg))
                 states.append(st)
         return unshard_leaf(torch.stack(logits), (b_axes,), mesh), _cat_rows(states)
@@ -999,9 +1017,10 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
     ``make_prefill_setup`` returns.  Each rank steps its rows, writing its
     part of the state in place (``decode_step``); the logits come back whole,
     in the batch's order.  Under EP the lanes of each EP group step
-    together."""
+    together.  A cache in the flash-decoding layout (``kv_seq``) is read by
+    the combine of every rank's block."""
     what = "make_decode_setup"
-    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep = \
+    pcfg, ruleset, param_shapes, param_shardings, b_axes, place, init_state, tp, ep, kv_seq = \
         _serve_setup(cfg, shape, mesh, pcfg, what)
     B = shape.global_batch
     cdt = DTYPES[pcfg.compute_dtype]
@@ -1018,13 +1037,13 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
             for g, rows in enumerate(_ep_groups(mesh, mesh.size(b_axes), ep)):
                 sub = state if isinstance(mesh, DistMesh) else _row_view(state, g, ep.rows * b)
                 lg = tfm.decode_step([tree] * ep.rows, placed[rows], sub, cfg, pcfg,
-                                     layer_constrain=lc, tp=tp, ep=ep)[0]
+                                     layer_constrain=lc, tp=tp, ep=ep, kv_seq=kv_seq)[0]
                 logits += [x if tp is None else tp.gather_logits(x) for x in lg]
         else:
             for j in _batch_rows(mesh, b_axes):
                 sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
                 lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc,
-                                     tp=tp)[0]
+                                     tp=tp, kv_seq=kv_seq)[0]
                 logits.append(lg if tp is None else tp.gather_logits(lg))
         return (unshard_leaf(torch.stack(logits), (b_axes,), mesh),
                 state._replace(index=state.index + 1))

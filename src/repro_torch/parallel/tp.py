@@ -31,6 +31,16 @@ axis: a leading dimension of ``mesh.rows((axis,))``, every rank's block on a
   conv output so (``models.ssm.mamba2_forward(tp=)``).
 * ``gather_logits``: a rank's ``(..., V / tp)`` logits → whole ``(..., V)``
   (forward only, for serving).
+* ``gather_parts(parts)``: several tensors' blocks by one all-gather (one
+  all-reduce backward): the attention of heads that do not divide the degree
+  gathers its query, key and value columns so (``models.layers``).
+* ``flash_decode``: single-token attention over a cache whose *sequence* is
+  split over the ranks of one or more axes, the flash-decoding combine as
+  GSPMD emits it for ``kv_cache_spec``'s layout: the per-head max of the
+  ranks' scores (an exact all-gather and ``amax``), the sum of their
+  ``exp(s - m)`` (one all-reduce), the sum of their ``(p / denom) @ V_r`` in
+  the cache dtype (one all-reduce).  ``KVSeqContext`` binds it to the
+  layout.
 
 Every sum over the ranks is ``collectives.flat_all_reduce`` over the axis:
 ``mesh.exchange``, ``ops.reduce_shards`` (on the card the tree-reduce kernel
@@ -42,7 +52,15 @@ one: not bit-equal to it.
 ``TPContext`` binds the operators to a mesh and an axis; the model functions
 (``models.layers``, ``models.ssm``, ``models.transformer``, ``models.whisper``)
 take one as ``tp=`` and run each rank's heads (attention or SSM), MLP columns,
-experts (or their ``mlp`` blocks) and vocab block in turn.
+experts (or their ``mlp`` blocks) and vocab block in turn.  Query heads that
+do not divide the degree are padded as ``act_spec("q_heads")`` pads them
+(``TPContext.head_ranges``: ceil(H / tp) a rank, the last ranks fewer or
+none), KV heads that do not divide are gathered whole.
+
+``KVSeqContext`` is the flash-decoding layout of the decode caches (what
+``models.transformer``'s ``prefill`` / ``decode_step`` take as ``kv_seq=``):
+the cache's sequence in blocks over the ranks of its axes, every KV head on
+every rank, the storage padded to a multiple of the ranks.
 
 ``EPContext`` binds expert parallelism inside the setups to a mesh and its
 EP axis (a data axis): ``models.transformer``'s functions take one as
@@ -54,10 +72,12 @@ its own sequences) together through every MoE block
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
+from ..launch.mesh import DistMesh
+from ..models.attention import decode_scores, decode_valid, decode_values
 from ..models.modules import NEG_BIG, _CE_CHUNK_ELEMENTS
 from .collectives import flat_all_reduce
 from .sharding import shard_leaf, unshard_leaf
@@ -69,19 +89,28 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def all_reduce_rows(rows: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The sum over the ranks of ``axis`` of a tensor in the rows form
-    ``(R, ...)``: ``(...)``, the same on every rank.  One tree-reduce launch
-    (``flat_all_reduce``)."""
+def _axes(axis) -> Tuple[str, ...]:
+    """One axis name or a sequence of them, as a tuple (the rows form over
+    several axes is row-major over them in that order)."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def all_reduce_rows(rows: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` (a name or a tuple of names) of a
+    tensor in the rows form ``(R, ...)``: ``(...)``, the same on every rank.
+    One tree-reduce launch (``flat_all_reduce``)."""
+    axes = _axes(axis)
     shape = rows.shape[1:]
-    flat = mesh.local(rows.reshape(rows.shape[0], -1), (axis,))
-    return mesh.replicated(flat_all_reduce(flat, mesh, (axis,))).reshape(shape)
+    flat = mesh.local(rows.reshape(rows.shape[0], -1), axes)
+    return mesh.replicated(flat_all_reduce(flat, mesh, axes)).reshape(shape)
 
 
-def _max_rows(rows: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The elementwise max over the ranks of ``axis`` of ``(R, n)`` rows: an
-    all-gather and ``amax``, exact (as ``parallel.steps._row_max_fn``)."""
-    got = mesh.gather(mesh.local(rows, (axis,)), (axis,))
+def _max_rows(rows: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The elementwise max over the ranks of ``axis`` (a name or a tuple) of
+    ``(R, n)`` rows: an all-gather and ``amax``, exact (as
+    ``parallel.steps._row_max_fn``)."""
+    axes = _axes(axis)
+    got = mesh.gather(mesh.local(rows, axes), axes)
     return mesh.replicated(got.amax(dim=-2))
 
 
@@ -144,6 +173,58 @@ def gather_from_tp(rows: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         raise ValueError(f"gather_from_tp: need the rows form over {axis!r}, a leading "
                          f"dimension of {mesh.rows((axis,))}, got {tuple(rows.shape)}")
     return _GatherFromTP.apply(rows, mesh, axis)
+
+
+def gather_parts(parts: Sequence[torch.Tensor], mesh, axis: str) -> List[torch.Tensor]:
+    """Several tensors in the rows form ``(R, *shape_i, c_i)``, each rank's
+    block of each one's last dimension, put together by one gather
+    (``gather_from_tp`` of their flattened concatenation; backward one
+    all-reduce).  Returns for each part ``(R, size, *shape_i, c_i)``: every
+    rank's block, views of one copy; ``whole_row`` gives a row's whole
+    tensor ``(*shape_i, size * c_i)``."""
+    R = parts[0].shape[0]
+    flat = [p.reshape(R, -1) for p in parts]
+    got = gather_from_tp(torch.cat(flat, dim=-1), mesh, axis)
+    size = mesh.shape[axis]
+    got = got.reshape(R, size, -1)
+    out, start = [], 0
+    for p, f in zip(parts, flat):
+        n = f.shape[1]
+        out.append(got[:, :, start:start + n].reshape(R, size, *p.shape[1:]))
+        start += n
+    return out
+
+
+def whole_row(part: torch.Tensor) -> torch.Tensor:
+    """One row of ``gather_parts``'s result, ``(size, *shape, c)`` → the
+    whole tensor ``(*shape, size * c)``."""
+    return part.movedim(0, -2).reshape(*part.shape[1:-1], -1)
+
+
+def flash_decode(q: torch.Tensor, k_blocks, v_blocks, valid_blocks, mesh, axis,
+                 scale=None) -> torch.Tensor:
+    """``models.attention.decode_attention`` of the single query ``q`` (B, 1,
+    Hq, hd) over a cache whose sequence lies in blocks on the ranks of
+    ``axis`` (a name or a tuple of names): ``k_blocks`` / ``v_blocks`` /
+    ``valid_blocks`` one entry per row of the rows form over ``axis`` (each
+    (B, n, Hkv, hd), and (B|1, n) bool).  Three sums over the ranks, in this
+    order on every rank: the per-head max of their scores (an all-gather and
+    ``amax``, exact), the denominators ``sum exp(s - m)`` (one all-reduce),
+    each rank's ``((p / denom) in the cache dtype) @ V_r`` (one all-reduce).
+    So the roundings are ``decode_attention``'s (normalise, cast, product)
+    and only the order of the sums differs.  A block with no valid slot has
+    scores of ``NEG_INF`` and adds exactly 0.  Returns (B, 1, Hq, hd) in
+    ``q.dtype``, the same on every rank."""
+    B, _, Hq, hd = q.shape
+    s = [decode_scores(q, k, ok, scale) for k, ok in zip(k_blocks, valid_blocks)]
+    stats = s[0].shape[:-1] + (1,)
+    m = _max_rows(torch.stack([x.amax(dim=-1).reshape(-1) for x in s]), mesh, axis)
+    m = m.reshape(stats)
+    p = [torch.exp(x - m) for x in s]
+    denom = all_reduce_rows(torch.stack([x.sum(dim=-1, keepdim=True) for x in p]), mesh, axis)
+    out = all_reduce_rows(torch.stack([decode_values(x, denom, v)
+                                       for x, v in zip(p, v_blocks)]), mesh, axis)
+    return out.float().reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 def copy_to_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -312,6 +393,26 @@ class TPContext:
             raise ValueError(f"{n} heads do not divide over {self.size} ranks of {self.axis!r}")
         return n // self.size * self.rows
 
+    def padded(self, n: int) -> int:
+        """The heads a rank holds of ``n`` padded over the axis (GSPMD's
+        padding of ``act_spec("q_heads")``): ceil(n / size)."""
+        return -(-n // self.size)
+
+    def head_ranges(self, n: int) -> List[Tuple[int, int]]:
+        """Each row's heads ``[start, stop)`` of ``n`` padded over the axis:
+        ``padded(n)`` a rank, the last ranks fewer or none (56 over 16: 4 a
+        rank, ranks 14-15 none; 20 over 8: 3 a rank, rank 6 two, rank 7
+        none)."""
+        hp = self.padded(n)
+        return [(min(c * hp, n), min((c + 1) * hp, n)) for c in self.coords]
+
+    def gather_parts(self, parts) -> List[torch.Tensor]:
+        return gather_parts(parts, self.mesh, self.axis)
+
+    @staticmethod
+    def whole_row(part: torch.Tensor) -> torch.Tensor:
+        return whole_row(part)
+
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to_tp(x, self.mesh, self.axis)
 
@@ -348,3 +449,66 @@ class EPContext:
     @property
     def rows(self) -> int:
         return self.mesh.rows((self.axis,))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSeqContext:
+    """The flash-decoding layout of the decode caches: what
+    ``Ruleset.kv_cache_spec`` gives where it puts the cache's sequence on
+    ``axes`` (KV heads that do not divide the TP degree, or a batch that no
+    data axis divides).  ``length`` is the logical cache length (a sliding
+    window's rolling buffer, ``min(cache_len, window)``); the storage pads it
+    to ``size * block`` slots, as GSPMD pads a ragged dimension, and a padded
+    slot is never valid.  A cache in this layout is ``(B, rows * block, Hkv,
+    hd)``: every rank's block in order on a ``StackedMesh`` (the whole padded
+    cache), this rank's on a ``DistMesh``; every KV head."""
+    mesh: Any
+    axes: Tuple[str, ...]
+    length: int
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axes)
+
+    @property
+    def rows(self) -> int:
+        return self.mesh.rows(self.axes)
+
+    @property
+    def block(self) -> int:
+        return -(-self.length // self.size)
+
+    @property
+    def starts(self) -> List[int]:
+        """The first slot of each row's block."""
+        if isinstance(self.mesh, DistMesh):
+            return [self.mesh.replica(self.axes) * self.block]
+        return [i * self.block for i in range(self.size)]
+
+    def place(self, cache: torch.Tensor) -> torch.Tensor:
+        """A whole cache ``(B, length, H, hd)`` → this layout."""
+        pad = self.size * self.block - cache.shape[1]
+        if pad:
+            cache = torch.nn.functional.pad(cache, (0, 0, 0, 0, 0, pad))
+        if isinstance(self.mesh, DistMesh):
+            return cache.narrow(1, self.starts[0], self.block)
+        return cache
+
+    def write(self, buf: torch.Tensor, kv: torch.Tensor, pos: int) -> None:
+        """Write ``kv`` (B, 1, H, hd) at logical slot ``pos`` into ``buf``
+        in place: the rank whose block holds the slot writes it."""
+        for i, start in enumerate(self.starts):
+            if start <= pos < start + self.block:
+                buf[:, i * self.block + pos - start] = kv[:, 0].to(buf.dtype)
+
+    def attend(self, q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor, valid: int,
+               window: int = 0) -> torch.Tensor:
+        """``decode_attention(q, k, v, valid, window=window)`` of the whole
+        cache, from each rank's block (``flash_decode``): slot j is valid
+        where ``j < valid`` (and ``j >= valid - window``)."""
+        n = self.block
+        ks = [k_buf.narrow(1, i * n, n) for i in range(self.rows)]
+        vs = [v_buf.narrow(1, i * n, n) for i in range(self.rows)]
+        oks = [decode_valid(start + torch.arange(n, device=q.device), valid, window)
+               for start in self.starts]
+        return flash_decode(q, ks, vs, oks, self.mesh, self.axes)

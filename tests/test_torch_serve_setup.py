@@ -311,18 +311,31 @@ def test_cell_setup_fields_equal_the_jax_ones(jax_serve, arch):
 @pytest.mark.parametrize("make", [make_prefill_setup, make_decode_setup],
                          ids=["prefill", "decode"])
 def test_the_serving_setups_refuse_what_waits(make):
-    """Its tensor-parallel and ``moe_ep_axis`` lines are historical: a
-    ``model`` axis of 2 was refused for every family, then for the MoE and
-    SSM ones, then for the SSM one, and ``moe_ep_axis`` was refused; now
-    every family builds under ``model`` 2 (``tests/test_torch_tp.py``,
+    """Its lines are historical: a ``model`` axis of 2 was refused for every
+    family, then for the MoE and SSM ones, then for the SSM one,
+    ``moe_ep_axis`` was refused, and a batch that no data axis divides was
+    refused until the flash-decoding layout ran; now every family builds
+    under ``model`` 2 (``tests/test_torch_tp.py``,
     ``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py`` serve
-    them over it) and the MoE family under ``moe_ep_axis``.  A batch that
-    no data axis divides is still refused."""
+    them over it), the MoE family under ``moe_ep_axis``, and a batch of 3
+    over data 4 runs, the caches' sequence over ``data``
+    (``tests/test_torch_heads_tp.py`` holds the rest)."""
     cfg = config("llama3.2-1b")
     shape = ShapeConfig("s", "prefill", 32, B)
     data4 = make_mesh((4,), ("data",), device="cpu")
-    with pytest.raises(ValueError, match="batch of 3.*flash-decoding.*M9b2b"):
-        make(cfg, ShapeConfig("s", "prefill", 32, 3), data4)
+    small = ShapeConfig("s", "prefill", cache_len(cfg), 3)
+    setup = make(cfg, small, data4)
+    assert setup.state_shardings.kv.k == (None, None, "data", None, None)
+    p0 = params_of("llama3.2-1b", "float32")
+    batch, steps = serve_batch(cfg)
+    batch = {k: v[:3] for k, v in batch.items()}
+    want, _ = one_device(cfg, p0, batch, [t[:3] for t in steps[:1]])
+    pre = make_prefill_setup(cfg, small, data4)
+    placed = pre.init_state(clone(p0))
+    got, state = pre.step_fn(placed, batch)
+    if make is make_decode_setup:
+        got, _ = setup.step_fn(placed, state, steps[0][:3])
+    np.testing.assert_allclose(got.numpy(), want[make is make_decode_setup].numpy(), **TOL)
     # tensor parallelism runs for every family
     model2 = make_mesh((4, 2), ("data", "model"), device="cpu")
     assert make(config("mixtral-8x7b"), shape, model2).ruleset.expert_sharded

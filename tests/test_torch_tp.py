@@ -31,13 +31,16 @@ References:
 (iv)  One spawned world of 4 ``gloo`` ranks on ``(data 2, model 2)`` (a
       ``file://`` store, one timeout): an fsdp train step, a zero1 step with
       int8 moments, and a prefill + 2 decode steps of llama3.2-1b and
-      whisper-medium equal the ``StackedMesh``'s bit for bit.
-(v)   The refusals (heads that do not divide the degree), each a
-      ``ValueError`` naming ROADMAP.md M9b2b (the moe, ssm and hybrid
-      families, once refused, now build; their results are in
-      ``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py``), and
-      a rank's parameter and optimizer bytes at ``(data 2, model 2)`` fsdp
-      against the count from the specs.
+      whisper-medium, and of ``reduced(n_heads=3, n_kv_heads=1)`` (heads
+      that do not divide the degree) an fsdp step and a prefill + 2 decode
+      steps at B 8 and at B 1 (the flash-decoding layout), equal the
+      ``StackedMesh``'s bit for bit.
+(v)   The refusals once lifted: the moe, ssm and hybrid families build;
+      heads that do not divide the degree build and run (their results are
+      in ``tests/test_torch_moe_tp.py``, ``tests/test_torch_ssm_tp.py`` and
+      ``tests/test_torch_heads_tp.py``); and a rank's parameter and
+      optimizer bytes at ``(data 2, model 2)`` fsdp against the count from
+      the specs.
 
 The JAX setups on a ``(4, 2)`` ``data`` / ``model`` mesh are held against the
 port's own TP setups in ``tests/test_torch_setup.py`` and
@@ -470,13 +473,17 @@ def test_a_tp_serving_call_runs_its_all_reduces(monkeypatch):
     ("llama3.2-1b", {}, "heads do not divide.*M9b2b")])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_what_tp_does_not_run_is_refused(arch, kw, match, kind):
-    """The names of the mixtral, mamba2 and zamba2 cases are historical: the
-    moe, ssm and hybrid families under ``model`` 2 were refused (the match
-    strings in their IDs) until tensor parallelism ran for them; now their
-    setups build and place the experts, or the Mamba2 blocks' fused
-    in-projection, over ``model`` (``tests/test_torch_moe_tp.py`` and
-    ``tests/test_torch_ssm_tp.py`` hold their results).  The llama cases,
-    heads that do not divide the degree, are still refused."""
+    """The names of these cases are historical: the moe, ssm and hybrid
+    families under ``model`` 2 were refused (the match strings in their IDs)
+    until tensor parallelism ran for them; now their setups build and place
+    the experts, or the Mamba2 blocks' fused in-projection, over ``model``
+    (``tests/test_torch_moe_tp.py`` and ``tests/test_torch_ssm_tp.py`` hold
+    their results).  The llama cases, heads that do not divide the degree (6
+    / 3 over ``model`` 2; 4 / 2 over ``model`` 4), were refused until the
+    padded heads and the flash-decoding layout ran; now their setups build
+    and run: a train step's loss, a prefill's logits and a decode step's
+    against the one-device path (``tests/test_torch_heads_tp.py`` holds the
+    rest)."""
     cfg = config(arch, **kw)
     mesh_name = "data1-model4" if not kw and arch == "llama3.2-1b" else "data2-model2"
     if cfg.family in ("moe", "ssm", "hybrid"):
@@ -489,8 +496,26 @@ def test_what_tp_does_not_run_is_refused(arch, kw, match, kind):
         else:
             assert setup.param_shardings["blocks"][0]["ssm"]["in_proj"] == ("data", "model")
         return
-    with pytest.raises(ValueError, match=match):
-        tp_setup(cfg, mesh_name, "fsdp", kind=kind, cache=S)
+    p0 = tfm.init(0, cfg, device="cpu")
+    if kind == "train":
+        ocfg, pcfg = OptimConfig(**OCFG), ParallelConfig(remat="none")
+        batch = make_batch(cfg, 2)
+        ref = TrainState(clone(p0), init_adam(clone(p0), ocfg))
+        _, m_ref = make_train_step(cfg, pcfg, ocfg)(ref, batch)
+        setup = tp_setup(cfg, mesh_name, "fsdp")
+        _, m = setup.step_fn(setup.init_state(clone(p0)), batch)
+        np.testing.assert_allclose(float(m["loss"]), float(m_ref["loss"]), rtol=1e-5)
+        return
+    batch, steps = serve_batch(cfg)
+    want, _ = one_device_serve(cfg, p0, batch, steps[:1])
+    pre = tp_setup(cfg, mesh_name, "fsdp", kind="prefill", cache=cache_len(cfg))
+    placed = pre.init_state(clone(p0))
+    got, state = pre.step_fn(placed, batch)
+    assert pre.state_shardings.kv.k == (None, "data", "model", None, None)
+    if kind == "decode":
+        dec = tp_setup(cfg, mesh_name, "fsdp", kind="decode", cache=cache_len(cfg))
+        got, _ = dec.step_fn(placed, state, steps[0])
+    np.testing.assert_allclose(got.numpy(), want[kind == "decode"].numpy(), **MODEL_TOL)
 
 
 def test_a_rank_holds_its_blocks_of_the_parameters():
@@ -520,6 +545,11 @@ def test_a_rank_holds_its_blocks_of_the_parameters():
 GLOO_TRAIN = [("llama3.2-1b", "fsdp", "float32"), ("llama3.2-1b", "zero1", "int8"),
               ("whisper-medium", "fsdp", "float32")]
 GLOO_SERVE = ("llama3.2-1b", "whisper-medium")
+# heads that do not divide model 2 (tests/test_torch_heads_tp.py): an fsdp
+# step, and a prefill + 2 decode steps at B 8 (the caches' sequence over
+# model) and at B 1 (over both axes), a cache of 21 slots padded to 22 / 24
+GLOO_HEADS = ("llama3.2-1b-h3kv1", "llama3.2-1b", dict(n_heads=3, n_kv_heads=1))
+GLOO_HEADS_BATCHES = (B, 1)
 
 GLOO_WORKER = """
 import sys
@@ -533,6 +563,7 @@ from repro_torch.parallel.sharding import unshard_leaf
 from repro_torch.parallel.steps import make_setup, make_train_setup
 from repro_torch.train.optim import OptimConfig
 TRAIN, SERVE, OCFG, B, S, NEW = {train!r}, {serve!r}, {ocfg!r}, {B}, {S}, {new}
+HEADS, HEADS_BATCHES = {heads!r}, {heads_batches!r}
 rank, store, inputs, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=4)
@@ -595,6 +626,29 @@ for arch in SERVE:
     for t in range(2):
         logits, state = dec.step_fn(p, state, b[f"step{{t}}"])
         out[f"{{arch}}|serve|{{t + 1}}"] = logits.numpy()
+name, arch, kw = HEADS
+cfg = get_config(arch).reduced(**kw)
+pcfg = ParallelConfig(param_sharding="fsdp", grad_sync="flat", remat="block")
+setup = make_train_setup(cfg, ShapeConfig("t", "train", S, B), mesh, pcfg, OptimConfig(**OCFG))
+state = setup.init_state(params(name, cfg))
+synced, m = setup.grad_fn(state, batch(name, "train"))
+for i, g in enumerate(whole(synced, setup)):
+    out[f"{{name}}|g|{{i}}"] = g.numpy()
+state, om = setup.update_fn(state, synced)
+for k, v in {{**m, **om}}.items():
+    out[f"{{name}}|m|{{k}}"] = v.float().numpy()
+for i, p in enumerate(whole(state.params, setup)):
+    out[f"{{name}}|p|{{i}}"] = p.numpy()
+for nb in HEADS_BATCHES:
+    b = batch(name, f"serve{{nb}}")
+    pre = make_setup(cfg, ShapeConfig("p", "prefill", S + NEW + 1, nb), mesh, ParallelConfig())
+    dec = make_setup(cfg, ShapeConfig("d", "decode", S + NEW + 1, nb), mesh, ParallelConfig())
+    p = pre.init_state(params(name, cfg))
+    logits, state = pre.step_fn(p, {{"tokens": b["tokens"]}})
+    out[f"{{name}}|serve{{nb}}|0"] = logits.numpy()
+    for t in range(2):
+        logits, state = dec.step_fn(p, state, b[f"step{{t}}"])
+        out[f"{{name}}|serve{{nb}}|{{t + 1}}"] = logits.numpy()
 np.savez(out_path, **out)
 dist.destroy_process_group()
 """
@@ -615,12 +669,23 @@ def gloo_world(tmp_path_factory):
             inp[f"{arch}|serve|{k}"] = v
         for t, tok in enumerate(steps):
             inp[f"{arch}|serve|step{t}"] = tok
+    name, arch, kw = GLOO_HEADS
+    cfg = config(arch, **kw)
+    for k, v in flat(jax_params(arch, **kw)).items():
+        inp[name + "|p|" + k] = v
+    for k, v in make_batch(cfg, 6).items():
+        inp[f"{name}|train|{k}"] = v
+    for nb in GLOO_HEADS_BATCHES:
+        sb, steps = serve_batch(cfg)
+        inp[f"{name}|serve{nb}|tokens"] = sb["tokens"][:nb]
+        for t, tok in enumerate(steps):
+            inp[f"{name}|serve{nb}|step{t}"] = tok[:nb]
     np.savez(d / "inputs.npz", **inp)
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     worker = GLOO_WORKER.format(train=GLOO_TRAIN, serve=GLOO_SERVE, ocfg=OCFG, B=B, S=S,
-                                new=NEW)
+                                new=NEW, heads=GLOO_HEADS, heads_batches=GLOO_HEADS_BATCHES)
     procs = [subprocess.Popen(
         [sys.executable, "-c", worker, str(rank), str(d / "gloo_store"),
          str(d / "inputs.npz"), str(d / f"rank_{rank}.npz")],
@@ -685,3 +750,51 @@ def test_gloo_tp_serving_equals_the_stacked_mesh(gloo_world, arch):
     for rank, res in enumerate(ranks):
         for t, w in enumerate(want):
             assert np.array_equal(res[f"{arch}|serve|{t}"], w.numpy()), (rank, t)
+
+
+def test_gloo_padded_heads_train_step_equals_the_stacked_mesh(gloo_world):
+    """One fsdp step of ``reduced(n_heads=3, n_kv_heads=1)`` over (data 2,
+    model 2) on 4 ``gloo`` ranks (the query heads padded to 2 a rank, rank 1
+    of each TP group one; the KV columns, half a head a rank, gathered):
+    equal to the ``StackedMesh``'s bit for bit on every rank."""
+    inp, ranks = gloo_world
+    name, arch, kw = GLOO_HEADS
+    cfg = config(arch, **kw)
+    setup = tp_setup(cfg, "data2-model2", "fsdp")
+    state = setup.init_state(params_of(arch, **kw))
+    synced, m = setup.grad_fn(state, _inputs(inp, name, "train"))
+    grads = whole(setup, synced)
+    state, om = setup.update_fn(state, synced)
+    for rank, res in enumerate(ranks):
+        for i, g in enumerate(grads):
+            assert np.array_equal(res[f"{name}|g|{i}"], g.numpy()), (rank, i)
+        for k, v in {**m, **om}.items():
+            assert np.array_equal(res[f"{name}|m|{k}"], v.float().numpy()), (rank, k)
+        for i, p in enumerate(whole(setup, state.params)):
+            assert np.array_equal(res[f"{name}|p|{i}"], p.numpy()), (rank, i)
+
+
+@pytest.mark.parametrize("batch", GLOO_HEADS_BATCHES)
+def test_gloo_flash_decoding_equals_the_stacked_mesh(gloo_world, batch):
+    """A prefill and two decode steps of the 3 / 1 config: at B 8 each rank
+    keeps its block of its rows' caches over model, at B 1 its block over
+    both axes, and the decode steps' combine runs over the ranks of the
+    transport; the logits equal the stacked mesh's bit for bit."""
+    inp, ranks = gloo_world
+    name, arch, kw = GLOO_HEADS
+    cfg = config(arch, **kw)
+    b = _inputs(inp, name, f"serve{batch}")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    pre = make_setup(cfg, ShapeConfig("p", "prefill", S + NEW + 1, batch), mesh,
+                     ParallelConfig())
+    dec = make_setup(cfg, ShapeConfig("d", "decode", S + NEW + 1, batch), mesh,
+                     ParallelConfig())
+    p = pre.init_state(params_of(arch, **kw))
+    logits, state = pre.step_fn(p, {"tokens": b["tokens"]})
+    want = [logits]
+    for t in range(2):
+        logits, state = dec.step_fn(p, state, b[f"step{t}"])
+        want.append(logits)
+    for rank, res in enumerate(ranks):
+        for t, w in enumerate(want):
+            assert np.array_equal(res[f"{name}|serve{batch}|{t}"], w.numpy()), (rank, t)
