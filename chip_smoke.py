@@ -28,8 +28,10 @@ full depth, zamba2-2.7b trained over model 4 and served over data 2 x
 model 2; heads that do not divide the TP degree and the flash-decoding layout
 of the decode caches: llama3.2-1b served over model 16 and, one sequence of
 8192 tokens, over data 2 x model 2, qwen1.5-4b trained over data 2 x model 8
-and served over model 8, mixtral-8x7b served over model 16 past its window)
-through the entry points a user calls, builds every CUDA kernel from the
+and served over model 8, mixtral-8x7b served over model 16 past its window;
+and llama3.2-1b trained by ``Trainer(mesh=)`` over data 2 x model 2, its
+checkpoint of the sharded state resumed after a failure on the survivors and
+on one device) through the entry points a user calls, builds every CUDA kernel from the
 sources in this checkout, holds each kernel against its plain PyTorch version
 on the card, and shows by the kernels' launch counts that each path went
 through its kernels.  Each phase prints one JSON line; any failure exits
@@ -228,7 +230,21 @@ Phases:
            (16 steps; the caches' sequence over all four ranks): as (g)-(k),
            the flash launches at a rank's padded heads and the decode steps'
            tree reduces asserted (``tp_tree_launches``, ``flash_ranks``),
-           the decode-state bytes a rank holds
+           the decode-state bytes a rank holds; last, on a line of its own,
+           (x) Trainer(mesh=), checkpoints of sharded state and the elastic
+           resume: llama3.2-1b at full depth (B 8 x S 2048 of SyntheticLM)
+           through the one-device Trainer (steps 1-2 and their checkpoint,
+           step 3) and the Trainer over data 2 x model 2, fsdp (steps 1-2,
+           the async checkpoint of the logical state); the mesh's losses
+           within 2e-3, its checkpoint leaf by leaf against the one-device
+           one's (bf16 parameters to tol(bf16), the fp32 master and moments
+           against an fp32 route's as far as the one-device run's are);
+           faults.crash_and_recover (a torn save of step 3, one rank of four
+           dead) onto data 1 x model 2 and step 3 there, the one-device
+           Trainer resumed from the mesh's checkpoint and step 3, each
+           against the reference's step 3; launches of every step, save
+           and resume seconds, the resume's peak memory (asserted under the
+           placed state plus twice its largest leaf)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -263,6 +279,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -298,6 +315,7 @@ from repro_torch.parallel.collectives import (               # noqa: E402
     MODES, _pad_to, build_sync, init_error_feedback)
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import checkpoint as ckpt             # noqa: E402
+from repro_torch.train import faults                          # noqa: E402
 from repro_torch.train.optim import OptimConfig, init_adam   # noqa: E402
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
@@ -3128,6 +3146,16 @@ SETUP_HEADS_SERVE = [
 # step at B 8 x S 2048 (the flash backward at a rank's 3 padded heads):
 # (arch, layers, sharding, mesh, steps)
 SETUP_HEADS_TRAIN = ("qwen1.5-4b", 4, "fsdp", ((2, 8), ("data", "model")), 1)
+# (x) Trainer(mesh=) over a train setup, checkpoints of sharded state and the
+# elastic resume, on a line of their own: llama3.2-1b at full width and depth,
+# B 8 x S 2048 of SyntheticLM, bf16 params, fp32 master and moments, block
+# remat.  The one-device Trainer takes steps 1-2 (its checkpoint at 2) and step
+# 3; the Trainer over data 2 x model 2 under fsdp takes steps 1-2 (its async
+# checkpoint at 2); faults.crash_and_recover tears a save of step 3 and kills
+# one rank of four (seed 0): three survivors with model 2 plan to data 1 x
+# model 2, which restores step 2 and takes step 3; the one-device Trainer
+# resumes the mesh's checkpoint and takes step 3.  (arch, B, S, mesh)
+SETUP_TRAINER = ("llama3.2-1b", 8, 2048, ((2, 2), ("data", "model")))
 
 
 def setup_case_name(sharding, mode, shape):
@@ -3382,16 +3410,8 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
     setup = make_train_setup(cfg, shape, mesh, pcfg, ocfg)
     n_rows = mesh.size(setup.ruleset.batch_axes(B))
     fsdp = sharding == "fsdp"
-    tpd = mesh.shape.get("model", 1)
-    tp = tpd > 1
-    want = {k: v * n_rows * (flash_ranks(cfg, tpd) if k.startswith("flash") else tpd)
-            for k, v in expected_train_launches(cfg, pcfg).items()}
-    # under TP each batch row's TP group (under EP each lane's) all-reduces
-    # over model; the sync reduces _synced_blocks blocks
-    for k, v in expected_sync_launches(mode, _synced_blocks(setup)).items():
-        want[k] += v
-    if tp:
-        want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train", tp=tpd)
+    tp = mesh.shape.get("model", 1) > 1
+    want = setup_step_launches(cfg, setup, B)
     name = setup_case_name(sharding, mode, mesh.shape) + (f"_ep_{ep}" if ep else "")
     loss_rtol = SETUP_TP_LOSS_RTOL if tp else SETUP_LOSS_RTOL
     specs = _flat_specs(setup)
@@ -3504,6 +3524,24 @@ def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode
     del state, setup, m
     release()
     return entry, used
+
+
+def setup_step_launches(cfg, setup, B):
+    """Kernel launches of one step of a train setup at batch ``B``: each batch
+    row's forward, remat and backward at a rank's heads on every rank of its
+    TP group that has heads (``flash_ranks``); under TP each row's TP group
+    (under EP each lane's) all-reduces over model (``tp_tree_launches``);
+    the sync reduces ``_synced_blocks`` blocks."""
+    mesh, pcfg = setup.mesh, setup.pcfg
+    n_rows = mesh.size(setup.ruleset.batch_axes(B))
+    tpd = mesh.shape.get("model", 1)
+    want = {k: v * n_rows * (flash_ranks(cfg, tpd) if k.startswith("flash") else tpd)
+            for k, v in expected_train_launches(cfg, pcfg).items()}
+    for k, v in expected_sync_launches(pcfg.grad_sync, _synced_blocks(setup)).items():
+        want[k] += v
+    if tpd > 1:
+        want["tree_reduce"] += n_rows * tp_tree_launches(cfg, "train", tp=tpd)
+    return want
 
 
 def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS, routes=None):
@@ -3924,6 +3962,242 @@ def setup_heads(dev, card):
     return report, launches
 
 
+def _stored_leaves(d):
+    """(manifest, each stored leaf as a tensor) of a checkpoint directory,
+    read one leaf at a time."""
+    manifest = json.loads((d / "MANIFEST.json").read_text())
+    for meta in manifest["leaves"]:
+        t = torch.from_numpy(np.load(d / meta["file"]))
+        yield meta, (t.view(torch.int16).view(torch.bfloat16) if meta["dtype"] == "bfloat16"
+                     else t)
+
+
+def _manifest_sans_crc(d):
+    m = json.loads((d / "MANIFEST.json").read_text())
+    for leaf in m["leaves"]:
+        leaf.pop("crc32")
+    return m
+
+
+def setup_trainer(dev, card):
+    """(x) ``Trainer(mesh=)``, its checkpoint of the sharded state and the
+    elastic resume (SETUP_TRAINER) against the one-device ``Trainer`` on the
+    same seed and batches: the losses of steps 1-3 (SETUP_LOSS_RTOL); every
+    leaf of the mesh's checkpoint against the one-device one's, the bf16
+    parameters to tol(bf16), each fp32 master and moment leaf against the
+    fp32 route's step 2 as far as the one-device bf16 route's same leaf is
+    (SETUP_TP_FP32_MARGIN, or SETUP_GRAD_FRO where that is larger: the
+    setup phase's rule for synced gradients, leaf by leaf); the step-3 parameters of the
+    run resumed on the survivors and of the one-device run resumed from the
+    mesh's checkpoint within tol(bf16) of the reference's.  The launches of
+    every step (asserted), save and resume seconds, the resume's peak memory
+    (asserted under the placed state's bytes plus twice its largest leaf),
+    the snapshot's host bytes, whether the torn save's debris was swept.
+    Returns (report, launches)."""
+    arch, B, S, (mshape, axes) = SETUP_TRAINER
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"train_{B}x{S}", "train", S, B)
+    ocfg = OptimConfig()
+    pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding="fsdp",
+                          grad_sync="flat")
+    report = {"phase": "setup_trainer", "card": card,
+              "config": f"{arch} full width and depth, bf16 params, fp32 master and moments, "
+                        f"block remat, SyntheticLM B {B} x S {S}, fsdp over "
+                        + " x ".join(f"{a} {n}" for a, n in zip(axes, mshape))}
+    launches = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=root)
+    ref_dir, mesh_dir = os.path.join(ckpt_root, "one_device"), os.path.join(ckpt_root, "mesh")
+
+    def trainer(steps, d, mesh=None):
+        tcfg = TrainerConfig(steps=steps, log_every=1, checkpoint_every=2, checkpoint_dir=d)
+        return Trainer(cfg, shape, pcfg, ocfg, tcfg,
+                       **({"mesh": mesh} if mesh is not None else {"device": dev}))
+
+    def counted(tr, want, name):
+        """Wrap ``tr.step_fn``: each step's launches against ``want``."""
+        step_fn, used = tr.step_fn, launches.setdefault(name, {k: 0 for k in WRAPPERS})
+
+        def step(state, batch):
+            _zero_launches()                      # counts of this path only
+            out = step_fn(state, batch)
+            got = _launches()
+            if got != want:
+                raise AssertionError(f"setup_trainer {name}: launched {got}, expected {want}")
+            for k in used:
+                used[k] += got[k]
+            return out
+        tr.step_fn = step
+
+    def step3(tr, state, name, hold=True):
+        """Step 3 (batch index 2 of the Trainer's data) through ``tr.step_fn``,
+        its loss held against the reference's."""
+        t0 = time.perf_counter()
+        state, m = tr.step_fn(state, tr.data.batch(2))
+        loss = float(m["loss"])
+        report[name + "_step3"] = {"loss": loss, "step_s": time.perf_counter() - t0}
+        if hold and not abs(loss - ref_losses[2]) <= SETUP_LOSS_RTOL * abs(ref_losses[2]):
+            raise AssertionError(f"setup_trainer {name}: step 3 loss {loss} against the "
+                                 f"one-device {ref_losses[2]}")
+        return state
+
+    def hold_params(name, params):
+        """Logical parameter leaves (an iterable, in the tree's order) against
+        the reference's step 3, tol(bf16)."""
+        bad = sum(outside_tol(got, want.to(dev), tol(torch.bfloat16))
+                  for got, want in zip(params, ref_params))
+        report[name + "_step3"]["params_outside_tol_bf16"] = bad
+        if bad:
+            raise AssertionError(f"setup_trainer {name}: {bad} step-3 parameters outside "
+                                 f"tol(bf16) of the one-device run's")
+
+    try:
+        one = trainer(2, ref_dir)
+        # the fp32 route's step 2 on the bf16 draw: the reference of the fp32 leaves
+        p32 = tree_map(lambda t: t.float(), tfm.init(0, cfg, dtype=torch.bfloat16, device=dev))
+        state = TrainState(p32, init_adam(p32, ocfg))
+        step32 = make_train_step(cfg, ParallelConfig(remat="block", param_dtype="float32",
+                                                     compute_dtype="float32"), ocfg)
+        for i in range(2):
+            state, _ = step32(state, one.data.batch(i))
+        ref32 = [t.cpu() for t in _flat(state.opt) if t.dtype == torch.float32]
+        del state, p32, step32
+        release()
+
+        # the one-device reference: steps 1-2 by run() (its checkpoint at 2), step 3
+        counted(one, expected_train_launches(cfg, pcfg), "x_one_device")
+        t0 = time.perf_counter()
+        state = one.run()
+        run_s = time.perf_counter() - t0
+        ref_losses = [h["loss"] for h in one.history]
+        report["one_device"] = {"step_s": [h["seconds"] for h in one.history],
+                                "save_s": run_s - sum(h["seconds"] for h in one.history)}
+        state = step3(one, state, "one_device", hold=False)
+        ref_losses.append(report["one_device_step3"]["loss"])
+        report["one_device"]["loss"] = ref_losses
+        ref_params = [t.cpu() for t in _flat(state.params)]
+        del state, one
+        release()
+
+        # the Trainer over the mesh: steps 1-2, its async checkpoint at 2
+        mesh = make_mesh(mshape, axes, device=dev)
+        tr = trainer(2, mesh_dir, mesh)
+        counted(tr, setup_step_launches(cfg, tr.setup, B), "x_trainer_mesh")
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.run(state)
+        run_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in tr.history]
+        for i, (got, want) in enumerate(zip(losses, ref_losses)):
+            if not abs(got - want) <= SETUP_LOSS_RTOL * abs(want):
+                raise AssertionError(f"setup_trainer mesh: step {i + 1} loss {got} against "
+                                     f"the one-device {want}")
+        logical_shapes = _flat(tr.setup.state_shapes)
+        snapshot_bytes = sum(t.numel() * t.element_size() for t in logical_shapes)
+        report["mesh"] = {"loss": losses, "step_s": [h["seconds"] for h in tr.history],
+                          "save_s": run_s - sum(h["seconds"] for h in tr.history),
+                          "snapshot_host_bytes": snapshot_bytes,
+                          "state_bytes_on_card": sum(nbytes(t) for t in _flat(state)),
+                          "launches_per_step": setup_step_launches(cfg, tr.setup, B)}
+
+        # every leaf of the mesh's checkpoint against the one-device one's
+        got_dir, want_dir = Path(mesh_dir) / "step_00000002", Path(ref_dir) / "step_00000002"
+        if _manifest_sans_crc(got_dir) != _manifest_sans_crc(want_dir):
+            raise AssertionError("setup_trainer: the mesh's manifest is not the one-device one's")
+        # fp32 leaves, each against the fp32 route: (file, mesh's distance,
+        # one-device's distance, the limit); and the mesh's against the
+        # one-device run's (reported)
+        outside, fp32_dist, fp32_leaves, direct = 0, [], iter(ref32), 0.0
+        for (meta, got), (_, want) in zip(_stored_leaves(got_dir), _stored_leaves(want_dir)):
+            got, want = got.to(dev), want.to(dev)
+            if meta["dtype"] == "bfloat16":
+                outside += outside_tol(got, want, tol(torch.bfloat16))
+            elif meta["dtype"] == "float32":
+                w32 = next(fp32_leaves).to(dev)
+                one32 = fro_rel(want, w32)
+                direct = max(direct, fro_rel(got, want))
+                fp32_dist.append((meta["file"], fro_rel(got, w32), one32,
+                                  max(SETUP_GRAD_FRO, SETUP_TP_FP32_MARGIN * one32)))
+            elif not torch.equal(got, want):
+                raise AssertionError(f"setup_trainer: {meta['file']} differs")
+        worst = max(fp32_dist, key=lambda d: d[1] / d[3])
+        report["checkpoint"] = {
+            "leaves": len(logical_shapes), "bf16_outside_tol": outside,
+            "fp32_leaves": len(fp32_dist),
+            "fp32_fro_rel_vs_fp32_route": {
+                "mesh_worst": max(d[1] for d in fp32_dist),
+                "one_device_worst": max(d[2] for d in fp32_dist),
+                "mesh_over_0.02": sum(d[1] > SETUP_GRAD_FRO for d in fp32_dist),
+                "one_device_over_0.02": sum(d[2] > SETUP_GRAD_FRO for d in fp32_dist),
+                "mesh_vs_one_device_worst": direct,
+                "closest_to_its_limit": dict(zip(("file", "mesh", "one_device", "limit"),
+                                                 worst))}}
+        if outside or worst[1] > worst[3]:
+            raise AssertionError(f"setup_trainer: the mesh's checkpoint leaves {outside} bf16 "
+                                 f"elements outside tol(bf16); fp32 leaf {worst[0]} is "
+                                 f"{worst[1]:.3e} from the fp32 route (the one-device "
+                                 f"{worst[2]:.3e}, limit {worst[3]:.3e})")
+        del ref32
+        shutil.rmtree(ref_dir)                  # at most two checkpoints on the disk
+
+        # a torn save of step 3, one rank of four dead, step 2 restored on the survivors
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = faults.crash_and_recover(mesh_dir, cfg, shape, mesh, state, torn_step=3,
+                                       n_failed=1, seed=0, pcfg=pcfg, ocfg=ocfg)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
+        placed = [nbytes(t) for t in _flat(rec.state)]
+        swept = not os.path.exists(os.path.join(mesh_dir, "step_00000003.tmp"))
+        report["recovered"] = {"plan": rec.plan, "failed": list(rec.failed),
+                               "ranks": list(rec.mesh.ranks), "resumed_step": rec.resumed_step,
+                               "resume_s": resume_s, "debris_swept": swept,
+                               "resume_peak_bytes_over_start": peak,
+                               "placed_state_bytes": sum(placed),
+                               "largest_leaf_bytes": max(placed)}
+        if rec.plan != {"data": 1, "model": 2} or rec.resumed_step != 2 or not swept:
+            raise AssertionError(f"setup_trainer: recovered {report['recovered']}")
+        if peak > sum(placed) + 2 * max(placed):
+            raise AssertionError(f"setup_trainer: the resume's peak {peak} passes the placed "
+                                 f"state {sum(placed)} and twice its largest leaf")
+        del state, tr
+        release()
+        survivors = trainer(3, mesh_dir, rec.mesh)
+        counted(survivors, setup_step_launches(cfg, rec.setup, B), "x_survivors")
+        state = step3(survivors, rec.state, "survivors")
+        hold_params("survivors", (rec.setup.leaf_to_logical(i, t)     # the parameters lead
+                                  for i, t in enumerate(_flat(state.params))))
+        del state, rec, survivors
+        release()
+
+        # the one-device Trainer resumes the mesh's checkpoint
+        again = trainer(3, mesh_dir)
+        counted(again, expected_train_launches(cfg, pcfg), "x_one_device_resumed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = again.resume_or_init()
+        torch.cuda.synchronize()
+        report["one_device_resumed"] = {"resume_s": time.perf_counter() - t0, "step": again.step,
+                                        "max_memory_allocated_bytes":
+                                            torch.cuda.max_memory_allocated()}
+        if again.step != 2:
+            raise AssertionError(f"setup_trainer: the one-device Trainer resumed at {again.step}")
+        state = step3(again, state, "one_device_resumed")
+        hold_params("one_device_resumed", _flat(state.params))
+        del state, again
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    release()
+    report["launches"] = launches
+    return report, launches
+
+
 def phase_setup(dev, card):
     """llama3.2-1b at full width and depth through ``make_train_setup`` (the
     four SETUP_CASES) against the one-device ``make_train_step``: the loss of
@@ -3939,7 +4213,9 @@ def phase_setup(dev, card):
     a line of their own; (p)-(s) the SSM and hybrid families under TP
     (``setup_ssm``), on a line of their own; (t)-(w) heads that do not
     divide the TP degree and the flash-decoding layout (``setup_heads``), on
-    a line of their own.  Returns each case's launches."""
+    a line of their own; (x) ``Trainer(mesh=)``, its checkpoint and the
+    elastic resume (``setup_trainer``), on a line of its own.  Returns each
+    case's launches."""
     cfg = get_config(SETUP_ARCH)
     B, S = SETUP_BATCH
     batches = setup_batches(cfg, B, S)
@@ -4041,6 +4317,12 @@ def phase_setup(dev, card):
     heads_report, used = setup_heads(dev, card)
     launches.update(used)
     emit(heads_report)
+    del heads_report
+    release()
+    # (x) Trainer(mesh=), checkpoints of sharded state, the elastic resume
+    trainer_report, used = setup_trainer(dev, card)
+    launches.update(used)
+    emit(trainer_report)
     return launches
 
 

@@ -21,6 +21,10 @@ it and of size 1 where they are equal (replicated), so broadcasting keeps
 replicated values once.  On both, the group index of a rank over a set of axes
 is row-major over those axes in mesh order.
 
+``any_rank(mesh, flag)`` is the one agreement the train loop needs (a stop
+flag, a failed checkpoint write): an all-reduce over the world on a
+``DistMesh``, the flag itself on a ``StackedMesh``.
+
 Besides the sync's steps, both meshes shift a value one way along an axis
 (``permute``, the JAX ``ppermute``: a roll of the axis's leading dimension on
 the stacked transport, ``batch_isend_irecv`` over the axis's group on the
@@ -114,7 +118,19 @@ class _Mesh:
 
 
 class StackedMesh(_Mesh):
-    """Every replica on one device, stacked on a leading dimension."""
+    """Every replica on one device, stacked on a leading dimension.
+
+    ``ranks``: for each rank, row-major, which rank of the original mesh it
+    is (by default itself): ``train.elastic.shrink_mesh`` records there which
+    survivors the new mesh's ranks are.  On one device this is bookkeeping;
+    nothing moves."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], device, ranks=None):
+        super().__init__(shape, axes, device)
+        n = self.size(self.axis_names)
+        self.ranks = tuple(range(n)) if ranks is None else tuple(int(r) for r in ranks)
+        if len(self.ranks) != n:
+            raise ValueError(f"{len(self.ranks)} ranks recorded for a mesh of {n}")
 
     def rows(self, axes: Sequence[str]) -> int:
         """Leading replica dimension of a stacked leaf synced over ``axes``."""
@@ -293,6 +309,18 @@ class DistMesh(_Mesh):
     def row_coords(self, axis: str) -> List[int]:
         self._sorted((axis,))
         return [int(self.coords[axis])]
+
+
+def any_rank(mesh, flag: bool) -> bool:
+    """Whether ``flag`` is true on any rank of ``mesh``: on a ``DistMesh``
+    one all-reduce (max) over the world, so that every rank gets the same
+    answer at the same point of its program; on a ``StackedMesh`` (one
+    process) the flag itself."""
+    if not isinstance(mesh, DistMesh):
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 class _AllToAll(torch.autograd.Function):

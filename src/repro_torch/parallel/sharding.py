@@ -387,11 +387,11 @@ def unshard_leaf(rows: torch.Tensor, spec, mesh) -> torch.Tensor:
                            *range(len(every), len(every) + len(block)))
     elif not isinstance(mesh, StackedMesh):
         raise TypeError(f"unshard_leaf needs a mesh of launch.mesh, got {type(mesh).__name__}")
-    rows = rows.reshape(*(mesh.shape[a] for a in every), *block)
+    rows = rows.reshape(tuple(mesh.shape[a] for a in every) + block)
     order, k = [], 0
     for i, names in enumerate(dims):
         order += range(k, k + len(names))
         k += len(names)
         order.append(len(every) + i)
     full = [b * math.prod(mesh.shape[a] for a in names) for b, names in zip(block, dims)]
-    return rows.permute(*order).reshape(full)
+    return rows.permute(order).reshape(full)

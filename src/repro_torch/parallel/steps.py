@@ -85,10 +85,18 @@ backward): it is divided by the lanes and reduced over the remaining data
 axis (``pod``) only.  The EP axis must be the sync's inner axis and the
 batch's last axis.
 
+The state a train setup holds differs from the logical one by placement
+(whole, the rows form of ``spec`` or of ``opt_spec``; an int8 moment's scale
+one per rank's row), so ``CellSetup.state_to_logical`` gives the logical
+state (``tfm.init``'s tree and ``init_adam``'s state, whole; on a
+``DistMesh`` by all-gathers) and ``place_state`` is its inverse, leaf by
+leaf through ``leaf_to_logical`` / ``place_leaf``: what
+``train.checkpoint`` writes and restores, and what ``train.train_loop.
+Trainer(mesh=)`` and ``train.elastic`` resume onto another mesh.
+
 What the setups cannot run yet they refuse with a ``ValueError``: tensor
 parallelism with SSM heads that do not divide the TP degree waits for
-ROADMAP.md M9b2b (``models.ssm.tp_groups``; as does a ``Trainer(mesh=)``
-over a setup); compressed sync would be a
+ROADMAP.md M9b2b (``models.ssm.tp_groups``); compressed sync would be a
 different result; zero1 with ``moe_ep_axis`` set is refused as the JAX
 setup refuses it (``opt_spec`` puts the data axis on the experts' ``embed``
 dim beside their ``expert`` dim, a ``DuplicateSpecError`` there).
@@ -251,7 +259,11 @@ class CellSetup:
     itself), then the port's own: ``init_state(params) -> TrainState`` places
     a state for ``step_fn``; ``grad_fn(state, batch) -> (synced gradients,
     metrics)`` and ``update_fn(state, grads) -> (state, metrics)`` are the
-    step's two halves."""
+    step's two halves; ``state_to_logical(state)`` the logical state (the
+    one-device layout, whole tensors) of a state as the setup holds it,
+    ``place_state(logical)`` its inverse, ``leaf_to_logical(i, t)`` /
+    ``place_leaf(i, t)`` the same for leaf ``i`` of ``tree_flatten``'s
+    order (a checkpoint's)."""
     cfg: ModelConfig
     pcfg: ParallelConfig
     shape: ShapeConfig
@@ -266,6 +278,10 @@ class CellSetup:
     init_state: Optional[Callable] = None
     grad_fn: Optional[Callable] = None
     update_fn: Optional[Callable] = None
+    state_to_logical: Optional[Callable] = None
+    place_state: Optional[Callable] = None
+    leaf_to_logical: Optional[Callable] = None
+    place_leaf: Optional[Callable] = None
 
 
 def _param_setup(cfg: ModelConfig, pcfg: ParallelConfig, mesh):
@@ -563,6 +579,75 @@ def _row_max_fn(spec, ndim: int, mesh):
         x = amax.reshape(*sizes, *amax.shape[1:])
         return x.amax(dim=pos, keepdim=True).expand(x.shape).reshape(amax.shape)
     return row_max
+
+
+class _Held(NamedTuple):
+    """How a train setup holds one leaf of the logical state: ``whole`` (on
+    the mesh's device), ``host`` (the step counter, on the CPU), ``rows`` (the
+    rows form of ``spec``) or ``scale`` (an int8 moment's scale beside its
+    ``q`` in the rows form of ``spec``: a rank the scales of its rows, equal
+    over the ranks that share a row)."""
+    how: str
+    spec: Tuple = ()
+
+
+def _state_layout(param_shapes, specs, opt_specs, ocfg: OptimConfig, held, opt_held):
+    """A ``_Held`` for every leaf of the logical ``TrainState``, in
+    ``tree_flatten``'s order: the parameters in the rows form of ``specs``
+    where ``held``, the master and moments in that of ``opt_specs`` where
+    ``opt_held``, else whole."""
+    struct = tree_flatten(param_shapes)[1]
+    whole = _Held("whole")
+
+    def opt(s):
+        return _Held("rows", s) if opt_held else whole
+
+    def moment(s):
+        if ocfg.moments_dtype != "int8":
+            return opt(s)
+        return QTensor(q=opt(s), scale=_Held("scale", s) if opt_held else whole)
+    moments = tree_unflatten(struct, [moment(s) for s in opt_specs])
+    layout = TrainState(
+        params=tree_unflatten(struct, [_Held("rows", s) if held else whole for s in specs]),
+        opt=AdamState(step=_Held("host"),
+                      master=(tree_unflatten(struct, [opt(s) for s in opt_specs])
+                              if ocfg.master else None),
+                      m=moments, v=moments))
+    return tree_flatten(layout, is_leaf=lambda x: isinstance(x, _Held))[0]
+
+
+def _scale_split(spec, ndim: int):
+    """(the spec of an int8 scale's dimensions, the axes of its ``q``'s last
+    dimension) for a ``q`` of ``ndim`` dimensions placed by ``spec``."""
+    spec = tuple(spec)
+    if len(spec) < ndim:
+        return spec, ()
+    return spec[:-1], _names(spec[-1])
+
+
+def _scale_to_logical(rows, spec, mesh):
+    """An int8 scale held beside its ``q`` in the rows form of ``spec`` → the
+    logical scale (``q.shape[:-1]``): of the blocks over the axes of ``q``'s
+    last dimension, equal copies of the whole row's scale, the first (on a
+    ``DistMesh`` this rank's), then ``unshard_leaf`` over the rest of the
+    spec."""
+    lead, last = _scale_split(spec, rows.dim())
+    if isinstance(mesh, DistMesh) or not last:
+        return unshard_leaf(rows, lead, mesh)
+    every = _spec_axes(spec)
+    x = rows.reshape(*(mesh.shape[a] for a in every), *rows.shape[1:])
+    x = x[tuple(0 if a in last else slice(None) for a in every)]
+    return unshard_leaf(x.reshape((-1,) + tuple(rows.shape[1:])), lead, mesh)
+
+
+def _scale_rows(scale, spec, mesh):
+    """The inverse of ``_scale_to_logical``: every rank that holds a piece of
+    a row gets the row's scale."""
+    lead, last = _scale_split(spec, scale.dim() + 1)
+    if not last:
+        return shard_leaf(scale, lead, mesh)
+    t = scale.unsqueeze(-1).expand(*scale.shape, mesh.size(last))
+    return shard_leaf(t, spec, mesh)[..., 0]
 
 
 # --------------------------------------------------------------------------
@@ -883,13 +968,51 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     opt_shapes = init_adam(param_shapes, ocfg)
     state_shapes = TrainState(params=param_shapes, opt=opt_shapes)
+    layout = _state_layout(param_shapes, specs, opt_specs, ocfg, held, zero1 or held)
+    if len(layout) != len(tree_flatten(state_shapes)[0]):
+        raise AssertionError("make_train_setup: the state's layout misses leaves")
+
+    def leaf_to_logical(i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` of the state as held → the logical leaf (a view where
+        the leaf is whole; on a ``DistMesh`` an all-gather, so every rank
+        takes every leaf, in one order)."""
+        how, spec = layout[i]
+        if how == "rows":
+            return unshard_leaf(t, spec, mesh)
+        if how == "scale":
+            return _scale_to_logical(t, spec, mesh)
+        return t
+
+    def place_leaf(i: int, t: torch.Tensor) -> torch.Tensor:
+        """Logical leaf ``i`` (on any device) → the leaf as the setup holds
+        it, a new tensor on the mesh's device (the step counter on the CPU);
+        on a ``DistMesh`` this rank's block, no communication."""
+        how, spec = layout[i]
+        if how == "host":
+            return t.to("cpu", copy=True)
+        if how == "rows":
+            t = shard_leaf(t, spec, mesh)
+        elif how == "scale":
+            t = _scale_rows(t, spec, mesh)
+        return t.to(mesh.device, copy=True, memory_format=torch.contiguous_format)
+
+    def state_to_logical(state: TrainState) -> TrainState:
+        leaves, struct = tree_flatten(state)
+        return tree_unflatten(struct, [leaf_to_logical(i, t) for i, t in enumerate(leaves)])
+
+    def place_state(logical: TrainState) -> TrainState:
+        leaves, struct = tree_flatten(logical)
+        return tree_unflatten(struct, [place_leaf(i, t) for i, t in enumerate(leaves)])
+
     return CellSetup(cfg=cfg, pcfg=pcfg, shape=shape, mesh=mesh, ruleset=ruleset,
                      param_shapes=param_shapes, param_shardings=param_shardings,
                      step_fn=step_fn,
                      example_args=(state_shapes, input_specs(cfg, shape, pcfg)),
                      state_shapes=state_shapes,
                      state_shardings=TrainState(params=param_shardings, opt=opt_shardings),
-                     init_state=init_state, grad_fn=grad_fn, update_fn=update_fn)
+                     init_state=init_state, grad_fn=grad_fn, update_fn=update_fn,
+                     state_to_logical=state_to_logical, place_state=place_state,
+                     leaf_to_logical=leaf_to_logical, place_leaf=place_leaf)
 
 
 def _kv_seq_context(ruleset: Ruleset, cfg: ModelConfig, shape: ShapeConfig

@@ -185,6 +185,23 @@ def test_retry_io_absorbs_transient_oserrors(monkeypatch):
     assert stuck.calls == ckpt.IO_RETRIES
 
 
+def test_the_ports_flaky_io_behaves_as_the_stand_in():
+    """``train.faults.FlakyIO`` fails as this file's stand-in does: the first
+    ``failures`` calls raise OSError, every call is counted."""
+    from repro_torch.train.faults import FlakyIO as PortFlakyIO
+    for failures in (0, 1, 3):
+        ours, port = FlakyIO(lambda x: x + 1, failures), PortFlakyIO(lambda x: x + 1, failures)
+        for call in range(failures + 2):
+            got = []
+            for f in (ours, port):
+                try:
+                    got.append(f(call))
+                except OSError:
+                    got.append("OSError")
+            assert got[0] == got[1], (failures, call)
+        assert ours.calls == port.calls == failures + 2
+
+
 def test_retry_policy_equals_the_reference():
     assert (ckpt.IO_RETRIES, ckpt.IO_BACKOFF_S) == (jckpt.IO_RETRIES, jckpt.IO_BACKOFF_S)
 

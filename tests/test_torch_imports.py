@@ -51,7 +51,7 @@ def test_the_walk_sees_the_whole_port():
             "optim.py", "steps.py", "data.py", "checkpoint.py", "train_loop.py",
             "moe.py", "mixtral_8x7b.py", "arctic_480b.py", "whisper.py",
             "llava_next_34b.py", "whisper_medium.py", "sharding.py",
-            "pipeline.py", "policy.py", "tp.py"} <= names
+            "pipeline.py", "policy.py", "tp.py", "elastic.py", "faults.py"} <= names
     assert len(MODULES) >= 20
 
 
