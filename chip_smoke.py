@@ -31,10 +31,12 @@ of the decode caches: llama3.2-1b served over model 16 and, one sequence of
 and served over model 8, mixtral-8x7b served over model 16 past its window;
 and llama3.2-1b trained by ``Trainer(mesh=)`` over data 2 x model 2, its
 checkpoint of the sharded state resumed after a failure on the survivors and
-on one device) through the entry points a user calls, builds every CUDA kernel from the
-sources in this checkout, holds each kernel against its plain PyTorch version
-on the card, and shows by the kernels' launch counts that each path went
-through its kernels.  Each phase prints one JSON line; any failure exits
+on one device; and weight streaming: llama3.2-1b, mamba2-1.3b, mixtral-8x7b at
+the depth the host's memory holds and arctic-480b at 2 layers trained with
+each layer streamed from pinned host memory) through the entry points a user
+calls, builds every CUDA kernel from the sources in this checkout, holds each
+kernel against its plain PyTorch version on the card, and shows by the
+kernels' launch counts that each path went through its kernels.  Each phase prints one JSON line; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero and prints no
 result.
 
@@ -245,6 +247,28 @@ Phases:
            against the reference's step 3; launches of every step, save
            and resume seconds, the resume's peak memory (asserted under the
            placed state plus twice its largest leaf)
+  stream   weight streaming (train/streaming.py: the parameters in pinned
+           host memory, each layer streamed to the card for the forward and
+           again for the backward's recompute, its gradient streamed back and
+           the host weights updated by the reference's plain SGD on a host
+           thread as it lands), bf16, B 4 x S 2048 of SyntheticLM, full
+           width: the link once (a 1 GiB pinned copy each way; what
+           pin_memory=True holds for 1 GiB + 4 KiB); (a) llama3.2-1b and (b)
+           mamba2-1.3b at full depth and (c) mixtral-8x7b at 1 layer,
+           stream_grads against the monolithic loss_fn gradient with block
+           remat (the total and every leaf bit-equal or within tol(bf16),
+           each leaf that is not bit-equal named), then 3 stream_train_steps
+           (losses falling); (c) mixtral at as many of its 32 layers as
+           MemAvailable holds with 16 GiB to spare and (d) arctic-480b at 2
+           of 35 layers, each layer drawn on the card one at a time, 2 steps
+           (losses finite, aux > 0), each deep case at no more layers than
+           its steps' host update covers in STREAM_DEEP_BUDGET_S at the rate
+           (a)-(c) measured (the cut printed); every step's launches asserted (a
+           block-remat step's); per step the wall, the H2D and D2H bytes and
+           seconds, the host update's seconds and threads, the device-busy
+           seconds, the overlap share, which of link, device and host update
+           sets the pace, the pinned bytes asked for and held, and the peak
+           device memory beside the reckoned figure
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -258,7 +282,8 @@ script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
 gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
 path; the flash kernels also their launches in the pipeline, the flash and
-tree-reduce kernels their launches in the setup); the last line is
+tree-reduce kernels their launches in the setup, the flash and SSD kernels
+their launches in the stream); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -316,20 +341,26 @@ from repro_torch.parallel.collectives import (               # noqa: E402
 from repro_torch.serve.engine import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import checkpoint as ckpt             # noqa: E402
 from repro_torch.train import faults                          # noqa: E402
+from repro_torch.train import streaming                       # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticLM   # noqa: E402
 from repro_torch.train.optim import OptimConfig, init_adam   # noqa: E402
+from repro_torch.train.streaming import (                     # noqa: E402
+    HostParams, stream_grads, stream_train_step)
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel", "setup")
+PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel", "setup",
+          "stream")
 # Wall-clock limit of each phase in seconds, several times its time on an H100
 # (the `phase_seconds` line).  A phase past its limit (a kernel that never
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
-                 "sync": 300, "train": 600, "parallel": 240, "setup": 480, "profile": 300}
+                 "sync": 300, "train": 600, "parallel": 240, "setup": 480, "stream": 600,
+                 "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -4326,6 +4357,325 @@ def phase_setup(dev, card):
     return launches
 
 
+# the stream phase: weight streaming (train/streaming.py) at full width, bf16
+# parameters, B 4 x S 2048 of SyntheticLM (its step-0 batch in every step),
+# the reference's plain SGD on the host at its default lr, 1e-3 (at 3e-3 and
+# above llama3.2-1b's and mixtral's losses rose again by the third step).  (a)
+# llama3.2-1b and (b) mamba2-1.3b at full depth and (c) mixtral-8x7b at 1
+# layer against the monolithic loss_fn gradient with block remat, then
+# STREAM_STEPS steps; (c) mixtral at as many of its 32 layers as host memory
+# holds with STREAM_HOST_MARGIN to spare, and (d) arctic-480b at 2 of 35
+# layers, STREAM_DEEP_STEPS steps each, every layer drawn on the card one at
+# a time (init of a one-layer configuration, layer l from the seed (0, l)).
+# The host update sets a deep case's pace, and the card machine's host ran it
+# at 0.7-1.2e9 elements/s in different runs: a deep case also takes no more
+# layers than its steps can update in STREAM_DEEP_BUDGET_S at the rate (a)-(c)
+# measured, so that the script stays inside its time limit on a slow host
+STREAM_BATCH = (4, 2048)
+STREAM_LR = 1e-3
+STREAM_STEPS = 3
+STREAM_DEEP_STEPS = 2
+STREAM_HOST_MARGIN = 16 << 30
+STREAM_COMPARE = [("llama3.2-1b", None), ("mamba2-1.3b", None), ("mixtral-8x7b", 1)]
+STREAM_DEEP = [("mixtral-8x7b", None), ("arctic-480b", 2)]
+STREAM_DEEP_BUDGET_S = 90
+STREAM_MEMORY_WAIT_S = 90     # pinned pages return to MemAvailable some seconds after unpinning
+
+
+def host_status():
+    """This process's VmRSS, VmLck and VmPin and the host's MemAvailable,
+    in bytes."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "VmLck", "VmPin"):
+                out[key] = int(value.split()[0]) * 1024
+    out["MemAvailable"] = streaming.mem_available_bytes()
+    return out
+
+
+def stream_batch(cfg):
+    B, S = STREAM_BATCH
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(0)
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+
+
+def stream_link(dev):
+    """The link once: a 1 GiB copy each way between pinned host memory and
+    the card, 5 times each (the fastest is the rate); and what
+    ``pin_memory=True`` holds for 1 GiB + 4 KiB (the caching host
+    allocator's rounding), given back after."""
+    host = streaming._Pinned(1 << 30)
+    out = {}
+    try:
+        d = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+        for way in ("h2d", "d2h"):
+            ms = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if way == "h2d":
+                    d.copy_(host.tensor, non_blocking=True)
+                else:
+                    host.tensor.copy_(d, non_blocking=True)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            out[f"{way}_ms"] = ms
+            out[f"{way}_GBps"] = (1 << 30) / (min(ms) / 1e3) / 1e9
+        del d
+        asked = (1 << 30) + 4096
+        before = torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+        p = torch.empty(asked, dtype=torch.uint8, pin_memory=True)
+        held = torch.cuda.host_memory_stats().get("allocated_bytes.current", 0) - before
+        del p
+        torch._C._host_emptyCache()
+        out.update(pin_memory_asked_bytes=asked, pin_memory_held_bytes=held)
+    finally:
+        host.close()
+    return out
+
+
+def wait_for_host_memory(want):
+    """Wait (at most STREAM_MEMORY_WAIT_S) until MemAvailable reaches
+    ``want``: unpinned pages come back to it some seconds late.  Returns the
+    seconds waited and MemAvailable."""
+    gc.collect()
+    torch._C._host_emptyCache()
+    t0 = time.perf_counter()
+    while streaming.mem_available_bytes() < want and \
+            time.perf_counter() - t0 < STREAM_MEMORY_WAIT_S:
+        time.sleep(1.0)
+    return time.perf_counter() - t0, streaming.mem_available_bytes()
+
+
+def stream_reckoned(hp, cfg):
+    """Device bytes the stream should hold at its peak, a block's working
+    set aside: the ring's slots, one layer's gradient, the top and its
+    gradient, and the L+1 boundary activations."""
+    B, S = STREAM_BATCH
+    layer, top = hp._layout.nbytes, hp._top_layout.nbytes
+    acts = (hp.n_layers + 1) * B * S * cfg.d_model * 2
+    return {"slots": len(hp._slots) * layer, "gradient": layer, "top_and_gradient": 2 * top,
+            "activations": acts,
+            "total": (len(hp._slots) + 1) * layer + 2 * top + acts}
+
+
+def stream_steps(dev, hp, cfg, batch, steps, link):
+    """``steps`` stream_train_steps on one batch: each step's launches
+    (asserted against a block-remat step's), loss, aux, the stream's
+    counters, peak device memory beside the reckoned figure, and which of the
+    link, the device and the host update sets the pace."""
+    want = expected_train_launches(cfg, ParallelConfig(remat="block"))
+    elements = sum(hp._layout.sizes.values()) * hp.n_layers + sum(hp._top_layout.sizes.values())
+    out, launches = [], {name: 0 for name in WRAPPERS}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        loss = stream_train_step(hp, batch, cfg, ParallelConfig(), lr=STREAM_LR)
+        used = _launches()
+        if used != want:
+            raise AssertionError(f"stream {cfg.name}: a step launched {used}, expected {want}")
+        for k in launches:
+            launches[k] += used[k]
+        s = dict(hp.stats)
+        floor = s["h2d_bytes"] / (link["h2d_GBps"] * 1e9)
+        paces = {"link (H2D floor)": floor, "device": s["device_s"], "host update": s["update_s"]}
+        out.append({**s, "loss": loss, "launches": used, "update_elements": elements,
+                    "update_elements_per_s": elements / s["update_s"],
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "h2d_GBps": s["h2d_bytes"] / s["h2d_s"] / 1e9 if s["h2d_s"] else None,
+                    "d2h_GBps": s["d2h_bytes"] / s["d2h_s"] / 1e9 if s["d2h_s"] else None,
+                    "h2d_floor_s": floor, "pace": max(paces, key=paces.get)})
+    losses = [o["loss"] for o in out]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"stream {cfg.name}: losses {losses}")
+    if cfg.n_experts and not all(o["aux_loss"] > 0 for o in out):
+        raise AssertionError(f"stream {cfg.name}: aux losses {[o['aux_loss'] for o in out]}")
+    return out, launches
+
+
+def stream_compare(dev, card, arch, layers, link):
+    """(a)-(c): ``arch`` (at ``layers`` layers if given) streamed against the
+    port's monolithic ``loss_fn`` gradient with block remat on the card: the
+    total and every leaf, bit-equal or within tol(bf16) (each leaf that is
+    not bit-equal named); then STREAM_STEPS steps, the losses falling."""
+    cfg = _cut(arch, layers)
+    batch = stream_batch(cfg)
+    params = tfm.init(0, cfg, dtype=torch.bfloat16, device=dev)
+    leaves, spec = tree_flatten(params)
+    live = [t.requires_grad_() for t in leaves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, metrics = tfm.loss_fn(tree_unflatten(spec, live),
+                                 {k: v.to(dev) for k, v in batch.items()}, cfg,
+                                 ParallelConfig(remat="block"))
+    ref = [g.detach() for g in torch.autograd.grad(total, live)]
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    ref_total, ref_aux = float(total.detach()), float(metrics["aux_loss"])
+    total = metrics = live = None
+    for t in leaves:
+        t.requires_grad_(False)
+    before = host_status()
+    t0 = time.perf_counter()
+    hp = HostParams(params, cfg.num_layers, device=dev)
+    pin_s = time.perf_counter() - t0
+    held = host_status()
+    params = leaves = None
+    release()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        got_total, g_top, g_layers = stream_grads(hp, batch, cfg, ParallelConfig())
+        used = _launches()
+        grads_stats = dict(hp.stats)
+        want = expected_train_launches(cfg, ParallelConfig(remat="block"))
+        if used != want:
+            raise AssertionError(f"stream {arch}: stream_grads launched {used}, expected {want}")
+        got = tree_flatten({**g_top, "blocks": g_layers})[0]
+        paths = list(_paths({**g_top, "blocks": g_layers}))
+        not_equal, worst = [], 0.0
+        for path, a, b in zip(paths, got, ref):
+            a = a.to(dev)
+            if torch.equal(a, b):
+                continue
+            name = ".".join(str(p) for p in path)
+            worst = max(worst, check_close(f"stream {arch} gradient {name}", a, b,
+                                           **tol(torch.bfloat16)))
+            not_equal.append(name)
+        got_total = float(got_total)
+        if not (got_total == ref_total or abs(got_total - ref_total) <= 1e-6 * abs(ref_total)):
+            raise AssertionError(f"stream {arch}: total {got_total}, loss_fn {ref_total}")
+        ref = g_top = g_layers = None
+        # the card's update, applied as each gradient landed, against the
+        # reference's update of stream_grads' gradient after the fact
+        w0 = [t.clone() for t in tree_flatten(hp.host)[0]]
+        steps, launches = stream_steps(dev, hp, cfg, batch, 1, link)
+        update, update_not_equal = streaming.sgd_update(STREAM_LR), []
+        for path, w, g, now in zip(paths, w0, got, tree_flatten(hp.host)[0]):
+            update(w, g.clone())
+            if not torch.equal(w, now):
+                name = ".".join(str(p) for p in path)
+                check_close(f"stream {arch} updated {name}", now, w, **tol(torch.bfloat16))
+                update_not_equal.append(name)
+        w0 = got = None
+        more, more_launches = stream_steps(dev, hp, cfg, batch, STREAM_STEPS - 1, link)
+        steps += more
+        launches = {k: launches[k] + more_launches[k] for k in launches}
+        losses = [s["loss"] for s in steps]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"stream {arch}: losses {losses} do not fall")
+        return {"config": f"{cfg.name} full width, {cfg.num_layers} of "
+                          f"{get_config(arch).num_layers} layers, bf16, B {STREAM_BATCH[0]} x "
+                          f"S {STREAM_BATCH[1]} of SyntheticLM, lr {STREAM_LR}",
+                "monolithic_total": ref_total, "monolithic_aux": ref_aux,
+                "monolithic_grad_s": mono_s, "streamed_total": got_total,
+                "streamed_aux": grads_stats["aux_loss"], "leaves": len(paths),
+                "leaves_not_bit_equal": not_equal, "not_bit_equal_max_abs_err": worst,
+                "step1_leaves_not_bit_equal_to_the_update_of_stream_grads": update_not_equal,
+                "tolerance": tol(torch.bfloat16), "stream_grads": grads_stats,
+                "stream_grads_launches": used, "pin_s": pin_s, "host_before": before,
+                "host_after_pinning": held, "reckoned_device_bytes": stream_reckoned(hp, cfg),
+                "steps": steps, "losses": losses, "card": card}, launches
+    finally:
+        hp.close()
+        release()
+
+
+def stream_deep(dev, card, arch, layers, link, rate, avail_at_start):
+    """(c) mixtral-8x7b at as many of its layers as MemAvailable holds with
+    STREAM_HOST_MARGIN to spare, (d) arctic-480b at ``layers`` (cut the same
+    way if the host lacks the memory), each also at no more layers than its
+    steps can update in STREAM_DEEP_BUDGET_S at ``rate`` elements/s: every
+    layer drawn on the card from the seed (0, l) through ``init`` of a
+    one-layer configuration and copied into its pinned buffer, then
+    STREAM_DEEP_STEPS steps."""
+    full = get_config(arch)
+    one = _cut(arch, 1)
+    meta = tfm.init(None, one, dtype=torch.bfloat16, device="meta")
+    layer_bytes = streaming._Layout(meta["blocks"][0]).nbytes
+    top_bytes = streaming._Layout({k: v for k, v in meta.items() if k != "blocks"}).nbytes
+    fixed = top_bytes + streaming.STAGING_CHUNKS * streaming.STAGING_BYTES
+    want = min(layers or full.num_layers, full.num_layers)
+    # pinned pages come back to MemAvailable some seconds late: wait for what
+    # this case asks for, or for what the phase started with
+    waited, _ = wait_for_host_memory(min(fixed + want * layer_bytes + STREAM_HOST_MARGIN,
+                                         avail_at_start - (4 << 30)))
+    avail = streaming.mem_available_bytes()
+    memory_fit = (avail - STREAM_HOST_MARGIN - fixed) // layer_bytes
+    time_fit = int(STREAM_DEEP_BUDGET_S * rate // (STREAM_DEEP_STEPS * layer_bytes // 2))
+    n = int(min(want, memory_fit, time_fit))
+    cut = {"asked_layers": want, "layers": n, "MemAvailable": avail,
+           "waited_for_host_memory_s": waited, "margin": STREAM_HOST_MARGIN,
+           "layer_bytes": layer_bytes, "top_bytes": top_bytes,
+           "pinned_bytes_for_asked": fixed + want * layer_bytes, "memory_fits": int(memory_fit),
+           "budget_s": STREAM_DEEP_BUDGET_S, "update_elements_per_s": rate,
+           "time_fits": time_fit}
+    print(f"chip_smoke: stream {arch}: {n} of {want} layers (MemAvailable {avail} B holds "
+          f"{memory_fit} with {STREAM_HOST_MARGIN} B kept free, each layer {layer_bytes} B; "
+          f"{STREAM_DEEP_BUDGET_S} s of host update at {rate:.3e} elements/s covers {time_fit})",
+          flush=True)
+    if n < 1:
+        raise AssertionError(f"stream {arch}: no layer fits the host: {cut}")
+    cfg = _cut(arch, n)
+    gen = torch.Generator(device=dev)
+
+    def draw(l):
+        gen.manual_seed(int(np.random.SeedSequence((0, l)).generate_state(1)[0]))
+        return tfm.init(gen, one, dtype=torch.bfloat16, device=dev)
+
+    top = {k: v for k, v in draw(0).items() if k != "blocks"}
+    before = host_status()
+    t0 = time.perf_counter()
+    hp = HostParams({**top, "blocks": lambda l: draw(l)["blocks"][0]}, n, device=dev)
+    build_s = time.perf_counter() - t0
+    held = host_status()
+    top = None
+    release()
+    try:
+        batch = stream_batch(cfg)
+        steps, launches = stream_steps(dev, hp, cfg, batch, STREAM_DEEP_STEPS, link)
+        return {"config": f"{cfg.name} full width, {n} of {full.num_layers} layers, bf16, "
+                          f"B {STREAM_BATCH[0]} x S {STREAM_BATCH[1]} of SyntheticLM, "
+                          f"lr {STREAM_LR}, every layer drawn on the card one at a time",
+                "cut": cut, "parameters_per_layer": layer_bytes // 2,
+                "build_and_pin_s": build_s, "host_before": before, "host_after_pinning": held,
+                "pinned_bytes": hp.pinned_bytes,
+                "reckoned_device_bytes": stream_reckoned(hp, cfg), "steps": steps,
+                "losses": [s["loss"] for s in steps], "card": card}, launches
+    finally:
+        hp.close()
+        release()
+
+
+def phase_stream(dev, card):
+    """Weight streaming: the link, (a)-(c) against the monolithic gradient,
+    then (c) mixtral at the depth the host holds and (d) arctic-480b.
+    Returns each case's launches."""
+    report = {"phase": "stream", "card": card, "threads": torch.get_num_threads(),
+              "host_at_start": host_status(), "link": stream_link(dev)}
+    launches, rates = {}, []
+    for arch, layers in STREAM_COMPARE:
+        name = arch if layers is None else f"{arch}_{layers}"
+        report[name], launches[f"stream_{name}"] = stream_compare(dev, card, arch, layers,
+                                                                  report["link"])
+        rates += [s["update_elements_per_s"] for s in report[name]["steps"]]
+    # the host update's rate in (a)-(c), which sets the deep cases' pace
+    rate = statistics.median(rates)
+    for arch, layers in STREAM_DEEP:
+        name = f"{arch}_deep"
+        report[name], launches[f"stream_{name}"] = stream_deep(
+            dev, card, arch, layers, report["link"], rate,
+            report["host_at_start"]["MemAvailable"])
+    report["host_at_end"] = host_status()
+    emit(report)
+    return launches
+
+
 MOE_RANGES = ("moe_ffn", "moe_dispatch", "moe_combine")
 
 
@@ -4597,6 +4947,15 @@ def main() -> int:
                                   ("tree_reduce", "tree_reduce")):
                     if used[key]:
                         setup_launches.setdefault(name, {})[case] = used[key]
+    stream_launches = {}
+    if "stream" in phases:
+        with phase_limit("stream", seconds):
+            for case, used in phase_stream(dev, card).items():
+                for name, key in (("flash_attention_fwd", "flash_attention"),
+                                  ("flash_attention_bwd", "flash_attention_bwd"),
+                                  ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd")):
+                    if used[key]:
+                        stream_launches.setdefault(name, {})[case] = used[key]
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
@@ -4617,6 +4976,8 @@ def main() -> int:
             entry["pipeline_launches"] = pipeline_launches[entry["name"]]
         if entry["name"] in setup_launches:
             entry["setup_launches"] = setup_launches[entry["name"]]
+        if entry["name"] in stream_launches:
+            entry["stream_launches"] = stream_launches[entry["name"]]
         entry["card"] = card
         if full and not entry["launches"]:
             raise AssertionError(f"{entry['name']}: no launch on its main path")

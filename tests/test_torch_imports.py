@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PKG.rglob("*.py"))
@@ -51,7 +52,8 @@ def test_the_walk_sees_the_whole_port():
             "optim.py", "steps.py", "data.py", "checkpoint.py", "train_loop.py",
             "moe.py", "mixtral_8x7b.py", "arctic_480b.py", "whisper.py",
             "llava_next_34b.py", "whisper_medium.py", "sharding.py",
-            "pipeline.py", "policy.py", "tp.py", "elastic.py", "faults.py"} <= names
+            "pipeline.py", "policy.py", "tp.py", "elastic.py", "faults.py",
+            "streaming.py", "torch_weight_streaming.py"} <= names
     assert len(MODULES) >= 20
 
 
@@ -125,6 +127,18 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
                          cwd=str(ROOT))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "examples").glob("torch_*.py")),
+                         ids=lambda p: p.name)
+def test_the_port_examples_refuse_to_run_without_a_gpu(path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without a CUDA device")
+    out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT),
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.returncode != 0
+    assert "GPU" in out.stderr and "loss" not in out.stdout
 
 
 def test_the_package_calls_no_library_attention_and_no_compiler():
