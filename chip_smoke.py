@@ -33,8 +33,10 @@ and llama3.2-1b trained by ``Trainer(mesh=)`` over data 2 x model 2, its
 checkpoint of the sharded state resumed after a failure on the survivors and
 on one device; and weight streaming: llama3.2-1b, mamba2-1.3b, mixtral-8x7b at
 the depth the host's memory holds and arctic-480b at 2 layers trained with
-each layer streamed from pinned host memory) through the entry points a user
-calls, builds every CUDA kernel from the sources in this checkout, holds each
+each layer streamed from pinned host memory; and the launch tools' dry-run
+records of llama3.2-1b's train cell, mamba2-1.3b's prefill, mixtral-8x7b's
+decode and a perf variant, each measured on the card) through the entry
+points a user calls, builds every CUDA kernel from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, and shows by the
 kernels' launch counts that each path went through its kernels.  Each phase prints one JSON line; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero and prints no
@@ -63,17 +65,20 @@ Phases:
            heads of hd 64, and 56 / 8 heads of hd 128; timed: its
            cross-attention B 8, Sq 448, Sk 1500 and its encoder B 8, S 1500,
            forward and backward), llava's training shape (B 4, S 2048, 56
-           / 8 heads of hd 128, causal) and a TP rank's padded heads in the
+           / 8 heads of hd 128, causal), a TP rank's padded heads in the
            setup phase's case (u) (B 4, S 2048, 3 / 3 heads of hd 128,
-           causal), each beside its bound, its plain version and
+           causal) and the launch phase's rank shapes (B 1, S 4096, causal:
+           llama3.2-1b's 16 / 4 heads of hd 64 at model 2, chatglm3-6b's 32 /
+           2 of hd 128), each beside its bound, its plain version and
            scaled_dot_product_attention (or autograd through it);
            ssd_scan against ssd_scan_plain: the
            reference's sweep and two shapes at the bf16 kernel's tile edges
            (fp32 / bf16, with and without an initial state), strided slices
            of one conv output,
            then mamba2's and zamba2's serving prefill shapes, y and the final
-           state, with timings, and the setup phase's shapes at a TP rank's
-           heads (SSD_TP_FWD); ssd_scan_bwd against ssd_scan_bwd_plain: the
+           state, with timings, and the setup phase's and the launch
+           phase's (b) shapes at a TP rank's heads (SSD_TP_FWD; (b): B 1, S
+           32768, 32 heads); ssd_scan_bwd against ssd_scan_bwd_plain: the
            same sweep in fp32 and bf16, with and without an initial state and
            a final-state cotangent, contiguous and as strided slices of one
            conv output, then mamba2's and zamba2's training shapes (B 4,
@@ -263,12 +268,30 @@ Phases:
            of 35 layers, each layer drawn on the card one at a time, 2 steps
            (losses finite, aux > 0), each deep case at no more layers than
            its steps' host update covers in STREAM_DEEP_BUDGET_S at the rate
-           (a)-(c) measured (the cut printed); every step's launches asserted (a
+           (a)-(c) measured, two at least, so that arctic's one-slot ring
+           swaps (the cut printed); every step's launches asserted (a
            block-remat step's); per step the wall, the H2D and D2H bytes and
            seconds, the host update's seconds and threads, the device-busy
            seconds, the overlap share, which of link, device and host update
            sets the pace, the pinned bytes asked for and held, and the peak
            device memory beside the reckoned figure
+  launch   the launch tools (repro_torch.launch.dryrun / perf): dry-run cells
+           placed on the production mesh (meta device) and measured with every
+           rank of a StackedMesh on the card, the production axes cut to 2:
+           (a) llama3.2-1b train_4k over data 2 x model 2 (B 2 x 4096) at
+           L1, L2 and full depth, the probe-corrected FLOPs, bytes and
+           collective bytes asserted equal to the full depth's count; (a') a
+           reduced llama3.2-1b step (d 256, head dim 64, 2 layers) counted on
+           the card and on the CPU: FLOPs, bytes (op by op) and collective
+           bytes equal; (b) mamba2-1.3b
+           prefill_32k (B 2 x 32768) at L1, L2 and full depth; (c)
+           mixtral-8x7b decode_32k over pod 2 x data 2 x model 2 (B 4, cache
+           32768) at the probe depths (the reckoning keeps the full depth
+           off the card); (d) ep_compare (measured / bucket = 1); (e)
+           serving_compare; (f) perf.PLAN's chatglm3-6b train_4k
+           v1_no_tp_fsdp256 at the probe depths; every record written under
+           artifacts/launch and summarised on one line, the kernels each
+           counted step must launch asserted
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -283,7 +306,8 @@ gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (on
 error against the plain version, times, roofline bound, launches on the main
 path; the flash kernels also their launches in the pipeline, the flash and
 tree-reduce kernels their launches in the setup, the flash and SSD kernels
-their launches in the stream); the last line is
+their launches in the stream, and the flash, SSD and tree-reduce kernels
+their launches in the launch phase, by case); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -314,15 +338,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.configs.registry import get_config          # noqa: E402
 from repro_torch.kernels import build, ops                   # noqa: E402
 from repro_torch.kernels.flash_attention import (             # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain)
+    attention_pairs, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_plain, flash_bwd_work, flash_fwd_work, window_pairs)
 from repro_torch.kernels.quant8 import (                      # noqa: E402
-    dequantize, dequantize_plain, quantize, quantize_plain)
-from repro_torch.kernels.reduce_tree import tree_reduce, tree_reduce_plain  # noqa: E402
-from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK      # noqa: E402
+    dequantize, dequantize_plain, dequantize_work, quantize, quantize_plain, quantize_work)
+from repro_torch.kernels.reduce_tree import (                 # noqa: E402
+    tree_reduce, tree_reduce_plain, tree_reduce_work)
 from repro_torch.kernels.ssd_scan import (                    # noqa: E402
-    bwd_heads_per_block, bwd_scratch, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
+    bwd_heads_per_block, bwd_scratch, ssd_bwd_work, ssd_fwd_work, ssd_scan, ssd_scan_bwd,
+    ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.models import moe                           # noqa: E402
 from repro_torch.models import transformer as tfm            # noqa: E402
+from repro_torch.launch import dryrun, perf, roofline         # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models.config import ParallelConfig, ShapeConfig  # noqa: E402
 from repro_torch.models.layers import apply_attn_block      # noqa: E402
@@ -348,19 +375,20 @@ from repro_torch.train.streaming import (                     # noqa: E402
     HostParams, stream_grads, stream_train_step)
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): bf16 and
+# the memory rate as launch.roofline states them, fp32 (non-tensor) beside them.
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS, torch.float32: 67e12}
+PEAK_BYTES_PER_S = roofline.HBM_BW
 
 PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel", "setup",
-          "stream")
+          "stream", "launch")
 # Wall-clock limit of each phase in seconds, several times its time on an H100
 # (the `phase_seconds` line).  A phase past its limit (a kernel that never
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
                  "sync": 300, "train": 600, "parallel": 240, "setup": 480, "stream": 600,
-                 "profile": 300}
+                 "launch": 300, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -410,12 +438,14 @@ SSD_SWEEP = [(2, S, 4, 16, 8, G) for S in (64, 100, 96) for G in (1, 2)] + [
     (2, 200, 4, 64, 128, 1), (2, 130, 4, 32, 64, 2)]
 SSD_SERVED = ("mamba2-1.3b", "zamba2-2.7b")
 # the SSD kernels at a tensor-parallel rank's heads, the shapes the setup
-# phase's SSM cases (p)-(s) launch, S 2048: (arch, batch rows a call, heads a
-# rank).  Forward: mamba2's 32 of 64 at model 2 ((p), (r); 4 rows: B 8 over
-# data 2), zamba2's 40 of 80 at model 2 ((s)) and 20 at model 4 ((q), B 8).
-# Backward: (p) and (q); at 20 heads the bf16 backward takes k = 5 heads a
-# block (``bwd_heads_per_block``).
-SSD_TP_FWD = [("mamba2-1.3b", 4, 32), ("zamba2-2.7b", 4, 40), ("zamba2-2.7b", 8, 20)]
+# phase's SSM cases (p)-(s) launch at S 2048 and the launch phase's (b) at S
+# 32768: (arch, batch rows a call, S, heads a rank).  Forward: mamba2's 32 of
+# 64 at model 2 ((p), (r); 4 rows: B 8 over data 2; (b): B 2 over data 2),
+# zamba2's 40 of 80 at model 2 ((s)) and 20 at model 4 ((q), B 8).  Backward:
+# (p) and (q); at 20 heads the bf16 backward takes k = 5 heads a block
+# (``bwd_heads_per_block``).
+SSD_TP_FWD = [("mamba2-1.3b", 4, 2048, 32), ("zamba2-2.7b", 4, 2048, 40),
+              ("zamba2-2.7b", 8, 2048, 20), ("mamba2-1.3b", 1, 32768, 32)]
 SSD_TP_BWD = [("mamba2-1.3b", 4, 32), ("zamba2-2.7b", 8, 20)]
 # Kernel and plain version compute from the same inputs, in another order: the
 # fp32 kernel in fp32, the bf16 kernel on the tensor cores with every operand
@@ -572,20 +602,12 @@ def make_ssd(seed, B, S, H, hd, N, G, dtype, device, *, served=False,
 
 
 def ssd_bound(args, y, hT):
-    """(bound ms, bound_by, flops, bytes): the operations of the causal half
-    of the two chunk-by-chunk products, C.state^T and the state update,
-    against the bytes of every input read once and y and the final state
-    written once."""
-    x, dt, A, Bm, Cm, h0 = args
-    Bsz, S, H, hd = x.shape
-    N = Bm.shape[3]
-    flops = 0
-    for s0 in range(0, S, SSD_CHUNK):
-        q = min(SSD_CHUNK, S - s0)
-        flops += q * (q + 1) * (N + hd) + 4 * q * hd * N
-    flops *= Bsz * H
-    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, y, hT)
-                 if t is not None) + (h0.numel() * 4 if h0 is not None else 0)
+    """(bound ms, bound_by, flops, bytes) of ``ssd_fwd_work``: the operations
+    of the causal half of the two chunk-by-chunk products, C.state^T and the
+    state update, against the bytes of every input read once and y and the
+    final state written once."""
+    x = args[0]
+    flops, nbytes = ssd_fwd_work(*args, y, hT)
     t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
@@ -683,8 +705,7 @@ def kernels_flash(dev):
     library_ms = cuda_ms(lambda: sdpa(qh, kr, vr, is_causal=True), warmup=3, reps=15)
 
     # roofline bound of this call: causal halves the products' work
-    flops = 2 * 2 * m["B"] * m["Hq"] * m["S"] * m["S"] * m["hd"] / 2
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    flops, nbytes = flash_fwd_work(q, k, v, got, causal=True)
     t_ops = flops / PEAK_FLOPS[m["dtype"]] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     entry = {
@@ -773,34 +794,25 @@ def hold_grads(name, got, want, dtype, plain, names=("dq", "dk", "dv")):
     return worst
 
 
-def window_pairs(S, window):
-    """(query, key) pairs a causal windowed attention computes over S
-    positions: query i sees min(i + 1, window) keys."""
-    w = min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
-
-
 def attn_pairs(m):
-    """(query, key) pairs the attention of shape ``m`` computes: with a
-    window the pairs inside it, causal half of S x S, else Sq x Sk (``Sq`` /
-    ``Sk``, or both ``S``)."""
-    if m.get("window"):
-        return window_pairs(m["S"], m["window"])
-    if m["causal"]:
-        return m["S"] * m["S"] / 2
-    return m.get("Sq", m.get("S")) * m.get("Sk", m.get("S"))
+    """(query, key) pairs the attention of shape ``m`` computes
+    (``attention_pairs``: with a window the pairs inside it, causal half of
+    S x S, else Sq x Sk; ``Sq`` / ``Sk``, or both ``S``)."""
+    return attention_pairs(m.get("Sq", m.get("S")), m.get("Sk", m.get("S")), m["causal"],
+                           m.get("window") or 0)
 
 
 def bwd_bounds(m, *tensors):
-    """(bound ms, bound_by, bound ms of the kernels' seven products): five
-    products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K), 2.5 times the forward's
-    work, causal halving each (with a window: only the pairs inside it),
-    against every input read once (q, k, v, o, dO, lse) and dq, dk, dv
-    written once; the kernels recompute Q.K^T and dO.V^T for dQ, seven
-    products."""
-    one = 2 * m["B"] * m["Hq"] * attn_pairs(m) * m["hd"]
-    t_bytes = nbytes(*tensors) / PEAK_BYTES_PER_S * 1e3
-    t5, t7 = (n * one / PEAK_FLOPS[m["dtype"]] * 1e3 for n in (5, 7))
+    """(bound ms, bound_by, bound ms of the kernels' seven products, flops) of
+    ``flash_bwd_work``: five products (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K),
+    2.5 times the forward's work, causal halving each (with a window: only
+    the pairs inside it), against every input read once (q, k, v, o, dO,
+    lse) and dq, dk, dv written once; the kernels recompute Q.K^T and dO.V^T
+    for dQ, seven products.  tensors: q, k, v, o, dO, lse, dq, dk, dv."""
+    flops, n = flash_bwd_work(*tensors, causal=m["causal"], window=m.get("window") or 0)
+    one = flops / 5
+    t_bytes = n / PEAK_BYTES_PER_S * 1e3
+    t5, t7 = (k * one / PEAK_FLOPS[m["dtype"]] * 1e3 for k in (5, 7))
     return max(t5, t_bytes), ("operations" if t5 >= t_bytes else "bytes"), max(t7, t_bytes), 5 * one
 
 
@@ -958,6 +970,14 @@ LLAVA_TRAIN_ATTN = dict(B=4, S=2048, Hq=56, Hkv=8, hd=128, dtype=torch.bfloat16,
 # a TP rank's padded heads in the setup phase's case (u): qwen1.5-4b's 20 / 20
 # heads over model 8 give 3 a rank, each with its KV head, at a data row's B 4
 QWEN_TP_ATTN = dict(B=4, S=2048, Hq=3, Hkv=3, hd=128, dtype=torch.bfloat16, causal=True)
+# the launch phase's rank shapes: (a) llama3.2-1b train_4k over data 2 x
+# model 2 (a data row's B 1 at a TP rank's 16 / 4 heads), (f) chatglm3-6b
+# train_4k without TP (B 1 a rank, 32 query heads over 2 KV heads: a group of
+# 16, each dK / dV summed over 16 query heads)
+LLAMA_TP_TRAIN_ATTN = dict(B=1, S=4096, Hq=16, Hkv=4, hd=64, dtype=torch.bfloat16,
+                           causal=True)
+CHATGLM_TRAIN_ATTN = dict(B=1, S=4096, Hq=32, Hkv=2, hd=128, dtype=torch.bfloat16,
+                          causal=True)
 
 
 def attention_case(label, m, seed, dev):
@@ -993,9 +1013,9 @@ def attention_case(label, m, seed, dev):
     del kr, vr, want
     lib_name = ("with the band as a boolean attn_mask" if kw["window"] else
                 "(causal)" if causal else "(no mask)")
-    flops = 4 * B * Hq * attn_pairs(m) * hd
+    flops, n = flash_fwd_work(q, k, v, out, causal=causal, window=kw["window"])
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    t_bytes = nbytes(q, k, v, out) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = n / PEAK_BYTES_PER_S * 1e3
     shape = {k_: (str(v_) if k_ == "dtype" else v_) for k_, v_ in m.items()}
     fwd = {"shape": shape, "max_abs_err": f_err, "tolerance": MAIN_TOL,
            "max_row_err_over_row_rms": f_row, "row_err_over_row_rms_limit": MAIN_ROW_REL_TOL,
@@ -1050,8 +1070,9 @@ def kernels_flash_cross(dev, fwd_main, bwd_main):
     """The flash kernels at the shapes no other model path gives them:
     whisper's cross-attention (non-causal, Sq 448 != Sk 1500) and encoder
     (non-causal, S 1500 ragged against the tiles), two new entries, and
-    llava's training shape (a group of 7 at hd 128) and a TP rank's padded
-    heads (QWEN_TP_ATTN, the setup phase's case (u)), added to the main
+    llava's training shape (a group of 7 at hd 128), a TP rank's padded
+    heads (QWEN_TP_ATTN, the setup phase's case (u)) and the launch phase's
+    rank shapes (LLAMA_TP_TRAIN_ATTN, CHATGLM_TRAIN_ATTN), added to the main
     entries ``fwd_main`` / ``bwd_main``."""
     cross_f, cross_b = attention_case("whisper cross shape", WHISPER_CROSS_ATTN, 51, dev)
     enc_f, enc_b = attention_case("whisper encoder shape", WHISPER_ENC_ATTN, 54, dev)
@@ -1061,6 +1082,11 @@ def kernels_flash_cross(dev, fwd_main, bwd_main):
     tp_f, tp_b = attention_case("qwen1.5-4b TP rank shape", QWEN_TP_ATTN, 60, dev)
     fwd_main["tp_rank_shape"] = tp_f
     bwd_main["tp_rank_shape"] = tp_b
+    launch = {}
+    for name, m, seed in (("llama_train_4k_tp_rank_shape", LLAMA_TP_TRAIN_ATTN, 63),
+                          ("chatglm_train_4k_rank_shape", CHATGLM_TRAIN_ATTN, 66)):
+        launch[name] = attention_case(name.replace("_", " "), m, seed, dev)
+        fwd_main[name], bwd_main[name] = launch[name]
     common = {"route": "cuda", "replaces": "src/repro/kernels/flash_attention.py:102",
               "launches": None,
               "launches_are": "whisper-medium's (24 encoder, 24 self- and 24 "
@@ -1073,7 +1099,8 @@ def kernels_flash_cross(dev, fwd_main, bwd_main):
            "encoder_shape": enc_b}
     emit({"phase": "kernels", "kernel": "flash_attention cross / encoder / llava",
           "cross": [cross_f, cross_b], "encoder": [enc_f, enc_b],
-          "llava_training_shape": [llava_f, llava_b], "tp_rank_shape": [tp_f, tp_b]})
+          "llava_training_shape": [llava_f, llava_b], "tp_rank_shape": [tp_f, tp_b],
+          **{k: list(v) for k, v in launch.items()}})
     return [fwd, bwd]
 
 
@@ -1234,9 +1261,9 @@ def kernels_ssd(dev):
             "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
         }
     tp_rank = {}
-    for arch, B, H in SSD_TP_FWD:
+    for arch, B, S, H in SSD_TP_FWD:
         cfg = get_config(arch)
-        shape = dict(B=B, S=2048, H=H, hd=cfg.ssm_headdim, N=cfg.ssm_state, G=cfg.ssm_groups)
+        shape = dict(B=B, S=S, H=H, hd=cfg.ssm_headdim, N=cfg.ssm_state, G=cfg.ssm_groups)
         args = make_ssd(24, **shape, dtype=torch.bfloat16, device=dev, served=True, fused=True)
         y, hT = ssd_scan(*args[:5], return_state=True)
         torch.cuda.synchronize()
@@ -1246,7 +1273,7 @@ def kernels_ssd(dev):
         err_h, _ = hold(f"{name} final state", hT, h_ref, **SSD_STATE_TOL,
                         row_limit=MAIN_ROW_REL_TOL)
         n_cases += 1
-        tp_rank[f"{arch} B {B} H {H}"] = {
+        tp_rank[f"{arch} B {B} S {S} H {H}"] = {
             "max_abs_err": err_y, "max_row_err_over_row_rms": rel_y, "state_max_abs_err": err_h,
             "ms": cuda_ms(lambda: ssd_scan(*args[:5], return_state=True), warmup=3, reps=15)}
         del args, y, hT, y_ref, h_ref
@@ -1336,13 +1363,7 @@ def ssd_bwd_bound(args, dy, got):
     x, dt, A, Bm, Cm, h0 = args
     Bsz, S, H, hd = x.shape
     N = Bm.shape[3]
-    flops, nc = 0, 0
-    for s0 in range(0, S, SSD_CHUNK):
-        q = min(SSD_CHUNK, S - s0)
-        flops += q * (q + 1) * (N + hd) + q * (q + 1) * (hd + 2 * N) + 10 * q * hd * N
-        nc += 1
-    flops *= Bsz * H
-    n_bytes = nbytes(*(t for t in (x, dt, A, Bm, Cm, h0, dy, *got) if t is not None))
+    flops, n_bytes = ssd_bwd_work(*args, dy, got)
     t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     scratch = sum(math.prod(shape) * dtype.itemsize
@@ -1455,7 +1476,7 @@ def kernels_ssd_bwd(dev):
         readings = hold_ssd_grads(name, got, ssd_scan_bwd_plain(*args[:5], dy), torch.bfloat16)
         err, fro = worst_of(readings)
         n_cases += 1
-        tp_rank[f"{arch} B {B} H {H}"] = {
+        tp_rank[f"{arch} B {B} S {S} H {H}"] = {
             "max_abs_err": err, "frobenius_rel_err": fro, "two_calls_bit_equal": True,
             "heads_per_block": bwd_heads_per_block(H, shape["G"]),
             "ms": cuda_ms(lambda: ssd_scan_bwd(*args[:5], dy), warmup=3, reps=15)}
@@ -1502,10 +1523,12 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bytes_bound(*ts):
-    """(bound ms, "bytes"): every tensor read or written once at the card's
-    memory rate; these kernels do a few operations per element."""
-    return nbytes(*ts) / PEAK_BYTES_PER_S * 1e3, "bytes"
+def bytes_bound(work, *ts):
+    """(bound ms, "bytes") of ``work(*ts)`` (``tree_reduce_work``,
+    ``quantize_work``, ``dequantize_work``): every tensor read or written once
+    at the card's memory rate; these kernels do a few operations per
+    element."""
+    return work(*ts)[1] / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
 def randn(gen, shape, dtype, dev, scale=1.0):
@@ -1555,7 +1578,7 @@ def kernels_tree(dev, gen):
     # another summation order: within two bf16 roundings of the values' size
     check_close("tree_reduce library call vs plain", library(), got, atol=2 ** -5, rtol=2 ** -7)
     library_ms = cuda_ms(library, warmup=1, reps=5)
-    bound_ms, bound_by = bytes_bound(view, got)
+    bound_ms, bound_by = bytes_bound(tree_reduce_work, view, got)
     n_cases += 1
     # the outer reduce of the dequantized payload, (1, D, P, s) fp32
     y = randn(gen, (P, D, s), torch.float32, dev)
@@ -1641,7 +1664,7 @@ def kernels_quant(dev, gen):
     q_ms = cuda_ms(lambda: quantize(carry, compress.BLOCK, return_error=True), warmup=2, reps=10)
     q_plain_ms = cuda_ms(lambda: quantize_plain(carry, compress.BLOCK, return_error=True),
                          warmup=1, reps=3)
-    q_bound = bytes_bound(carry, *got)
+    q_bound = bytes_bound(quantize_work, carry, *got)
     qv = got[0].view(P, D, s).permute(1, 0, 2)[None]
     sv = got[1].view(P, D, -1).permute(1, 0, 2)[None]
     deq = dequantize(qv, sv, compress.BLOCK)
@@ -1649,7 +1672,7 @@ def kernels_quant(dev, gen):
     check_equal("dequantize served shape", deq, dequantize_plain(qv, sv, compress.BLOCK))
     dq_ms = cuda_ms(lambda: dequantize(qv, sv, compress.BLOCK), warmup=2, reps=10)
     dq_plain_ms = cuda_ms(lambda: dequantize_plain(qv, sv, compress.BLOCK), warmup=1, reps=3)
-    dq_bound = bytes_bound(qv, sv, deq)
+    dq_bound = bytes_bound(dequantize_work, qv, sv, deq)
     n_cases += 2
     common = {"route": "cuda", "source": "src/repro_torch/csrc/quant8.cu", "launches": None,
               "max_abs_err": 0.0, "tolerance": "bit-equal",
@@ -2482,12 +2505,10 @@ def train_flops_per_step(cfg, B, S, P=0):
         P = cfg.ssm_headdim
         matmul_params = cfg.num_layers * (d * (2 * di + 2 * G * N + H) + di * d) + \
             n_attn * attn_block
-        for s0 in range(0, S, SSD_CHUNK):
-            q = min(SSD_CHUNK, S - s0)
-            scan += q * (q + 1) * (N + P) + 4 * q * P * N
-        scan *= 3 * cfg.num_layers * B * H
+        x, bc = (torch.empty(s_, device="meta") for s_ in ((B, S, H, P), (B, S, G, N)))
+        scan = 3 * cfg.num_layers * ssd_fwd_work(x, None, None, bc, bc, None, None, None)[0]
     matmul_params += d * cfg.padded_vocab
-    pairs = window_pairs(S, cfg.sliding_window) if cfg.sliding_window else S * S / 2
+    pairs = attention_pairs(S, S, True, cfg.sliding_window)
     attn = 3 * n_attn * 2 * 2 * B * pairs * hq * hd
     extra = 6 * d * d * B * P if cfg.family == "vlm" else 0
     if cfg.family == "audio":
@@ -4370,7 +4391,9 @@ def phase_setup(dev, card):
 # The host update sets a deep case's pace, and the card machine's host ran it
 # at 0.7-1.2e9 elements/s in different runs: a deep case also takes no more
 # layers than its steps can update in STREAM_DEEP_BUDGET_S at the rate (a)-(c)
-# measured, so that the script stays inside its time limit on a slow host
+# measured (STREAM_DEEP_MIN_LAYERS at least: arctic's one-slot ring swaps a
+# slot only past one layer), so that the script stays inside its time limit
+# on a slow host; 30 s since the launch phase came (90 s before)
 STREAM_BATCH = (4, 2048)
 STREAM_LR = 1e-3
 STREAM_STEPS = 3
@@ -4378,7 +4401,8 @@ STREAM_DEEP_STEPS = 2
 STREAM_HOST_MARGIN = 16 << 30
 STREAM_COMPARE = [("llama3.2-1b", None), ("mamba2-1.3b", None), ("mixtral-8x7b", 1)]
 STREAM_DEEP = [("mixtral-8x7b", None), ("arctic-480b", 2)]
-STREAM_DEEP_BUDGET_S = 90
+STREAM_DEEP_BUDGET_S = 30
+STREAM_DEEP_MIN_LAYERS = 2
 STREAM_MEMORY_WAIT_S = 90     # pinned pages return to MemAvailable some seconds after unpinning
 
 
@@ -4590,7 +4614,8 @@ def stream_deep(dev, card, arch, layers, link, rate, avail_at_start):
     """(c) mixtral-8x7b at as many of its layers as MemAvailable holds with
     STREAM_HOST_MARGIN to spare, (d) arctic-480b at ``layers`` (cut the same
     way if the host lacks the memory), each also at no more layers than its
-    steps can update in STREAM_DEEP_BUDGET_S at ``rate`` elements/s: every
+    steps can update in STREAM_DEEP_BUDGET_S at ``rate`` elements/s (and at
+    no fewer than STREAM_DEEP_MIN_LAYERS of those asked for): every
     layer drawn on the card from the seed (0, l) through ``init`` of a
     one-layer configuration and copied into its pinned buffer, then
     STREAM_DEEP_STEPS steps."""
@@ -4607,7 +4632,9 @@ def stream_deep(dev, card, arch, layers, link, rate, avail_at_start):
                                          avail_at_start - (4 << 30)))
     avail = streaming.mem_available_bytes()
     memory_fit = (avail - STREAM_HOST_MARGIN - fixed) // layer_bytes
-    time_fit = int(STREAM_DEEP_BUDGET_S * rate // (STREAM_DEEP_STEPS * layer_bytes // 2))
+    # the budget cuts depth, never below STREAM_DEEP_MIN_LAYERS
+    time_fit = max(min(want, STREAM_DEEP_MIN_LAYERS),
+                   int(STREAM_DEEP_BUDGET_S * rate // (STREAM_DEEP_STEPS * layer_bytes // 2)))
     n = int(min(want, memory_fit, time_fit))
     cut = {"asked_layers": want, "layers": n, "MemAvailable": avail,
            "waited_for_host_memory_s": waited, "margin": STREAM_HOST_MARGIN,
@@ -4694,6 +4721,158 @@ def moe_ranges():
     return patched(moe, moe_ffn=ranged("moe_ffn", moe.moe_ffn),
                    _group_dispatch=ranged("moe_dispatch", moe._group_dispatch),
                    _group_combine=ranged("moe_combine", moe._group_combine))
+
+
+# --------------------------------------------------------------------------
+# the launch tools: the dry run's records measured on the card
+# --------------------------------------------------------------------------
+
+LAUNCH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts", "launch")
+# (case, arch, shape, mesh, perf variant or None, whether the reckoning must
+# take the full depth, the kernels each counted step must launch): (a)
+# llama3.2-1b's train cell at L1, L2 and full depth; (b) mamba2-1.3b's
+# prefill, the SSD kernel at S 32768; (c) mixtral-8x7b's decode over pod x
+# data x model, probe depths only (a layer is 2.8 GB: 32 do not fit; a decode
+# step attends without the flash kernel); (f) one perf.PLAN variant at the
+# probe depths
+LAUNCH_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "tree_reduce")
+LAUNCH_CELLS = [("a", "llama3.2-1b", "train_4k", "single", None, True, LAUNCH_TRAIN_KERNELS),
+                ("b", "mamba2-1.3b", "prefill_32k", "single", None, True,
+                 ("ssd_scan", "tree_reduce")),
+                ("c", "mixtral-8x7b", "decode_32k", "multi", None, False, ("tree_reduce",)),
+                ("f", "chatglm3-6b", "train_4k", "single", "v1_no_tp_fsdp256", False,
+                 LAUNCH_TRAIN_KERNELS)]
+# (a'): one step of a reduced llama3.2-1b (head dim 64, the flash kernel's
+# smallest) counted on the card and on the CPU, over data 2 x model 2
+LAUNCH_PARITY = dict(d_model=256, head_dim=64, d_ff=512, vocab_size=1024, num_layers=2)
+LAUNCH_PARITY_SHAPE = ShapeConfig("t", "train", 256, 4)
+
+
+def _write_record(name, rec):
+    os.makedirs(LAUNCH_OUT, exist_ok=True)
+    path = os.path.join(LAUNCH_OUT, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=2, default=str)
+    return os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_summary(run):
+    return {"layers": run["layers"], "step_s": run["seconds"]["step"],
+            "first_step_s": run["seconds"]["first_step"], "setup_s": run["seconds"]["setup"],
+            "peak_bytes_per_rank": run["peak_bytes_per_rank"],
+            "flops_per_device": run["cost"]["flops"],
+            "bytes_per_device": run["cost"]["bytes accessed"],
+            "collective_bytes_per_device": run["collectives"]["per_kind_bytes"],
+            "counted_step_launches": {k: v for k, v in run["launches"].items() if v}}
+
+
+def launch_cell(dev, case, arch, shape, mesh, variant, full, kernels):
+    """One dry-run cell on the card: the record written, one summary line
+    emitted, the probe checked exact where the full depth ran, each of
+    ``kernels`` launched in every counted step."""
+    overrides = None
+    if variant:
+        overrides = next(o for a, s_, v, _, o in perf.PLAN
+                         if (a, s_, v) == (arch, shape, variant))
+    rec = dryrun.run_cell(arch, shape, mesh, pcfg_overrides=overrides, device=dev)
+    if rec["status"] != "ok":
+        raise AssertionError(f"launch ({case}) {arch} {shape}: {rec['status']}")
+    if rec["reduced"]["full_depth"] != full:
+        raise AssertionError(f"launch ({case}) {arch} {shape}: full depth "
+                             f"{rec['reduced']['full_depth']}, expected {full} "
+                             f"({rec['reduced']['full_depth_reckoned_bytes']} bytes reckoned)")
+    runs = {k: rec["probe"][k] for k in ("L1", "L2")}
+    if full:
+        runs["full"] = rec["full"]
+        want = {"flops": rec["full"]["cost"]["flops"],
+                "bytes_accessed": rec["full"]["cost"]["bytes accessed"],
+                "collective_bytes": rec["full"]["collective_bytes"]}
+        if rec["corrected"] != want:
+            raise AssertionError(f"launch ({case}): corrected {rec['corrected']} != the "
+                                 f"full depth's count {want}")
+    for name, run in runs.items():
+        missing = [k for k in kernels if not run["launches"][k]]
+        if missing:
+            raise AssertionError(f"launch ({case}) {name}: no launch of {missing} in the "
+                                 f"counted step ({run['launches']})")
+    path = _write_record(f"{arch}__{shape}__{variant or mesh}", rec)
+    emit({"phase": "launch", "case": case, "arch": arch, "shape": shape, "mesh": mesh,
+          "variant": variant, "record": path, "reduced": rec["reduced"],
+          "memory_per_device": rec["memory_per_device"], "corrected": rec["corrected"],
+          "corrected_equals_full_depth": full or None,
+          "roofline": {k: rec["roofline"][k] for k in ("compute_s", "memory_s", "collective_s",
+                                                      "dominant", "roofline_fraction")},
+          "runs": {k: _run_summary(r) for k, r in runs.items()}})
+    return rec
+
+
+def launch_parity(dev, card):
+    """(a'): one reduced llama3.2-1b step counted on the card and on the CPU:
+    FLOPs, bytes and collective bytes equal, and each op's count (an op that
+    differs is named)."""
+    cfg = get_config("llama3.2-1b").reduced(**LAUNCH_PARITY)
+    shape = LAUNCH_PARITY_SHAPE
+    card_run, cpu_run = (
+        dryrun.measure_step(cfg, shape, mesh, *dryrun.cell_policy(cfg, shape, mesh), timed=1,
+                            by_op=True)
+        for mesh in (dryrun.card_mesh("single", where) for where in (dev, "cpu")))
+    if card_run["cost"]["flops"] != cpu_run["cost"]["flops"]:
+        raise AssertionError(f"launch (a'): flops card {card_run['cost']['flops']} != CPU "
+                             f"{cpu_run['cost']['flops']}")
+    if card_run["collectives"] != cpu_run["collectives"]:
+        raise AssertionError(f"launch (a'): collectives card {card_run['collectives']} != "
+                             f"CPU {cpu_run['collectives']}")
+    a, b = card_run["cost"]["by_op"], cpu_run["cost"]["by_op"]
+    differ = {op: {"card": a.get(op), "cpu": b.get(op)} for op in sorted(set(a) | set(b))
+              if a.get(op) != b.get(op)}
+    if differ or card_run["cost"]["bytes accessed"] != cpu_run["cost"]["bytes accessed"]:
+        raise AssertionError(f"launch (a'): ops counted otherwise on the card and the CPU: "
+                             f"{differ}")
+    if not card_run["launches"]["flash_attention"]:
+        raise AssertionError("launch (a'): no flash launch on the card")
+    emit({"phase": "launch", "case": "a'", "card": card,
+          "config": {**LAUNCH_PARITY, "shape": dataclasses.asdict(shape)},
+          "flops": card_run["cost"]["flops"],
+          "bytes": {"card": card_run["cost"]["bytes accessed"],
+                    "cpu": cpu_run["cost"]["bytes accessed"]},
+          "collectives": card_run["collectives"], "ops": len(a),
+          "card_launches": {k: v for k, v in card_run["launches"].items() if v}})
+
+
+def phase_launch(dev, card):
+    """The launch tools on the card: the dry-run cells (LAUNCH_CELLS), the
+    card-against-CPU count (a'), ep_compare (d) and serving_compare (e).
+    Returns each case's launches, every step of the case (warm-up, counted,
+    timed) counted."""
+    used = {}
+    for case, *cell in LAUNCH_CELLS[:1]:
+        _zero_launches()
+        launch_cell(dev, case, *cell)
+        used[case] = _launches()
+        release()
+    launch_parity(dev, card)
+    release()
+    for case, *cell in LAUNCH_CELLS[1:3]:
+        _zero_launches()
+        launch_cell(dev, case, *cell)
+        used[case] = _launches()
+        release()
+    ep = dryrun.ep_compare(device=dev)
+    if ep["measured_over_bucket"] != 1:
+        raise AssertionError(f"launch (d): measured / bucket {ep['measured_over_bucket']}")
+    emit({"phase": "launch", "case": "d", "record": _write_record("ep_compare", ep), **ep})
+    serving = dryrun.serving_compare(device=dev)
+    if serving["analytical"] is not None or not serving["measured"]["decode_step_p50_s"] > 0:
+        raise AssertionError(f"launch (e): {serving}")
+    emit({"phase": "launch", "case": "e", "record": _write_record("serving_compare", serving),
+          **serving})
+    release()
+    for case, *cell in LAUNCH_CELLS[3:]:
+        _zero_launches()
+        launch_cell(dev, case, *cell)
+        used[case] = _launches()
+        release()
+    return used
 
 
 def _device_time_by_kernel(fn):
@@ -4956,6 +5135,16 @@ def main() -> int:
                                   ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd")):
                     if used[key]:
                         stream_launches.setdefault(name, {})[case] = used[key]
+    launch_launches = {}
+    if "launch" in phases:
+        with phase_limit("launch", seconds):
+            for case, used in phase_launch(dev, card).items():
+                for name, key in (("flash_attention_fwd", "flash_attention"),
+                                  ("flash_attention_bwd", "flash_attention_bwd"),
+                                  ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd"),
+                                  ("tree_reduce", "tree_reduce")):
+                    if used[key]:
+                        launch_launches.setdefault(name, {})[case] = used[key]
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
@@ -4978,6 +5167,8 @@ def main() -> int:
             entry["setup_launches"] = setup_launches[entry["name"]]
         if entry["name"] in stream_launches:
             entry["stream_launches"] = stream_launches[entry["name"]]
+        if entry["name"] in launch_launches:
+            entry["launch_launches"] = launch_launches[entry["name"]]
         entry["card"] = card
         if full and not entry["launches"]:
             raise AssertionError(f"{entry['name']}: no launch on its main path")

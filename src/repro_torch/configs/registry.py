@@ -2,14 +2,16 @@
 
 Mirrors ``repro.configs.registry``: lookup by id for ``--arch <id>``.  Every
 architecture of the JAX package is ported; an unknown id raises a ``KeyError``.
+The (arch x shape) applicability matrix is here too: ``cells()`` yields every
+cell with whether it runs and, if not, why (``launch.dryrun`` records it).
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 
 # every id the JAX package knows, in its order
 ARCH_IDS = (
@@ -44,3 +46,21 @@ def get_config(arch: str) -> ModelConfig:
 def all_configs() -> Dict[str, ModelConfig]:
     """Every configuration the port can run."""
     return {a: get_config(a) for a in PORTED_ARCH_IDS}
+
+
+def shape_applicability(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, reason-if-skipped)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full quadratic attention; 512k-token decode requires "
+                       "sub-quadratic attention (SSM/hybrid/SWA only) — skip "
+                       "per task spec, noted in DESIGN.md")
+    return True, ""
+
+
+def cells(archs=ARCH_IDS, shapes=SHAPES
+          ) -> Iterator[Tuple[str, ModelConfig, ShapeConfig, bool, str]]:
+    for a in archs:
+        cfg = get_config(a)
+        for s in shapes:
+            ok, why = shape_applicability(cfg, s)
+            yield a, cfg, s, ok, why

@@ -24,6 +24,11 @@ replaces, what bounds it on an H100 and what its design does about it.
   to its backward, kernel to kernel or plain to plain.  ``ops.attention``
   sends every call whose inputs need a gradient there, and every other call
   to the forward alone, which then writes no log-sum-exp.
+* ``flash_fwd_work`` / ``flash_bwd_work`` are a call's work, (FLOPs, bytes):
+  the products over the (query, key) pairs it computes (``attention_pairs``)
+  against every input read once and every output written once.  The bounds
+  of ``chip_smoke.py`` and ``launch.roofline.count_cost`` read them
+  (``kernels.work``).
 
 Layout ``(B, S, H, hd)`` as in the JAX package.  Unlike the Pallas kernel,
 which wants equal head counts (``ops.attention`` repeats K/V first), both
@@ -47,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, work
 from ..models.attention import NEG_INF, matmul_f32, repeat_kv
 
 HEAD_DIMS = (64, 80, 128)
@@ -256,7 +261,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     finalise ``acc / max(l, 1e-30)``.  With a causal mask the kv loop stops at
     the diagonal, as the kernel's does; with a window it starts at the block
     holding the block's first row's first key.  With ``return_lse`` also
-    returns ``m + log l`` per row, fp32 (B, Hq, Sq).
+    returns ``m + log l`` per row, fp32 (B, Hq, Sq).  The output is laid out
+    as the kernel writes it, (B, Sq, Hq, hd) contiguous, so that what the
+    caller does with it (a reshape) moves the same bytes on either device.
     """
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -265,7 +272,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = repeat_kv(v, Hq // Hkv)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))      # (B,H,S,hd)
-    out = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    oh = out.permute(0, 2, 1, 3)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, block_q):
@@ -292,9 +300,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + matmul_f32(p.to(vb.dtype), vb)
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
-        out[:, :, q0:q0 + nq] = o.to(q.dtype)
+        oh[:, :, q0:q0 + nq] = o.to(q.dtype)
         lse[:, :, q0:q0 + nq] = m + torch.log(l)
-    out = out.permute(0, 2, 1, 3)
     return (out, lse) if return_lse else out
 
 
@@ -312,7 +319,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dq += dS k``, ``dk += dS^T q``, with P and dS rounded to the input dtype
     for those products and every sum in fp32; dq and dk are scaled at the
     end.  dk and dv are summed over the query heads of each KV group.
-    Returns (dq, dk, dv) in the input dtype.
+    Returns (dq, dk, dv) in the input dtype, each (B, S, H, hd) contiguous
+    as the kernel writes them.
     """
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -345,9 +353,46 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dk[:, :, k0:k0 + block_k] += matmul_f32(ds.transpose(-1, -2), qb)
     dk = dk.view(B, Hkv, rep, Sk, hd).sum(dim=2)
     dv = dv.view(B, Hkv, rep, Sk, hd).sum(dim=2)
-    return ((dq * scale).to(dt).permute(0, 2, 1, 3),
-            (dk * scale).to(dt).permute(0, 2, 1, 3),
-            dv.to(dt).permute(0, 2, 1, 3))
+    return ((dq * scale).to(dt).permute(0, 2, 1, 3).contiguous(),
+            (dk * scale).to(dt).permute(0, 2, 1, 3).contiguous(),
+            dv.to(dt).permute(0, 2, 1, 3).contiguous())
+
+
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal windowed attention computes over S
+    positions: query i sees min(i + 1, window) keys."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int = 0):
+    """(query, key) pairs a call computes: with a window the pairs inside it
+    (``window_pairs`` over Sq), causal half of Sq x Sk, else Sq x Sk."""
+    if window:
+        return window_pairs(Sq, window)
+    if causal:
+        return Sq * Sk / 2
+    return Sq * Sk
+
+
+def flash_fwd_work(q, k, v, out, lse=None, *, causal: bool = True, window: int = 0):
+    """(FLOPs, bytes) of one forward: its two products over the pairs, 4 x B
+    x Hq x pairs x hd, against q, k, v read once and the output (and the
+    log-sum-exp, when written) written once."""
+    B, Sq, Hq, hd = q.shape
+    return (4 * B * Hq * attention_pairs(Sq, k.shape[1], causal, window) * hd,
+            work.nbytes(q, k, v, out, lse))
+
+
+def flash_bwd_work(q, k, v, o, do, lse, dq, dk, dv, *, causal: bool = True, window: int = 0):
+    """(FLOPs, bytes) of one backward: five products (Q.K^T, dO.V^T, P^T.dO,
+    dS^T.Q, dS.K), 2.5 times the forward's work over the same pairs, against
+    q, k, v, o, dO and the log-sum-exp read once and dq, dk, dv written once
+    (the kernels recompute two products for dQ: seven, which ``chip_smoke.py``
+    bounds apart)."""
+    B, Sq, Hq, hd = q.shape
+    return (5 * 2 * B * Hq * attention_pairs(Sq, k.shape[1], causal, window) * hd,
+            work.nbytes(q, k, v, o, do, lse, dq, dk, dv))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -359,8 +404,10 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float], kernel: bool,
                 window: int = 0):
         fwd = flash_attention if kernel else flash_attention_plain
-        out, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True,
-                       window=window)
+        with work.muted():
+            out, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True,
+                           window=window)
+        work.report(flash_fwd_work, q, k, v, out, lse, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.kernel, ctx.window = causal, scale, kernel, window
         return out
@@ -370,6 +417,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd if ctx.kernel else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, do, lse, causal=ctx.causal, scale=ctx.scale,
-                         window=ctx.window)
+        with work.muted():
+            dq, dk, dv = bwd(q, k, v, out, do, lse, causal=ctx.causal, scale=ctx.scale,
+                             window=ctx.window)
+        work.report(flash_bwd_work, q, k, v, out, do, lse, dq, dk, dv, causal=ctx.causal,
+                    window=ctx.window)
         return dq, dk, dv, None, None, None, None

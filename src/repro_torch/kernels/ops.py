@@ -21,6 +21,11 @@ with its backward (kernel with kernel, plain with plain), and such an
 ``ssd`` call goes through ``SSDScan`` likewise; any other call runs the
 forward alone.
 
+Every call reports its kernel's work (FLOPs, bytes: the formula beside the
+kernel's wrapper) to ``launch.roofline.count_cost`` while one counts, and the
+tensor ops inside the call (the plain version's, on the CPU) count nothing
+(``kernels.work``), so a step counts the same on the card and on the CPU.
+
 Every function of the JAX module has its counterpart here: ``attention``,
 ``ssd``, and the gradient-synchronisation kernels ``reduce_shards``,
 ``quantize`` and ``dequantize`` (``repro_torch.parallel`` calls them).
@@ -32,14 +37,15 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import (FlashAttention, flash_attention,
-                              flash_attention_plain)
+from . import work
+from .flash_attention import (FlashAttention, flash_attention, flash_attention_plain,
+                              flash_fwd_work)
 from .quant8 import dequantize as _dequantize
 from .quant8 import dequantize_plain
 from .quant8 import quantize as _quantize
-from .quant8 import quantize_plain
-from .reduce_tree import tree_reduce, tree_reduce_plain
-from .ssd_scan import SSDScan, ssd_scan, ssd_scan_plain
+from .quant8 import dequantize_work, quantize_plain, quantize_work
+from .reduce_tree import tree_reduce, tree_reduce_plain, tree_reduce_work
+from .ssd_scan import SSDScan, ssd_fwd_work, ssd_scan, ssd_scan_plain
 
 IMPLS = ("auto", "kernel", "plain")
 
@@ -62,9 +68,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, None, on_kernel, window)
-    if on_kernel:
-        return flash_attention(q, k, v, causal=causal, window=window)
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+    with work.muted():
+        fwd = flash_attention if on_kernel else flash_attention_plain
+        out = fwd(q, k, v, causal=causal, window=window)
+    work.report(flash_fwd_work, q, k, v, out, causal=causal, window=window)
+    return out
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -81,33 +89,40 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                        (x, dt, A, Bmat, Cmat, initial_state)):
         y, final = SSDScan.apply(x, dt, A, Bmat, Cmat, initial_state, on_kernel)
         return (y, final) if return_state else y
-    if on_kernel:
-        return ssd_scan(x, dt, A, Bmat, Cmat, initial_state=initial_state,
-                        return_state=return_state)
-    return ssd_scan_plain(x, dt, A, Bmat, Cmat, initial_state=initial_state,
-                          return_state=return_state)
+    with work.muted():
+        fwd = ssd_scan if on_kernel else ssd_scan_plain
+        got = fwd(x, dt, A, Bmat, Cmat, initial_state=initial_state,
+                  return_state=return_state)
+    y, final = got if return_state else (got, None)
+    work.report(ssd_fwd_work, x, dt, A, Bmat, Cmat, initial_state, y, final)
+    return got
 
 
 def reduce_shards(shards: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """Sum of N stacked shards, ``(..., N, L) -> (..., L)``, in fp32 with the
     fixed pairwise tree, cast to the shards' dtype."""
-    if _on_kernel(impl, shards):
-        return tree_reduce(shards)
-    return tree_reduce_plain(shards)
+    with work.muted():
+        out = (tree_reduce if _on_kernel(impl, shards) else tree_reduce_plain)(shards)
+    work.report(tree_reduce_work, shards, out)
+    return out
 
 
 def quantize(x: torch.Tensor, block: int = 1024, *, return_error: bool = False,
              impl: str = "auto"):
     """Blockwise int8 of each row of ``(..., n)``: ``(q, scales)``, and the
     fp32 residual ``x - q * scale`` as a third output if ``return_error``."""
-    if _on_kernel(impl, x):
-        return _quantize(x, block, return_error=return_error)
-    return quantize_plain(x, block, return_error=return_error)
+    with work.muted():
+        got = (_quantize if _on_kernel(impl, x) else quantize_plain)(
+            x, block, return_error=return_error)
+    work.report(quantize_work, x, *got)
+    return got
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int = 1024, *,
                out_dtype: torch.dtype = torch.float32, impl: str = "auto"):
     """``q * scale`` per block of each row, in ``out_dtype``."""
-    if _on_kernel(impl, q):
-        return _dequantize(q, scales, block, out_dtype=out_dtype)
-    return dequantize_plain(q, scales, block, out_dtype=out_dtype)
+    with work.muted():
+        out = (_dequantize if _on_kernel(impl, q) else dequantize_plain)(
+            q, scales, block, out_dtype=out_dtype)
+    work.report(dequantize_work, q, scales, out)
+    return out

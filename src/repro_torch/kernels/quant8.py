@@ -30,10 +30,11 @@ starts its blocks on its own, so scales are ``(..., ceil(n / block))``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from . import build
+from . import build, work
 
 MAX_BLOCK = 12288                 # the kernel keeps one block in shared memory
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -150,6 +151,19 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int = 1024, *,
 
 
 dequantize.launches = 0
+
+
+def quantize_work(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                  err: Optional[torch.Tensor] = None):
+    """(FLOPs, bytes) of one quantize: x read once, q, the scales (and the
+    residual) written once; no FLOPs, as ``tree_reduce_work``."""
+    return 0, work.nbytes(x, q, scales, err)
+
+
+def dequantize_work(q: torch.Tensor, scales: torch.Tensor, out: torch.Tensor):
+    """(FLOPs, bytes) of one dequantize: q and the scales read once, the
+    values written once; no FLOPs, as ``tree_reduce_work``."""
+    return 0, work.nbytes(q, scales, out)
 
 
 def quantize_plain(x: torch.Tensor, block: int = 1024, *, return_error: bool = False):

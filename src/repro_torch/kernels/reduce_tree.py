@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 
 MAX_SHARDS = 64                   # the kernel's instantiations: N = 1..64
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -90,6 +90,14 @@ def tree_reduce(shards: torch.Tensor, *, block: int = 4096) -> torch.Tensor:
 
 
 tree_reduce.launches = 0
+
+
+def tree_reduce_work(shards: torch.Tensor, out: torch.Tensor):
+    """(FLOPs, bytes) of one call: the shards read once and the sum written
+    once; its additions count no FLOPs, as ``torch.utils.flop_counter``
+    counts an elementwise sum (a few operations an element: the bytes bound
+    it)."""
+    return 0, work.nbytes(shards, out)
 
 
 def tree_reduce_plain(shards: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,10 @@ what bounds it on an H100 and what its design does about it.
   tensor that lies on the CPU.
 * ``SSDScan`` is the ``torch.autograd.Function`` that joins a forward to its
   backward, kernel to kernel or plain to plain.
+* ``ssd_fwd_work`` / ``ssd_bwd_work`` are a call's work, (FLOPs, bytes): the
+  chunk-by-chunk products against every input read once and every output
+  written once.  The bounds of ``chip_smoke.py`` and ``launch.roofline.
+  count_cost`` read them (``kernels.work``).
 
 Shapes as in the JAX package: x ``(B, S, H, hd)``, dt ``(B, S, H)`` (softplus
 already applied), A ``(H,)`` (negative), B / C ``(B, S, G, N)`` with G
@@ -43,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, work
 
 CHUNK = 64                        # the kernel's compile-time chunk
 HEAD_DIMS = (16, 32, 64)
@@ -423,6 +427,39 @@ def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dh if initial_state is not None else None)
 
 
+def ssd_fwd_work(x, dt, A, Bmat, Cmat, initial_state, y, final_state):
+    """(FLOPs, bytes) of one forward: the causal half of the two
+    chunk-by-chunk products, then C.state^T and the state update, against x,
+    dt, A, B, C (and the initial state) read once and y and the final state
+    (when returned) written once."""
+    Bsz, S, H, hd = x.shape
+    N = Bmat.shape[3]
+    flops = 0
+    for s0 in range(0, S, CHUNK):
+        q = min(CHUNK, S - s0)
+        flops += q * (q + 1) * (N + hd) + 4 * q * hd * N
+    return (flops * Bsz * H,
+            work.nbytes(x, dt, A, Bmat, Cmat, y, final_state, initial_state))
+
+
+def ssd_bwd_work(x, dt, A, Bmat, Cmat, initial_state, y_grad, grads):
+    """(FLOPs, bytes) of one backward: the causal halves of C.B^T and dy.x^T
+    and of the three chunk-by-chunk products of dx, dB and dC, and five (hd x
+    N) products a chunk (dh.B, x^T.dh, dy.h_c, the state and the gradient
+    chains), against x, dt, A, B, C, the initial state and dy read once and
+    every gradient (``grads``, None where not asked) written once.  The
+    kernel's scratch (``bwd_scratch``) belongs to its design, not to the bytes
+    the function must move."""
+    Bsz, S, H, hd = x.shape
+    N = Bmat.shape[3]
+    flops = 0
+    for s0 in range(0, S, CHUNK):
+        q = min(CHUNK, S - s0)
+        flops += q * (q + 1) * (N + hd) + q * (q + 1) * (hd + 2 * N) + 10 * q * hd * N
+    return (flops * Bsz * H,
+            work.nbytes(x, dt, A, Bmat, Cmat, initial_state, y_grad, *grads))
+
+
 class SSDScan(torch.autograd.Function):
     """The SSD scan with its gradient: ``(y, final_state)`` of ``(x, dt, A,
     Bmat, Cmat, initial_state)``.  ``kernel`` chooses the CUDA kernels or the
@@ -435,8 +472,10 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bmat, Cmat, initial_state, kernel: bool):
         fwd = ssd_scan if kernel else ssd_scan_plain
-        y, final = fwd(x, dt, A, Bmat, Cmat, initial_state=initial_state,
-                       return_state=True)
+        with work.muted():
+            y, final = fwd(x, dt, A, Bmat, Cmat, initial_state=initial_state,
+                           return_state=True)
+        work.report(ssd_fwd_work, x, dt, A, Bmat, Cmat, initial_state, y, final)
         ctx.save_for_backward(x, dt, A, Bmat, Cmat, initial_state)
         ctx.kernel = kernel
         ctx.set_materialize_grads(False)
@@ -446,16 +485,18 @@ class SSDScan(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dfinal):
         x, dt, A, Bmat, Cmat, h0 = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        if ctx.kernel:
-            # incoming gradients may be expanded or strided: the kernel wants
-            # dy's rows and the final state's cotangent contiguous
-            if dy.stride(3) != 1:
-                dy = dy.contiguous()
-            if dfinal is not None:
-                dfinal = dfinal.contiguous()
-        bwd = ssd_scan_bwd if ctx.kernel else ssd_scan_bwd_plain
-        dx, ddt, dA, dB, dC, dh0 = bwd(x, dt, A, Bmat, Cmat, dy, initial_state=h0,
-                                       final_state_grad=dfinal)
+        with work.muted():
+            if dy is None:
+                dy = torch.zeros_like(x)
+            if ctx.kernel:
+                # incoming gradients may be expanded or strided: the kernel
+                # wants dy's rows and the final state's cotangent contiguous
+                if dy.stride(3) != 1:
+                    dy = dy.contiguous()
+                if dfinal is not None:
+                    dfinal = dfinal.contiguous()
+            bwd = ssd_scan_bwd if ctx.kernel else ssd_scan_bwd_plain
+            grads = bwd(x, dt, A, Bmat, Cmat, dy, initial_state=h0, final_state_grad=dfinal)
+        work.report(ssd_bwd_work, x, dt, A, Bmat, Cmat, h0, dy, grads)
+        dx, ddt, dA, dB, dC, dh0 = grads
         return dx, ddt, dA, dB, dC, dh0, None

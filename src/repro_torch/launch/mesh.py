@@ -42,13 +42,37 @@ transport, this rank's alone on the distributed one), which is what
 * ``ppermute(mesh, x, axis, shift)`` — each rank's x to the rank ``shift``
   further along ``axis`` (cyclic); its backward is the shift back;
 * ``pmean(mesh, x, axes)`` — the mean of x over the group, built on
-  ``all_to_all``.
+  ``all_to_all`` (counted as the all-reduce it is, ``counted_as``).
 
 On the distributed transport every rank holds its own loss, and a gradient
 is that of the sum of the ranks' losses.  Every rank must run each of these
 backwards, in the same order (the same program does), or the collectives
 pair the wrong messages (their shapes match, so the gradients come out wrong
 without a word) or wait for ever.
+
+``count_collectives()`` counts the bytes the collectives move, per device,
+the counterpart of the JAX package's ``collective_bytes_from_hlo``: every
+collective of the port is one of the three primitives of each mesh, and
+each call adds the bytes one rank holds of its output (the dimensions after
+the mesh's leading ones, times the element size), the HLO parser's
+convention.  ``exchange`` is an ``all-to-all``, ``gather`` an
+``all-gather``, ``permute`` a ``collective-permute``.  JAX's kinds map so: its
+``reduce-scatter`` (output x group) is the port's exchange leg, byte for
+byte; its ``all-reduce`` of n bytes is n as all-to-all plus n as all-gather
+here (``parallel.collectives.flat_all_reduce`` builds it from both).
+Backwards count as they run, and so do remat's reruns.  A collective over a
+group of one rank moves nothing and counts nothing.  A collective that the
+stacked transport does as a view (``parallel.sharding.unshard_leaf``, what a
+``DistMesh`` does by an all-gather) counts through ``count_stacked``; where a
+``StackedMesh`` runs the ranks of a group in turn (``in_turns``), each turn's
+calls count as a rank's share of one; a call that runs several turns
+together (``jointly``: an EP group's lanes in one exchange) counts their
+shares; a call whose payload holds several ranks' blocks (``of_blocks``)
+counts one block's bytes.  A backward counts in its forward's turns
+(``count_turns`` / ``at_turns`` in the ``autograd.Function`` s).  So a
+``StackedMesh`` and a ``DistMesh`` of one shape count the same per device
+(``tools/count_parity.py``).  With no count active a primitive pays one
+``None`` check.
 
 ``fred_device_order`` is the port's own copy of the JAX function (NumPy
 only).  ``make_production_mesh`` gives the JAX package's production meshes,
@@ -60,8 +84,10 @@ placed over its 256 or 512 stacked ranks.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+from fractions import Fraction
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -91,6 +117,143 @@ def fred_device_order(n_devices: int, mp: int, dp: int, pp: int) -> np.ndarray:
                 order[m, d, p] = nid
                 nid += 1
     return order
+
+
+_counter = None      # the record of the active count_collectives, or None
+
+
+class _Collectives:
+    """Bytes by kind and the number of calls so far; ``turns``: the product
+    of the enclosing ``in_turns`` over that of the enclosing ``jointly``;
+    ``blocks``: the enclosing ``of_blocks``."""
+
+    def __init__(self):
+        self.per_kind: Dict[str, Fraction] = {}
+        self.ops = Fraction(0)
+        self.turns = Fraction(1)
+        self.blocks = 1
+
+    def add(self, kind: str, nbytes: int) -> None:
+        share = 1 / self.turns
+        self.per_kind[kind] = self.per_kind.get(kind, 0) + nbytes * share / self.blocks
+        self.ops += share
+
+
+def _exact(x: Fraction):
+    return int(x) if x.denominator == 1 else float(x)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives of what runs inside; yields a dict that holds
+    ``{"per_kind_bytes", "total_bytes", "op_count"}`` per device once the
+    block ends (``collective_bytes_from_hlo``'s keys).  One count at a
+    time."""
+    global _counter
+    if _counter is not None:
+        raise RuntimeError("count_collectives: a count is already running")
+    _counter, rec = _Collectives(), {}
+    try:
+        yield rec
+    finally:
+        c, _counter = _counter, None
+    rec["per_kind_bytes"] = {k: _exact(v) for k, v in c.per_kind.items()}
+    rec["total_bytes"] = _exact(sum(c.per_kind.values(), Fraction(0)))
+    rec["op_count"] = _exact(c.ops)
+
+
+@contextlib.contextmanager
+def _turns_times(factor: Fraction):
+    c = _counter
+    if c is None or factor == 1:
+        yield
+        return
+    c.turns *= factor
+    try:
+        yield
+    finally:
+        c.turns /= factor
+
+
+def in_turns(n: int):
+    """The ranks of a group run ``n`` turns on a ``StackedMesh`` (the batch
+    rows of a setup, one after another): a call inside counts 1 / n, a
+    rank's share (on a ``DistMesh`` each rank runs one turn, n = 1)."""
+    return _turns_times(Fraction(n))
+
+
+def jointly(n: int):
+    """A call inside runs ``n`` of the enclosing turns together (the lanes of
+    an EP group in one exchange): it counts n times a turn's share."""
+    return _turns_times(Fraction(1, n))
+
+
+@contextlib.contextmanager
+def of_blocks(n: int):
+    """A call inside moves ``n`` ranks' blocks as one rank's payload (a
+    replica's model blocks synced together on a ``StackedMesh``): its bytes
+    count 1 / n, the call itself once."""
+    c = _counter
+    if c is None or n == 1:
+        yield
+        return
+    c.blocks *= n
+    try:
+        yield
+    finally:
+        c.blocks //= n
+
+
+def count_turns():
+    """The turns a call made now counts in, for the backward of an
+    ``autograd.Function`` to count in its forward's (``at_turns``); None
+    with no count active."""
+    return None if _counter is None else _counter.turns
+
+
+@contextlib.contextmanager
+def at_turns(turns):
+    """The calls inside count in ``turns`` (``count_turns()`` of the forward):
+    a backward runs outside the ``in_turns`` of its forward."""
+    c = _counter
+    if c is None or turns is None:
+        yield
+        return
+    outer, c.turns = c.turns, turns
+    try:
+        yield
+    finally:
+        c.turns = outer
+
+
+@contextlib.contextmanager
+def counted_as(kind: str, nbytes: int):
+    """The collectives inside count as one of ``kind`` of ``nbytes`` a rank
+    (``pmean``: a mean over a group, built from one all-to-all of copies,
+    is the all-reduce JAX's ``psum`` is)."""
+    global _counter
+    c = _counter
+    if c is None:
+        yield
+        return
+    _counter = None
+    try:
+        yield
+    finally:
+        _counter = c
+    c.add(kind, nbytes)
+
+
+def count_stacked(mesh, kind: str, nbytes: int) -> None:
+    """A collective that a ``StackedMesh`` does as a view (a ``DistMesh`` by
+    its primitive, which counts itself): ``nbytes`` a rank's output."""
+    if _counter is not None and isinstance(mesh, StackedMesh):
+        _counter.add(kind, nbytes)
+
+
+def _tail_bytes(x: torch.Tensor, n_lead: int) -> int:
+    """Bytes of the dimensions after the first ``n_lead``: a rank's share."""
+    return math.prod(x.shape[n_lead:]) * x.element_size()
 
 
 class _Mesh:
@@ -183,7 +346,10 @@ class StackedMesh(_Mesh):
         x = x.reshape(*x.shape[:nl], *(self.shape[a] for a in axes), x.shape[-1] // G)
         for j, a in enumerate(axes):        # sender's coordinate <-> chunk index
             x = x.transpose(self.axis_names.index(a), nl + j)
-        return x.flatten(nl, nl + len(axes) - 1)
+        x = x.flatten(nl, nl + len(axes) - 1)
+        if _counter is not None and G > 1:
+            _counter.add("all-to-all", _tail_bytes(x, nl))
+        return x
 
     def gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """All-gather over ``axes``: ``lead + (m,)`` → ``lead' + (G, m)``, entry
@@ -197,6 +363,8 @@ class StackedMesh(_Mesh):
         x = x.movedim(pos, list(range(nl - k, nl))).flatten(nl - k, nl - 1)
         for p in pos:
             x = x.unsqueeze(p)
+        if _counter is not None and self.size(axes) > 1:
+            _counter.add("all-gather", _tail_bytes(x, nl))
         return x
 
     def permute(self, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
@@ -209,6 +377,8 @@ class StackedMesh(_Mesh):
         x = x.expand(*(self.shape[axis] if i == pos else s
                        for i, s in enumerate(x.shape[:len(self.axis_names)])),
                      *x.shape[len(self.axis_names):])
+        if _counter is not None and shift % self.shape[axis]:
+            _counter.add("collective-permute", _tail_bytes(x, len(self.axis_names)))
         return torch.roll(x, shift, dims=pos)
 
     def row_coords(self, axis: str) -> List[int]:
@@ -279,6 +449,8 @@ class DistMesh(_Mesh):
             raise ValueError(f"exchange over {axes}: {x.shape[-1]} is not a multiple of {G}")
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(), group=self._groups[axes])
+        if _counter is not None and G > 1:
+            _counter.add("all-to-all", _tail_bytes(out, 0))
         return out.view(G, -1)
 
     def gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -287,6 +459,8 @@ class DistMesh(_Mesh):
         # the concatenated form: gloo does not take the stacked one
         out = torch.empty(G * x.numel(), dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=self._groups[axes])
+        if _counter is not None and G > 1:
+            _counter.add("all-gather", _tail_bytes(out, 0))
         return out.view((G,) + tuple(x.shape))
 
     def permute(self, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
@@ -304,6 +478,8 @@ class DistMesh(_Mesh):
                dist.P2POp(dist.irecv, out, ranks[(c - shift) % n], self._groups[axes])]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+        if _counter is not None:
+            _counter.add("collective-permute", _tail_bytes(out, 0))
         return out
 
     def row_coords(self, axis: str) -> List[int]:
@@ -330,12 +506,13 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+        ctx.mesh, ctx.axes, ctx.turns = mesh, axes, count_turns()
         return _exchange_rows(mesh, x, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange_rows(ctx.mesh, g, ctx.axes), None, None
+        with at_turns(ctx.turns):
+            return _exchange_rows(ctx.mesh, g, ctx.axes), None, None
 
 
 def _exchange_rows(mesh, x: torch.Tensor, axes) -> torch.Tensor:
@@ -348,12 +525,13 @@ class _Permute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
-        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        ctx.mesh, ctx.axis, ctx.shift, ctx.turns = mesh, axis, shift, count_turns()
         return _permute_rows(mesh, x, axis, shift)
 
     @staticmethod
     def backward(ctx, g):
-        return _permute_rows(ctx.mesh, g, ctx.axis, -ctx.shift), None, None, None
+        with at_turns(ctx.turns):
+            return _permute_rows(ctx.mesh, g, ctx.axis, -ctx.shift), None, None, None
 
 
 def _permute_rows(mesh, x: torch.Tensor, axis: str, shift: int) -> torch.Tensor:
@@ -398,7 +576,8 @@ def pmean(mesh, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     axes = tuple(axes)
     _check_rows(mesh, x, axes, "pmean")
     G = mesh.size(axes)
-    got = all_to_all(mesh, x.unsqueeze(1).expand(x.shape[0], G, *x.shape[1:]), axes)
+    with counted_as("all-reduce", x[0].numel() * x.element_size()):
+        got = all_to_all(mesh, x.unsqueeze(1).expand(x.shape[0], G, *x.shape[1:]), axes)
     return got.mean(dim=1)[0]
 
 

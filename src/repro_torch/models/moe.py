@@ -62,7 +62,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import all_to_all, pmean
+from ..launch.mesh import all_to_all, in_turns, jointly, pmean
 from .modules import dense_init, swiglu
 
 
@@ -387,19 +387,24 @@ def moe_ffn_lanes(lanes, ys, cfg, *, ep, tp=None):
         yr = [tp.copy(y) for y in ys]
         cws = [tp.copy(cw) for _, cw, _ in routed]
     parts = [[] for _ in range(R)]
-    for t in range(w["w_gate"].shape[1]):
+    T = w["w_gate"].shape[1]
+    for t in range(T):
         buckets = torch.stack([_fill_buckets(yr[r][t], routed[r][0], E, C, k)
                                for r in range(R)])
         # dispatch: lane j's experts' block to lane j; keep every lane's
-        # buckets of the local experts, sender-major
+        # buckets of the local experts, sender-major.  Counted as the R
+        # lanes' exchange of one of the T TP blocks (launch.mesh.in_turns)
         send = buckets.view(R, b, n, E // n, C, d).transpose(1, 2)
-        got = all_to_all(ep.mesh, send, (ep.axis,))
+        with in_turns(T), jointly(R):
+            got = all_to_all(ep.mesh, send, (ep.axis,))
         local = got.permute(0, 3, 1, 2, 4, 5).reshape(R, E // n, n * b * C, d)
         y = _experts({nm: v[:, t] for nm, v in w.items()}, local,
                      "recd,redf->recf", "recf,refd->recd")
         # combine: the exact inverse exchange
-        back = all_to_all(ep.mesh, y.view(R, E // n, n, b, C, d).permute(0, 2, 3, 1, 4, 5),
-                          (ep.axis,))
+        with in_turns(T), jointly(R):
+            back = all_to_all(ep.mesh,
+                              y.view(R, E // n, n, b, C, d).permute(0, 2, 3, 1, 4, 5),
+                              (ep.axis,))
         mine = back.permute(0, 2, 1, 3, 4, 5).reshape(R, b, E * C, d)
         for r in range(R):
             out = _group_combine(mine[r], routed[r][0], cws[r][t], S, k)

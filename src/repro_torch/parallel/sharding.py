@@ -61,7 +61,7 @@ from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import torch
 
-from ..launch.mesh import DistMesh, StackedMesh
+from ..launch.mesh import DistMesh, StackedMesh, count_stacked
 from ..models.config import ModelConfig, ParallelConfig
 from ..models.layers import KVCache
 from ..models.modules import tree_map
@@ -365,12 +365,15 @@ def _stack_blocks(t, dims, parts, mesh):
     return v.reshape(math.prod(parts), *(s for i, s in enumerate(shape) if i not in lead))
 
 
-def unshard_leaf(rows: torch.Tensor, spec, mesh) -> torch.Tensor:
+def unshard_leaf(rows: torch.Tensor, spec, mesh, *, count: bool = True) -> torch.Tensor:
     """The inverse of ``shard_leaf``: the whole tensor from its rows form
     over ``spec``'s axes.  On a ``StackedMesh`` rows holds every block; on a
     ``DistMesh`` rows is this rank's (1, ...) block, and the others come by an
     all-gather over the spec's axes (a collective: every rank of the group
-    calls it, in the same order)."""
+    calls it, in the same order).  On a ``StackedMesh`` the view counts as
+    that all-gather (``launch.mesh.count_collectives``) unless ``count`` is
+    false: a change of layout whose caller counts what a ``DistMesh`` moves
+    for it."""
     spec = tuple(spec)
     block = tuple(rows.shape[1:])
     dims = [_names(e) for e in spec] + [()] * (len(block) - len(spec))
@@ -387,6 +390,8 @@ def unshard_leaf(rows: torch.Tensor, spec, mesh) -> torch.Tensor:
                            *range(len(every), len(every) + len(block)))
     elif not isinstance(mesh, StackedMesh):
         raise TypeError(f"unshard_leaf needs a mesh of launch.mesh, got {type(mesh).__name__}")
+    elif every and count:       # what a DistMesh rank's all-gather brings: the whole tensor
+        count_stacked(mesh, "all-gather", rows.numel() * rows.element_size())
     rows = rows.reshape(tuple(mesh.shape[a] for a in every) + block)
     order, k = [], 0
     for i, names in enumerate(dims):

@@ -114,7 +114,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..launch.mesh import DistMesh, StackedMesh
+from ..launch.mesh import DistMesh, StackedMesh, count_stacked, in_turns, of_blocks
 from ..models import transformer as tfm
 from ..models import whisper
 from ..models.moe import moe_ffn_ep
@@ -263,7 +263,10 @@ class CellSetup:
     one-device layout, whole tensors) of a state as the setup holds it,
     ``place_state(logical)`` its inverse, ``leaf_to_logical(i, t)`` /
     ``place_leaf(i, t)`` the same for leaf ``i`` of ``tree_flatten``'s
-    order (a checkpoint's)."""
+    order (a checkpoint's); ``state_layout`` how a train setup holds each
+    leaf of the state in that order (a ``_Held``: whole, on the host, the
+    rows form of a spec, an int8 scale), what ``launch.dryrun`` reads a
+    rank's bytes from."""
     cfg: ModelConfig
     pcfg: ParallelConfig
     shape: ShapeConfig
@@ -282,6 +285,7 @@ class CellSetup:
     place_state: Optional[Callable] = None
     leaf_to_logical: Optional[Callable] = None
     place_leaf: Optional[Callable] = None
+    state_layout: Optional[list] = None
 
 
 def _param_setup(cfg: ModelConfig, pcfg: ParallelConfig, mesh):
@@ -422,7 +426,10 @@ def _tp_gather_fn(mesh, tp: Optional[str], sink=None, lane: Optional[int] = None
             return rows
         if isinstance(mesh, DistMesh):
             return unshard_leaf(rows, dspec, mesh).unsqueeze(0)
-        return shard_leaf(unshard_leaf(rows, spec, mesh), mspec, mesh)
+        # a DistMesh rank's all-gather over the data axes brings its model block
+        count_stacked(mesh, "all-gather", rows.numel() * rows.element_size() //
+                      mesh.size(_spec_axes(mspec)))
+        return shard_leaf(unshard_leaf(rows, spec, mesh, count=False), mspec, mesh)
 
     def gather(rows, spec):
         if id(rows) in joint:
@@ -528,7 +535,7 @@ def _refine(rows, src, dst, mesh):
     ``DistMesh`` this rank's piece of its block, no communication."""
     if isinstance(mesh, DistMesh):
         return shard_leaf(rows[0], _extra_axes(src, dst), mesh)
-    return shard_leaf(unshard_leaf(rows, src, mesh), dst, mesh)
+    return shard_leaf(unshard_leaf(rows, src, mesh, count=False), dst, mesh)
 
 
 def _coarsen(rows, dst, src, mesh):
@@ -536,7 +543,10 @@ def _coarsen(rows, dst, src, mesh):
     axes ``dst`` adds)."""
     if isinstance(mesh, DistMesh):
         return unshard_leaf(rows, _extra_axes(src, dst), mesh).unsqueeze(0)
-    return shard_leaf(unshard_leaf(rows, dst, mesh), src, mesh)
+    if _spec_axes(_extra_axes(src, dst)):     # a DistMesh rank gathers its src block
+        count_stacked(mesh, "all-gather", rows.numel() * rows.element_size() //
+                      mesh.size(_spec_axes(src)))
+    return shard_leaf(unshard_leaf(rows, dst, mesh, count=False), src, mesh)
 
 
 def _tp_shard_sync(sync, g, spec, mesh, tp: str):
@@ -546,8 +556,9 @@ def _tp_shard_sync(sync, g, spec, mesh, tp: str):
     spec's data axes on its own; the blocks are put together in the rows
     form of ``spec``."""
     dspec, _ = _split_spec(spec, tp)
-    per = [sync(all_blocks(g[:, r], (None,) + tuple(dspec), mesh).movedim(0, 1), dspec)
-           for r in range(g.shape[1])]
+    with in_turns(g.shape[1]):              # each model block's ranks on their own
+        per = [sync(all_blocks(g[:, r], (None,) + tuple(dspec), mesh).movedim(0, 1), dspec)
+               for r in range(g.shape[1])]
     if len(per) == 1:
         return per[0]
     every = _spec_axes(spec)
@@ -576,6 +587,9 @@ def _row_max_fn(spec, ndim: int, mesh):
     sizes, pos = [mesh.shape[a] for a in every], [every.index(a) for a in last]
 
     def row_max(amax):                         # (R, ...): max over the row's blocks
+        # a DistMesh rank's all-gather over `last` of its block's amax
+        count_stacked(mesh, "all-gather", amax[0].numel() * amax.element_size() *
+                      mesh.size(last))
         x = amax.reshape(*sizes, *amax.shape[1:])
         return x.amax(dim=pos, keepdim=True).expand(x.shape).reshape(amax.shape)
     return row_max
@@ -727,11 +741,13 @@ def _sync_axes(cfg, shape, mesh, pcfg, ocfg, ruleset) -> Tuple[str, Optional[str
             f"a different result, not the same one faster: use one of {SETUP_SYNCS}")
     dp = ruleset.dp
     inner = dp[-1]
-    outer = "pod" if "pod" in dp and inner != "pod" else None
+    # the outer axis: the pod, or without one the data axis before the inner
+    # one (no TP: the model axis is more data parallelism after data)
+    outer = "pod" if "pod" in dp and inner != "pod" else (dp[-2] if len(dp) == 2 else None)
     extra = [a for a in dp if a not in (inner, outer)]
     if extra:
         raise ValueError(f"make_train_setup: data axes {dp}; the sync reduces over "
-                         f"{inner!r} and 'pod' only")
+                         f"{inner!r} and one outer axis only")
     return inner, outer
 
 
@@ -874,9 +890,13 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         # mean of the ranks' gradients is the gradient of the global mean
         weights = counts * n_rows / denom
         stacked, part = None, []
-        for g_i, lanes in enumerate(_ep_groups(mesh, n_rows, ep) if ep else []):
-            g_leaves, m = lane_grads(state.params, {k: v[lanes] for k, v in placed.items()},
-                                     weights[lanes])
+        groups = _ep_groups(mesh, n_rows, ep) if ep else []
+        for g_i, lanes in enumerate(groups):
+            # the EP groups in turn on a StackedMesh, and a group's lanes
+            with in_turns(len(groups) * ep.rows):
+                g_leaves, m = lane_grads(state.params,
+                                         {k: v[lanes] for k, v in placed.items()},
+                                         weights[lanes])
             if isinstance(mesh, DistMesh):
                 stacked = [t.unsqueeze(0) if e else t for t, e in zip(g_leaves, is_expert)]
             else:
@@ -903,8 +923,9 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
             rows = [(j, [i for i, r in enumerate(replica_rows) if r == j])
                     for j in range(n_rows)]
         for j, replicas in rows:
-            g_leaves, m = rank_grads(state.params, {k: v[j] for k, v in placed.items()},
-                                     weights[j])
+            with in_turns(len(rows)):       # the batch rows in turn on a StackedMesh
+                g_leaves, m = rank_grads(state.params, {k: v[j] for k, v in placed.items()},
+                                         weights[j])
             if isinstance(mesh, DistMesh):
                 stacked = [t.unsqueeze(0) for t in g_leaves]
             else:
@@ -924,8 +945,9 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
             elif fsdp:
                 out.append(_tp_shard_sync(sync, g, s, mesh, tp and tp.axis)
                            if tp or ep else sync(g, s))
-            else:
-                out.append(sync(g))
+            else:       # under TP a replica's row holds its model ranks' blocks
+                with of_blocks(g.shape[1] if tp else 1):
+                    out.append(sync(g))
         del stacked, g
         synced = tree_unflatten(spec, out)
         # every batch row's (loss x count, aux), row-major over the batch axes
@@ -1012,7 +1034,8 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      state_shardings=TrainState(params=param_shardings, opt=opt_shardings),
                      init_state=init_state, grad_fn=grad_fn, update_fn=update_fn,
                      state_to_logical=state_to_logical, place_state=place_state,
-                     leaf_to_logical=leaf_to_logical, place_leaf=place_leaf)
+                     leaf_to_logical=leaf_to_logical, place_leaf=place_leaf,
+                     state_layout=layout)
 
 
 def _kv_seq_context(ruleset: Ruleset, cfg: ModelConfig, shape: ShapeConfig
@@ -1109,18 +1132,23 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         placed = {k: shard_leaf(v, (b_axes,), mesh) for k, v in batch.items()}
         logits, states = [], []
         if ep:                  # the lanes of each EP group together
-            for rows in _ep_groups(mesh, mesh.size(b_axes), ep):
-                lg, st = tfm.prefill([tree] * ep.rows, {k: v[rows] for k, v in placed.items()},
-                                     cfg, pcfg, cache_len, layer_constrain=lc, tp=tp, ep=ep,
-                                     kv_seq=kv_seq)
-                logits += [x if tp is None else tp.gather_logits(x) for x in lg]
+            groups = _ep_groups(mesh, mesh.size(b_axes), ep)
+            for rows in groups:
+                with in_turns(len(groups) * ep.rows):
+                    lg, st = tfm.prefill([tree] * ep.rows,
+                                         {k: v[rows] for k, v in placed.items()}, cfg, pcfg,
+                                         cache_len, layer_constrain=lc, tp=tp, ep=ep,
+                                         kv_seq=kv_seq)
+                    logits += [x if tp is None else tp.gather_logits(x) for x in lg]
                 states.append(st)
         else:
-            for j in _batch_rows(mesh, b_axes):
-                lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg, pcfg,
-                                     cache_len, enc_fn=enc_fn, layer_constrain=lc, tp=tp,
-                                     kv_seq=kv_seq)
-                logits.append(lg if tp is None else tp.gather_logits(lg))
+            rows = _batch_rows(mesh, b_axes)
+            for j in rows:
+                with in_turns(len(rows)):
+                    lg, st = tfm.prefill(tree, {k: v[j] for k, v in placed.items()}, cfg,
+                                         pcfg, cache_len, enc_fn=enc_fn, layer_constrain=lc,
+                                         tp=tp, kv_seq=kv_seq)
+                    logits.append(lg if tp is None else tp.gather_logits(lg))
                 states.append(st)
         return unshard_leaf(torch.stack(logits), (b_axes,), mesh), _cat_rows(states)
 
@@ -1157,17 +1185,21 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
         b = placed.shape[1]
         logits = []
         if ep:                  # the lanes of each EP group together
-            for g, rows in enumerate(_ep_groups(mesh, mesh.size(b_axes), ep)):
+            groups = _ep_groups(mesh, mesh.size(b_axes), ep)
+            for g, rows in enumerate(groups):
                 sub = state if isinstance(mesh, DistMesh) else _row_view(state, g, ep.rows * b)
-                lg = tfm.decode_step([tree] * ep.rows, placed[rows], sub, cfg, pcfg,
-                                     layer_constrain=lc, tp=tp, ep=ep, kv_seq=kv_seq)[0]
-                logits += [x if tp is None else tp.gather_logits(x) for x in lg]
+                with in_turns(len(groups) * ep.rows):
+                    lg = tfm.decode_step([tree] * ep.rows, placed[rows], sub, cfg, pcfg,
+                                         layer_constrain=lc, tp=tp, ep=ep, kv_seq=kv_seq)[0]
+                    logits += [x if tp is None else tp.gather_logits(x) for x in lg]
         else:
-            for j in _batch_rows(mesh, b_axes):
+            rows = _batch_rows(mesh, b_axes)
+            for j in rows:
                 sub = state if isinstance(mesh, DistMesh) else _row_view(state, j, b)
-                lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc,
-                                     tp=tp, kv_seq=kv_seq)[0]
-                logits.append(lg if tp is None else tp.gather_logits(lg))
+                with in_turns(len(rows)):
+                    lg = tfm.decode_step(tree, placed[j], sub, cfg, pcfg, layer_constrain=lc,
+                                         tp=tp, kv_seq=kv_seq)[0]
+                    logits.append(lg if tp is None else tp.gather_logits(lg))
         return (unshard_leaf(torch.stack(logits), (b_axes,), mesh),
                 state._replace(index=state.index + 1))
 
@@ -1179,6 +1211,21 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      state_shapes=state_shapes,
                      state_shardings=ruleset.decode_state_shardings(cfg, B),
                      init_state=init_state)
+
+
+def decode_state(setup: CellSetup, index: int):
+    """A zeroed decode state of a decode setup's cell as its ``step_fn`` takes
+    it (the rows form ``make_prefill_setup`` returns: under TP the rows
+    form's heads, the flash-decoding layout where ``kv_cache_spec`` asks for
+    it; on a ``DistMesh`` this rank's batch rows), on the mesh's device,
+    ``index`` tokens seen."""
+    cfg, shape, ruleset, mesh = setup.cfg, setup.shape, setup.ruleset, setup.mesh
+    B = shape.global_batch
+    if isinstance(mesh, DistMesh):
+        B //= mesh.size(ruleset.batch_axes(B) or ())
+    return tfm._state_buffers(cfg, B, shape.seq_len, DTYPES[setup.pcfg.compute_dtype],
+                              mesh.device, _tp_context(ruleset),
+                              _kv_seq_context(ruleset, cfg, shape))._replace(index=index)
 
 
 def make_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,

@@ -76,7 +76,7 @@ from typing import Any, List, Sequence, Tuple
 
 import torch
 
-from ..launch.mesh import DistMesh
+from ..launch.mesh import DistMesh, at_turns, count_turns
 from ..models.attention import decode_scores, decode_valid, decode_values
 from ..models.modules import NEG_BIG, _CE_CHUNK_ELEMENTS
 from .collectives import flat_all_reduce
@@ -120,12 +120,13 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+        ctx.mesh, ctx.axis, ctx.turns = mesh, axis, count_turns()
         return x.unsqueeze(0).expand(mesh.rows((axis,)), *x.shape)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_rows(g, ctx.mesh, ctx.axis), None, None
+        with at_turns(ctx.turns):
+            return all_reduce_rows(g, ctx.mesh, ctx.axis), None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -154,13 +155,14 @@ class _GatherFromTP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rows, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+        ctx.mesh, ctx.axis, ctx.turns = mesh, axis, count_turns()
         whole = unshard_leaf(rows, _last_dim_spec(rows.dim() - 1, axis), mesh)
         return whole.unsqueeze(0).expand(rows.shape[0], *whole.shape)
 
     @staticmethod
     def backward(ctx, g):
-        total = all_reduce_rows(g, ctx.mesh, ctx.axis)
+        with at_turns(ctx.turns):
+            total = all_reduce_rows(g, ctx.mesh, ctx.axis)
         return shard_leaf(total, _last_dim_spec(total.dim(), ctx.axis), ctx.mesh), None, None
 
 

@@ -59,7 +59,8 @@ class EngineConfig:
     max_batch: int = 8
     cache_len: int = 512
     # the JAX EngineConfig's target_p99_ms / arrival_rate_rps are read only by
-    # its dry-run tool and come back when the launch tools are ported
+    # its dry-run tool's analytical serving column (the FRED simulator's
+    # serving objective), which waits for ROADMAP.md M12
 
 
 def sampling_probs(row: np.ndarray, temperature: float, top_k: int

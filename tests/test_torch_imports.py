@@ -53,7 +53,8 @@ def test_the_walk_sees_the_whole_port():
             "moe.py", "mixtral_8x7b.py", "arctic_480b.py", "whisper.py",
             "llava_next_34b.py", "whisper_medium.py", "sharding.py",
             "pipeline.py", "policy.py", "tp.py", "elastic.py", "faults.py",
-            "streaming.py", "torch_weight_streaming.py"} <= names
+            "streaming.py", "torch_weight_streaming.py", "dryrun.py", "perf.py",
+            "roofline.py"} <= names
     assert len(MODULES) >= 20
 
 
