@@ -292,6 +292,19 @@ Phases:
            v1_no_tp_fsdp256 at the probe depths; every record written under
            artifacts/launch and summarised on one line, the kernels each
            counted step must launch asserted
+  decide   FRED's cost model (repro_torch.core): Transformer-17B's exhaustive
+           sweep at 512 NPUs, and at 1024 NPUs over 1 and 2 wafers joined by
+           each inter topology under the memory model (171 236 candidates),
+           and two small sweeps (expert and sequence parallelism with overlap;
+           a wafer with dead NPUs and links), with the batched engine's
+           float64 math on the card; 200 seeded single candidates equal to
+           the scalar oracle and to the engine on the CPU; every
+           candidate's Breakdown, memory and Pareto flag equal (==) to the
+           same sweep on the CPU, the 512-NPU front to
+           tests/goldens/sweep512_pareto.json; one line a sweep with the
+           card's and the CPU's seconds, split between run_batch and the rest
+           of the sweep, and the copies of each run_batch (no kernel of its
+           own: the engine is aten ops)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -381,14 +394,14 @@ PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS, torch.float32: 67e12}
 PEAK_BYTES_PER_S = roofline.HBM_BW
 
 PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parallel", "setup",
-          "stream", "launch")
+          "stream", "launch", "decide")
 # Wall-clock limit of each phase in seconds, several times its time on an H100
 # (the `phase_seconds` line).  A phase past its limit (a kernel that never
 # returns, a stalled disk) ends the process with exit code 3 and a message that
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
                  "sync": 300, "train": 600, "parallel": 240, "setup": 480, "stream": 600,
-                 "launch": 300, "profile": 300}
+                 "launch": 300, "decide": 120, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -4875,6 +4888,199 @@ def phase_launch(dev, card):
     return used
 
 
+# --------------------------------------------------------------------------
+# FRED's cost model (repro_torch.core): the sweep's engine on the card
+# --------------------------------------------------------------------------
+
+SWEEP512_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                               "sweep512_pareto.json")
+# (name, workload, sweep arguments, whether the front is the golden's): the
+# exhaustive 512-NPU wafer; 1024 NPUs a wafer over one and two wafers joined by
+# each inter topology, under the memory model; and two small sweeps for the
+# branches those do not reach: expert and sequence parallelism with overlap on
+# Transformer-17B with mixtral-style experts, and a wafer with dead NPUs and links
+DECIDE_SWEEPS = (
+    ("sweep512", "t17b", dict(n_npus=512), True),
+    ("sweep1024x2", "t17b", dict(n_npus=1024, max_wafers=2, memory=True,
+                                 inter_topologies=("ring", "fully_connected", "switch")), False),
+    ("moe20x2_ep_sp", "t17b_moe", dict(n_npus=20, max_wafers=2, memory=True,
+                                       ep_candidates=(1, 2, 4), sp_candidates=(1, 2),
+                                       comm_overlap_fraction=0.3), False),
+    ("masked20", "t17b", dict(n_npus=20, min_utilization=0.5, defects=True), False))
+
+
+def front_rows(results):
+    """The Pareto rows as ``tests/goldens/sweep512_pareto.json`` holds them."""
+    rows = []
+    for r in sorted((r for r in results if r.pareto),
+                    key=lambda r: (r.fabric, r.time_per_sample, r.shape,
+                                   (r.strategy.mp, r.strategy.dp, r.strategy.pp))):
+        rows.append({"fabric": r.fabric, "shape": list(r.shape), "mp": r.strategy.mp,
+                     "dp": r.strategy.dp, "pp": r.strategy.pp, "wafers": r.strategy.wafers,
+                     "time_per_sample": r.time_per_sample,
+                     "param_bytes_per_npu": r.param_bytes_per_npu})
+    return rows
+
+
+def decide_workload(name):
+    """Transformer-17B (Table V), or the same with mixtral-style experts:
+    per-token dispatch bytes and an 80 % expert share of the parameters."""
+    from repro_torch.core import sweep as core_sweep
+    if name == "t17b":
+        return core_sweep.transformer_17b
+
+    def moe(st):
+        return dataclasses.replace(core_sweep.transformer_17b(st),
+                                   a2a_bytes_per_sample_layer=2 * 4256 * 2.0,
+                                   expert_param_fraction=0.8)
+    return moe
+
+
+def timed_sweep(device, workload, kw):
+    """One sweep on ``device``: (results, seconds, the seconds of its
+    ``BatchEngine.run_batch`` calls, summed and split as ``BatchEngine.seconds``,
+    each call's copies).  A call's math ends in its copy to the host, so the
+    host clock covers its device work."""
+    from repro_torch.core import batch_engine, sweep as core_sweep
+    from repro_torch.core.defects import sample_mask
+    from repro_torch.core.workloads import MemoryModel
+
+    runs = []
+    run_batch = batch_engine.BatchEngine.run_batch
+
+    def timed(self, *a, **k):
+        out = run_batch(self, *a, **k)
+        runs.append((dict(self.copies), dict(self.seconds)))
+        return out
+    kw = dict(kw)
+    if kw.get("memory"):
+        kw["memory"] = MemoryModel()
+    if kw.get("defects"):
+        kw["defects"] = sample_mask(kw["n_npus"], dead_npu_rate=0.1, dead_link_rate=0.05,
+                                    seed=5, mesh_shape=(5, 4))
+    with patched(batch_engine.BatchEngine, run_batch=timed):
+        t0 = time.perf_counter()
+        res = core_sweep.sweep(decide_workload(workload), n_layers=78, engine="batched",
+                               device=device, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    split = {k: sum(s[k] for _, s in runs) for k in ("lanes", "math", "breakdowns")}
+    return (res, seconds, sum(split.values()), {k: round(v, 4) for k, v in split.items()},
+            [c for c, _ in runs])
+
+
+def same_results(name, got, want):
+    """Every candidate of the card's sweep equals the CPU's, field by field."""
+    if len(got) != len(want):
+        raise AssertionError(f"decide {name}: {len(got)} candidates on the card, "
+                             f"{len(want)} on the CPU")
+    for i, (g, w) in enumerate(zip(got, want)):
+        fields = {"fabric": (g.fabric, w.fabric), "shape": (g.shape, w.shape),
+                  "strategy": (g.strategy, w.strategy), "n_wafers": (g.n_wafers, w.n_wafers),
+                  "hierarchy": (g.hierarchy, w.hierarchy),
+                  "inter_topology": (g.inter_topology, w.inter_topology),
+                  "dp_levels": (g.breakdown.dp_levels, w.breakdown.dp_levels),
+                  "memory_bytes_per_npu": (g.memory_bytes_per_npu, w.memory_bytes_per_npu),
+                  "feasible": (g.feasible, w.feasible), "pareto": (g.pareto, w.pareto)}
+        fields.update({k: (v, w.breakdown.as_dict()[k])
+                       for k, v in g.breakdown.as_dict().items()})
+        for field, (a, b) in fields.items():
+            if a != b:
+                raise AssertionError(f"decide {name}: candidate {i} ({w.fabric} {w.shape} "
+                                     f"{w.strategy}) field {field}: card {a!r}, CPU {b!r}")
+
+
+def decide_case(rng):
+    """One seeded (Simulator, Workload) of the port's cost model, the draws of
+    ``tests/test_torch_core.py::draw_sim_case``: a fabric, a wafer shape, a
+    wafer count with its inter topology and stacking, a strategy with ep / sp,
+    a random workload."""
+    from repro_torch.core import cluster, placement, simulator, specs, workloads
+    from repro_torch.core.sweep import hierarchy_specs
+    fabric = rng.choice(("baseline", "FRED-A", "FRED-B", "FRED-C", "FRED-D"))
+    a, b = rng.randint(1, 8), rng.randint(1, 8)
+    n_wafers = rng.choice((1, 2, 3, 4, 6))
+    wafers = rng.randint(1, n_wafers)
+    for _ in range(64):
+        mp, pp, dpw = rng.randint(1, 4), rng.randint(1, 3), rng.randint(1, 4)
+        if mp * pp * dpw <= a * b:
+            break
+    else:
+        mp = pp = dpw = 1
+    ep = rng.choice([d for d in (1, 2, 3, 4) if dpw % d == 0])
+    sp = rng.choice([d for d in (1, 2, 3) if mp % d == 0])
+    w = workloads.Workload(
+        name="rand", n_layers=rng.randint(pp, 60), params_per_layer=rng.uniform(1e3, 1e10),
+        flops_fwd_per_sample_layer=rng.uniform(1e3, 1e12),
+        act_bytes_per_sample=rng.uniform(1.0, 1e7),
+        execution=rng.choice(("stationary", "streaming")),
+        mp_allreduce_per_layer=rng.randint(0, 2), samples_per_dp=rng.randint(1, 64),
+        seq=rng.randint(1, 64), kv_bytes_per_sample_layer=rng.uniform(0.0, 1e5),
+        a2a_bytes_per_sample_layer=rng.choice((0.0, rng.uniform(1.0, 1e6))),
+        expert_param_fraction=rng.uniform(0.0, 0.95),
+        strategy=placement.Strategy(mp, dpw * wafers, pp, wafers=wafers, ep=ep, sp=sp))
+    cspec = None
+    if n_wafers > 1:
+        cspec = specs.ClusterSpec(n_wafers=n_wafers, inter_wafer_links=rng.randint(1, 64),
+                                  inter_wafer_bw=rng.uniform(1e9, 1e12),
+                                  inter_topology=rng.choice(cluster.INTER_TOPOLOGIES),
+                                  hierarchy=rng.choice(hierarchy_specs(n_wafers, 2)))
+    sim = simulator.Simulator(fabric, comm_overlap_fraction=rng.choice(
+        (0.0, rng.uniform(0.0, 1.0))), spec=specs.FabricSpec(
+            mesh_shape=(a, b), fred_shape=(a, b), n_io=rng.randint(1, 32)),
+        cluster_spec=cspec)
+    return sim, w
+
+
+def decide_seeded(dev, n=200):
+    """``n`` seeded cases, one candidate a run on the card, each equal (``==``)
+    to the scalar oracle ``Simulator.run`` and to the engine on the CPU."""
+    import random
+    from repro_torch.core.batch_engine import BatchEngine
+    rng = random.Random(0)
+    for i in range(n):
+        sim, w = decide_case(rng)
+        got = BatchEngine(sim, device=dev).run_batch([w])[0]
+        cpu = BatchEngine(sim, device="cpu").run_batch([w])[0]
+        want = sim.run(w)
+        for name, other in (("the scalar oracle", want), ("the CPU engine", cpu)):
+            if got.as_dict() != other.as_dict() or got.dp_levels != other.dp_levels:
+                bad = {k: (v, other.as_dict()[k]) for k, v in got.as_dict().items()
+                       if v != other.as_dict()[k]}
+                raise AssertionError(f"decide seeded case {i} ({sim.fabric_name} "
+                                     f"{w.strategy}): card vs {name}: {bad}")
+    emit({"phase": "decide", "seeded_cases": n, "equal_to_scalar_and_cpu": True})
+
+
+def phase_decide(dev, card):
+    """The cost model's sweeps with the batched engine on the card, each held
+    candidate by candidate to the same sweep on the CPU (``==``), the
+    512-NPU front to the golden; times with the card's name and power limit."""
+    with open(SWEEP512_GOLDEN) as f:
+        golden = json.load(f)
+    decide_seeded(dev)
+    for name, workload, kw, pinned in DECIDE_SWEEPS:
+        timed_sweep(dev, workload, kw)                             # warm-up
+        got, dev_s, dev_run_s, dev_split, copies = timed_sweep(dev, workload, kw)
+        want, cpu_s, cpu_run_s, cpu_split, _ = timed_sweep(torch.device("cpu"), workload, kw)
+        same_results(name, got, want)
+        if pinned and front_rows(got) != golden:
+            raise AssertionError(f"decide {name}: the Pareto front differs from "
+                                 f"tests/goldens/sweep512_pareto.json")
+        if any(c != {"h2d": 2, "d2h": 1} for c in copies):
+            raise AssertionError(f"decide {name}: copies per run_batch {copies}")
+        emit({"phase": "decide", "sweep": name, "candidates": len(got),
+              "front": sum(r.pareto for r in got), "front_equals_golden": pinned or None,
+              "device": str(dev), "device_s": round(dev_s, 4),
+              "device_run_batch_s": round(dev_run_s, 4),
+              "device_rest_s": round(dev_s - dev_run_s, 4), "device_run_batch_split_s": dev_split,
+              "cpu_s": round(cpu_s, 4), "cpu_run_batch_s": round(cpu_run_s, 4),
+              "cpu_rest_s": round(cpu_s - cpu_run_s, 4), "cpu_run_batch_split_s": cpu_split,
+              "run_batch_calls": len(copies),
+              "copies_per_run_batch": copies[0], "card": card})
+
+
 def _device_time_by_kernel(fn):
     """Run ``fn`` under torch.profiler; (wall ms, {kernel name: device ms},
     {MoE range: device ms of the kernels that start inside it}).  The
@@ -5145,6 +5351,9 @@ def main() -> int:
                                   ("tree_reduce", "tree_reduce")):
                     if used[key]:
                         launch_launches.setdefault(name, {})[case] = used[key]
+    if "decide" in phases:
+        with phase_limit("decide", seconds):
+            phase_decide(dev, card)
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):

@@ -5,11 +5,9 @@ Parameters live in pinned host memory ("off-wafer DRAM"); each layer streams to
 the card for the forward and again for the backward; its gradient streams back
 and a host thread (the near-storage optimizer) updates the host weights.
 Prints the losses, then the host-to-device and device-to-host rates the last
-step measured, with the card's name.
-
-The reference also prints what its fabric models (``core/fabric.py``,
-``core/meshnet.py``) predict for this loop's sustainable I/O rate.  The port has
-no copies of those models yet (ROADMAP.md M12), so those lines wait for them.
+step measured, with the card's name, and what the paper's fabric models
+(``repro_torch.core.fabric``, ``repro_torch.core.meshnet``) predict for this
+loop's sustainable I/O rate on the modelled wafer (not on the card).
 
     PYTHONPATH=src python examples/torch_weight_streaming.py    # needs an NVIDIA GPU
 """
@@ -20,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.fabric import CONFIGS, FredFabric
+from repro_torch.core.meshnet import MeshFabric
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ParallelConfig
 from repro_torch.train.streaming import HostParams, stream_train_step
@@ -30,7 +30,9 @@ def main() -> int:
         print("torch_weight_streaming: this example needs an NVIDIA GPU "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    cfg = get_config("llama3.2-1b").reduced(d_model=128, num_layers=6, vocab_size=512)
+    # head dim 64: the flash kernel's smallest
+    cfg = get_config("llama3.2-1b").reduced(d_model=256, head_dim=64, num_layers=6,
+                                            vocab_size=512)
     pcfg = ParallelConfig(remat="none")
     params = tfm.init(0, cfg, device="cuda")
     rng = np.random.default_rng(1)
@@ -49,6 +51,13 @@ def main() -> int:
               f"({s[f'{way}_bytes'] / s[f'{way}_s'] / 1e9:.2f} GB/s)")
     print(f"  host update {s['update_s'] * 1e3:.3f} ms on {s['threads']} threads; "
           f"{s['slots']} device slot(s)")
+    mesh, fred = MeshFabric(), FredFabric(CONFIGS["FRED-D"])
+    print("\nfabric-model I/O analysis for this loop (paper Fig. 4; the modelled wafer):")
+    print(f"  2D-mesh sustainable stream rate: "
+          f"{mesh.io_stream_rate()/1e12:.2f} TB/s "
+          f"(hotspot factor {mesh.io_linerate_factor():.2f})")
+    print(f"  FRED sustainable stream rate:    "
+          f"{fred.io_stream_rate()/1e12:.2f} TB/s (line rate)")
     return 0
 
 

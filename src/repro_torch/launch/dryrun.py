@@ -35,7 +35,7 @@ compiler's analyses, so the port splits the record in two:
 ``serving_compare`` the decode-step latency of the port's ``Engine`` on a
 reduced llama3.2-1b; its analytical column reads the FRED simulator's
 serving objective (``core/autostrategy.py``), which the port has not got
-(ROADMAP.md M12), and is null.  ``--autostrategy`` raises for the same
+(ROADMAP.md M12b), and is null.  ``--autostrategy`` raises for the same
 reason (``parallel.policy.cell_policy``).
 
 Usage (needs an NVIDIA GPU; the functions take ``device="cpu"`` for tests):
@@ -374,7 +374,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     return the roofline record.  The full depth runs where its reckoned bytes
     fit the card (on the CPU always).
     ``autostrategy=True`` raises: the port has not got the FRED simulator's
-    decision stack (ROADMAP.md M12).  ``pcfg_overrides`` win over the policy
+    decision stack (ROADMAP.md M12b).  ``pcfg_overrides`` win over the policy
     (the perf variants)."""
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
@@ -537,7 +537,7 @@ def serving_compare(arch: str = "llama3.2-1b", *, prompt_tokens: int = 16,
         "analytical": None,
         "analytical_why": ("the serving objective is the FRED simulator's "
                            "(core/autostrategy.py), which the port has not got: "
-                           "ROADMAP.md M12"),
+                           "ROADMAP.md M12b"),
     }
 
 
@@ -554,7 +554,7 @@ def main(argv=None):
     ap.add_argument("--no-probe", action="store_true")
     ap.add_argument("--autostrategy", action="store_true",
                     help="let the FRED simulator pick the strategy: the port has not "
-                         "got it (ROADMAP.md M12), so this raises")
+                         "got it (ROADMAP.md M12b), so this raises")
     ap.add_argument("--serving", action="store_true",
                     help="run the batched serving engine on a reduced llama3.2-1b and "
                          "record the measured per-token decode latency; writes "

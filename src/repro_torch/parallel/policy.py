@@ -8,7 +8,8 @@ moments), full remat for every train cell, and attention chunks of 512 / 1024
 from a sequence of 32768 on.  ``cell_policy`` returns it; with
 ``autostrategy=True`` the JAX package has the analytical FRED simulator
 choose the strategy (``core/autostrategy.py``), which the port has not got
-yet (ROADMAP.md M12), so that raises.
+yet (ROADMAP.md M12b; the cost model under it is ``repro_torch.core``), so
+that raises.
 """
 
 from __future__ import annotations
@@ -54,5 +55,5 @@ def cell_policy(cfg: ModelConfig, shape: ShapeConfig, mesh,
         raise ValueError(
             "cell_policy(autostrategy=True) needs the FRED simulator's decision "
             "stack (core/autostrategy.py), which the port has not got yet: "
-            "ROADMAP.md M12")
+            "ROADMAP.md M12b")
     return paper_defaults(cfg, shape)

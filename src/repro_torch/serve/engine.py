@@ -60,7 +60,7 @@ class EngineConfig:
     cache_len: int = 512
     # the JAX EngineConfig's target_p99_ms / arrival_rate_rps are read only by
     # its dry-run tool's analytical serving column (the FRED simulator's
-    # serving objective), which waits for ROADMAP.md M12
+    # serving objective), which waits for ROADMAP.md M12b
 
 
 def sampling_probs(row: np.ndarray, temperature: float, top_k: int

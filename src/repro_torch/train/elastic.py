@@ -21,10 +21,6 @@ Differences from the JAX package, and why:
     ranks are processes, and the survivors go on as a new world of ``data x
     model`` processes (``torch.distributed.init_process_group`` with that
     size) that each call :func:`resume_on_mesh` on a ``DistMesh`` of it.
-  * :func:`plan_shrink`'s memory gate (``shape`` with ``npu_hbm_bytes``) reads
-    the JAX package's cost model (``core/placement.py``,
-    ``core/workloads.py``), which the port does not have: it raises a
-    ``ValueError`` naming ROADMAP.md M12 rather than guess.
   * :func:`resume_on_mesh` builds the placed state leaf by leaf from the
     files (``checkpoint.restore`` into the setup's ``state_shapes``, which
     are on the meta device): no parameters are drawn first, and the device
@@ -35,6 +31,8 @@ from __future__ import annotations
 
 from typing import Any, Iterable, Optional, Tuple
 
+from ..core.placement import Strategy
+from ..core.workloads import MemoryModel, from_model_config, is_feasible
 from ..launch.mesh import DistMesh, StackedMesh
 from ..models.config import ModelConfig, ParallelConfig, ShapeConfig
 from ..parallel.steps import CellSetup, make_train_setup
@@ -79,14 +77,11 @@ def plan_shrink(n_alive: int, tp: int, global_batch: int, *,
     global batch.  When the failure eats into the model axis itself
     (``n_alive < tp``) and ``model_cfg`` is given, the model axis is
     re-planned over the divisors of ``tp`` (largest first): a candidate
-    ``tp'`` must divide the query heads, KV heads and FFN width.  Without
-    ``model_cfg`` there is nothing safe to re-plan against and the shrink
-    fails.  The JAX package's memory gate (``shape`` with ``npu_hbm_bytes``)
-    raises here: its memory model waits for ROADMAP.md M12."""
-    if shape is not None and npu_hbm_bytes is not None:
-        raise ValueError(
-            "plan_shrink: the per-device memory gate (shape, npu_hbm_bytes) needs the "
-            "cost model's MemoryModel, which the port does not have yet (ROADMAP.md M12)")
+    ``tp'`` must divide the query heads, KV heads and FFN width, and — when
+    ``shape`` and ``npu_hbm_bytes`` are also given — the resharded model must
+    still fit one device's memory under the cost model's
+    :class:`~repro_torch.core.workloads.MemoryModel`.  Without ``model_cfg``
+    there is nothing safe to re-plan against and the shrink fails."""
     if tp < 1:
         raise ValueError(f"model axis must be ≥ 1, got tp={tp}")
     if n_alive < 1:
@@ -105,7 +100,13 @@ def plan_shrink(n_alive: int, tp: int, global_batch: int, *,
                 or model_cfg.d_ff % cand):
             rejected.append(f"tp={cand}: heads/FFN not divisible")
             continue
-        return _best_dp(n_alive, cand, global_batch), cand
+        dp = _best_dp(n_alive, cand, global_batch)
+        if shape is not None and npu_hbm_bytes is not None:
+            w = from_model_config(model_cfg, shape, Strategy(mp=cand, dp=dp, pp=1))
+            if not is_feasible(w, MemoryModel(npu_hbm_bytes=npu_hbm_bytes)):
+                rejected.append(f"tp={cand}: exceeds per-NPU memory")
+                continue
+        return dp, cand
     detail = "; ".join(rejected) if rejected else "no divisor fits"
     raise ValueError(
         f"{n_alive} surviving devices cannot host the model axis of "
@@ -123,8 +124,8 @@ def shrink_mesh(mesh, failed: Iterable[int], shape: ShapeConfig,
     whenever it survived.  The result is a ``StackedMesh`` on ``mesh``'s
     device; its ``ranks`` say which rank of the original mesh each of its
     ranks is.  With ``cfg`` a failure that eats into the model axis re-plans
-    ``tp`` over its valid divisors instead of failing (see
-    :func:`plan_shrink`).  A ``DistMesh`` is refused (see the module's
+    ``tp`` over its valid divisors instead of failing, each held to
+    ``npu_hbm_bytes`` when it is given (see :func:`plan_shrink`).  A ``DistMesh`` is refused (see the module's
     docstring)."""
     if isinstance(mesh, DistMesh):
         raise ValueError(
@@ -137,8 +138,7 @@ def shrink_mesh(mesh, failed: Iterable[int], shape: ShapeConfig,
     alive = [r for r in range(n) if r not in failed]
     tp = mesh.shape.get("model", 1)
     dp, tp = plan_shrink(len(alive), tp, shape.global_batch,
-                         model_cfg=cfg, shape=shape if npu_hbm_bytes is not None else None,
-                         npu_hbm_bytes=npu_hbm_bytes)
+                         model_cfg=cfg, shape=shape, npu_hbm_bytes=npu_hbm_bytes)
     return StackedMesh((dp, tp), ("data", "model"), mesh.device,
                        ranks=[mesh.ranks[r] for r in alive[:dp * tp]])
 

@@ -5,10 +5,11 @@ package's ``train.elastic`` / ``train.faults``.
 References:
 
 (i)   the JAX functions themselves, in this process, on every case of
-      ``tests/test_multidevice.py`` that needs no memory model:
-      ``validate_shape_for_mesh``, ``_best_dp``, ``plan_shrink`` (its memory
-      gate raises naming ROADMAP.md M12 here), and ``shrink_mesh``'s
-      de-duplication and order;
+      ``tests/test_multidevice.py``: ``validate_shape_for_mesh``, ``_best_dp``,
+      ``plan_shrink`` (with its memory gate on seeded cases, one it
+      rejects), ``shrink_mesh``'s de-duplication and order, and its mesh
+      under the memory gate against the JAX ``plan_shrink`` that the JAX
+      ``shrink_mesh`` builds its mesh from;
 (ii)  one module-scoped JAX subprocess on 8 host devices (as
       ``tests/test_torch_setup.py`` builds it), fp32 from the same weights
       (converted) and batches: ``resume_on_mesh`` (4, 2) → (2, 2) after one
@@ -30,6 +31,7 @@ References:
 import dataclasses
 import os
 import pathlib
+import random
 import subprocess
 import sys
 
@@ -38,12 +40,13 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_get_config
+from repro.models.config import SHAPES_BY_NAME as J_SHAPES
 from repro.train import elastic as jelastic
 
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.config import ParallelConfig, ShapeConfig
+from repro_torch.models.config import SHAPES_BY_NAME, ParallelConfig, ShapeConfig
 from repro_torch.models.modules import tree_flatten
 from repro_torch.parallel.steps import make_train_setup
 from repro_torch.train import checkpoint as ckpt
@@ -95,49 +98,99 @@ def nest(flat_items):
 # (i) the planning functions against JAX's
 # --------------------------------------------------------------------------
 
-def plan_both(n_alive, tp, batch, cfg=None, **replace):
-    """(port's, JAX's) plan_shrink, each a result or the error's message."""
+def plan_both(n_alive, tp, batch, cfg=None, gate=None, **replace):
+    """(port's, JAX's) plan_shrink, each a result or the error's message;
+    ``gate`` is (shape name, npu_hbm_bytes) for the memory gate."""
     out = []
-    for fn, get in ((elastic.plan_shrink, get_config), (jelastic.plan_shrink, jax_get_config)):
+    for fn, get, shapes in ((elastic.plan_shrink, get_config, SHAPES_BY_NAME),
+                            (jelastic.plan_shrink, jax_get_config, J_SHAPES)):
         model_cfg = None
         if cfg:
             model_cfg = dataclasses.replace(get(cfg), **replace) if replace else get(cfg)
+        kw = dict(shape=shapes[gate[0]], npu_hbm_bytes=gate[1]) if gate else {}
         try:
-            out.append(fn(n_alive, tp, batch, model_cfg=model_cfg))
+            out.append(fn(n_alive, tp, batch, model_cfg=model_cfg, **kw))
         except ValueError as e:
             out.append(str(e))
     return out
 
 
+def gate_cases(seed, n):
+    """Seeded plans that reach the memory gate: the model axis eaten into, a
+    registry model, a shape, and a budget of 1-128 GiB a device."""
+    rng = random.Random(seed)
+    archs = ("llama3.2-1b", "qwen3-32b", "mixtral-8x7b", "mamba2-1.3b", "chatglm3-6b")
+    out = {}
+    for i in range(n):
+        tp = rng.choice((4, 8, 16))
+        out[f"gate-seeded-{i}"] = (
+            rng.randint(1, tp - 1), tp, rng.choice((8, 32, 256)), rng.choice(archs), {},
+            (rng.choice(("train_4k", "decode_32k")), 2 ** rng.uniform(30, 37)))
+    return out
+
+
 PLAN_CASES = {
-    "dp-flexes": (6, 2, 32, None, {}),
-    "tp-eaten-llama": (3, 4, 4096, "llama3.2-1b", {}),
-    "tp-eaten-odd-heads": (5, 8, 32, "llama3.2-1b", dict(n_heads=6, n_kv_heads=6, d_ff=36)),
-    "tp-eaten-ssm": (3, 4, 32, "mamba2-1.3b", {}),
-    "tp-eaten-down-to-one": (3, 4, 32, "llama3.2-1b", dict(n_heads=3, n_kv_heads=3)),
-    "tp-zero": (4, 0, 32, None, {}),
-    "no-survivor": (0, 2, 32, None, {}),
-    "no-model-cfg": (1, 2, 32, None, {}),
-    "batch-limits-dp": (7, 1, 12, None, {}),
+    "dp-flexes": (6, 2, 32, None, {}, None),
+    "tp-eaten-llama": (3, 4, 4096, "llama3.2-1b", {}, None),
+    "tp-eaten-odd-heads": (5, 8, 32, "llama3.2-1b", dict(n_heads=6, n_kv_heads=6, d_ff=36),
+                           None),
+    "tp-eaten-ssm": (3, 4, 32, "mamba2-1.3b", {}, None),
+    "tp-eaten-down-to-one": (3, 4, 32, "llama3.2-1b", dict(n_heads=3, n_kv_heads=3), None),
+    "tp-zero": (4, 0, 32, None, {}, None),
+    "no-survivor": (0, 2, 32, None, {}, None),
+    "no-model-cfg": (1, 2, 32, None, {}, None),
+    "batch-limits-dp": (7, 1, 12, None, {}, None),
+    "gate-passes": (3, 4, 256, "llama3.2-1b", {}, ("train_4k", 64 * 2 ** 30)),
+    "gate-rejects-every-divisor": (3, 4, 256, "qwen3-32b", {}, ("train_4k", 2 ** 30)),
+    "gate-and-divisibility-reject": (5, 8, 32, "llama3.2-1b",
+                                     dict(n_heads=6, n_kv_heads=6, d_ff=36),
+                                     ("train_4k", 2 ** 20)),
+    "gate-not-reached-while-tp-fits": (6, 2, 32, "qwen3-32b", {}, ("train_4k", 2 ** 30)),
+    **gate_cases(0, 8),
 }
 
 
 @pytest.mark.parametrize("case", list(PLAN_CASES))
 def test_plan_shrink_equals_jax(case):
-    n_alive, tp, batch, cfg, replace = PLAN_CASES[case]
-    got, want = plan_both(n_alive, tp, batch, cfg, **replace)
+    n_alive, tp, batch, cfg, replace, gate = PLAN_CASES[case]
+    got, want = plan_both(n_alive, tp, batch, cfg, gate, **replace)
     assert got == want
 
 
 def test_plan_shrink_memory_gate_waits_for_m12():
-    from repro_torch.models.config import SHAPES_BY_NAME
+    """The name is historical: the gate waited for the cost model (ROADMAP.md
+    M12), which the port now has (``repro_torch.core``).  ``plan_shrink`` and
+    ``shrink_mesh`` with ``shape`` and ``npu_hbm_bytes`` equal the JAX ones.
+    The JAX ``shrink_mesh`` builds its ``(data, model)`` mesh from its
+    ``plan_shrink`` on the survivors, so the port's mesh is held to that plan,
+    and a plan the gate rejects to the JAX message."""
+    cfg, jcfg = get_config("qwen3-32b"), jax_get_config("qwen3-32b")
     shape = SHAPES_BY_NAME["train_4k"]
-    with pytest.raises(ValueError, match="ROADMAP.md M12"):
-        elastic.plan_shrink(3, 4, shape.global_batch, model_cfg=get_config("llama3.2-1b"),
-                            shape=shape, npu_hbm_bytes=64 * 2 ** 30)
-    mesh = make_mesh((4, 2), ("data", "model"), device="meta")
-    with pytest.raises(ValueError, match="ROADMAP.md M12"):
-        elastic.shrink_mesh(mesh, [7], shape, npu_hbm_bytes=64 * 2 ** 30)
+    mesh = make_mesh((2, 8), ("data", "model"), device="meta")
+    rejected = 0
+    for failed, hbm in (([3, 5, 9, 10, 11, 12, 13, 14, 15], 128 * 2 ** 30),
+                        (list(range(1, 12)), 16 * 2 ** 30),
+                        (list(range(1, 12)), 256 * 2 ** 30),
+                        ([4], 2 ** 30)):
+        got, want = plan_both(16 - len(failed), 8, shape.global_batch, "qwen3-32b",
+                              ("train_4k", hbm))
+        assert got == want
+        try:
+            want = jelastic.plan_shrink(16 - len(failed), 8, shape.global_batch,
+                                        model_cfg=jcfg, shape=J_SHAPES["train_4k"],
+                                        npu_hbm_bytes=hbm)
+        except ValueError as e:
+            assert "exceeds per-NPU memory" in str(e)
+            with pytest.raises(ValueError) as err:
+                elastic.shrink_mesh(mesh, failed, shape, cfg=cfg, npu_hbm_bytes=hbm)
+            assert str(err.value) == str(e)
+            rejected += 1
+            continue
+        got = elastic.shrink_mesh(mesh, failed, shape, cfg=cfg, npu_hbm_bytes=hbm)
+        assert (got.shape["data"], got.shape["model"]) == want, failed
+        alive = [r for r in range(16) if r not in failed]
+        assert got.ranks == tuple(alive[:want[0] * want[1]])
+    assert rejected == 1
 
 
 def test_best_dp_and_validate_shape_equal_jax():

@@ -9,10 +9,12 @@ References:
 
 (i)   The combine (``KVSeqContext.attend``, the three sums of
       ``flash_decode``) against the one-device ``decode_attention`` on the
-      whole cache: fp32 within 1e-6 relative, bf16 within the reference's
-      kernel tolerance for bf16 (atol 2e-2 / rtol 2e-2); cases: a cache
-      whose length does not divide the ranks, a rank with no valid slot,
-      the window, ranks over two axes.
+      whole cache: fp32 within ``FP32_SUM_ULPS`` eps of the sum of the
+      magnitudes it adds (``sum_order_bound``), each fp32 route also that
+      close to the float64 result of the same formula; bf16 within the
+      reference's kernel tolerance for bf16 (atol 2e-2 / rtol 2e-2); cases:
+      a cache whose length does not divide the ranks, a rank with no valid
+      slot, the window, ranks over two axes.
 (ii)  The setups against the one-device ``make_train_step`` / ``prefill`` /
       ``decode_step`` (``tests/test_torch_tp.py``'s tolerances: loss 1e-5
       relative, every synced gradient leaf and updated parameter 1e-5
@@ -42,6 +44,7 @@ The 4-rank ``gloo`` world of ``tests/test_torch_tp.py`` runs the 3 / 1
 config too, bit-equal to the ``StackedMesh``.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -69,6 +72,9 @@ B, S, NEW = 8, 20, 3
 MESHES = {"data1-model4": (1, 4), "data2-model2": (2, 2)}
 SHARDINGS = ("replicated", "zero1", "fsdp")
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# fp32 eps a rounding of the combine may move an output by, in units of the
+# sum of the magnitudes it adds (see ``sum_order_bound``)
+FP32_SUM_ULPS = 8
 ODD = {"h3kv1": dict(n_heads=3, n_kv_heads=1), "h6kv3": dict(n_heads=6, n_kv_heads=3)}
 
 
@@ -147,13 +153,49 @@ COMBINE = {  # (mesh shape, axes, cache length, valid, window)
 }
 
 
+def decode_attention_f64(q, k, v, valid, window):
+    """``decode_attention``'s formula in float64 on the same inputs, and the
+    sum of the magnitudes its output adds, ``sum_j |p_j v_j| / denom``
+    (B, 1, Hq, hd)."""
+    B, _, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    ok = torch.arange(k.shape[1]) < valid
+    if window:
+        ok &= torch.arange(k.shape[1]) >= valid - window
+    qg = q.double().reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.double()) / math.sqrt(hd)
+    w = torch.softmax(torch.where(ok, s, -math.inf), dim=-1)           # p / denom
+    out = torch.einsum("bhgs,bshd->bhgd", w, v.double())
+    mag = torch.einsum("bhgs,bshd->bhgd", w, v.double().abs())
+    return out.reshape(B, 1, Hq, hd), mag.reshape(B, 1, Hq, hd)
+
+
+def sum_order_bound(mag):
+    """What the order of fp32 sums may change in an output element:
+    ``FP32_SUM_ULPS`` eps times ``sum_j |p_j v_j| / denom`` (``mag``).
+
+    The combine and ``decode_attention`` round the same operations and
+    differ in the order of their sums: over the slots (the denominators and
+    the values, blocked by rank in the combine) and over the head dim in
+    the score products.  A sum's rounding is a multiple of eps times the sum
+    of its terms' magnitudes, not times the result: an output of 0.01 that
+    values of about 1 nearly cancel to moves by ulps of 1, which rtol 1e-6
+    of the output could not hold.  The multiple, 8, counts the roundings on
+    the path of each term in the two routes: its score sum, its exp, the
+    denominator and the value sum, each once per route (2 x 4).  Each fp32
+    route is held to the same bound against the float64 result."""
+    return FP32_SUM_ULPS * torch.finfo(torch.float32).eps * mag
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", COMBINE)
 def test_the_combine_equals_decode_attention(case, dtype):
     """Each rank's block of the cache, its partial statistics and the three
     sums give ``decode_attention`` of the whole cache; a rank whose whole
     block lies past the valid slots (or outside the window) adds exactly 0:
-    its block may hold any finite values."""
+    its block may hold any finite values.  In fp32 both routes are first
+    held to the float64 result, then to each other, within the bound that
+    the order of their sums allows (``sum_order_bound``)."""
     shape, axes, length, valid, window = COMBINE[case]
     mesh = make_mesh(shape, axes, device="cpu")
     kvs = tpm.KVSeqContext(mesh, axes, length)
@@ -171,7 +213,11 @@ def test_the_combine_equals_decode_attention(case, dtype):
     got = kvs.attend(q, k_buf, v_buf, valid, window)
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-7)
+        exact, mag = decode_attention_f64(q, k, v, valid, window)
+        bound = sum_order_bound(mag)
+        for route in (got, want):
+            assert ((route.double() - exact).abs() <= bound).all()
+        assert ((got.double() - want.double()).abs() <= bound).all()
     else:
         np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **BF16_TOL)
 

@@ -54,7 +54,9 @@ def test_the_walk_sees_the_whole_port():
             "llava_next_34b.py", "whisper_medium.py", "sharding.py",
             "pipeline.py", "policy.py", "tp.py", "elastic.py", "faults.py",
             "streaming.py", "torch_weight_streaming.py", "dryrun.py", "perf.py",
-            "roofline.py"} <= names
+            "roofline.py", "flows.py", "switch.py", "defects.py", "placement.py",
+            "workloads.py", "specs.py", "fabric.py", "meshnet.py", "cluster.py",
+            "simulator.py", "batch_engine.py", "sweep.py"} <= names
     assert len(MODULES) >= 20
 
 
