@@ -44,7 +44,10 @@ result.
 
 Phases:
   env      torch / CUDA versions, the card's name and power limit
-  build    nvcc on every ``src/repro_torch/csrc/*.cu`` (all started together)
+  build    nvcc on every ``src/repro_torch/csrc/*.cu`` (all started together;
+           the kernels phase runs while the slowest still compile, each
+           kernel's first call waiting for its own build, and the build line
+           comes after it, once every build is done)
   kernels  flash_attention against flash_attention_plain: a sweep of small
            shapes, ragged shapes at each head dim and the parity phase's
            shape, then the serving prefill shape (peaked and near-uniform
@@ -126,14 +129,14 @@ Phases:
            the plain versions' gradients); fp32 at full width, loss and every
            gradient on the card against the CPU: llama3.2-1b and mamba2-1.3b
            at 2 layers, zamba2-2.7b at 12 (two applications of the shared
-           block); then llama3.2-1b at full width and depth (bf16 params,
-           fp32 master and moments, block remat, B 4 x S 2048) through
-           ``Trainer.run()``: 4 steps and a checkpoint, a resume, one more
-           step; step time, tokens/s, MFU against 989 TFLOP/s, peak memory,
-           launches per step (asserted: 32 forward, 16 backward); then
-           mamba2-1.3b the same way, 3 steps (its final checkpoint is
-           written, its step checked, and removed; asserted: 96 SSD
-           forward, 48 backward); then mixtral-8x7b at full width and 1 of
+           block); then llama3.2-1b at full width and 4 of 16 layers (bf16
+           params, fp32 master and moments, block remat, B 4 x S 2048)
+           through ``Trainer.run()``: 4 steps and a checkpoint, a resume, one
+           more step; step time, tokens/s, MFU against 989 TFLOP/s, peak
+           memory, launches per step (asserted: 8 forward, 4 backward); then
+           mamba2-1.3b at full width and 12 of 48 layers the same way, 3
+           steps (its final checkpoint is written, its step checked, and
+           removed; asserted: 24 SSD forward, 12 backward a step); then mixtral-8x7b at full width and 1 of
            32 layers the same way, 3 steps (MFU on the active parameters,
            the router's aux loss in every step; asserted: 2 flash forward,
            1 backward a step; at S 2048 its window of 4096 cuts nothing);
@@ -239,9 +242,9 @@ Phases:
            tree reduces asserted (``tp_tree_launches``, ``flash_ranks``),
            the decode-state bytes a rank holds; last, on a line of its own,
            (x) Trainer(mesh=), checkpoints of sharded state and the elastic
-           resume: llama3.2-1b at full depth (B 8 x S 2048 of SyntheticLM)
-           through the one-device Trainer (steps 1-2 and their checkpoint,
-           step 3) and the Trainer over data 2 x model 2, fsdp (steps 1-2,
+           resume: llama3.2-1b at full width and 2 of 16 layers (B 8 x S
+           2048 of SyntheticLM) through the one-device Trainer (steps 1-2
+           and their checkpoint, step 3) and the Trainer over data 2 x model 2, fsdp (steps 1-2,
            the async checkpoint of the logical state); the mesh's losses
            within 2e-3, its checkpoint leaf by leaf against the one-device
            one's (bf16 parameters to tol(bf16), the fp32 master and moments
@@ -262,11 +265,11 @@ Phases:
            mamba2-1.3b at full depth and (c) mixtral-8x7b at 1 layer,
            stream_grads against the monolithic loss_fn gradient with block
            remat (the total and every leaf bit-equal or within tol(bf16),
-           each leaf that is not bit-equal named), then 3 stream_train_steps
+           each leaf that is not bit-equal named), then 2 stream_train_steps
            (losses falling); (c) mixtral at as many of its 32 layers as
            MemAvailable holds with 16 GiB to spare and (d) arctic-480b at 2
-           of 35 layers, each layer drawn on the card one at a time, 2 steps
-           (losses finite, aux > 0), each deep case at no more layers than
+           of 35 layers, each layer drawn on the card one at a time, one step
+           (loss finite, aux > 0), each deep case at no more layers than
            its steps' host update covers in STREAM_DEEP_BUDGET_S at the rate
            (a)-(c) measured, two at least, so that arctic's one-slot ring
            swaps (the cut printed); every step's launches asserted (a
@@ -304,7 +307,22 @@ Phases:
            tests/goldens/sweep512_pareto.json; one line a sweep with the
            card's and the CPU's seconds, split between run_batch and the rest
            of the sweep, and the copies of each run_batch (no kernel of its
-           own: the engine is aten ops)
+           own: the engine is aten ops); then FRED's decision stack, each
+           table run on the card and on the CPU in this process and equal
+           field by field (the wall-clock fields left out): decision_table
+           of all 10 archs at train_4k (tests/goldens/autostrategy.json),
+           the MoE epsweep decisions (epsweep.json), lifetime_decision_pairs
+           (lifetimesweep.json), model_yield_study("llama3.2-1b")
+           (faultsweep.json), serving_decision_table (servesweep.json; NumPy
+           on the host in both runs), the 20-NPU sweep with check_routing,
+           each golden gate giving no error, one line a table with both
+           runs' seconds and their run_batch split; calibrate's speedups at
+           CALIBRATED beside the paper's; last, the decided cell:
+           run_cell("llama3.2-1b", "train_4k", "single", autostrategy=True)
+           on the card, its chosen strategy the golden's and stamped on its
+           policy, its counted FLOPs, bytes, collective bytes, policy (but
+           the stamp) and launches equal to the launch phase's (a) (read
+           from its record under artifacts/launch)
   profile  (only when named) device time by kernel over one prefill and four
            decode steps of llama3.2-1b, mamba2-1.3b and mixtral-8x7b (16
            layers), over one sync of each mode, and over one train step of
@@ -315,7 +333,8 @@ Phases:
 
 Each phase runs under its own wall-clock limit (``PHASE_LIMIT_S``): past it the
 script exits with code 3 and names the phase.  A ``{"phase_seconds": ...}`` line
-gives each phase's time.  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
+gives each phase's time, and under ``case_seconds`` each case's (the ``clocked``
+functions, also printed to stderr as each ends).  The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 error against the plain version, times, roofline bound, launches on the main
 path; the flash kernels also their launches in the pipeline, the flash and
 tree-reduce kernels their launches in the setup, the flash and SSD kernels
@@ -329,6 +348,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -401,7 +421,7 @@ PHASES = ("env", "build", "kernels", "parity", "serve", "sync", "train", "parall
 # names the phase, instead of using up the whole run's time.
 PHASE_LIMIT_S = {"env": 60, "build": 300, "kernels": 300, "parity": 300, "serve": 300,
                  "sync": 300, "train": 600, "parallel": 240, "setup": 480, "stream": 600,
-                 "launch": 300, "decide": 120, "profile": 300}
+                 "launch": 300, "decide": 180, "profile": 300}
 
 # the serving prefill shape: 8 requests padded to 2048 tokens of llama3.2-1b
 MAIN_SHAPE = dict(B=8, S=2048, Hq=32, Hkv=8, hd=64, dtype=torch.bfloat16,
@@ -505,6 +525,26 @@ QUANT_SWEEP = [(100, 64), (5000, 512), (4096, 1024), (30000, 12288)]
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# [call, seconds] of every ``clocked`` call, in order: where a phase's time goes
+CASE_SECONDS = []
+
+
+def clocked(fn):
+    """Record each call's wall time in CASE_SECONDS, and on stderr as it ends,
+    under the function's name and its string and integer arguments."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            named = [str(a) for a in args if isinstance(a, (str, int)) and not isinstance(a, bool)]
+            call = f"{fn.__name__}({', '.join(named)})"
+            CASE_SECONDS.append([call, round(time.perf_counter() - t0, 3)])
+            print(f"chip_smoke: {call} {CASE_SECONDS[-1][1]} s", file=sys.stderr, flush=True)
+    return run
 
 
 def check_close(name, got, want, atol, rtol):
@@ -642,14 +682,15 @@ def phase_env():
     return card
 
 
-def phase_build():
-    t0 = time.perf_counter()
-    per_source = build.build_all()
+def phase_build(t0):
+    """Wait for every nvcc that ``build.start_all`` started at ``t0`` (a
+    ``time.perf_counter`` reading), load every library and report."""
+    build.build_all()
     for name in build.sources():
         build.load(name)
     out = {"phase": "build", "sources": build.sources(),
-           "seconds": round(time.perf_counter() - t0, 3),
-           "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}}
+           "seconds_since_start": round(time.perf_counter() - t0, 3),
+           "nvcc_seconds": {k: round(v, 3) for k, v in build.build_seconds.items()}}
     # per source: registers, shared memory and spills of every instantiation,
     # and any wgmma serialisation ptxas reports (info C75xx "Potential
     # Performance Loss", printed as info, not as a warning)
@@ -1955,6 +1996,7 @@ def compare_routes(card, cpu, atol, rtol):
     return routed, flipped, worst_gap, compared, worst_err, agree_last
 
 
+@clocked
 def parity_moe(dev):
     """mixtral-8x7b at full width, 1 layer, fp32: prefill and 4 decode steps
     on the card (kernels) against the CPU (plain versions), the expert
@@ -2014,6 +2056,7 @@ def _shape_tree(params):
     return tree_map(lambda t: tuple(t.shape), params)
 
 
+@clocked
 def sync_parity(dev):
     """The compressed gradient sync on the card (kernels) against the same
     sync on the CPU (plain versions): the reduced llama3.2-1b tree, fp32,
@@ -2086,6 +2129,7 @@ def _cut(arch, layers=None):
                                n_enc_layers=layers if cfg.n_enc_layers else 0)
 
 
+@clocked
 def phase_serve(dev, arch, new_tokens=32, layers=None, long_prompt=0):
     """``arch`` (at ``layers`` layers if given) in bf16: 8 requests through
     ``Engine.run_batch`` twice (the launches of each batch asserted, greedy
@@ -2196,6 +2240,7 @@ def phase_serve(dev, arch, new_tokens=32, layers=None, long_prompt=0):
 SERVE_PREFIX = [("llava-next-34b", 30, 1024, 4096), ("whisper-medium", None, 224, 448)]
 
 
+@clocked
 def serve_prefix(dev, arch, layers, prompt, cache_len, new_tokens=32, batch=8):
     """``arch`` (at ``layers`` layers if given) in bf16: ``batch`` greedy
     sequences of ``prompt`` tokens after llava's patches or against
@@ -2375,12 +2420,16 @@ def phase_sync(dev, profile=False):
     return compressed_launches
 
 
-# the train phase: llama3.2-1b, then mamba2-1.3b, at full width and depth,
-# B 4 x S 2048 (8192 tokens a step), bf16 params, fp32 master and moments,
-# block remat
+# the train phase: llama3.2-1b at full width and 4 of its 16 layers, then
+# mamba2-1.3b at full width and 12 of its 48 layers, B 4 x S 2048 (8192 tokens
+# a step), bf16 params, fp32 master and moments, block remat.  Depth cuts to
+# keep the script inside its time limit: at full depth llama's two saves and
+# one restore of 17.3 GB took ~58 s, mamba2's final save 20-22 s
 TRAIN_ARCH = "llama3.2-1b"
+TRAIN_LAYERS = 4
 TRAIN_STEPS = 4            # then one more after the resume
 SSM_TRAIN_ARCH = "mamba2-1.3b"
+SSM_TRAIN_LAYERS = 12
 SSM_TRAIN_STEPS = 3
 # mixtral-8x7b at full width, 1 of its 32 layers (1.45e9 parameters a layer,
 # about 23 GB a layer with its fp32 master and moments; 2 layers until the
@@ -2532,6 +2581,7 @@ def train_flops_per_step(cfg, B, S, P=0):
     return 6 * matmul_params * B * S + attn + scan + extra
 
 
+@clocked
 def train_f1(dev):
     """Fault F1 on the card: an SSD scan and an attention whose inputs require
     grad go through their autograd Functions, launch their forward and
@@ -2582,6 +2632,7 @@ def train_f1(dev):
                                                  "plain_max_row_err_over_row_rms"), err))}
 
 
+@clocked
 def train_parity(dev, arch, layers, B, S):
     """``arch`` at full width, ``layers`` layers, fp32: loss and every
     gradient on the card (kernels) against the CPU (plain versions), same
@@ -2637,6 +2688,7 @@ def train_parity(dev, arch, layers, B, S):
                           "atol_times_max": GRAD_ATOL, "rtol": GRAD_RTOL}}
 
 
+@clocked
 def _trainer_run(dev, card, arch, steps, ckpt_dir, layers=None):
     """``arch`` at full width and depth (or ``layers`` layers) through
     ``Trainer.run()``: bf16 params, fp32 master and moments, block remat,
@@ -2739,6 +2791,7 @@ def prefix_train_setup(dev, arch, layers, B, S):
     return cfg, pcfg, state, make_train_step(cfg, pcfg, ocfg), batch
 
 
+@clocked
 def train_prefix(dev, card, arch, layers, B, S, steps=TRAIN_PREFIX_STEPS):
     """``steps`` train steps of a TRAIN_PREFIX cell on one batch: finite
     losses, the launches of every step asserted, step time, tokens/s, MFU,
@@ -2808,9 +2861,9 @@ def release():
 
 def phase_train(dev, card):
     """F1 on the card, card against CPU, then llama3.2-1b at full width and
-    depth through ``Trainer.run()`` (TRAIN_STEPS steps, its checkpoint, a
-    resume, one more step) and mamba2-1.3b likewise (SSM_TRAIN_STEPS steps,
-    no resume).  Returns the launches of the main path's runs."""
+    TRAIN_LAYERS layers through ``Trainer.run()`` (TRAIN_STEPS steps, its checkpoint, a
+    resume, one more step) and mamba2-1.3b at SSM_TRAIN_LAYERS layers likewise
+    (SSM_TRAIN_STEPS steps, no resume).  Returns the launches of the main path's runs."""
     report = {"phase": "train", "f1": train_f1(dev)}
     report["parity"] = []
     for case in TRAIN_PARITY:
@@ -2823,7 +2876,7 @@ def phase_train(dev, card):
     try:
         ckpt_dir = os.path.join(ckpt_root, TRAIN_ARCH)
         state, tr, report["run"], launches = _trainer_run(dev, card, TRAIN_ARCH, TRAIN_STEPS,
-                                                          ckpt_dir)
+                                                          ckpt_dir, layers=TRAIN_LAYERS)
         probe = {"final_norm": state.params["final_norm"].float().cpu(),
                  "wq0": state.params["blocks"][0]["attn"]["wq"][:64].float().cpu(),
                  "m_embed": state.opt.m["embed"][:8].cpu()}
@@ -2853,7 +2906,8 @@ def phase_train(dev, card):
         release()
 
         state, tr, report["ssm_run"], ssm_launches = _trainer_run(
-            dev, card, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, os.path.join(ckpt_root, SSM_TRAIN_ARCH))
+            dev, card, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, os.path.join(ckpt_root, SSM_TRAIN_ARCH),
+            layers=SSM_TRAIN_LAYERS)
         del state, tr
         shutil.rmtree(os.path.join(ckpt_root, SSM_TRAIN_ARCH), ignore_errors=True)
         release()
@@ -2916,6 +2970,7 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+@clocked
 def parallel_ep(dev, card, arch, grads):
     """One MoE layer of ``arch`` at full width through ``moe_ep_ffn_fn`` (the
     experts and the batch placed over data by ``shard_leaf``) against
@@ -2996,6 +3051,7 @@ def _paths(tree, path=()):
         yield path
 
 
+@clocked
 def parallel_pipeline(dev, card):
     """llama3.2-1b at full width and depth, its blocks as PIPE_STAGES GPipe
     stages (``pipeline_fn`` on a StackedMesh over pipe) against
@@ -3212,15 +3268,17 @@ SETUP_HEADS_SERVE = [
 # (arch, layers, sharding, mesh, steps)
 SETUP_HEADS_TRAIN = ("qwen1.5-4b", 4, "fsdp", ((2, 8), ("data", "model")), 1)
 # (x) Trainer(mesh=) over a train setup, checkpoints of sharded state and the
-# elastic resume, on a line of their own: llama3.2-1b at full width and depth,
+# elastic resume, on a line of their own: llama3.2-1b at full width and 2 of
+# its 16 layers (at full depth its four saves and restores of 17.3 GB took 110
+# of the case's 147 s: a depth cut to keep the script inside its time limit),
 # B 8 x S 2048 of SyntheticLM, bf16 params, fp32 master and moments, block
 # remat.  The one-device Trainer takes steps 1-2 (its checkpoint at 2) and step
 # 3; the Trainer over data 2 x model 2 under fsdp takes steps 1-2 (its async
 # checkpoint at 2); faults.crash_and_recover tears a save of step 3 and kills
 # one rank of four (seed 0): three survivors with model 2 plan to data 1 x
 # model 2, which restores step 2 and takes step 3; the one-device Trainer
-# resumes the mesh's checkpoint and takes step 3.  (arch, B, S, mesh)
-SETUP_TRAINER = ("llama3.2-1b", 8, 2048, ((2, 2), ("data", "model")))
+# resumes the mesh's checkpoint and takes step 3.  (arch, layers, B, S, mesh)
+SETUP_TRAINER = ("llama3.2-1b", 2, 8, 2048, ((2, 2), ("data", "model")))
 
 
 def setup_case_name(sharding, mode, shape):
@@ -3316,6 +3374,7 @@ def fro_rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+@clocked
 def setup_fp32_grads(cfg, p0, batch, routes=None):
     """The one-device gradient of ``batch`` with ``p0`` in fp32 (block remat),
     the reference a TP case's bf16 gradient and the one-device bf16 one are
@@ -3452,6 +3511,7 @@ def ssd_heads():
         yield heads
 
 
+@clocked
 def setup_train_case(dev, card, cfg, p0, batches, want_g, oracle, sharding, mode, mshape,
                      axes, kept=None, steps=SETUP_STEPS, want32=None, ep="", routes=None):
     """One train case of the setup phase: ``steps`` steps through
@@ -3609,6 +3669,7 @@ def setup_step_launches(cfg, setup, B):
     return want
 
 
+@clocked
 def setup_oracle(dev, cfg, p0, batches, steps=SETUP_STEPS, routes=None):
     """The one-device make_train_step on the whole batch, in place on its own
     copy: the losses, grad norms and seconds of ``steps`` steps and step 1's
@@ -3684,6 +3745,7 @@ def _serve_routes(calls, per_step, rows, ep):
     return out
 
 
+@clocked
 def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKENS, B=8,
                 mesh_spec=SETUP_SERVE_MESH, layers=None, patches=None, ep="", lengths=None):
     """(f), and under tensor parallelism (j), (k), (n), (o): ``arch`` at full
@@ -3869,6 +3931,7 @@ def setup_serve(dev, card, arch, prompt, cache_len, new_tokens=SETUP_SERVE_TOKEN
     return report, used
 
 
+@clocked
 def setup_tp_whisper(dev, card):
     """(j) train: whisper-medium at full width and depth, fsdp over
     SETUP_TP_MESH, one step against the one-device step (B 8 x 448 tokens,
@@ -3890,6 +3953,7 @@ def setup_tp_whisper(dev, card):
             "one_device": oracle, "fsdp_flat_tp2": entry}, used
 
 
+@clocked
 def setup_moe_train(dev, card):
     """(l), (m): mixtral-8x7b at full width and SETUP_MOE_TRAIN's depth,
     bf16, trained through ``make_train_setup`` over SETUP_MOE_MESH under TP +
@@ -3927,6 +3991,7 @@ def setup_moe_train(dev, card):
     return report, launches
 
 
+@clocked
 def setup_ssm(dev, card):
     """(p)-(s): the SSM and hybrid families under tensor parallelism
     (SETUP_SSM_TRAIN, SETUP_SSM_SERVE), each train case against its own
@@ -3976,6 +4041,7 @@ def setup_ssm(dev, card):
     return report, launches
 
 
+@clocked
 def setup_heads(dev, card):
     """(t)-(w): heads that do not divide the TP degree and the flash-decoding
     layout (SETUP_HEADS_TRAIN, SETUP_HEADS_SERVE): the train case against
@@ -4044,6 +4110,7 @@ def _manifest_sans_crc(d):
     return m
 
 
+@clocked
 def setup_trainer(dev, card):
     """(x) ``Trainer(mesh=)``, its checkpoint of the sharded state and the
     elastic resume (SETUP_TRAINER) against the one-device ``Trainer`` on the
@@ -4059,14 +4126,15 @@ def setup_trainer(dev, card):
     (asserted under the placed state's bytes plus twice its largest leaf),
     the snapshot's host bytes, whether the torn save's debris was swept.
     Returns (report, launches)."""
-    arch, B, S, (mshape, axes) = SETUP_TRAINER
-    cfg = get_config(arch)
+    arch, layers, B, S, (mshape, axes) = SETUP_TRAINER
+    cfg = _cut(arch, layers)
     shape = ShapeConfig(f"train_{B}x{S}", "train", S, B)
     ocfg = OptimConfig()
     pcfg = ParallelConfig(remat="block", param_dtype="bfloat16", param_sharding="fsdp",
                           grad_sync="flat")
     report = {"phase": "setup_trainer", "card": card,
-              "config": f"{arch} full width and depth, bf16 params, fp32 master and moments, "
+              "config": f"{arch} full width, {cfg.num_layers} of {get_config(arch).num_layers} "
+                        f"layers, bf16 params, fp32 master and moments, "
                         f"block remat, SyntheticLM B {B} x S {S}, fsdp over "
                         + " x ".join(f"{a} {n}" for a, n in zip(axes, mshape))}
     launches = {}
@@ -4399,22 +4467,24 @@ def phase_setup(dev, card):
 # layer against the monolithic loss_fn gradient with block remat, then
 # STREAM_STEPS steps; (c) mixtral at as many of its 32 layers as host memory
 # holds with STREAM_HOST_MARGIN to spare, and (d) arctic-480b at 2 of 35
-# layers, STREAM_DEEP_STEPS steps each, every layer drawn on the card one at
+# layers, STREAM_DEEP_STEPS step each, every layer drawn on the card one at
 # a time (init of a one-layer configuration, layer l from the seed (0, l)).
 # The host update sets a deep case's pace, and the card machine's host ran it
 # at 0.7-1.2e9 elements/s in different runs: a deep case also takes no more
 # layers than its steps can update in STREAM_DEEP_BUDGET_S at the rate (a)-(c)
 # measured (STREAM_DEEP_MIN_LAYERS at least: arctic's one-slot ring swaps a
 # slot only past one layer), so that the script stays inside its time limit
-# on a slow host; 30 s since the launch phase came (90 s before)
+# on a slow host; 30 s since the launch phase came (90 s before).  One deep
+# step, and 8 s, since the decide phase came: arctic's two steps took 46 s
+# each, and a run of the whole script passed its limit on a slower host
 STREAM_BATCH = (4, 2048)
 STREAM_LR = 1e-3
-STREAM_STEPS = 3
-STREAM_DEEP_STEPS = 2
+STREAM_STEPS = 2
+STREAM_DEEP_STEPS = 1
 STREAM_HOST_MARGIN = 16 << 30
 STREAM_COMPARE = [("llama3.2-1b", None), ("mamba2-1.3b", None), ("mixtral-8x7b", 1)]
 STREAM_DEEP = [("mixtral-8x7b", None), ("arctic-480b", 2)]
-STREAM_DEEP_BUDGET_S = 30
+STREAM_DEEP_BUDGET_S = 8
 STREAM_DEEP_MIN_LAYERS = 2
 STREAM_MEMORY_WAIT_S = 90     # pinned pages return to MemAvailable some seconds after unpinning
 
@@ -4438,6 +4508,7 @@ def stream_batch(cfg):
     return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
 
 
+@clocked
 def stream_link(dev):
     """The link once: a 1 GiB copy each way between pinned host memory and
     the card, 5 times each (the fastest is the rate); and what
@@ -4535,6 +4606,7 @@ def stream_steps(dev, hp, cfg, batch, steps, link):
     return out, launches
 
 
+@clocked
 def stream_compare(dev, card, arch, layers, link):
     """(a)-(c): ``arch`` (at ``layers`` layers if given) streamed against the
     port's monolithic ``loss_fn`` gradient with block remat on the card: the
@@ -4623,6 +4695,7 @@ def stream_compare(dev, card, arch, layers, link):
         release()
 
 
+@clocked
 def stream_deep(dev, card, arch, layers, link, rate, avail_at_start):
     """(c) mixtral-8x7b at as many of its layers as MemAvailable holds with
     STREAM_HOST_MARGIN to spare, (d) arctic-480b at ``layers`` (cut the same
@@ -4779,6 +4852,7 @@ def _run_summary(run):
             "counted_step_launches": {k: v for k, v in run["launches"].items() if v}}
 
 
+@clocked
 def launch_cell(dev, case, arch, shape, mesh, variant, full, kernels):
     """One dry-run cell on the card: the record written, one summary line
     emitted, the probe checked exact where the full depth ran, each of
@@ -4819,6 +4893,7 @@ def launch_cell(dev, case, arch, shape, mesh, variant, full, kernels):
     return rec
 
 
+@clocked
 def launch_parity(dev, card):
     """(a'): one reduced llama3.2-1b step counted on the card and on the CPU:
     FLOPs, bytes and collective bytes equal, and each op's count (an op that
@@ -4875,7 +4950,9 @@ def phase_launch(dev, card):
         raise AssertionError(f"launch (d): measured / bucket {ep['measured_over_bucket']}")
     emit({"phase": "launch", "case": "d", "record": _write_record("ep_compare", ep), **ep})
     serving = dryrun.serving_compare(device=dev)
-    if serving["analytical"] is not None or not serving["measured"]["decode_step_p50_s"] > 0:
+    a = serving["analytical"]
+    if not (a and a["total_wafers"] >= 1 and 0 < a["ttft_p99_ms"] <= a["target_p99_ms"]
+            and serving["measured"]["decode_step_p50_s"] > 0):
         raise AssertionError(f"launch (e): {serving}")
     emit({"phase": "launch", "case": "e", "record": _write_record("serving_compare", serving),
           **serving})
@@ -4936,14 +5013,12 @@ def decide_workload(name):
     return moe
 
 
-def timed_sweep(device, workload, kw):
-    """One sweep on ``device``: (results, seconds, the seconds of its
+def timed_engine(device, fn):
+    """``fn(device)`` timed: (what it returns, seconds, the seconds of its
     ``BatchEngine.run_batch`` calls, summed and split as ``BatchEngine.seconds``,
     each call's copies).  A call's math ends in its copy to the host, so the
     host clock covers its device work."""
-    from repro_torch.core import batch_engine, sweep as core_sweep
-    from repro_torch.core.defects import sample_mask
-    from repro_torch.core.workloads import MemoryModel
+    from repro_torch.core import batch_engine
 
     runs = []
     run_batch = batch_engine.BatchEngine.run_batch
@@ -4952,22 +5027,31 @@ def timed_sweep(device, workload, kw):
         out = run_batch(self, *a, **k)
         runs.append((dict(self.copies), dict(self.seconds)))
         return out
-    kw = dict(kw)
-    if kw.get("memory"):
-        kw["memory"] = MemoryModel()
-    if kw.get("defects"):
-        kw["defects"] = sample_mask(kw["n_npus"], dead_npu_rate=0.1, dead_link_rate=0.05,
-                                    seed=5, mesh_shape=(5, 4))
     with patched(batch_engine.BatchEngine, run_batch=timed):
         t0 = time.perf_counter()
-        res = core_sweep.sweep(decide_workload(workload), n_layers=78, engine="batched",
-                               device=device, **kw)
+        res = fn(device)
         if device.type == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     split = {k: sum(s[k] for _, s in runs) for k in ("lanes", "math", "breakdowns")}
     return (res, seconds, sum(split.values()), {k: round(v, 4) for k, v in split.items()},
             [c for c, _ in runs])
+
+
+def timed_sweep(device, workload, kw):
+    """One sweep of ``DECIDE_SWEEPS`` on ``device``, as ``timed_engine``."""
+    from repro_torch.core import sweep as core_sweep
+    from repro_torch.core.defects import sample_mask
+    from repro_torch.core.workloads import MemoryModel
+
+    kw = dict(kw)
+    if kw.get("memory"):
+        kw["memory"] = MemoryModel()
+    if kw.get("defects"):
+        kw["defects"] = sample_mask(kw["n_npus"], dead_npu_rate=0.1, dead_link_rate=0.05,
+                                    seed=5, mesh_shape=(5, 4))
+    return timed_engine(device, lambda d: core_sweep.sweep(
+        decide_workload(workload), n_layers=78, engine="batched", device=d, **kw))
 
 
 def same_results(name, got, want):
@@ -5053,10 +5137,223 @@ def decide_seeded(dev, n=200):
     emit({"phase": "decide", "seeded_cases": n, "equal_to_scalar_and_cpu": True})
 
 
-def phase_decide(dev, card):
+GOLDEN_DIR = os.path.dirname(SWEEP512_GOLDEN)
+# the wall-clock fields, the only ones left out where card and CPU are compared
+WALL_CLOCK = ("sweep_seconds", "study_seconds")
+# the decided cell: the launch phase's (a), with the strategy the card's sweep
+# chose stamped on its policy
+DECIDED_CELL = ("llama3.2-1b", "train_4k", "single")
+
+
+def plain(x):
+    """``x`` as plain values (a dataclass its class name and fields but the
+    ``WALL_CLOCK`` ones, sets sorted, tuples as lists, NaN a string), so that
+    two decisions compare field by field with ``==``."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {"__class__": type(x).__name__,
+                **{f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)
+                   if f.name not in WALL_CLOCK}}
+    if isinstance(x, dict):
+        return {str(plain(k)): plain(v) for k, v in x.items() if k not in WALL_CLOCK}
+    if isinstance(x, (set, frozenset)):
+        return sorted((plain(v) for v in x), key=repr)
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, float) and math.isnan(x):
+        return "nan"
+    return x
+
+
+def first_difference(a, b, path="$"):
+    """The path of the first place where ``plain`` values ``a`` and ``b``
+    differ, with both values there."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in list(a) + [k for k in b if k not in a]:
+            if a.get(k) != b.get(k):
+                return first_difference(a.get(k), b.get(k), f"{path}.{k}")
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+    return f"{path}: card {a!r}, CPU {b!r}"
+
+
+def decide_tables():
+    """(name, what runs on the host or the card, fn(device), check(result) ->
+    summary) of the decision stack, each checked against its golden."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.core import autostrategy as auto, sweep as core_sweep
+    from repro_torch.core.yield_study import model_yield_study
+
+    def golden(name):
+        with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as f:
+            return os.path.join(GOLDEN_DIR, f"{name}.json"), json.load(f)
+
+    def gate(name, errors):
+        if errors:
+            raise AssertionError(f"decide {name}: {errors}")
+
+    def check_decisions(ds):
+        path, want = golden("autostrategy")
+        gate("decision_table", auto.check_goldens(
+            [d for d in ds if f"{d.arch}/{d.shape}" in want], path))
+        return {"archs": len(ds), "golden": "autostrategy.json", "golden_entries": len(want),
+                "chosen": {d.arch: d.golden() for d in ds}}
+
+    def check_ep(ds):
+        path, want = golden("epsweep")
+        gate("epsweep", auto.check_goldens(ds, path))
+        if not all(d.ep > 1 for d in ds):
+            raise AssertionError(f"decide epsweep: ep {[d.ep for d in ds]}")
+        return {"golden": "epsweep.json", "chosen": {d.arch: d.golden() for d in ds}}
+
+    def check_lifetime(pairs):
+        path, want = golden("lifetimesweep")
+        gate("lifetime_decision_pairs", auto.check_lifetime_goldens(pairs, path))
+        return {"golden": "lifetimesweep.json", "pairs": len(pairs),
+                "flips": sorted(t.arch for t, g in pairs
+                                if auto.lifetime_golden((t, g))["flip"])}
+
+    def check_yield(rep):
+        _, want = golden("faultsweep")
+        if rep.golden() != want["llama3.2-1b/train_4k"]:
+            raise AssertionError(f"decide model_yield_study: {rep.golden()} != the "
+                                 f"faultsweep golden {want['llama3.2-1b/train_4k']}")
+        return {"golden": "faultsweep.json", **rep.golden()}
+
+    def check_serving(ds):
+        path, want = golden("servesweep")
+        gate("serving_decision_table", auto.check_serving_goldens(ds, path))
+        return {"golden": "servesweep.json",
+                "total_wafers": {d.arch: d.total_wafers for d in ds}}
+
+    def check_routing(res):
+        fred = [r.routable for r in res if r.fabric != "baseline"]
+        if set(fred) != {True, False} or any(r.routable is not None for r in res
+                                             if r.fabric == "baseline"):
+            raise AssertionError(f"decide sweep20_check_routing: routable {set(fred)}")
+        return {"candidates": len(res), "fred_routable": sum(fred),
+                "fred_unroutable": len(fred) - sum(fred)}
+
+    return [
+        ("decision_table", "card", lambda d: auto.decision_table(ARCH_IDS, "train_4k", device=d),
+         check_decisions),
+        ("epsweep", "card", lambda d: auto.decision_table(auto.MOE_ARCHS, device=d,
+                                                          **auto.EP_SWEEP_KW), check_ep),
+        ("lifetime_decision_pairs", "card", lambda d: auto.lifetime_decision_pairs(device=d),
+         check_lifetime),
+        ("model_yield_study", "card", lambda d: model_yield_study("llama3.2-1b", device=d),
+         check_yield),
+        # the serving sweep prices at most 9 decode batches a plan: NumPy on
+        # the host in both runs, as in the reference
+        ("serving_decision_table", "host", lambda d: auto.serving_decision_table(device=d),
+         check_serving),
+        ("sweep20_check_routing", "card (router on the host)",
+         lambda d: core_sweep.transformer_17b_sweep(20, check_routing=True, device=d),
+         check_routing),
+    ]
+
+
+def decide_stack(dev, card):
+    """The decision stack on the card and on the CPU in this process: each
+    table's decisions equal field by field (``==``, ``WALL_CLOCK`` left out),
+    and equal to its golden; the calibration beside the paper's speedups."""
+    from repro_torch.core import calibrate
+
+    cpu = torch.device("cpu")
+    for name, where, fn, check in decide_tables():
+        got, dev_s, dev_run_s, dev_split, copies = timed_engine(dev, fn)
+        want, cpu_s, cpu_run_s, cpu_split, _ = timed_engine(cpu, fn)
+        g, w = plain(got), plain(want)
+        if g != w:
+            raise AssertionError(f"decide {name}: card and CPU differ at "
+                                 f"{first_difference(g, w)}")
+        if any(c != {"h2d": 2, "d2h": 1} for c in copies):
+            raise AssertionError(f"decide {name}: copies per run_batch {copies}")
+        emit({"phase": "decide", "table": name, "runs_on": where,
+              "card_equals_cpu": True, **check(got),
+              "device": str(dev), "device_s": round(dev_s, 4),
+              "device_run_batch_s": round(dev_run_s, 4), "device_run_batch_split_s": dev_split,
+              "cpu_s": round(cpu_s, 4), "cpu_run_batch_s": round(cpu_run_s, 4),
+              "cpu_run_batch_split_s": cpu_split, "run_batch_calls": len(copies),
+              "card": card})
+    c = calibrate.CALIBRATED
+    t0 = time.perf_counter()
+    got = calibrate.simulate_speedups(c["compute_efficiency"], c["mesh_step_overhead"],
+                                      c["fred_step_overhead"])
+    emit({"phase": "decide", "table": "calibrate", "runs_on": "host", "calibrated": c,
+          "simulated_speedups": got, "paper_speedups": calibrate.PAPER_SPEEDUPS,
+          "loss": calibrate.loss(got), "host_s": round(time.perf_counter() - t0, 4)})
+
+
+def decide_cell(dev, card, launch_used=None):
+    """``run_cell(*DECIDED_CELL, autostrategy=True)`` on the card: the card's
+    sweep chooses the golden's strategy, the policy stamps it, and the cell
+    runs as the launch phase's (a) ran it: the same counted FLOPs, bytes and
+    collective bytes, the same launches in each counted step, the same policy
+    but for the stamp, and, where the launch phase ran in this process, the
+    same launches over the whole case.  (a)'s record is read from
+    ``LAUNCH_OUT``.  Returns the case's launches."""
+    arch, shape, mesh = DECIDED_CELL
+    path = os.path.join(LAUNCH_OUT, f"{arch}__{shape}__{mesh}.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"decide cell: no launch record {path}: run the launch phase")
+    with open(path) as f:
+        base = json.load(f)
+    with open(os.path.join(GOLDEN_DIR, "autostrategy.json")) as f:
+        want = json.load(f)[f"{arch}/{shape}"]
+    _zero_launches()
+    rec = dryrun.run_cell(arch, shape, mesh, autostrategy=True, device=dev)
+    used = _launches()
+    written = _write_record(f"{arch}__{shape}__{mesh}__autostrategy", rec)
+    rec = json.loads(json.dumps(rec, default=str))          # as the record holds it
+    chosen = rec["autostrategy"]["chosen"]
+    if {k: chosen[k] for k in want} != want:
+        raise AssertionError(f"decide cell: chose {chosen}, the golden {want}")
+    stamp = rec["pcfg"].pop("auto_strategy")
+    if {k: stamp[k] for k in ("mp", "dp", "pp", "wafers", "inter_topology")} != \
+            {k: want[k] for k in ("mp", "dp", "pp", "wafers", "inter_topology")}:
+        raise AssertionError(f"decide cell: stamped {stamp}, the golden {want}")
+    base_pcfg = dict(base["pcfg"])
+    base_pcfg.pop("auto_strategy")
+    if rec["pcfg"] != base_pcfg or rec["pcfg"]["grad_sync"] != "hierarchical":
+        raise AssertionError(f"decide cell: policy {rec['pcfg']} != (a)'s {base_pcfg}")
+    if rec["corrected"] != base["corrected"]:
+        raise AssertionError(f"decide cell: corrected {rec['corrected']} != (a)'s "
+                             f"{base['corrected']}")
+    runs = ["L1", "L2"] + ["full"] * rec["reduced"]["full_depth"]
+    if runs != ["L1", "L2"] + ["full"] * base["reduced"]["full_depth"]:
+        raise AssertionError(f"decide cell: depths {rec['reduced']['depths']} != (a)'s "
+                             f"{base['reduced']['depths']}")
+    for name in runs:
+        a = rec["full"] if name == "full" else rec["probe"][name]
+        b = base["full"] if name == "full" else base["probe"][name]
+        for key in ("cost", "collectives", "launches"):
+            if a[key] != b[key]:
+                raise AssertionError(f"decide cell {name}: {key} {a[key]} != (a)'s {b[key]}")
+    if launch_used is not None and used != launch_used:
+        raise AssertionError(f"decide cell: launches {used} != (a)'s {launch_used}")
+    missing = [k for k in LAUNCH_TRAIN_KERNELS if not used[k]]
+    if missing:
+        raise AssertionError(f"decide cell: no launch of {missing}")
+    emit({"phase": "decide", "case": "decided cell", "arch": arch, "shape": shape,
+          "mesh": mesh, "record": written, "autostrategy": rec["autostrategy"],
+          "stamped": stamp, "chosen_equals_golden": True,
+          "corrected": rec["corrected"], "equal_to_launch_a": {
+              "corrected": True, "counted_steps": runs, "policy_but_stamp": True,
+              "case_launches": None if launch_used is None else True},
+          "launches": {k: v for k, v in used.items() if v},
+          "step_s": rec["seconds"]["step"], "card": card})
+    return used
+
+
+def phase_decide(dev, card, launch_used=None):
     """The cost model's sweeps with the batched engine on the card, each held
     candidate by candidate to the same sweep on the CPU (``==``), the
-    512-NPU front to the golden; times with the card's name and power limit."""
+    512-NPU front to the golden; the decision stack's tables on the card and
+    the CPU, equal to each other and to their goldens; the decided cell.
+    Times with the card's name and power limit.  Returns the decided cell's
+    launches."""
     with open(SWEEP512_GOLDEN) as f:
         golden = json.load(f)
     decide_seeded(dev)
@@ -5079,6 +5376,11 @@ def phase_decide(dev, card):
               "cpu_rest_s": round(cpu_s - cpu_run_s, 4), "cpu_run_batch_split_s": cpu_split,
               "run_batch_calls": len(copies),
               "copies_per_run_batch": copies[0], "card": card})
+    decide_stack(dev, card)
+    release()
+    used = decide_cell(dev, card, launch_used)
+    release()
+    return used
 
 
 def _device_time_by_kernel(fn):
@@ -5287,11 +5589,14 @@ def main() -> int:
     with phase_limit("env", seconds):
         card = phase_env()
     with phase_limit("build", seconds):
-        phase_build()     # every later phase needs the kernels
+        build_t0 = time.perf_counter()
+        build.start_all()   # every nvcc at once; the kernels phase starts while they run
     entries = []
     if "kernels" in phases:
         with phase_limit("kernels", seconds):
             entries = phase_kernels(dev)
+    with phase_limit("build", seconds):
+        phase_build(build_t0)     # every later phase needs every kernel
     if "parity" in phases:
         with phase_limit("parity", seconds):
             phase_parity(dev)
@@ -5341,19 +5646,24 @@ def main() -> int:
                                   ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd")):
                     if used[key]:
                         stream_launches.setdefault(name, {})[case] = used[key]
-    launch_launches = {}
+    launch_launches, launch_used = {}, {}
     if "launch" in phases:
         with phase_limit("launch", seconds):
-            for case, used in phase_launch(dev, card).items():
+            launch_used = phase_launch(dev, card)
+            for case, used in launch_used.items():
                 for name, key in (("flash_attention_fwd", "flash_attention"),
                                   ("flash_attention_bwd", "flash_attention_bwd"),
                                   ("ssd_scan_fwd", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan_bwd"),
                                   ("tree_reduce", "tree_reduce")):
                     if used[key]:
                         launch_launches.setdefault(name, {})[case] = used[key]
+    decide_launches = {}
     if "decide" in phases:
         with phase_limit("decide", seconds):
-            phase_decide(dev, card)
+            used = phase_decide(dev, card, launch_used.get("a"))
+        decide_launches = {"flash_attention_fwd": used["flash_attention"],
+                           "flash_attention_bwd": used["flash_attention_bwd"],
+                           "tree_reduce": used["tree_reduce"]}
     if "profile" in phases:
         with phase_limit("profile", seconds):
             for arch in ("llama3.2-1b", "mamba2-1.3b"):
@@ -5365,7 +5675,8 @@ def main() -> int:
             phase_profile(dev, SERVE_PREFIX[0][0], layers=SERVE_PREFIX[0][1],
                           prompt=SERVE_PREFIX[0][2])
             phase_profile_prefix_train(dev, *TRAIN_PREFIX[1])
-    emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds}})
+    emit({"phase_seconds": seconds, "limits": {k: PHASE_LIMIT_S[k] for k in seconds},
+          "case_seconds": CASE_SECONDS})
 
     full = set(PHASES) <= set(phases)
     for entry in entries:
@@ -5378,6 +5689,8 @@ def main() -> int:
             entry["stream_launches"] = stream_launches[entry["name"]]
         if entry["name"] in launch_launches:
             entry["launch_launches"] = launch_launches[entry["name"]]
+        if entry["name"] in decide_launches:
+            entry["decide_launches"] = decide_launches[entry["name"]]
         entry["card"] = card
         if full and not entry["launches"]:
             raise AssertionError(f"{entry['name']}: no launch on its main path")

@@ -2,10 +2,9 @@
 
 The PyTorch port's own copy of ``repro.core.sweep`` (the port imports
 nothing of the JAX package); ``tests/test_torch_core.py`` holds its results
-equal to the original's.  Two differences: ``engine="batched"`` runs the
+equal to the original's.  One difference: ``engine="batched"`` runs the
 float math on ``device`` (``cuda`` unless given,
-:mod:`repro_torch.core.batch_engine`), and ``check_routing=True`` raises,
-since the port has no copy of ``core/routing.py`` yet (ROADMAP.md M12b).
+:mod:`repro_torch.core.batch_engine`).
 
 The paper's core claim is that FRED stays efficient across *arbitrary*
 parallelization strategies; this module makes that explorable.  For a given
@@ -413,10 +412,11 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
     ``inter_wafer_*`` link budget.  The defaults (ring, 1 level) are
     bit-identical to the single-ring sweep, row for row.
 
-    FRED routability (``check_routing=True``) needs the switch router of
-    ``core/routing.py``, which the port does not have yet: it raises a
-    ``ValueError`` naming ROADMAP.md M12b, and ``SweepResult.routable`` is
-    None.
+    FRED routability (``check_routing=True``) is checked per (strategy,
+    shape): the memo is keyed on both, and the actual (n_groups,
+    group_size) shape is passed to :func:`repro_torch.core.routing
+    .strategy_routable` — for clusters, the per-wafer sub-strategy is
+    what must route on the wafer switch.  The router runs on the host.
 
     ``memory`` (a :class:`~repro_torch.core.workloads.MemoryModel`) turns on the
     per-NPU memory-feasibility objective: every result carries
@@ -458,11 +458,6 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
     the default, is the fully-exposed model)."""
     if n_npus < 1:
         raise ValueError(f"n_npus must be ≥ 1, got {n_npus}")
-    if check_routing:
-        raise ValueError(
-            "sweep(check_routing=True) needs the FRED switch router "
-            "(core/routing.py), which the port does not have yet "
-            "(ROADMAP.md M12b)")
     defects = normalize(defects)
     if defects is not None and defects.n_npus != n_npus:
         raise ValueError(
@@ -498,6 +493,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                          if st.wafers == wf]
     results: List[SweepResult] = []
     cache = LRUCache(COLLECTIVE_CACHE_SIZE)
+    route_memo: Dict[Tuple[Strategy, Tuple[int, int], int], bool] = {}
     inter_kw = dict(inter_wafer_links=inter_wafer_links,
                     inter_wafer_bw=inter_wafer_bw,
                     inter_wafer_latency=inter_wafer_latency)
@@ -562,7 +558,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
         per_wf[wf] = ent
         return ent
 
-    def _emit(fabric, wf, shape, hier, topo, evals, rep_of, rep_brs,
+    def _emit(fabric, wf, shape, hier, topo, sim, evals, rep_of, rep_brs,
               mem_list, feas_list):
         """One SweepResult row per candidate of this (fabric, shape,
         wafer count, hierarchy, inter topology) — shared by both engines
@@ -570,6 +566,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
         Construction bypasses the dataclass __init__ — this loop runs
         once per sweep point and is the hottest shared Python in a
         500+-NPU sweep."""
+        check_route = check_routing and fabric != "baseline"
         inter_bw = agg_inter_bw if wf > 1 else 0.0
         defect_rate = 0.0 if defects is None else defects.dead_npu_rate
         defect_seed = -1 if defects is None else defects.seed
@@ -584,6 +581,20 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                 else:
                     mem_bytes = memory_bytes_per_npu(w, memory)
                     feas = is_feasible(w, memory)
+            routable = None
+            if check_route:
+                # uplink count depends on the FRED config, so it is
+                # part of the memo key alongside (strategy, shape)
+                up = sim.fred.uplinks_per_l1()
+                key = (st, shape, up)
+                if key not in route_memo:
+                    from .routing import strategy_routable
+                    sub = st if st.wafers == 1 else \
+                        Strategy(st.mp, st.dp // st.wafers, st.pp)
+                    route_memo[key] = strategy_routable(sub, shape,
+                                                        uplinks=up,
+                                                        defects=defects)
+                routable = route_memo[key]
             br = rep_brs[rep_of[i]]
             r = new(SweepResult)
             r.__dict__ = {
@@ -592,7 +603,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                 "minibatch": w.minibatch,
                 "param_bytes_per_npu": w.param_bytes_total /
                 (st.mp * st.pp),
-                "routable": None, "pareto": False, "n_wafers": wf,
+                "routable": routable, "pareto": False, "n_wafers": wf,
                 "inter_wafer_bw": inter_bw,
                 "memory_bytes_per_npu": mem_bytes, "feasible": feas,
                 "hierarchy": hier, "inter_topology": topo,
@@ -630,6 +641,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
             else:
                 grp_list = [configs]
             brs_by_config: Dict[Tuple, list] = {}
+            sim_by_config: Dict[Tuple, Simulator] = {}
             for grp in grp_list:
                 max_wf = max(c[0] for c in grp)
                 # one single-level cluster serves every fused lane: the
@@ -659,6 +671,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                 off = 0
                 for key, nrep in metas:
                     brs_by_config[key] = brs[off:off + nrep]
+                    sim_by_config[key] = sim
                     off += nrep
             # emit in the same configuration order as the scalar engine
             # so row order, Pareto and CSV are engine-independent
@@ -666,7 +679,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                 wf, shape, hier, topo = key
                 evals, _ri, rep_of, _rp, mem_arr, feas_arr = \
                     _candidates(wf)
-                _emit(fabric, wf, shape, hier, topo,
+                _emit(fabric, wf, shape, hier, topo, sim_by_config[key],
                       evals, rep_of, brs_by_config[key],
                       mem_arr, feas_arr)
         else:
@@ -680,7 +693,7 @@ def sweep(workload_fn: Callable[[Strategy], Workload], n_npus: int,
                 evals, rep_idx, rep_of, _rp, mem_arr, feas_arr = \
                     _candidates(wf)
                 rep_brs = [sim.run(evals[i][1]) for i in rep_idx]
-                _emit(fabric, wf, shape, hier, topo, evals, rep_of,
+                _emit(fabric, wf, shape, hier, topo, sim, evals, rep_of,
                       rep_brs, mem_arr, feas_arr)
     # dict.fromkeys, not set(): first-seen order is deterministic across
     # processes, so the pareto flag assignment (and the CSV row order any

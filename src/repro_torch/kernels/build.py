@@ -7,7 +7,9 @@ build takes seconds.  Each source is compiled on its own, all at once, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``.  The hash covers the source text, the text of
+and loaded with ``ctypes``.  ``start_all`` starts every build without
+waiting, and ``load`` then waits for its own source's build only, so work on
+one kernel can begin while another still compiles.  The hash covers the source text, the text of
 every ``csrc/`` header it includes (``hopper.cuh``) and the flags, so an
 edited source or header is rebuilt and a stale library is never loaded.  The
 build directory is ``build/repro_torch`` under the repository root (git
@@ -25,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -36,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_jobs: Dict[str, "_Job"] = {}      # each nvcc that ``start_all`` started, until waited for
 _lock = threading.Lock()
 # what the last build of each source printed (registers, shared memory, spills)
 ptxas_log: Dict[str, str] = {}
@@ -98,13 +102,19 @@ class _Job:
         self.out.parent.mkdir(parents=True, exist_ok=True)
         self.tmp = self.out.with_suffix(f".{os.getpid()}.tmp")
         self.t0 = time.perf_counter()
+        # the output goes to a file: a pipe nobody reads while the caller
+        # works on another kernel could fill and stall nvcc
+        self.log = tempfile.TemporaryFile(mode="w+")
         self.proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(self.tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=self.log, stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> None:
-        log, _ = self.proc.communicate()
+        self.proc.wait()
         build_seconds[self.name] = time.perf_counter() - self.t0
+        self.log.seek(0)
+        log = self.log.read()
+        self.log.close()
         ptxas_log[self.name] = log
         if self.proc.returncode != 0:
             self.tmp.unlink(missing_ok=True)
@@ -113,20 +123,29 @@ class _Job:
         os.replace(self.tmp, self.out)                # atomic: no torn library
 
 
+def start_all() -> List[str]:
+    """Start one nvcc for every source that is not built or building yet, all
+    together, and return their names without waiting for them."""
+    with _lock:
+        todo = [n for n in sources() if not _target(n).exists() and n not in _jobs]
+        if todo:
+            nvcc = find_nvcc()
+            for n in todo:
+                _jobs[n] = _Job(n, nvcc)
+        return todo
+
+
 def build_all() -> Dict[str, float]:
     """Build every source that is not built yet, one nvcc each, all started
-    together.  Returns the seconds each build took (empty if all were
-    cached)."""
+    together (those ``start_all`` started included).  Returns the seconds
+    each build this call waited for took (empty if all were done)."""
+    start_all()
     with _lock:
-        todo = [n for n in sources() if not _target(n).exists()]
-        if not todo:
-            return {}
-        nvcc = find_nvcc()
-        jobs = [_Job(n, nvcc) for n in todo]
+        todo = list(_jobs)
         failed = []
-        for job in jobs:                  # wait for every nvcc, even after a failure
+        for name in todo:                 # wait for every nvcc, even after a failure
             try:
-                job.finish()
+                _jobs.pop(name).finish()
             except RuntimeError as e:
                 failed.append(e)
         if failed:
@@ -167,7 +186,10 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             if not (CSRC / f"{name}.cu").exists():
                 raise FileNotFoundError(f"no kernel source csrc/{name}.cu")
-            if not _target(name).exists():
+            job = _jobs.pop(name, None)
+            if job is not None:
+                job.finish()
+            elif not _target(name).exists():
                 _Job(name, find_nvcc()).finish()
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]

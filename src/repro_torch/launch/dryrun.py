@@ -30,13 +30,17 @@ compiler's analyses, so the port splits the record in two:
   ``roofline`` is ``roofline_terms`` on it with the H100's constants and the
   measured cell's batch and ranks.  Every cut is listed under ``reduced``.
 
+``--autostrategy`` lets the FRED simulator's sweep
+(``core.autostrategy.choose``, on the card) pick the cell's strategy: the
+decision is recorded under ``"autostrategy"`` as the JAX tool records it
+(``autostrategy_block``) and stamped on the recorded ``pcfg``.
+
 ``ep_compare`` measures the expert-parallel all-to-all of
 ``models.moe.moe_ffn_ep`` against its bucket and token payloads, and
 ``serving_compare`` the decode-step latency of the port's ``Engine`` on a
-reduced llama3.2-1b; its analytical column reads the FRED simulator's
-serving objective (``core/autostrategy.py``), which the port has not got
-(ROADMAP.md M12b), and is null.  ``--autostrategy`` raises for the same
-reason (``parallel.policy.cell_policy``).
+reduced llama3.2-1b beside the analytical column the simulator's serving
+objective quotes for the full arch on wafer hardware
+(``core.autostrategy.choose_serving_strategy``).
 
 Usage (needs an NVIDIA GPU; the functions take ``device="cpu"`` for tests):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
@@ -70,7 +74,7 @@ from ..models import transformer as tfm
 from ..models.config import SHAPES, SHAPES_BY_NAME, ShapeConfig
 from ..models.modules import resolve_device, tree_flatten
 from ..parallel import steps
-from ..parallel.policy import cell_policy
+from ..parallel.policy import cell_policy, paper_defaults
 from ..parallel.sharding import Ruleset, _names
 from .mesh import StackedMesh, count_collectives, make_production_mesh
 from .roofline import count_cost, roofline_terms
@@ -367,15 +371,47 @@ def corrected_totals(rec, cfg) -> dict:
     return out
 
 
+def autostrategy_block(cfg, shape: ShapeConfig, *, device=None):
+    """``(decision, record)``: the FRED simulator's choice for the cell under
+    the frozen defaults' optimizer and remat settings (its sweep on
+    ``device``, ``cuda`` unless given), and the ``"autostrategy"`` block the
+    dry run records for it, keyed as the JAX tool's."""
+    from ..core.autostrategy import choose
+    from ..core.specs import DeploymentRequest
+
+    pcfg0, ocfg0 = paper_defaults(cfg, shape)
+    d = choose(DeploymentRequest(
+        model=cfg, shape=shape, master=ocfg0.master,
+        moments_dtype=ocfg0.moments_dtype, remat=pcfg0.remat), device=device)
+    rec = {
+        "chosen": {"mp": d.mp, "dp": d.dp, "pp": d.pp,
+                   "wafers": d.wafers, "fabric": d.fabric,
+                   "wafer_shape": list(d.wafer_shape),
+                   "inter_topology": d.inter_topology,
+                   "hierarchy": list(d.hierarchy),
+                   "execution": d.execution},
+        "time_per_sample_s": d.time_per_sample_s,
+        "memory_bytes_per_npu": d.memory_bytes_per_npu,
+        "npu_hbm_bytes": d.npu_hbm_bytes,
+        "why": {"n_candidates": d.n_candidates,
+                "n_infeasible": d.n_infeasible,
+                "n_dominated": d.n_dominated},
+        "sweep_seconds": round(d.sweep_seconds, 3),
+    }
+    return d, rec
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              pcfg_overrides=None, probe: bool = True,
              autostrategy: bool = False, *, device="cuda") -> dict:
     """Place one cell on the production mesh and measure it on ``device``;
     return the roofline record.  The full depth runs where its reckoned bytes
     fit the card (on the CPU always).
-    ``autostrategy=True`` raises: the port has not got the FRED simulator's
-    decision stack (ROADMAP.md M12b).  ``pcfg_overrides`` win over the policy
-    (the perf variants)."""
+    ``autostrategy=True`` lets the FRED simulator's sweep (on ``device``) pick
+    the cell's strategy: recorded under ``"autostrategy"``
+    (``autostrategy_block``) and stamped on the recorded ``pcfg`` as a
+    ``StrategyDecision``.  ``pcfg_overrides`` win over the policy (the perf
+    variants)."""
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     ok, why = shape_applicability(cfg, shape)
@@ -384,10 +420,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 "status": "skipped", "reason": why}
 
     mesh = _build_mesh(mesh_kind)
-    pcfg, ocfg = cell_policy(cfg, shape, mesh, autostrategy=autostrategy)
+    dev = resolve_device(device)
+    auto_rec = decision = None
+    if autostrategy:
+        decision, auto_rec = autostrategy_block(cfg, shape, device=dev)
+    pcfg, ocfg = cell_policy(cfg, shape, mesh, autostrategy=autostrategy,
+                             decision=decision)
     if pcfg_overrides:
         pcfg = pcfg.replace(**pcfg_overrides)
-    dev = resolve_device(device)
 
     t0 = time.time()
     placement = steps.make_setup(cfg, shape, mesh, pcfg, ocfg)
@@ -420,6 +460,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             "full_depth_reckoned_bytes": need, "card_bytes_to_spend": budget},
         "pcfg": dataclasses.asdict(pcfg),
     }
+    if auto_rec is not None:
+        rec["autostrategy"] = auto_rec
     del placement
     full = None
     if run_full:
@@ -498,17 +540,31 @@ def serving_compare(arch: str = "llama3.2-1b", *, prompt_tokens: int = 16,
                     vocab_size: int = 512, device="cuda") -> dict:
     """Measure per-token decode latency of the batched ``serve.engine.Engine``
     on a reduced copy of ``arch`` (head dim ``SERVING_HEAD_DIM``), every
-    decode step's wall time but the first.  The analytical column (the serving
-    objective's prefill, decode and TTFT for the full arch on wafer hardware)
-    needs the FRED simulator's serving sweep, which the port has not got:
-    null, with the reason."""
+    decode step's wall time but the first, beside the analytical
+    prefill / decode / p50 / p99 that the serving objective quotes for the
+    full arch on wafer hardware (``choose_serving_strategy``, priced on the
+    host).  The record keeps both columns side by side and asserts no
+    ratio: the card is not a wafer NPU."""
+    from ..core.autostrategy import SERVE_OBJECTIVE, choose_serving_strategy
+    from ..core.specs import Objective
     from ..serve.engine import Engine, EngineConfig, Request
 
     dev = resolve_device(device)
-    cfg = get_config(arch).reduced(d_model=d_model, num_layers=num_layers,
-                                   vocab_size=vocab_size, head_dim=SERVING_HEAD_DIM)
+    base = get_config(arch)
+    objective = Objective.serving(
+        target_p99_ms=SERVE_OBJECTIVE.target_p99_ms,
+        concurrent_users=SERVE_OBJECTIVE.concurrent_users,
+        think_time_s=SERVE_OBJECTIVE.think_time_s,
+        prompt_tokens=prompt_tokens, output_tokens=output_tokens)
+    decision = choose_serving_strategy(base, objective)
+
+    cfg = base.reduced(d_model=d_model, num_layers=num_layers,
+                       vocab_size=vocab_size, head_dim=SERVING_HEAD_DIM)
     params = tfm.init(0, cfg, dtype=torch.float32, device=dev)
-    ecfg = EngineConfig(max_batch=batch, cache_len=prompt_tokens + output_tokens)
+    ecfg = EngineConfig(max_batch=batch, cache_len=prompt_tokens + output_tokens,
+                        target_p99_ms=objective.target_p99_ms,
+                        arrival_rate_rps=(objective.concurrent_users /
+                                          objective.think_time_s))
     engine = Engine(params, cfg, ecfg=ecfg, device=dev)
     reqs = [Request(uid=i, prompt=list(range(1, prompt_tokens + 1)),
                     max_new_tokens=output_tokens) for i in range(batch)]
@@ -534,10 +590,16 @@ def serving_compare(arch: str = "llama3.2-1b", *, prompt_tokens: int = 16,
             "decode_step_p50_s": _q(0.50),
             "decode_step_p99_s": _q(0.99),
         },
-        "analytical": None,
-        "analytical_why": ("the serving objective is the FRED simulator's "
-                           "(core/autostrategy.py), which the port has not got: "
-                           "ROADMAP.md M12b"),
+        "analytical": {
+            "placement": decision.placement,
+            "wafers_per_cell": decision.wafers_per_cell,
+            "total_wafers": decision.total_wafers,
+            "prefill_s": decision.prefill_s,
+            "decode_step_s": decision.decode_step_s,
+            "ttft_p50_ms": decision.ttft_p50_ms,
+            "ttft_p99_ms": decision.ttft_p99_ms,
+            "target_p99_ms": decision.target_p99_ms,
+        },
     }
 
 
@@ -553,8 +615,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-probe", action="store_true")
     ap.add_argument("--autostrategy", action="store_true",
-                    help="let the FRED simulator pick the strategy: the port has not "
-                         "got it (ROADMAP.md M12b), so this raises")
+                    help="let the FRED simulator's sweep (on the card) pick (mp, dp, "
+                         "pp, wafers) per cell; records the decision and its "
+                         "candidate, infeasible and dominated counts in the artifact")
     ap.add_argument("--serving", action="store_true",
                     help="run the batched serving engine on a reduced llama3.2-1b and "
                          "record the measured per-token decode latency; writes "
@@ -576,11 +639,14 @@ def main(argv=None):
     if args.serving:
         rec = serving_compare(args.arch or "llama3.2-1b")
         _write(outdir / "serving_compare.json", rec)
-        m = rec["measured"]
+        m, a = rec["measured"], rec["analytical"]
         print(f"[dryrun] serving {rec['arch']}: measured decode "
               f"p50={m['decode_step_p50_s'] * 1e3:.2f}ms "
               f"p99={m['decode_step_p99_s'] * 1e3:.2f}ms ({m['device']}, reduced) | "
-              f"analytical: none ({rec['analytical_why']})", flush=True)
+              f"analytical ({a['placement']}, {a['total_wafers']} wafers): "
+              f"prefill={a['prefill_s'] * 1e3:.2f}ms "
+              f"decode={a['decode_step_s'] * 1e3:.3f}ms "
+              f"ttft_p99={a['ttft_p99_ms']:.1f}ms", flush=True)
         return 0
 
     if args.ep_compare:
@@ -615,6 +681,11 @@ def main(argv=None):
                     mb = rec["memory_per_device"]["total_bytes"] / 2**30
                     extra = (f" mem/dev>={mb:.2f}GiB step={rec['seconds']['step']:.4f}s "
                              f"depths={rec['reduced']['depths']}")
+                    if "autostrategy" in rec:
+                        c = rec["autostrategy"]["chosen"]
+                        topo = f"+{c['inter_topology']}" if c["inter_topology"] else ""
+                        extra += (f" auto=MP{c['mp']}-DP{c['dp']}-PP{c['pp']}-W{c['wafers']}"
+                                  f"{topo}@{c['fabric']}/{c['execution']}")
                 print(f"[dryrun] {name}: {rec['status']}{extra}", flush=True)
     if failures:
         print(f"[dryrun] {failures} FAILURES", file=sys.stderr)

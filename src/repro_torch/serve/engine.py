@@ -58,9 +58,12 @@ class Request:
 class EngineConfig:
     max_batch: int = 8
     cache_len: int = 512
-    # the JAX EngineConfig's target_p99_ms / arrival_rate_rps are read only by
-    # its dry-run tool's analytical serving column (the FRED simulator's
-    # serving objective), which waits for ROADMAP.md M12b
+    # serving SLO and traffic: the analytical serving cost model's inputs
+    # (core.serving, through a serving Objective), recorded by
+    # `launch.dryrun --serving` beside the measured decode latency; the
+    # engine does not read them.  None = no SLO attached.
+    target_p99_ms: Optional[float] = None
+    arrival_rate_rps: Optional[float] = None
 
 
 def sampling_probs(row: np.ndarray, temperature: float, top_k: int

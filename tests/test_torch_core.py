@@ -23,9 +23,9 @@ References:
 (v)   ``from_model_config`` of every architecture at every shape kind, and
       each copied module's public names;
 (vi)  the refusals: ``BatchEngine`` / ``feasible_batch`` / ``sweep`` with no
-      device and no CUDA, and ``sweep(check_routing=True)`` (ROADMAP.md
-      M12b); and the copies of one ``run_batch`` (two to the device, one
-      back).
+      device and no CUDA; ``sweep(check_routing=True)``'s ``routable``
+      equal to the JAX sweep's; and the copies of one ``run_batch`` (two to
+      the device, one back).
 """
 
 import dataclasses
@@ -381,8 +381,15 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
 
 
 def test_check_routing_waits_for_m12b():
-    with pytest.raises(ValueError, match="ROADMAP.md M12b"):
-        t_sw.transformer_17b_sweep(16, check_routing=True, **CPU)
+    """``sweep(check_routing=True)`` fills ``routable`` as the JAX sweep does,
+    result by result.  (The name is historical: the port's sweep refused
+    ``check_routing`` until it had its copy of the switch router.)"""
+    got = t_sw.transformer_17b_sweep(16, check_routing=True, **CPU)
+    want = j_sw.transformer_17b_sweep(16, check_routing=True)
+    assert [r.routable for r in got] == [r.routable for r in want]
+    assert {r.routable for r in got if r.fabric != "baseline"} <= {True, False}
+    assert any(r.routable is not None for r in got)
+    assert all(r.routable is None for r in got if r.fabric == "baseline")
 
 
 def test_one_run_copies_twice_in_and_once_out():

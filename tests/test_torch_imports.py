@@ -56,7 +56,9 @@ def test_the_walk_sees_the_whole_port():
             "streaming.py", "torch_weight_streaming.py", "dryrun.py", "perf.py",
             "roofline.py", "flows.py", "switch.py", "defects.py", "placement.py",
             "workloads.py", "specs.py", "fabric.py", "meshnet.py", "cluster.py",
-            "simulator.py", "batch_engine.py", "sweep.py"} <= names
+            "simulator.py", "batch_engine.py", "sweep.py", "routing.py",
+            "serving.py", "yield_study.py", "lifetime.py", "autostrategy.py",
+            "calibrate.py"} <= names
     assert len(MODULES) >= 20
 
 

@@ -19,8 +19,9 @@
   full depth exactly, at the JAX mini dry run's shapes.
 * ``memory_per_device``'s argument bytes equal the JAX setup's specs' over
   the production meshes; ``ep_compare`` equals JAX's (one subprocess on 8
-  host devices), ``serving_compare`` has the JAX record's form; the CLIs
-  refuse to run without a GPU.
+  host devices), ``serving_compare`` has the JAX record's form and its
+  analytical column; ``run_cell(autostrategy=True)`` reaches the setup with
+  the JAX policy's stamped strategy; the CLIs refuse to run without a GPU.
 """
 
 import ast
@@ -456,17 +457,40 @@ def test_ep_compare_equals_jax(jax_tools):
 
 
 def test_serving_compare_has_the_jax_records_form(jax_tools):
+    """The record has the JAX record's form, and its analytical column (the
+    serving objective's quote for the full arch) equals the JAX one."""
     got, want = dryrun.serving_compare(device="cpu"), jax_tools["serving"]
     assert set(want) <= set(got) and set(want["measured"]) <= set(got["measured"])
     assert got["reduced"] == want["reduced"]
     assert got["measured"]["n_decode_steps"] == want["measured"]["n_decode_steps"]
-    assert got["analytical"] is None and "M12" in got["analytical_why"]
+    assert got["analytical"] == want["analytical"]
+    assert "analytical_why" not in got
     assert got["measured"]["decode_step_p50_s"] > 0
 
 
-def test_run_cell_refuses_the_simulators_strategy():
-    with pytest.raises(ValueError, match="ROADMAP.md M12"):
+class _ReachedSetup(Exception):
+    def __init__(self, pcfg):
+        super().__init__("make_setup reached")
+        self.pcfg = pcfg
+
+
+def test_run_cell_refuses_the_simulators_strategy(monkeypatch):
+    """``run_cell(..., autostrategy=True, device="cpu")`` reaches
+    ``steps.make_setup`` with the ``pcfg`` that the JAX ``cell_policy``
+    stamps; a stand-in ``make_setup`` stops it there, so no step runs.  (The
+    name is historical: the dry run refused the simulator's strategy until
+    the port had the decision stack.)"""
+    def stop(cfg, shape, mesh, pcfg, ocfg):
+        raise _ReachedSetup(pcfg)
+
+    monkeypatch.setattr(dryrun.steps, "make_setup", stop)
+    with pytest.raises(_ReachedSetup) as got:
         dryrun.run_cell("llama3.2-1b", "train_4k", "single", autostrategy=True, device="cpu")
+    want, _ = j_policy.cell_policy(j_registry.get_config("llama3.2-1b"), J_SHAPES[0], None,
+                                   autostrategy=True)
+    assert vars(got.value.pcfg.auto_strategy) == vars(want.auto_strategy)
+    assert tuple(got.value.pcfg.auto_strategy) == (2, 64, 1, 2, "ring")
+    assert got.value.pcfg.grad_sync == want.grad_sync == "hierarchical"
 
 
 def test_run_cell_skips_what_jax_skips():

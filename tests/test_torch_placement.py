@@ -334,5 +334,13 @@ def test_paper_defaults_equal_jax(arch):
 
 
 def test_cell_policy_refuses_the_simulators_strategy():
-    with pytest.raises(ValueError, match="M12"):
-        policy.cell_policy(get_config("llama3.2-1b"), SHAPES[0], None, autostrategy=True)
+    """``cell_policy(autostrategy=True, device="cpu")`` stamps the JAX
+    decision, field for field.  (The name is historical: the port's policy
+    refused the simulator's strategy until it had the decision stack.)"""
+    got = policy.cell_policy(get_config("llama3.2-1b"), SHAPES[0], None,
+                             autostrategy=True, device="cpu")
+    want = j_policy.cell_policy(j_get_config("llama3.2-1b"), J_SHAPES[0], None,
+                                autostrategy=True)
+    assert as_dict(*got) == as_dict(*want)
+    assert got[0].auto_strategy.is_set and got[0].auto_strategy.wafers == 2
+    assert got[0].grad_sync == "hierarchical"
